@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. environment: torch/CUDA versions, the GPU (compute capability 9.0
    required), nvcc, and nvidia-smi's name and power limit;
-2. build: compile csrc/segment_fused.cu with nvcc for sm_90a;
+2. build: compile every csrc/*.cu of the port with nvcc for sm_90a, one
+   nvcc process each, all started together;
 3. the segment kernel against its plain-torch version on the card, on
    64x48 camera rays and a full 800x600 wavefront of first-bounce rays,
    in fixed mode (final gather off and on) and RR mode (roulette, hard
@@ -18,14 +19,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5. the main path: Renderer at 800x600, fixed depth 7, 4 spp/pass, one
    warm-up and three timed passes, with the kernel's launch count and
    checks on the film; then a per-segment time breakdown of one sample;
-6. a 160x120 frame at 1 spp, kernel against plain path, same key.
+6. a 160x120 frame at 1 spp, kernel against plain path, same key;
+7. the gradient path's kernels (segment_backward.cu, scatter_rows.cu):
+   their builds and ptxas reports;
+8. the segment vjp kernel (B2) against its plain version on the 800x600
+   first-bounce wavefront of phase 3, seeded random cotangents on all
+   four outputs, in fixed mode (final gather off and on), RR mode
+   (roulette on tied grey throughput, hard kill) and classic Phong;
+9. the row scatter kernel (B3) against its plain version, 652 triangles,
+   480,000 rays, on phase 8's row cotangents and on N(0,1) ones, each
+   entry held to its own rounding bound;
+10. one 800x600 segment's B2 and B3 timed against their plain versions;
+11. the gradient main path (bench.py's fwd+bwd): value and gradient of
+    an L2 pixel loss at 800x600, 2 spp, fixed depth 7, params
+    {mat_kd, mat_ka, vertices}; one warm-up and three timed iterations,
+    launch counts of all three kernels, checks on the gradients, and a
+    profile of one iteration;
+12. five SGD steps at 800x600, 1 spp, Kd started at 0.6x: the loss falls;
+13. a 64x48 gradient render, kernel path against plain path, same key.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX.
 """
 
-import contextlib
 import json
 import os
 import statistics
@@ -37,9 +54,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "montecarlopathtracer_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/segment_fused.cu"
 REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:390"
+BWD_SOURCE = f"{PKG}/csrc/segment_backward.cu"
+BWD_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:619"
+SCATTER_SOURCE = f"{PKG}/csrc/scatter_rows.cu"
+SCATTER_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:1367"
+KERNEL_NAMES = ("segment_fused", "segment_backward", "scatter_rows")
 W, H = 800, 600
 SPP, DEPTH = 4, 7
 WARMUP_PASSES, TIMED_PASSES = 1, 3
+GRAD_SPP, GRAD_ITERS = 2, 3
 
 
 class SmokeFailure(Exception):
@@ -84,21 +107,27 @@ def environment(torch):
     return name, smi
 
 
-def build():
-    phase("2. build")
-    from montecarlopathtracer_tpu_torch.ops import cuda_build
-
-    t0 = time.perf_counter()
-    lib = cuda_build.build("segment_fused")
-    dt = time.perf_counter() - t0
-    print(f"built {lib.relative_to(HERE)} from {KERNEL_SOURCE} "
-          f"(sm_90a) in {dt:.2f} s")
+def ptxas_report(lib):
     log = lib.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+
+
+def build():
+    phase("2. build")
+    from montecarlopathtracer_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    libs = cuda_build.build_all(KERNEL_NAMES)
+    dt = time.perf_counter() - t0
+    lib = libs["segment_fused"]
+    print(f"built {len(libs)} sources in parallel in {dt:.2f} s; "
+          f"{lib.relative_to(HERE)} from {KERNEL_SOURCE} (sm_90a)")
+    ptxas_report(lib)
     cuda_build.load("segment_fused")
+    return libs
 
 
 def seg_args(torch, rows, pos, dir_, tput, res, live, key, flags):
@@ -214,7 +243,7 @@ def main_path(torch, scene, camera):
     config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
     settings = RenderSettings(width=W, height=H, spp_per_pass=SPP, seed=0)
     r = Renderer(scene, camera, config, settings, device="cuda")
-    F.mega_segment.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     r.render(WARMUP_PASSES)
     torch.cuda.synchronize()
@@ -287,20 +316,6 @@ def breakdown(torch, scene, camera, per_pass):
           f"(kernel share {k * SPP / (per_pass * 1e3):.3f})")
 
 
-@contextlib.contextmanager
-def plain_segments():
-    """Route the integrator's segments through the plain version, so the
-    plain path runs on the card too."""
-    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
-    from montecarlopathtracer_tpu_torch.render import integrator
-
-    integrator.mega_segment = F.mega_segment_ref
-    try:
-        yield
-    finally:
-        integrator.mega_segment = F.mega_segment
-
-
 def whole_frame(torch, scene):
     phase("6. whole frame 160x120, 1 spp: kernel vs plain path")
     from montecarlopathtracer_tpu_torch.ops.rng import make_key
@@ -309,13 +324,13 @@ def whole_frame(torch, scene):
         render_sample_batch,
     )
     from montecarlopathtracer_tpu_torch.scene.camera import camera_for_scene
-    from montecarlopathtracer_tpu_torch.testing import compare_images
+    from montecarlopathtracer_tpu_torch.testing import compare_images, plain_kernels
 
     w, h = 160, 120
     cam = camera_for_scene(1, w, h, device="cuda")
     config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
     got = render_sample_batch(scene, cam, make_key(3), w, h, config)
-    with plain_segments():
+    with plain_kernels():
         ref = render_sample_batch(scene, cam, make_key(3), w, h, config)
     check(tuple(got.shape) == (h, w, 3), f"kernel frame shape {tuple(got.shape)}")
     rep = compare_images(got, ref)
@@ -323,6 +338,298 @@ def whole_frame(torch, scene):
           f"{rep['max_abs_err']:.3e}  mean {float(got.mean()):.6f} vs "
           f"{float(ref.mean()):.6f} (rel {rep['mean_rel']:.2e})")
     check(rep["ok"], f"kernel frame disagrees with the plain path: {rep}")
+
+
+def reset_counts():
+    from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+
+    F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
+
+
+def read_counts():
+    from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+
+    return {"mega_segment": F.mega_segment.launches,
+            "segment_backward": F.segment_backward.launches,
+            "scatter_rows": S.scatter_rows.launches}
+
+
+def grad_builds(libs):
+    phase("7. build: the gradient path's kernels")
+    from montecarlopathtracer_tpu_torch.ops import cuda_build
+
+    for name, src in (("segment_backward", BWD_SOURCE), ("scatter_rows", SCATTER_SOURCE)):
+        print(f"built {libs[name].relative_to(HERE)} from {src} (sm_90a)")
+        ptxas_report(libs[name])
+        cuda_build.load(name)
+
+
+BWD_CASES = {
+    "fixed fg=0": ("fixed", [0.0, 0.0, 0.0], {}),
+    "fixed fg=1": ("fixed", [1.0, 0.0, 0.0], {}),
+    "rr roulette, tied": ("rr", [0.0, 1.0, 0.0], {"illum": 1.0}),
+    "rr hard_kill=1": ("rr", [0.0, 0.0, 1.0], {}),
+    "phong_model=phong": ("fixed", [0.0, 0.0, 0.0], {"phong_model": "phong"}),
+}
+
+
+def backward_args(torch, rows, bounce, mode, flags, kw, tput=None, seed=0):
+    """Segment-vjp inputs on a wavefront: its winners, the gathered rows
+    and seeded random cotangents on the four outputs."""
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+
+    pos, dir_, tput0, res, live = bounce
+    tput = tput0 if tput is None else tput
+    args = seg_args(torch, rows, pos, dir_, tput, res, live, make_key(5), flags)
+    idx = F.mega_segment(*args, mode=mode, **kw)[0]
+    full = rows.T.contiguous()[:, idx.clamp_min(0).long()]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cts = [torch.randn(3, pos.shape[1], device="cuda", generator=g) for _ in range(4)]
+    return idx, (*args[1:6], idx >= 0, full, *args[6:10], *cts)
+
+
+def backward_vs_plain(torch, rows, bounce):
+    phase("8. segment vjp kernel (B2) vs plain, 800x600 first-bounce wavefront")
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.testing import GRAD_TOL, compare_grads
+
+    worst, last = 0.0, None
+    for i, (cname, (mode, flags, kw)) in enumerate(BWD_CASES.items()):
+        # Tied grey throughput: RR's p is a three-way tie on every lane.
+        tput = torch.full_like(bounce[2], 0.6) if "tied" in cname else None
+        idx, args = backward_args(torch, rows, bounce, mode, flags, kw, tput, seed=i)
+        got = F.segment_backward(*args, mode=mode, **kw)
+        torch.cuda.synchronize()
+        want = F.segment_backward_ref(*args, mode=mode, **kw)
+        torch.cuda.synchronize()
+        rep = compare_grads(want, got, lanes=args[4])
+        errs = rep["max_abs_err"]
+        worst = max([worst, *errs.values()])
+        print(f"{cname:18s} {rep['n_lanes']} live lanes; share within tol "
+              + " ".join(f"{k} {v:.6f}" for k, v in rep["share_within"].items()))
+        print(f"{'':18s} max |err| (scale) "
+              + " ".join(f"{k} {errs[k]:.2e} ({rep['scale'][k]:.2e})" for k in errs))
+        check(rep["ok"], f"segment_backward disagrees with plain on {cname}: {rep}")
+        last = (idx, got[4])
+    print(f"tolerance: per output |err| <= {GRAD_TOL:g} * (|ref| + max |ref|) on at "
+          f"least 99.9% of live lanes, 1e-2 on all; worst |err| {worst:.3e}")
+    return worst, last
+
+
+def scatter_vs_plain(torch, rows, idx, d_full):
+    phase("9. row scatter kernel (B3) vs plain, 652 triangles x 480,000 rays")
+    from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
+    from montecarlopathtracer_tpu_torch.testing import SCATTER_ULPS, compare_scatter
+
+    T = rows.shape[0]
+    check(T == 652 and idx.shape[0] == W * H, f"T {T}, R {idx.shape[0]}")
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for name, dvals in (("800x600 segment vjp d_full", d_full),
+                        ("N(0,1) cotangents", torch.randn(d_full.shape, device="cuda",
+                                                          generator=g))):
+        got = S.scatter_rows(idx, dvals, T)
+        torch.cuda.synchronize()
+        want = S.scatter_rows_ref(idx, dvals, T)
+        rep = compare_scatter(want, got, S.scatter_rows_ref(idx, dvals.abs(), T))
+        worst = max(worst, rep["max_abs_err"])
+        print(f"{name:28s} {int((idx >= 0).sum())} rays hit; max |err| "
+              f"{rep['max_abs_err']:.3e} of a table max {float(want.abs().max()):.3e}; "
+              f"worst |err| / (eps32 x sum |dvals|) {rep['worst_ulps']:.3f}")
+        check(rep["ok"], f"scatter_rows disagrees with plain on {name}: {rep}")
+    print(f"tolerance per entry: |err| <= {SCATTER_ULPS} x eps32 x (sum of |dvals| "
+          f"added into it); atomics add in no fixed order")
+    return worst
+
+
+def time_pair(torch, kernel, plain, n=10):
+    """Median CUDA-event ms of `kernel()` and `plain()`, alternating."""
+    def timed(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    timed(kernel)
+    timed(plain)
+    ks, ps = [], []
+    for i in range(n):
+        for fn in ((kernel, plain) if i % 2 == 0 else (plain, kernel)):
+            (ks if fn is kernel else ps).append(timed(fn))
+    return statistics.median(ks), statistics.median(ps)
+
+
+def time_backward(torch, rows, bounce):
+    phase("10. one 800x600 segment's B2 and B3, kernel and plain")
+    from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+
+    idx, args = backward_args(torch, rows, bounce, "fixed", [0.0, 0.0, 0.0], {})
+    d_full = F.segment_backward(*args)[4]
+    T = rows.shape[0]
+    bwd = time_pair(torch, lambda: F.segment_backward(*args),
+                    lambda: F.segment_backward_ref(*args))
+    sc = time_pair(torch, lambda: S.scatter_rows(idx, d_full, T),
+                   lambda: S.scatter_rows_ref(idx, d_full, T))
+    print(f"segment_backward kernel {bwd[0]:.4f} ms  plain {bwd[1]:.4f} ms; "
+          f"scatter_rows kernel {sc[0]:.4f} ms  plain {sc[1]:.4f} ms (median of 10, "
+          f"{int(bounce[4].sum())} live rays of {W * H}, {T} triangles)")
+    return bwd, sc
+
+
+def grad_main_path(torch, scene, camera):
+    phase(f"11. gradient main path: value and grad, {W}x{H}, {GRAD_SPP} spp, "
+          f"fixed depth {DEPTH}")
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
+    loss_fn = G.make_loss_fn(scene, camera, torch.zeros(H, W, 3, device="cuda"),
+                             width=W, height=H, spp=GRAD_SPP, config=config)
+    params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = G.value_and_grad(loss_fn, params, make_key(7))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(GRAD_ITERS):
+        loss, grads = G.value_and_grad(loss_fn, params, make_key(8 + i))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    msps = W * H * GRAD_SPP * GRAD_ITERS / dt / 1e6
+    print(f"warm-up iteration {warm:.3f} s; {GRAD_ITERS} timed iterations {dt:.3f} s = "
+          f"{dt / GRAD_ITERS:.4f} s/iteration, fwd+bwd {msps:.4f} Msamples/s "
+          f"(loss {float(loss):.6f})")
+    want = config.num_segments * GRAD_SPP * (1 + GRAD_ITERS)
+    print(f"launches in the gradient path: {counts} (expected {want} each)")
+    for name, n in counts.items():
+        check(n == want, f"{name} launched {n} times, expected {want}")
+    for name, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"gradient of {name} is not finite")
+        print(f"grad {name}: shape {tuple(g.shape)} max |g| {float(g.abs().max()):.6e}")
+    check(float(grads["mat_kd"].abs().max()) > 0.0, "mat_kd gradient is zero")
+    check(float(grads["mat_ka"].abs().max()) > 0.0, "mat_ka gradient is zero")
+    check(float(grads["vertices"].abs().max()) == 0.0,
+          "interior vertex gradient is not exactly zero")
+    grad_profile(torch, loss_fn, params, dt / GRAD_ITERS)
+    return counts, dt / GRAD_ITERS, msps
+
+
+def grad_profile(torch, loss_fn, params, per_iter):
+    """Device time of one gradient iteration by kernel, from
+    torch.profiler's kernel records; then the iteration's uniform draws
+    alone on the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        G.value_and_grad(loss_fn, params, make_key(20))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = {"B1 mega_segment": 0.0, "B2 segment_backward": 0.0,
+              "B3 scatter_rows": 0.0, "other kernels": 0.0}
+    n_other = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if "mega_segment_kernel" in e.key:
+            groups["B1 mega_segment"] += us
+        elif "segment_backward_kernel" in e.key:
+            groups["B2 segment_backward"] += us
+        elif "scatter_rows" in e.key:
+            groups["B3 scatter_rows"] += us
+        else:
+            groups["other kernels"] += us
+            n_other += e.count
+    busy = sum(groups.values()) / 1e3
+    if busy == 0.0:
+        print("profiler recorded no device time; breakdown not measured")
+    else:
+        print(f"profiled iteration: wall {wall:.2f} ms (unprofiled "
+              f"{per_iter * 1e3:.2f} ms), device busy {busy:.2f} ms "
+              f"(share {busy / wall:.3f})")
+        for name, us in groups.items():
+            print(f"  {name:22s} {us / 1e3:9.3f} ms  ({us / 1e3 / wall:.3f} of wall)")
+        print(f"  ({n_other} other kernel launches: threefry draws, gathers, "
+              f"elementwise and reductions)")
+    # The iteration's uniform draws alone (jitter and u1, u2 per segment,
+    # per sample) on the host clock: the threefry is launch-bound, so its
+    # wall time, not its device time, is what it costs the iteration.
+    sids = (1 << 30, (1 << 30) + 1,
+            *(4 * seg + k for seg in range(DEPTH + 1) for k in (0, 1)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAD_SPP):
+        for sid in sids:
+            stream_uniform(make_key(21), sid, W * H, "cuda")
+    torch.cuda.synchronize()
+    print(f"  the iteration's {GRAD_SPP * len(sids)} uniform draws alone: "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
+
+
+def sgd_steps(torch, scene, camera):
+    phase(f"12. five SGD steps, {W}x{H}, 1 spp, Kd started at 0.6x")
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
+    key = make_key(20)
+    with torch.no_grad():
+        target = G.render_image(G.split_params(scene, ("mat_kd",)), scene, camera, key,
+                                width=W, height=H, spp=1, config=config)
+    step = G.make_sgd_step(G.make_loss_fn(scene, camera, target, width=W, height=H,
+                                          spp=1, config=config), lr=1.0)
+    params = {"mat_kd": scene.mat_kd * 0.6}
+    err0 = float((params["mat_kd"] - scene.mat_kd).abs().sum())
+    losses = []
+    for _ in range(5):
+        params, loss = step(params, key)
+        losses.append(float(loss))
+    err1 = float((params["mat_kd"] - scene.mat_kd).abs().sum())
+    print("losses " + " ".join(f"{x:.6e}" for x in losses)
+          + f"; L1 error to the true Kd {err0:.4f} -> {err1:.4f}")
+    check(all(x == x and abs(x) != float("inf") for x in losses), "loss not finite")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+
+def grad_frame(torch, scene):
+    phase("13. 64x48 gradient render: kernel path vs plain path")
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+    from montecarlopathtracer_tpu_torch.scene.camera import camera_for_scene
+    from montecarlopathtracer_tpu_torch.testing import compare_param_grads, plain_kernels
+
+    w, h = 64, 48
+    cam = camera_for_scene(1, w, h, device="cuda")
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
+    loss_fn = G.make_loss_fn(scene, cam, torch.zeros(h, w, 3, device="cuda"), width=w,
+                             height=h, spp=1, config=config)
+    params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
+    loss, got = G.value_and_grad(loss_fn, params, make_key(4))
+    with plain_kernels():
+        loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
+    rep = compare_param_grads(want, got, 1e-4)
+    print(f"loss {float(loss):.7f} vs plain {float(loss_ref):.7f}; "
+          + " ".join(f"{k} max |err| {v['max_abs_err']:.3e} of {v['scale']:.3e}"
+                     for k, v in rep.items() if k != "ok")
+          + " (tolerance 1e-4 x (|ref| + max |ref|))")
+    check(rep["ok"], f"kernel-path gradients disagree with the plain path: {rep}")
 
 
 def main():
@@ -334,7 +641,7 @@ def main():
 
     try:
         name, smi = environment(torch)
-        build()
+        libs = build()
         from montecarlopathtracer_tpu_torch.models import cornell
 
         scene, camera = cornell.cornell_box(
@@ -351,15 +658,29 @@ def main():
         launches, per_pass, msps = main_path(torch, scene, camera)
         breakdown(torch, scene, camera, per_pass)
         whole_frame(torch, scene)
+        grad_builds(libs)
+        bwd_err, (idx, d_full) = backward_vs_plain(torch, rows, bounce)
+        sc_err = scatter_vs_plain(torch, rows, idx, d_full)
+        bwd_ms, sc_ms = time_backward(torch, rows, bounce)
+        counts, per_iter, grad_msps = grad_main_path(torch, scene, camera)
+        sgd_steps(torch, scene, camera)
+        grad_frame(torch, scene)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    print(f"\nmain path: {per_pass:.4f} s/pass, {msps:.4f} Msamples/s forward")
-    print(json.dumps({"kernels": [{
-        "name": "mega_segment", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    print(f"\nmain path: {per_pass:.4f} s/pass, {msps:.4f} Msamples/s forward; "
+          f"gradient path: {per_iter:.4f} s/iteration, {grad_msps:.4f} Msamples/s fwd+bwd")
+    print(json.dumps({"kernels": [
+        {"name": "mega_segment", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "segment_backward", "route": "cuda", "source": BWD_SOURCE,
+         "replaces": BWD_REPLACES, "launches": counts["segment_backward"],
+         "max_abs_err": bwd_err, "ms": bwd_ms[0], "plain_ms": bwd_ms[1]},
+        {"name": "scatter_rows", "route": "cuda", "source": SCATTER_SOURCE,
+         "replaces": SCATTER_REPLACES, "launches": counts["scatter_rows"],
+         "max_abs_err": sc_err, "ms": sc_ms[0], "plain_ms": sc_ms[1]},
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

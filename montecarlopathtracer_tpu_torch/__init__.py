@@ -7,10 +7,12 @@ contracts (ray state ``f32[3, R]``, masks ``[R]``, the 48-float winner
 row layout, ``idx = -1`` for a miss), so arrays convert 1:1 through
 numpy (:mod:`.convert`).
 
-Plain tensor code is PyTorch; the one kernel on the forward render path
-(the whole path segment, ``ops/segment_fused.py``) is hand-written CUDA
-for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use. Every
-kernel has a plain-torch version beside it that runs for CPU tensors.
+Plain tensor code is PyTorch; the kernels of the render and gradient
+paths (the whole path segment and its vjp, ``ops/segment_fused.py``;
+the row-cotangent scatter, ``ops/scatter_rows.py``) are hand-written
+CUDA for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
+Every kernel has a plain-torch version beside it that runs for CPU
+tensors.
 
 Importing the package imports nothing heavy; import the submodules.
 """

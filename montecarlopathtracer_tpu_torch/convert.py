@@ -11,6 +11,10 @@ imports JAX::
         {f: np.asarray(getattr(jax_camera, f)) for f in convert.CAMERA_FIELDS},
         jitter=jax_camera.jitter)
 
+Parameter and gradient dicts (the JAX package's ``split_params`` and
+``jax.grad`` outputs, ``{field: array}``) cross with
+:func:`params_from_numpy` and :func:`params_to_numpy`.
+
 A film checkpoint written by the JAX package's
 ``Renderer.save_checkpoint`` has the same ``.npz`` keys as the port's
 (``color``, ``weight``, ``m2``, ``seed``, ``pass_idx``) and loads into
@@ -66,3 +70,18 @@ def camera_from_numpy(
         },
         jitter=float(jitter),
     )
+
+
+def params_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> dict:
+    """``{field: f32 tensor}`` from a parameter or gradient dict of numpy
+    arrays (``{f: np.asarray(x) for f, x in jax_params.items()}``)."""
+    return {
+        f: torch.as_tensor(np.array(a, np.float32), device=device)
+        for f, a in arrays.items()
+    }
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict:
+    """``{field: f32 numpy array}`` from a parameter or gradient dict of
+    tensors, on any device."""
+    return {f: t.detach().cpu().numpy().astype(np.float32) for f, t in params.items()}

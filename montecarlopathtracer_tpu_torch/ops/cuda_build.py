@@ -5,9 +5,11 @@ launchers that return ``cudaGetLastError()``), so it compiles in
 seconds without PyTorch's headers and is loaded with :mod:`ctypes`.
 
 The shared library is built at first use into ``build/torch_kernels/``
-at the repository root, named by a hash of the source and the flags, so
-a changed source is rebuilt and an unchanged one is reused. nvcc's
-resource report (``-Xptxas -v``) is kept beside it as ``<lib>.log``.
+at the repository root, named by a hash of the source, the headers it
+includes from ``csrc/`` (``#include "x.cuh"``, followed recursively) and
+the flags, so a changed source or header is rebuilt and an unchanged one
+is reused. nvcc's resource report (``-Xptxas -v``) is kept beside it as
+``<lib>.log``.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -44,11 +48,30 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes with
+    quotes, directly or through another header, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the build of its current source
-    exists; returns the shared library's path."""
+    and headers exists; returns the shared library's path."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
@@ -65,6 +88,15 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
+
+
+def build_all(names) -> dict:
+    """:func:`build` of several sources at once, one nvcc process each,
+    all started together; returns ``{name: path}`` or raises the first
+    failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.cache

@@ -37,6 +37,12 @@ def normalize3(v: torch.Tensor) -> torch.Tensor:
     return v / n[None, :]
 
 
+def _sqrt_nonneg(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) whose adjoint is 0, not ∞, where x ≤ 0."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def _rotate_to_frame(local: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     """Rotate +Y-frame directions [3, R] into the frame of ``normal``:
     normal ≈ -Y → negate; normal ≈ +Y → identity; otherwise the
@@ -57,9 +63,14 @@ def _rotate_to_frame(local: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
 
 
 def _lobe(u1, u2, ns) -> torch.Tensor:
-    """Local +Y-frame direction from the cos^Ns lobe."""
+    """Local +Y-frame direction from the cos^Ns lobe.
+
+    sinθ goes through the guarded square root: with Ns = 1000, cosθ
+    rounds to exactly 1 for u1 above ~1 − 6e-5, where the plain sqrt's
+    adjoint is ∞ and a zero cotangent would make it NaN. The forward
+    value is the same; the adjoint there is 0."""
     cos_t = torch.pow(torch.clamp_min(u1, 1e-30), 1.0 / (ns + 1.0))
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    sin_t = _sqrt_nonneg(1.0 - cos_t * cos_t)
     phi = _TWO_PI * u2
     return torch.stack([sin_t * torch.cos(phi), cos_t, sin_t * torch.sin(phi)])
 
@@ -90,11 +101,6 @@ def sample_phong_reflect(u1, u2, normal, indir, ns) -> torch.Tensor:
     """Classic-Phong sample: the outgoing direction from the cos^Ns lobe
     about the mirror reflection of ``indir``."""
     return _rotate_to_frame(_lobe(u1, u2, ns), _reflect(indir, normal))
-
-
-def _sqrt_nonneg(x: torch.Tensor) -> torch.Tensor:
-    pos = x > 0.0
-    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def sample_fresnel(u, normal, indir, tr, ni) -> torch.Tensor:

@@ -1,30 +1,45 @@
-"""One whole path segment: nearest hit, BSDF sampling and state update.
+"""One whole path segment: nearest hit, BSDF sampling and state update,
+and its gradient.
 
-The counterpart of the forward half of
-``montecarlopathtracer_tpu/ops/segment_fused.py`` (``mega_segment_fwd``,
-whose Pallas kernel is ``_mega_segment_kernel``). For every ray of the
-wavefront it finds the nearest accepted triangle (β > 0, γ > 0,
-β + γ < 1, t > 0; ties go to the smallest index), reads the winner's
-shading row, and runs the segment epilogue: emission or final gather,
-Russian roulette, diffuse / Phong / Fresnel sampling from the given
-uniforms, throughput and position update.
+The counterpart of ``montecarlopathtracer_tpu/ops/segment_fused.py``.
+For every ray of the wavefront the forward finds the nearest accepted
+triangle (β > 0, γ > 0, β + γ < 1, t > 0; ties go to the smallest
+index), reads the winner's shading row, and runs the segment epilogue:
+emission or final gather, Russian roulette, diffuse / Phong / Fresnel
+sampling from the given uniforms, throughput and position update.
+
+Forward (JAX ``mega_segment_fwd``, Pallas kernel ``_mega_segment_kernel``):
 
 - :func:`mega_segment` is the entry point. For CUDA tensors it launches
   the hand-written kernel ``csrc/segment_fused.cu``; for CPU tensors it
   runs :func:`mega_segment_ref`. It never falls back from one to the
   other: a CUDA tensor that the kernel cannot take raises.
 - :func:`mega_segment_ref` is the plain-torch version: brute f32
-  selection, a gather of the winner row, and the epilogue on ``[3, R]``
-  tensors with the samplers of :mod:`.sampling`.
+  selection, a gather of the winner row, and :func:`_epilogue`.
 - :func:`pack_rows_full` builds the per-triangle row table f32[T, 48]
   that both read: geometry 12 | shading 32 | pad 4, with the geometry
   block ``[m_k0 m_k1 m_k2 −m_a_k]`` for k = 0..2.
 
-Data contract (that of the JAX function): ray state f32[3, R], ``live``
+Gradient (JAX ``segment_backward`` / ``_make_whole_segment``):
+
+- :func:`segment_core_rows` is the differentiable segment at fixed
+  winners: :func:`recompute_rows` (t, β, γ and the shading rows from the
+  gathered 48-float winner rows) followed by the same :func:`_epilogue`.
+- :func:`segment_backward` is its vjp: the hand-written kernel
+  ``csrc/segment_backward.cu`` for CUDA tensors, :func:`segment_backward_ref`
+  (``torch.autograd.grad`` of :func:`segment_core_rows`) for CPU tensors.
+- :class:`WholeSegment` / :func:`whole_segment_megakernel` is the
+  differentiable segment: forward :func:`mega_segment`; backward one
+  gather of the winner rows, :func:`segment_backward`, and
+  :func:`.scatter_rows.scatter_rows` of the row cotangents into the
+  table. The winner index is piecewise constant and carries no gradient.
+
+Data contract (that of the JAX functions): ray state f32[3, R], ``live``
 bool[R], uniforms f32[R], flags f32[3, 1] = [final_gather, do_rr,
-hard_kill]. Returns (idx i32[R], new_pos, new_dir, new_tput, new_result
-f32[3, R], still f32[R]); a miss has idx = −1. Lanes that are not live
-come back with idx = −1 and their state passed through unchanged.
+hard_kill]. The forward returns (idx i32[R], new_pos, new_dir,
+new_tput, new_result f32[3, R], still f32[R]); a miss has idx = −1.
+Lanes that are not live come back with idx = −1 and their state passed
+through unchanged.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from .sampling import (
     sample_phong,
     sample_phong_reflect,
 )
+from .scatter_rows import scatter_rows
 
 _BIG = 3.0e38  # "no hit yet" distance; an accepted t must be below it
 _EPS = 1.19209290e-7  # FLT_EPSILON
@@ -127,24 +143,20 @@ def _check_options(mode: str, phong_model: str) -> None:
         )
 
 
-def mega_segment_ref(
-    rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
-    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
-    refract_kd: bool = True, phong_model: str = "blinn",
+def _epilogue(
+    pos3, dir3, tput, res, t, beta, gamma, shade, *, hit, act, u1, u2, urr,
+    flags, mode, illum, eps_offset, refract_kd, phong_model,
 ):
-    """Plain-torch whole segment (see the module docstring for the
-    contract). Mirrors ``_epilogue_core`` of the JAX package line by
-    line on ``[3, R]`` tensors."""
-    _check_options(mode, phong_model)
-    best_t, best_i, best_b, best_g = _select_ref(rows, pos3, dir3)
-    hit = best_t < _BIG
-    hitf = hit.to(torch.float32)
-    t = torch.where(hit, best_t, _BIG)
-    beta = best_b * hitf
-    gamma = best_g * hitf
-    shade = rows[best_i, 12:44].T * hitf[None, :]  # (32, R)
+    """One segment after the intersection, in plain torch on ``[3, R]``
+    tensors: ``_epilogue_core`` of the JAX package line by line.
 
-    yhat = torch.tensor([[0.0], [1.0], [0.0]], device=rows.device)
+    ``t``, ``beta``, ``gamma`` f32[R] and ``shade`` f32[32, R] are the
+    winner's values, already masked by ``hit``. Returns (new_pos,
+    new_dir, new_tput, new_res, still bool[R]). Differentiable in the
+    state, t, β, γ and shade; the masks and uniforms carry no gradient.
+    """
+    hitf = hit.to(torch.float32)
+    yhat = torch.tensor([[0.0], [1.0], [0.0]], device=pos3.device)
     n0 = torch.where(hit[None, :], shade[0:3], yhat)
     n1 = torch.where(hit[None, :], shade[3:6], yhat)
     n2 = torch.where(hit[None, :], shade[6:9], yhat)
@@ -153,12 +165,14 @@ def mega_segment_ref(
     ni = torch.where(hit, shade[20], 1.0)
     fg, do_rr, hard_kill = flags[0, 0] > 0.0, flags[1, 0] > 0.0, flags[2, 0] > 0.0
 
-    act = live
     miss = ~hit
     is_emit = (ka > 0.0).any(dim=0)
     tp = tput
     if mode == "rr":
-        p = tput.amax(dim=0)
+        # Nested pairwise maxima, not amax: the value is the same, but a
+        # tie splits the adjoint 0.25 / 0.25 / 0.5 as JAX's nested
+        # jnp.maximum does (amax would split it in thirds).
+        p = torch.maximum(torch.maximum(tput[0], tput[1]), tput[2])
         survive = p > urr
         rr_dead = do_rr & ~survive
         pm = torch.clamp_min(p, 1e-20)
@@ -197,8 +211,95 @@ def mega_segment_ref(
     new_dir = torch.where(still3, new_dir, dir3)
     # Lanes that are not live pass their whole state through.
     new_tput = torch.where(act[None, :], new_tput, tput)
-    idx = torch.where(hit & act, best_i, -1).to(torch.int32)
+    return new_pos, new_dir, new_tput, new_res, still
+
+
+def mega_segment_ref(
+    rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Plain-torch whole segment (see the module docstring for the
+    contract): brute selection, then :func:`_epilogue`."""
+    _check_options(mode, phong_model)
+    best_t, best_i, best_b, best_g = _select_ref(rows, pos3, dir3)
+    hit = best_t < _BIG
+    hitf = hit.to(torch.float32)
+    t = torch.where(hit, best_t, _BIG)
+    shade = rows[best_i, 12:44].T * hitf[None, :]  # (32, R)
+    new_pos, new_dir, new_tput, new_res, still = _epilogue(
+        pos3, dir3, tput, res, t, best_b * hitf, best_g * hitf, shade,
+        hit=hit, act=live, u1=u1, u2=u2, urr=urr, flags=flags, mode=mode,
+        illum=illum, eps_offset=eps_offset, refract_kd=refract_kd,
+        phong_model=phong_model,
+    )
+    idx = torch.where(hit & live, best_i, -1).to(torch.int32)
     return idx, new_pos, new_dir, new_tput, new_res, still.to(torch.float32)
+
+
+def recompute_rows(full, hit, pos3, dir3):
+    """Winner values from the gathered rows ``full`` f32[48, R] (JAX
+    ``_recompute_rows``): (t, β, γ f32[R], shade f32[32, R]). Exact f32
+    division where |d'_z| > 1e-12; on a miss t = _BIG, β = γ = 0 and the
+    shading rows are 0."""
+    hitf = hit.to(torch.float32)
+
+    def prime(k):
+        m = full[4 * k:4 * k + 3]
+        op = m[0] * pos3[0] + m[1] * pos3[1] + m[2] * pos3[2] + full[4 * k + 3]
+        dp = m[0] * dir3[0] + m[1] * dir3[1] + m[2] * dir3[2]
+        return op, dp
+
+    opx, dpx = prime(0)
+    opy, dpy = prime(1)
+    opz, dpz = prime(2)
+    safe = dpz.abs() > 1e-12
+    t_raw = torch.where(safe, -opz / torch.where(safe, dpz, 1.0), _BIG)
+    beta = opx + t_raw * dpx
+    gamma = opy + t_raw * dpy
+    t = torch.where(hit, t_raw, _BIG)
+    beta = torch.where(hit, beta, 0.0)
+    gamma = torch.where(hit, gamma, 0.0)
+    return t, beta, gamma, full[12:44] * hitf[None, :]
+
+
+def segment_core_rows(
+    pos3, dir3, tput, res, full, *, hit, act, u1, u2, urr, flags,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """The differentiable segment at fixed winners (JAX
+    ``_segment_core_rows``): :func:`recompute_rows` + :func:`_epilogue`.
+    Returns (new_pos, new_dir, new_tput, new_res) f32[3, R]."""
+    t, beta, gamma, shade = recompute_rows(full, hit, pos3, dir3)
+    return _epilogue(
+        pos3, dir3, tput, res, t, beta, gamma, shade, hit=hit, act=act,
+        u1=u1, u2=u2, urr=urr, flags=flags, mode=mode, illum=illum,
+        eps_offset=eps_offset, refract_kd=refract_kd, phong_model=phong_model,
+    )[:4]
+
+
+def segment_backward_ref(
+    pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
+    ct_npos, ct_ndir, ct_ntput, ct_nres, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Plain-torch segment vjp: ``torch.autograd.grad`` of
+    :func:`segment_core_rows` with the given output cotangents. Returns
+    (d_pos, d_dir, d_tput, d_res f32[3, R], d_full f32[48, R])."""
+    _check_options(mode, phong_model)
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(True) for x in (pos3, dir3, tput, res, full)]
+        outs = segment_core_rows(
+            *xs, hit=hit, act=act, u1=u1, u2=u2, urr=urr, flags=flags,
+            mode=mode, illum=illum, eps_offset=eps_offset,
+            refract_kd=refract_kd, phong_model=phong_model,
+        )
+        grads = torch.autograd.grad(
+            outs, xs, (ct_npos, ct_ndir, ct_ntput, ct_nres), allow_unused=True
+        )
+    return tuple(torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads))
 
 
 _P = ctypes.c_void_p
@@ -221,32 +322,64 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_inputs(rows, vec3, vec1, live, flags) -> None:
-    dev = rows.device
-    R = vec3[0].shape[1]
-    for x in (rows, *vec3, *vec1, live, flags):
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("segment_backward")
+    fn = lib.segment_backward_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P,  # pos, dir, tput, res, act, hit, full
+        _P, _P, _P, _P,  # u1, u2, urr, flags
+        _P, _P, _P, _P,  # cotangents of npos, ndir, ntput, nres
+        ctypes.c_int,  # R
+        ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
+        ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
+        _P, _P, _P, _P, _P,  # d_pos, d_dir, d_tput, d_res, d_full
+        _P,  # stream
+    ]
+    return lib
+
+
+def _check_vectors(dev, R, vec3, vec1, masks, flags) -> None:
+    """Device, contiguity, dtype and shape checks shared by the kernel
+    wrappers: f32[3, R] state, f32[R] uniforms, bool[R] masks, flags
+    f32[3, 1]."""
+    for x in (*vec3, *vec1, *masks, flags):
         if x.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {x.device}")
         if not x.is_contiguous():
             raise ValueError("all inputs must be contiguous")
-    for x in (rows, *vec3, *vec1, flags):
+    for x in (*vec3, *vec1, flags):
         if x.dtype != torch.float32:
             raise TypeError(f"expected float32, got {x.dtype}")
-    if live.dtype != torch.bool:
-        raise TypeError(f"live must be bool, got {live.dtype}")
-    if rows.dim() != 2 or rows.shape[1] != 48:
-        raise ValueError(f"rows must be [T, 48], got {tuple(rows.shape)}")
-    if rows.data_ptr() % 16:
-        raise ValueError("rows must be 16-byte aligned for float4 loads")
+    for x in masks:
+        if x.dtype != torch.bool:
+            raise TypeError(f"live/act/hit masks must be bool, got {x.dtype}")
     for x in vec3:
         if tuple(x.shape) != (3, R):
             raise ValueError(f"expected [3, {R}], got {tuple(x.shape)}")
-    for x in (*vec1, live):
+    for x in (*vec1, *masks):
         if tuple(x.shape) != (R,):
             raise ValueError(f"expected [{R}], got {tuple(x.shape)}")
     if tuple(flags.shape) != (3, 1):
         raise ValueError(f"flags must be [3, 1], got {tuple(flags.shape)}")
-    if R >= 2**31 or rows.shape[0] >= 2**31:
+    if R >= 2**31:
+        raise ValueError("R must fit in int32")
+
+
+def _check_cuda_inputs(rows, vec3, vec1, live, flags) -> None:
+    if rows.device != vec3[0].device:
+        raise ValueError(f"all inputs must be on {vec3[0].device}, got {rows.device}")
+    _check_vectors(rows.device, vec3[0].shape[1], vec3, vec1, (live,), flags)
+    if not rows.is_contiguous():
+        raise ValueError("all inputs must be contiguous")
+    if rows.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {rows.dtype}")
+    if rows.dim() != 2 or rows.shape[1] != 48:
+        raise ValueError(f"rows must be [T, 48], got {tuple(rows.shape)}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned for float4 loads")
+    if rows.shape[0] >= 2**31:
         raise ValueError("R and T must fit in int32")
 
 
@@ -300,3 +433,116 @@ def mega_segment(
 
 
 mega_segment.launches = 0
+
+
+def _segment_backward_cuda(
+    pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
+    ct_npos, ct_ndir, ct_ntput, ct_nres, *,
+    mode, illum, eps_offset, refract_kd, phong_model,
+):
+    _check_options(mode, phong_model)
+    R = pos3.shape[1]
+    dev = pos3.device
+    cts = (ct_npos, ct_ndir, ct_ntput, ct_nres)
+    _check_vectors(dev, R, (pos3, dir3, tput, res, *cts), (u1, u2, urr), (act, hit), flags)
+    if full.device != dev or not full.is_contiguous():
+        raise ValueError(f"full must be a contiguous tensor on {dev}")
+    if full.dtype != torch.float32:
+        raise TypeError(f"full must be float32, got {full.dtype}")
+    if tuple(full.shape) != (48, R):
+        raise ValueError(f"full must be [48, {R}], got {tuple(full.shape)}")
+    d_pos, d_dir, d_tput, d_res = (torch.empty_like(pos3) for _ in range(4))
+    d_full = torch.empty_like(full)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.segment_backward_launch(
+            pos3.data_ptr(), dir3.data_ptr(), tput.data_ptr(), res.data_ptr(),
+            act.data_ptr(), hit.data_ptr(), full.data_ptr(),
+            u1.data_ptr(), u2.data_ptr(), urr.data_ptr(), flags.data_ptr(),
+            *(c.data_ptr() for c in cts), R,
+            int(mode == "rr"), float(illum), float(eps_offset),
+            int(bool(refract_kd)), int(phong_model == "phong"),
+            d_pos.data_ptr(), d_dir.data_ptr(), d_tput.data_ptr(),
+            d_res.data_ptr(), d_full.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"segment_backward kernel launch failed: cudaError {err}")
+    segment_backward.launches += 1
+    return d_pos, d_dir, d_tput, d_res, d_full
+
+
+def segment_backward(
+    pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
+    ct_npos, ct_ndir, ct_ntput, ct_nres, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Whole-segment vjp (JAX ``segment_backward``): given the segment
+    inputs, the gathered winner rows ``full`` f32[48, R] and the four
+    output cotangents, returns (d_pos, d_dir, d_tput, d_res f32[3, R],
+    d_full f32[48, R]). CUDA tensors launch ``csrc/segment_backward.cu``
+    and add one to ``segment_backward.launches``; CPU tensors run
+    :func:`segment_backward_ref`."""
+    kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
+              refract_kd=refract_kd, phong_model=phong_model)
+    args = (pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
+            ct_npos, ct_ndir, ct_ntput, ct_nres)
+    if pos3.device.type == "cuda":
+        return _segment_backward_cuda(*args, **kw)
+    if pos3.device.type == "cpu":
+        return segment_backward_ref(*args, **kw)
+    raise ValueError(f"no segment backward kernel for device {pos3.device}")
+
+
+segment_backward.launches = 0
+
+
+class WholeSegment(torch.autograd.Function):
+    """The differentiable whole segment (JAX ``_make_whole_segment``).
+
+    Forward: :func:`mega_segment`, saving the winner index and the
+    inputs. Backward: one gather of the winner rows, :func:`segment_backward`
+    and :func:`.scatter_rows.scatter_rows` into d_rows f32[T, 48]. The
+    index, ``still``, the masks, the uniforms and the flags carry no
+    gradient (the winner is piecewise constant in the geometry)."""
+
+    @staticmethod
+    def forward(ctx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, kw):
+        out = mega_segment(rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, **kw)
+        ctx.save_for_backward(out[0], rows, pos3, dir3, tput, res, live, u1, u2,
+                              urr, flags)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(out[0], out[5])
+        return out
+
+    @staticmethod
+    def backward(ctx, _idx, ct_npos, ct_ndir, ct_ntput, ct_nres, _still):
+        idx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags = ctx.saved_tensors
+        hit = idx >= 0
+        # One gather of whole winner rows, lane-major as the kernel reads them.
+        full = rows.detach().T.contiguous()[:, idx.clamp_min(0).long()]
+        d_pos, d_dir, d_tput, d_res, d_full = segment_backward(
+            pos3, dir3, tput, res, live, hit, full, u1, u2, urr, flags,
+            *(c.contiguous() for c in (ct_npos, ct_ndir, ct_ntput, ct_nres)),
+            **ctx.kw,
+        )
+        d_rows = scatter_rows(idx, d_full, rows.shape[0]) \
+            if ctx.needs_input_grad[0] else None
+        return (d_rows, d_pos, d_dir, d_tput, d_res,
+                None, None, None, None, None, None)
+
+
+def whole_segment_megakernel(
+    rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Differentiable whole segment (JAX ``whole_segment_megakernel``):
+    the outputs of :func:`mega_segment`, with gradients to ``rows`` and
+    the ray state through :class:`WholeSegment`."""
+    _check_options(mode, phong_model)
+    kw = dict(mode=mode, illum=float(illum), eps_offset=float(eps_offset),
+              refract_kd=bool(refract_kd), phong_model=phong_model)
+    return WholeSegment.apply(rows, pos3, dir3, tput, res, live, u1, u2, urr,
+                              flags, kw)

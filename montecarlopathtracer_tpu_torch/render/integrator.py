@@ -6,6 +6,15 @@ per step; terminated lanes are masked. Each step is ONE call of
 :func:`..ops.segment_fused.mega_segment` (a kernel launch for CUDA
 tensors), and the steps are a Python loop.
 
+Gradients: when autograd is on (``torch.is_grad_enabled()``), each step
+runs through :func:`..ops.segment_fused.whole_segment_megakernel`
+instead, whose backward is the segment vjp kernel and the row scatter
+(detached sampling with path replay, as in the JAX package's
+``diff/grad.py``). The backward keeps only each segment's inputs and
+winner index and recomputes the rest from them, so the JAX package's
+``remat_segments`` policies have nothing further to save here. Under
+``torch.no_grad()`` (the :class:`Renderer`) no graph is built.
+
 Termination strategies (:class:`TraceConfig`):
 
 - ``mode="fixed"`` — CUDA semantics: exactly ``max_depth`` scatter
@@ -29,7 +38,7 @@ import dataclasses
 import torch
 
 from ..ops.rng import Key, fold_in, stream_uniform
-from ..ops.segment_fused import mega_segment, pack_rows_full
+from ..ops.segment_fused import mega_segment, pack_rows_full, whole_segment_megakernel
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
 
@@ -100,17 +109,16 @@ def trace_radiance_soa(
     result = torch.zeros(3, R, device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
     urr = torch.zeros(R, device=dev)
+    kw = dict(mode=config.mode, illum=config.illum, eps_offset=config.eps_offset,
+              refract_kd=config.refract_kd, phong_model=config.phong_model)
+    segment = whole_segment_megakernel if torch.is_grad_enabled() else mega_segment
     for seg in range(config.num_segments):
         u1 = stream_uniform(key, seg * 4 + 0, R, dev)
         u2 = stream_uniform(key, seg * 4 + 1, R, dev)
         if config.mode == "rr":
             urr = stream_uniform(key, seg * 4 + 3, R, dev)
-        _, pos, dir_, tput, result, still = mega_segment(
-            rows, pos, dir_, tput, result, active, u1, u2, urr, flags[seg],
-            mode=config.mode, illum=config.illum,
-            eps_offset=config.eps_offset, refract_kd=config.refract_kd,
-            phong_model=config.phong_model,
-        )
+        _, pos, dir_, tput, result, still = segment(
+            rows, pos, dir_, tput, result, active, u1, u2, urr, flags[seg], **kw)
         active = still > 0.0
     return result
 

@@ -129,6 +129,7 @@ class Renderer:
 
     # -- rendering ------------------------------------------------------------
 
+    @torch.no_grad()
     def _pass(self, key) -> Film:
         """One pass: the mean of ``spp_per_pass`` full-frame samples,
         folded into the film with weight ``spp_per_pass``."""

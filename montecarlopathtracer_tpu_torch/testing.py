@@ -8,9 +8,16 @@ the same distance; :func:`compare_segment` allows those near-ties on a
 small share of lanes and holds every other output to a tolerance, with
 the same small share of ill-conditioned lanes held to a looser one.
 :func:`compare_images` holds whole frames to a pixel share.
+:func:`compare_grads` holds the cotangents of one segment's vjp,
+:func:`compare_scatter` the row scatter's table, and
+:func:`compare_param_grads` the parameter gradients of a whole render.
+:func:`plain_kernels` routes every kernel wrapper to its plain version,
+so that a path can run plain on the card.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
@@ -20,6 +27,14 @@ MAX_OUTLIER_SHARE = 1e-3  # share of compared lanes allowed beyond `tol`
 OUTLIER_TOL = 1e-2  # rtol = atol bound that no compared lane may exceed
 # Frames: a pixel moves only where its path takes another turn.
 MIN_PIXEL_SHARE, PIXEL_ATOL, MEAN_RTOL = 0.99, 1e-4, 1e-3
+# Gradients: per output, |got - want| <= GRAD_TOL * (|want| + max |want|)
+# on all but MAX_OUTLIER_SHARE of the compared lanes, and within
+# OUTLIER_TOL of the same scale on every lane.
+GRAD_OUTPUTS = ("d_pos", "d_dir", "d_tput", "d_res", "d_full")
+GRAD_TOL = 1e-5
+# Row scatter: |got - want| <= SCATTER_ULPS * eps32 * (scatter of |dvals|)
+# per entry (compare_scatter).
+SCATTER_ULPS = 16
 # Near-tie bounds, in float64 on the f32 rows: accept margins this close
 # to 0 flip under f32 rounding, and so do distances this close together.
 _MARGIN_TIE = 1e-5
@@ -131,3 +146,94 @@ def compare_images(got, want) -> dict:
           and share >= MIN_PIXEL_SHARE and mean_rel <= MEAN_RTOL)
     return {"pixel_share": share, "max_abs_err": float(err.max()),
             "mean_rel": mean_rel, "ok": bool(ok)}
+
+
+def _close(got, want, tol, scale):
+    return np.abs(got - want) <= tol * (np.abs(want) + scale)
+
+
+def compare_grads(want, got, *, lanes=None, tol=GRAD_TOL) -> dict:
+    """Compare two segment vjps ``(d_pos, d_dir, d_tput, d_res, d_full)``
+    of the same inputs on the lanes where ``lanes`` (bool[R]) is set.
+
+    Per output, a lane agrees when each of its values is within ``tol``
+    of ``|want| + max |want|`` (rtol = atol = tol, the atol relative to
+    the output's largest value). At most 0.1% of the lanes may disagree,
+    and those still within ``OUTLIER_TOL``: a shading frame whose normal
+    is within ~1e-3 of ±Y carries a 1/sqrt(1 − ny²) factor, and two
+    correct f32 reverse modes that round differently part there. Every
+    value must be finite.
+    """
+    want = dict(zip(GRAD_OUTPUTS, map(_np, want)))
+    got = dict(zip(GRAD_OUTPUTS, map(_np, got)))
+    R = want["d_pos"].shape[1]
+    lanes = np.ones(R, bool) if lanes is None else _np(lanes).astype(bool)
+    n = max(int(lanes.sum()), 1)
+    rep = {"n_lanes": int(lanes.sum()), "max_abs_err": {}, "share_within": {},
+           "scale": {}}
+    ok = True
+    for name in GRAD_OUTPUTS:
+        w, g = want[name][:, lanes], got[name][:, lanes]
+        ok &= bool(np.isfinite(g).all() and np.isfinite(w).all())
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        within = _close(g, w, tol, scale).all(axis=0)
+        rep["scale"][name] = scale
+        rep["max_abs_err"][name] = float(np.abs(g - w).max()) if w.size else 0.0
+        rep["share_within"][name] = float(within.sum()) / n
+        ok &= (~within).sum() <= MAX_OUTLIER_SHARE * n
+        ok &= bool(_close(g, w, OUTLIER_TOL, scale).all())
+    rep["ok"] = bool(ok)
+    return rep
+
+
+def compare_scatter(want, got, bound, ulps=SCATTER_ULPS) -> dict:
+    """Two row scatters f32[T, 48] of the same rays, summed in different
+    orders. ``bound`` is the plain scatter of ``|dvals|``: each entry's
+    sum of magnitudes, which bounds how far f32 rounding can move it.
+    Every entry must be finite and within ``ulps · eps32 · bound``, so a
+    row of small entries is held to its own scale, not the table's
+    largest; a lost or doubled add of a ray into a row of n rays moves
+    its entry by ~bound / n."""
+    want, got, bound = _np(want), _np(got), _np(bound)
+    err = np.abs(got - want)
+    lim = ulps * np.finfo(np.float32).eps * bound
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = np.where(err > 0, err / (np.finfo(np.float32).eps * bound), 0.0)
+    return {"max_abs_err": float(err.max()), "worst_ulps": float(ratio.max()),
+            "ok": bool(np.isfinite(got).all() and (err <= lim).all())}
+
+
+def compare_param_grads(want, got, tol) -> dict:
+    """Parameter gradients ``{name: array}`` of two renders of the same
+    key: every value finite and within ``tol`` of ``|want| + max |want|``
+    per parameter."""
+    rep, ok = {}, True
+    for name in want:
+        w, g = _np(want[name]), _np(got[name])
+        scale = float(np.abs(w).max()) if w.size else 0.0
+        good = bool(g.shape == w.shape and np.isfinite(g).all()
+                    and _close(g, w, tol, scale).all())
+        rep[name] = {"max_abs_err": float(np.abs(g - w).max()), "scale": scale,
+                     "ok": good}
+        ok &= good
+    rep["ok"] = bool(ok)
+    return rep
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel wrapper of the port (forward segment, segment
+    backward, row scatter) to its plain-torch version, on any device,
+    for the duration of the block."""
+    from .ops import scatter_rows as S
+    from .ops import segment_fused as F
+    from .render import integrator
+
+    saved = (F.mega_segment, F.segment_backward, F.scatter_rows, integrator.mega_segment)
+    F.mega_segment = integrator.mega_segment = F.mega_segment_ref
+    F.segment_backward = F.segment_backward_ref
+    F.scatter_rows = S.scatter_rows_ref
+    try:
+        yield
+    finally:
+        F.mega_segment, F.segment_backward, F.scatter_rows, integrator.mega_segment = saved

@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: builds, launches, agrees with its
-plain-torch version, counts its launches and refuses what it cannot
-take. Every test here needs an NVIDIA Hopper GPU and nvcc, and skips
+"""The port's CUDA kernels on the card (the segment forward, its vjp and
+the row scatter): each builds, launches, agrees with its plain-torch
+version, counts its launches and refuses what it cannot take; a
+gradient render through the kernels agrees with the plain path. Every test here needs an NVIDIA Hopper GPU and nvcc, and skips
 elsewhere. This file imports no JAX; run it on the GPU machine, from the
 repository root, without the JAX-pinning conftest:
 
@@ -10,14 +11,23 @@ repository root, without the JAX-pinning conftest:
 import pytest
 import torch
 
+from montecarlopathtracer_tpu_torch.diff import grad as G
 from montecarlopathtracer_tpu_torch.models import cornell
+from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
 from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
 from montecarlopathtracer_tpu_torch.render.integrator import (
     TraceConfig,
     render_sample_batch,
 )
-from montecarlopathtracer_tpu_torch.testing import compare_images, compare_segment
+from montecarlopathtracer_tpu_torch.testing import (
+    compare_grads,
+    compare_images,
+    compare_param_grads,
+    compare_scatter,
+    compare_segment,
+    plain_kernels,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +101,95 @@ def test_render_on_card_matches_cpu_plain_path(card):
                                64, 48, config)
     rep = compare_images(got, want)
     assert rep["ok"], rep
+
+
+def _backward_args(camera, rows, mode, flags, tput=None):
+    """A first-bounce wavefront, its winners and random cotangents."""
+    args = list(_camera_args(camera, rows, [0.0, 0.0, 0.0]))
+    out = F.mega_segment(*args)
+    args[1:6] = [out[1], out[2], out[3] if tput is None else tput, out[4], out[5] > 0]
+    args[9] = torch.tensor(flags, device="cuda").reshape(3, 1)
+    idx = F.mega_segment(*args, mode=mode)[0]
+    full = rows.T.contiguous()[:, idx.clamp_min(0).long()]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cts = [torch.randn(args[1].shape, device="cuda", generator=g) for _ in range(4)]
+    return idx, (*args[1:6], idx >= 0, full, *args[6:10], *cts)
+
+
+@pytest.mark.parametrize("mode,flags,opts", [
+    ("fixed", [0.0, 0.0, 0.0], {}), ("fixed", [1.0, 0.0, 0.0], {}),
+    ("rr", [0.0, 1.0, 0.0], {"tied": True}), ("rr", [0.0, 0.0, 1.0], {}),
+    ("fixed", [0.0, 0.0, 0.0], {"phong_model": "phong"}),
+])
+def test_segment_backward_kernel_matches_plain(card, mode, flags, opts):
+    _, camera, rows = card
+    opts = dict(opts)
+    tput = torch.full((3, 64 * 48), 0.6, device="cuda") if opts.pop("tied", False) else None
+    idx, args = _backward_args(camera, rows, mode, flags, tput)
+    before = F.segment_backward.launches
+    got = F.segment_backward(*args, mode=mode, **opts)
+    torch.cuda.synchronize()
+    assert F.segment_backward.launches == before + 1
+    want = F.segment_backward_ref(*args, mode=mode, **opts)
+    rep = compare_grads(want, got, lanes=args[4])
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("T", [652, 2000])  # shared-memory table, global atomics
+def test_scatter_rows_kernel_matches_plain(card, T):
+    g = torch.Generator(device="cuda").manual_seed(T)
+    R = 100_000
+    idx = torch.randint(-1, T, (R,), device="cuda", generator=g, dtype=torch.int32)
+    idx[:20_000] = 7  # a hot row
+    dvals = torch.randn(48, R, device="cuda", generator=g)
+    before = S.scatter_rows.launches
+    got = S.scatter_rows(idx, dvals, T)
+    torch.cuda.synchronize()
+    assert S.scatter_rows.launches == before + 1
+    want = S.scatter_rows_ref(idx, dvals, T)
+    rep = compare_scatter(want, got, S.scatter_rows_ref(idx, dvals.abs(), T))
+    assert rep["ok"], rep
+
+
+def test_gradient_render_kernels_match_plain_path(card):
+    scene, camera, _ = card
+    config = TraceConfig(max_depth=7)
+    loss_fn = G.make_loss_fn(scene, camera, torch.zeros(48, 64, 3, device="cuda"),
+                             width=64, height=48, spp=1, config=config)
+    params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
+    counts = (F.mega_segment.launches, F.segment_backward.launches, S.scatter_rows.launches)
+    loss, got = G.value_and_grad(loss_fn, params, make_key(4))
+    assert (F.mega_segment.launches, F.segment_backward.launches,
+            S.scatter_rows.launches) == tuple(c + 8 for c in counts)
+    with plain_kernels():
+        loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
+    assert float(loss) == pytest.approx(float(loss_ref), rel=1e-5)
+    rep = compare_param_grads(want, got, 1e-4)
+    assert rep["ok"], rep
+    assert float(got["vertices"].abs().max()) == 0.0
+
+
+def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
+    _, camera, rows = card
+    _, args = _backward_args(camera, rows, "fixed", [0.0, 0.0, 0.0])
+    before = (F.segment_backward.launches, S.scatter_rows.launches)
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="on"):
+        F.segment_backward(*bad)
+    bad = list(args)
+    bad[4] = args[4].float()
+    with pytest.raises(TypeError, match="bool"):
+        F.segment_backward(*bad)
+    bad = list(args)
+    bad[6] = args[6][:33]
+    with pytest.raises(ValueError, match="full"):
+        F.segment_backward(*bad)
+    idx = torch.zeros(10, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        S.scatter_rows(idx.long(), torch.zeros(48, 10, device="cuda"), 4)
+    with pytest.raises(ValueError, match="48"):
+        S.scatter_rows(idx, torch.zeros(10, 48, device="cuda"), 4)
+    with pytest.raises(ValueError, match="on"):
+        S.scatter_rows(idx.cpu(), torch.zeros(48, 10, device="cuda"), 4)
+    assert (F.segment_backward.launches, S.scatter_rows.launches) == before

@@ -153,7 +153,9 @@ def test_port_imports_no_jax():
         "import montecarlopathtracer_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 23, mods\n"
+        "new = {'diff', 'diff.grad', 'ops.scatter_rows'}\n"
+        "assert {p.__name__ + '.' + n for n in new} <= set(mods), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('montecarlopathtracer_tpu.')"
         " or m == 'montecarlopathtracer_tpu']\n"
