@@ -7,10 +7,13 @@ contracts (ray state ``f32[3, R]``, masks ``[R]``, the 48-float winner
 row layout, ``idx = -1`` for a miss), so arrays convert 1:1 through
 numpy (:mod:`.convert`).
 
-Plain tensor code is PyTorch; the kernels of the render and gradient
-paths (the whole path segment and its vjp, ``ops/segment_fused.py``;
-the row-cotangent scatter, ``ops/scatter_rows.py``) are hand-written
-CUDA for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
+Plain tensor code is PyTorch; the kernels of the render, regen,
+large-scene and gradient paths (the whole path segment, with scalar or
+per-lane flags, the segment from known winners and the segment's vjp,
+``ops/segment_fused.py``; the row-cotangent scatter,
+``ops/scatter_rows.py``; the Morton-chunk traversal walk,
+``ops/traverse_walk.py``) are hand-written CUDA for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` at first use.
 Every kernel has a plain-torch version beside it that runs for CPU
 tensors.
 

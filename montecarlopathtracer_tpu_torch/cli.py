@@ -9,9 +9,20 @@ Examples:
     python -m montecarlopathtracer_tpu_torch.cli --device cpu \
         --scene cornell-full --width 64 --height 48 --passes 2
 
+    # Russian roulette through the regenerating wavefront
+    python -m montecarlopathtracer_tpu_torch.cli --mode rr --illum 1 \
+        --spp-per-pass 32 --regen on
+
+    # the 81,932-triangle procedural bunny through the traversal walk
+    python -m montecarlopathtracer_tpu_torch.cli --scene bunny \
+        --intersector traverse --width 1024 --height 1024 --spp-per-pass 1
+
 ``--device`` defaults to ``cuda``; without a GPU the run fails rather
 than moving to the CPU. ``--device cpu`` runs the plain-torch version of
-every kernel.
+every kernel. Every option is explicit: the JAX CLI's automatic choices
+of intersector and regen were measured on a TPU and are not carried
+over. ``--regen on`` renders the frame as one wavefront, so an explicit
+``--ray-chunk`` with it is refused rather than dropped.
 """
 
 from __future__ import annotations
@@ -21,7 +32,7 @@ import sys
 
 import torch
 
-from .models import cornell
+from .models import bunny, cornell
 from .render.integrator import TraceConfig
 from .render.renderer import Renderer, RenderSettings
 from .scene.camera import camera_for_scene
@@ -38,9 +49,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--scene",
         default="cornell-full",
         help="'cornell' = procedural box, 'cornell-full' = procedural box "
-        "with mirror + glass spheres, 1/2 = reference scene (read-only "
-        "mount), or a path to an .obj file",
+        "with mirror + glass spheres, 'bunny' = procedural displaced blob "
+        "of 20*4^subdiv triangles in a room, 1/2 = reference scene "
+        "(read-only mount), or a path to an .obj file",
     )
+    p.add_argument("--subdiv", type=int, default=6,
+                   help="icosphere subdivisions of --scene bunny (6: 81,932 triangles)")
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=600)
     p.add_argument("--spp-per-pass", type=int, default=4)
@@ -50,6 +64,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=7)
     p.add_argument("--rr-depth", type=int, default=5)
     p.add_argument("--illum", type=float, default=10.0)
+    p.add_argument("--intersector", choices=["megakernel", "traverse"],
+                   default="megakernel",
+                   help="'megakernel' = brute nearest hit in the segment kernel; "
+                   "'traverse' = Morton-chunk walk, for large scenes")
+    p.add_argument("--ray-sort", choices=["on", "off"], default=None,
+                   help="sort the wavefront each segment (default: on for "
+                   "--intersector traverse, off otherwise)")
+    p.add_argument("--regen", choices=["on", "off"], default="off",
+                   help="regenerating wavefront: a lane whose path ends starts "
+                   "its pixel's next sample")
+    p.add_argument("--ray-chunk", type=int, default=0,
+                   help="rays per wavefront tile (0 = the whole frame)")
     p.add_argument("--phong-model", choices=["blinn", "phong"], default="blinn",
                    help="specular sampler: 'blinn' = half-vector, 'phong' = "
                    "classic reflection lobe")
@@ -67,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_scene(name: str, width: int, height: int):
+def load_scene(name: str, width: int, height: int, subdiv: int = 6):
+    if name == "bunny":
+        return bunny.bunny_scene(subdiv=subdiv, width=width, height=height)
     if name in ("1", "2"):
         return cornell.load_reference_scene(int(name), width=width, height=height)
     if name == "cornell":
@@ -87,13 +115,23 @@ def main(argv=None) -> int:
         print(f"error: --device {args.device} but no CUDA device is available "
               "(pass --device cpu for the plain-torch path)", file=sys.stderr)
         return 2
-    scene, camera = load_scene(args.scene, args.width, args.height)
+    regen = args.regen == "on"
+    if regen and args.ray_chunk:
+        print(f"error: --regen on renders the frame as one wavefront; it cannot "
+              f"honour --ray-chunk {args.ray_chunk} (drop one of the two)",
+              file=sys.stderr)
+        return 2
+    scene, camera = load_scene(args.scene, args.width, args.height, args.subdiv)
+    ray_sort = args.ray_sort == "on" if args.ray_sort else args.intersector == "traverse"
     config = TraceConfig(
         mode=args.mode,
         max_depth=args.max_depth,
         rr_depth=args.rr_depth,
         illum=args.illum,
         phong_model=args.phong_model,
+        intersector=args.intersector,
+        ray_sort=ray_sort,
+        ray_chunk=args.ray_chunk,
     )
     settings = RenderSettings(
         width=args.width,
@@ -106,6 +144,7 @@ def main(argv=None) -> int:
         step_dir=args.step_dir,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
+        regen=regen,
     )
     log = RenderLog(enabled=not args.quiet)
     r = Renderer(scene, camera, config, settings, log=log, device=device)

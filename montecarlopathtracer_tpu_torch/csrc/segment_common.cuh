@@ -1,7 +1,8 @@
-// Vector helpers and the BSDF samplers of one path segment, shared by
-// the forward kernel (segment_fused.cu) and its vjp
-// (segment_backward.cu). Op for op the plain-torch samplers of
-// ops/sampling.py: every conditional selects a branch, every square
+// Vector helpers, the BSDF samplers and the epilogue of one path
+// segment, shared by the forward kernels (segment_fused.cu,
+// rows_segment.cu) and the vjp (segment_backward.cu). Op for op the
+// plain-torch samplers of ops/sampling.py and `_epilogue` of
+// ops/segment_fused.py: every conditional selects a branch, every square
 // root and division is guarded.
 //
 // Compile without --use_fast_math: Ns = 1000 lobes and grazing Fresnel
@@ -102,6 +103,112 @@ __device__ V3 sample_fresnel(float u, V3 normal, V3 indir, float tr, float ni) {
   return normalize(make(normal.x * out_alpha + indir.x * ni,
                         normal.y * out_alpha + indir.y * ni,
                         normal.z * out_alpha + indir.z * ni));
+}
+
+// The predicates [final_gather, do_rr, hard_kill] of lane r: flags is
+// f32[3, 1] (one set for the segment) or, with lane_flags, f32[3, R]
+// (one set per lane, as the regenerating wavefront mixes path depths).
+struct Flags {
+  bool fg, do_rr, hard_kill;
+};
+
+__device__ __forceinline__ Flags read_flags(const float* flags, int lane_flags, int R, int r) {
+  const size_t stride = lane_flags ? static_cast<size_t>(R) : 1;
+  const size_t i = lane_flags ? static_cast<size_t>(r) : 0;
+  return {flags[i] > 0.0f, flags[stride + i] > 0.0f, flags[2 * stride + i] > 0.0f};
+}
+
+// Segment options that are the same for every lane of a launch.
+struct SegOptions {
+  int mode_rr;
+  float illum, eps_offset;
+  int refract_kd, phong_reflect;
+};
+
+struct SegState {
+  V3 pos, dir, tput, res;
+  bool still;
+};
+
+// One live lane after its intersection: emission or final gather,
+// Russian roulette, one BSDF sample and the state update (`_epilogue`
+// in ops/segment_fused.py). The winner's t, beta, gamma and its 21
+// shading values `sh` (n0 n1 n2 Ka Kd Ks Ns Tr Ni) are passed in; on a
+// miss t = kBig, beta = gamma = 0 and sh is all zero, whose normals
+// become +Y and whose Ni becomes 1.
+__device__ __forceinline__ SegState segment_epilogue(V3 o, V3 d, V3 tp_in, V3 rs_in, bool hit,
+                                                     float t, float beta, float gamma,
+                                                     const float* sh, float v1, float v2,
+                                                     float vrr, Flags f, SegOptions opt) {
+  const V3 yhat = {0.0f, 1.0f, 0.0f};
+  const V3 n0 = hit ? make(sh[0], sh[1], sh[2]) : yhat;
+  const V3 n1 = hit ? make(sh[3], sh[4], sh[5]) : yhat;
+  const V3 n2 = hit ? make(sh[6], sh[7], sh[8]) : yhat;
+  const V3 ka = make(sh[9], sh[10], sh[11]);
+  const V3 kd = make(sh[12], sh[13], sh[14]);
+  const V3 ks = make(sh[15], sh[16], sh[17]);
+  const float ns = sh[18], tr = sh[19];
+  const float ni = hit ? sh[20] : 1.0f;
+
+  // Emission, final gather and Russian roulette.
+  V3 tp = tp_in;
+  bool dead_now = !hit;
+  if (opt.mode_rr) {
+    const float p = max_nan(max_nan(tp.x, tp.y), tp.z);
+    const bool survive = p > vrr;
+    const float pm = max_nan(p, 1e-20f);
+    if (f.do_rr && survive) tp = make(tp.x / pm, tp.y / pm, tp.z / pm);
+    dead_now = dead_now || (f.do_rr && !survive) || f.hard_kill;
+  }
+  const bool is_emit = ka.x > 0.0f || ka.y > 0.0f || ka.z > 0.0f;
+  const bool emit_now = !dead_now && (is_emit || f.fg);
+  const float il = opt.illum;
+  const V3 rs = emit_now ? make(tp.x * ka.x * il, tp.y * ka.y * il, tp.z * ka.z * il) : rs_in;
+  const bool still = !dead_now && !emit_now;
+
+  // Scatter: smooth normal, one BSDF sample, state update.
+  const float w0 = 1.0f - beta - gamma;
+  const V3 nrm = make(n0.x * w0 + n1.x * beta + n2.x * gamma,
+                      n0.y * w0 + n1.y * beta + n2.y * gamma,
+                      n0.z * w0 + n1.z * beta + n2.z * gamma);
+  const float nn = sqrtf(max_nan(dot(nrm, nrm), kEps * kEps));
+  const V3 normal = make(nrm.x / nn, nrm.y / nn, nrm.z / nn);
+
+  V3 new_dir, albedo;
+  if (tr > 0.0f) {
+    new_dir = sample_fresnel(v1, normal, d, tr, ni);
+    albedo = opt.refract_kd ? kd : make(1.0f, 1.0f, 1.0f);
+  } else if (ns > 1.0f) {
+    new_dir = opt.phong_reflect ? sample_phong_reflect(v1, v2, normal, d, ns)
+                                : sample_phong(v1, v2, normal, d, ns);
+    albedo = ks;
+  } else {
+    const V3 h = sample_hemi(v1, v2, normal);
+    new_dir = dot(d, normal) > 0.0f ? neg(h) : h;  // two-sided diffuse
+    albedo = kd;
+  }
+  const float th = hit ? t : 0.0f;
+  const float e = opt.eps_offset;
+  SegState out;
+  out.tput = still ? make(tp.x * albedo.x, tp.y * albedo.y, tp.z * albedo.z) : tp;
+  out.pos = still ? make(o.x + th * d.x + new_dir.x * e, o.y + th * d.y + new_dir.y * e,
+                         o.z + th * d.z + new_dir.z * e)
+                  : o;
+  out.dir = still ? new_dir : d;
+  out.res = rs;
+  out.still = still;
+  return out;
+}
+
+// Lane-major [3, R] loads and stores.
+__device__ __forceinline__ V3 load3(const float* p, int R, int r) {
+  return make(p[r], p[static_cast<size_t>(R) + r], p[2 * static_cast<size_t>(R) + r]);
+}
+
+__device__ __forceinline__ void store3(float* p, int R, int r, V3 v) {
+  p[r] = v.x;
+  p[static_cast<size_t>(R) + r] = v.y;
+  p[2 * static_cast<size_t>(R) + r] = v.z;
 }
 
 }  // namespace seg

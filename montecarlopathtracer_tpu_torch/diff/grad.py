@@ -12,8 +12,11 @@ same strategy, *detached sampling with path replay*:
   geometry (t, β, γ through the per-triangle transforms to the vertex
   positions; shading normals through the normal buffer);
 - each path segment's backward is the segment vjp kernel and the row
-  scatter (:func:`..ops.segment_fused.whole_segment_megakernel`), which
-  keep only the segment's inputs and winner index.
+  scatter (:func:`..ops.segment_fused.whole_segment_megakernel`, or
+  :func:`..ops.segment_fused.whole_segment_rows` on the traversal path),
+  which keep only the segment's inputs and winner index. On the
+  traversal path the row table is in Morton order, and its gradient
+  flows back through the permutation to the scene's fields.
 
 Parameters are a plain dict of :class:`ScenePack` fields
 (``split_params``), overlaid on the scene with ``merge_params``, so only
@@ -41,7 +44,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops.rng import Key, fold_in
-from ..render.integrator import TraceConfig, render_sample_batch
+from ..render.integrator import TraceConfig, render_sample_batch, scene_tables
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
 
@@ -85,10 +88,11 @@ def render_image(
     ``params``: the mean of ``spp`` sample batches under
     ``fold_in(key, i)``."""
     s = merge_params(scene, params)
+    tables = scene_tables(s, config)
     total = torch.zeros(height, width, 3, device=camera.device)
     for i in range(spp):
         total = total + render_sample_batch(s, camera, fold_in(key, i), width,
-                                            height, config)
+                                            height, config, tables)
     return total / spp
 
 

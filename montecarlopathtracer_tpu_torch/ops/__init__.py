@@ -1,2 +1,3 @@
 """Tensor ops and kernels: random streams, intersection, sampling,
-the whole-segment kernel, its vjp and the row scatter, and their build."""
+Morton orders, the whole-segment kernel, the segment from known winners,
+its vjp, the row scatter and the traversal walk, and their build."""

@@ -13,7 +13,9 @@ Forward (JAX ``mega_segment_fwd``, Pallas kernel ``_mega_segment_kernel``):
 - :func:`mega_segment` is the entry point. For CUDA tensors it launches
   the hand-written kernel ``csrc/segment_fused.cu``; for CPU tensors it
   runs :func:`mega_segment_ref`. It never falls back from one to the
-  other: a CUDA tensor that the kernel cannot take raises.
+  other: a CUDA tensor that the kernel cannot take raises. Flags may be
+  per segment f32[3, 1] (B1) or per lane f32[3, R] (B1l, JAX
+  ``lane_flags=True``, for the regenerating wavefront).
 - :func:`mega_segment_ref` is the plain-torch version: brute f32
   selection, a gather of the winner row, and :func:`_epilogue`.
 - :func:`pack_rows_full` builds the per-triangle row table f32[T, 48]
@@ -34,9 +36,20 @@ Gradient (JAX ``segment_backward`` / ``_make_whole_segment``):
   :func:`.scatter_rows.scatter_rows` of the row cotangents into the
   table. The winner index is piecewise constant and carries no gradient.
 
+Segment from known winners (JAX ``rows_segment_fwd``, Pallas kernel
+``_rows_segment_kernel``; the traversal path's epilogue):
+
+- :func:`rows_segment` launches ``csrc/rows_segment.cu`` for CUDA
+  tensors (B6, or B6l with per-lane flags) and runs
+  :func:`rows_segment_ref` (:func:`recompute_rows` + :func:`_epilogue`
+  on ``rows[idx]``) for CPU tensors.
+- :class:`WholeSegmentRows` / :func:`whole_segment_rows` is its
+  differentiable form, with the backward of :class:`WholeSegment`.
+
 Data contract (that of the JAX functions): ray state f32[3, R], ``live``
-bool[R], uniforms f32[R], flags f32[3, 1] = [final_gather, do_rr,
-hard_kill]. The forward returns (idx i32[R], new_pos, new_dir,
+bool[R], uniforms f32[R], flags f32[3, 1] or f32[3, R] = [final_gather,
+do_rr, hard_kill] (the vjp takes f32[3, 1] only: the regenerating
+wavefront renders without gradients, in JAX too). The forward returns (idx i32[R], new_pos, new_dir,
 new_tput, new_result f32[3, R], still f32[R]); a miss has idx = −1.
 Lanes that are not live come back with idx = −1 and their state passed
 through unchanged.
@@ -62,7 +75,8 @@ from .scatter_rows import scatter_rows
 
 _BIG = 3.0e38  # "no hit yet" distance; an accepted t must be below it
 _EPS = 1.19209290e-7  # FLT_EPSILON
-_REF_RAY_CHUNK = 8192  # rays per step of the plain selection ([rays, T])
+_REF_RAY_CHUNK = 8192  # rays per step of the plain selection ([rays, T]),
+_REF_PAIRS = 1 << 26  # fewer where rays x T would pass this many pairs
 MODES = ("fixed", "rr")
 PHONG_MODELS = ("blinn", "phong")
 
@@ -100,9 +114,10 @@ def _select_ref(rows: torch.Tensor, pos3: torch.Tensor, dir3: torch.Tensor):
     T = rows.shape[0]
     cols = torch.arange(T, device=rows.device)
     out_t, out_i, out_b, out_g = [], [], [], []
-    for s in range(0, pos3.shape[1], _REF_RAY_CHUNK):
-        o = pos3[:, s:s + _REF_RAY_CHUNK, None]
-        d = dir3[:, s:s + _REF_RAY_CHUNK, None]
+    step = max(1, min(_REF_RAY_CHUNK, _REF_PAIRS // max(T, 1)))
+    for s in range(0, pos3.shape[1], step):
+        o = pos3[:, s:s + step, None]
+        d = dir3[:, s:s + step, None]
 
         def prime(k):
             op = g[:, 4 * k] * o[0] + g[:, 4 * k + 1] * o[1] \
@@ -163,7 +178,8 @@ def _epilogue(
     ka, kd, ks = shade[9:12], shade[12:15], shade[15:18]
     ns, tr = shade[18], shade[19]
     ni = torch.where(hit, shade[20], 1.0)
-    fg, do_rr, hard_kill = flags[0, 0] > 0.0, flags[1, 0] > 0.0, flags[2, 0] > 0.0
+    # flags f32[3, 1] or per lane f32[3, R]: either row broadcasts.
+    fg, do_rr, hard_kill = flags[0] > 0.0, flags[1] > 0.0, flags[2] > 0.0
 
     miss = ~hit
     is_emit = (ka > 0.0).any(dim=0)
@@ -279,6 +295,31 @@ def segment_core_rows(
     )[:4]
 
 
+def gather_rows(rows, idx):
+    """The winners' rows, lane-major f32[48, R] (row 0 for a miss)."""
+    return rows.detach().T.contiguous()[:, idx.clamp_min(0).long()]
+
+
+def rows_segment_ref(
+    rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Plain-torch segment from known winners ``idx`` i32[R] (−1 = miss)
+    into ``rows`` f32[T, 48]: :func:`recompute_rows` and :func:`_epilogue`
+    on ``rows[idx]``. Returns (new_pos, new_dir, new_tput, new_res f32[3, R],
+    still f32[R])."""
+    _check_options(mode, phong_model)
+    hit = idx >= 0
+    t, beta, gamma, shade = recompute_rows(gather_rows(rows, idx), hit, pos3, dir3)
+    *out, still = _epilogue(
+        pos3, dir3, tput, res, t, beta, gamma, shade, hit=hit, act=live,
+        u1=u1, u2=u2, urr=urr, flags=flags, mode=mode, illum=illum,
+        eps_offset=eps_offset, refract_kd=refract_kd, phong_model=phong_model,
+    )
+    return (*out, still.to(torch.float32))
+
+
 def segment_backward_ref(
     pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
     ct_npos, ct_ndir, ct_ntput, ct_nres, *,
@@ -313,10 +354,27 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [
         _P, ctypes.c_int,  # rows, T
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # pos, dir, tput, res, live, u1, u2, urr, flags
-        ctypes.c_int,  # R
+        ctypes.c_int, ctypes.c_int,  # lane_flags, R
         ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
         ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
         _P, _P, _P, _P, _P, _P,  # idx, npos, ndir, ntput, nres, still
+        _P,  # stream
+    ]
+    return lib
+
+
+@functools.cache
+def _rows_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("rows_segment")
+    fn = lib.rows_segment_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        _P, _P,  # rows, idx
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # pos, dir, tput, res, live, u1, u2, urr, flags
+        ctypes.c_int, ctypes.c_int,  # lane_flags, R
+        ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
+        ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
+        _P, _P, _P, _P, _P,  # npos, ndir, ntput, nres, still
         _P,  # stream
     ]
     return lib
@@ -340,10 +398,10 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_vectors(dev, R, vec3, vec1, masks, flags) -> None:
+def _check_vectors(dev, R, vec3, vec1, masks, flags, lane_flags_ok=False) -> None:
     """Device, contiguity, dtype and shape checks shared by the kernel
     wrappers: f32[3, R] state, f32[R] uniforms, bool[R] masks, flags
-    f32[3, 1]."""
+    f32[3, 1] (or f32[3, R] where ``lane_flags_ok``)."""
     for x in (*vec3, *vec1, *masks, flags):
         if x.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {x.device}")
@@ -361,8 +419,10 @@ def _check_vectors(dev, R, vec3, vec1, masks, flags) -> None:
     for x in (*vec1, *masks):
         if tuple(x.shape) != (R,):
             raise ValueError(f"expected [{R}], got {tuple(x.shape)}")
-    if tuple(flags.shape) != (3, 1):
-        raise ValueError(f"flags must be [3, 1], got {tuple(flags.shape)}")
+    shapes = ((3, 1), (3, R)) if lane_flags_ok else ((3, 1),)
+    if tuple(flags.shape) not in shapes:
+        raise ValueError(f"flags must be {' or '.join(map(str, shapes))}, "
+                         f"got {tuple(flags.shape)}")
     if R >= 2**31:
         raise ValueError("R must fit in int32")
 
@@ -370,7 +430,8 @@ def _check_vectors(dev, R, vec3, vec1, masks, flags) -> None:
 def _check_cuda_inputs(rows, vec3, vec1, live, flags) -> None:
     if rows.device != vec3[0].device:
         raise ValueError(f"all inputs must be on {vec3[0].device}, got {rows.device}")
-    _check_vectors(rows.device, vec3[0].shape[1], vec3, vec1, (live,), flags)
+    _check_vectors(rows.device, vec3[0].shape[1], vec3, vec1, (live,), flags,
+                   lane_flags_ok=True)
     if not rows.is_contiguous():
         raise ValueError("all inputs must be contiguous")
     if rows.dtype != torch.float32:
@@ -401,7 +462,7 @@ def _mega_segment_cuda(
             rows.data_ptr(), rows.shape[0],
             pos3.data_ptr(), dir3.data_ptr(), tput.data_ptr(), res.data_ptr(),
             live.data_ptr(), u1.data_ptr(), u2.data_ptr(), urr.data_ptr(),
-            flags.data_ptr(), R,
+            flags.data_ptr(), int(flags.shape[1] != 1), R,
             int(mode == "rr"), float(illum), float(eps_offset),
             int(bool(refract_kd)), int(phong_model == "phong"),
             idx.data_ptr(), npos.data_ptr(), ndir.data_ptr(),
@@ -411,6 +472,7 @@ def _mega_segment_cuda(
     if err != 0:
         raise RuntimeError(f"mega_segment kernel launch failed: cudaError {err}")
     mega_segment.launches += 1
+    mega_segment.lane_launches += flags.shape[1] != 1
     return idx, npos, ndir, ntput, nres, still
 
 
@@ -420,8 +482,9 @@ def mega_segment(
     refract_kd: bool = True, phong_model: str = "blinn",
 ):
     """Whole-segment forward (see the module docstring). CUDA tensors
-    launch the kernel and add one to ``mega_segment.launches``; CPU
-    tensors run :func:`mega_segment_ref`."""
+    launch the kernel and add one to ``mega_segment.launches`` (and to
+    ``mega_segment.lane_launches`` for per-lane flags); CPU tensors run
+    :func:`mega_segment_ref`."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
               refract_kd=refract_kd, phong_model=phong_model)
     args = (rows, pos3, dir3, tput, res, live, u1, u2, urr, flags)
@@ -432,7 +495,66 @@ def mega_segment(
     raise ValueError(f"no segment kernel for device {pos3.device}")
 
 
-mega_segment.launches = 0
+mega_segment.launches = 0  # kernel launches, per-lane flags included
+mega_segment.lane_launches = 0  # of which with per-lane flags (B1l)
+
+
+def _rows_segment_cuda(
+    rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
+    mode, illum, eps_offset, refract_kd, phong_model,
+):
+    _check_options(mode, phong_model)
+    _check_cuda_inputs(rows, (pos3, dir3, tput, res), (u1, u2, urr), live, flags)
+    R = pos3.shape[1]
+    if idx.device != pos3.device or idx.dtype != torch.int32 \
+            or tuple(idx.shape) != (R,) or not idx.is_contiguous():
+        raise ValueError(f"idx must be a contiguous int32 [{R}] tensor on {pos3.device}")
+    npos, ndir, ntput, nres = (torch.empty_like(pos3) for _ in range(4))
+    still = torch.empty(R, dtype=torch.float32, device=pos3.device)
+    lib = _rows_lib()
+    with torch.cuda.device(pos3.device):
+        stream = torch.cuda.current_stream(pos3.device).cuda_stream
+        err = lib.rows_segment_launch(
+            rows.data_ptr(), idx.data_ptr(),
+            pos3.data_ptr(), dir3.data_ptr(), tput.data_ptr(), res.data_ptr(),
+            live.data_ptr(), u1.data_ptr(), u2.data_ptr(), urr.data_ptr(),
+            flags.data_ptr(), int(flags.shape[1] != 1), R,
+            int(mode == "rr"), float(illum), float(eps_offset),
+            int(bool(refract_kd)), int(phong_model == "phong"),
+            npos.data_ptr(), ndir.data_ptr(), ntput.data_ptr(), nres.data_ptr(),
+            still.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rows_segment kernel launch failed: cudaError {err}")
+    rows_segment.launches += 1
+    rows_segment.lane_launches += flags.shape[1] != 1
+    return npos, ndir, ntput, nres, still
+
+
+def rows_segment(
+    rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Segment from known winners (JAX ``rows_segment_fwd``): the winners
+    ``idx`` i32[R] index ``rows`` f32[T, 48]; flags f32[3, 1] or f32[3, R].
+    Returns (new_pos, new_dir, new_tput, new_res f32[3, R], still f32[R]).
+    CUDA tensors launch ``csrc/rows_segment.cu`` (which reads the
+    winners' rows itself) and add one to ``rows_segment.launches`` (and
+    to ``rows_segment.lane_launches`` for per-lane flags); CPU tensors
+    run :func:`rows_segment_ref`."""
+    kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
+              refract_kd=refract_kd, phong_model=phong_model)
+    args = (rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags)
+    if pos3.device.type == "cuda":
+        return _rows_segment_cuda(*args, **kw)
+    if pos3.device.type == "cpu":
+        return rows_segment_ref(*args, **kw)
+    raise ValueError(f"no rows_segment kernel for device {pos3.device}")
+
+
+rows_segment.launches = 0  # kernel launches, per-lane flags included
+rows_segment.lane_launches = 0  # of which with per-lane flags (B6l)
 
 
 def _segment_backward_cuda(
@@ -518,19 +640,23 @@ class WholeSegment(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _idx, ct_npos, ct_ndir, ct_ntput, ct_nres, _still):
-        idx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags = ctx.saved_tensors
-        hit = idx >= 0
-        # One gather of whole winner rows, lane-major as the kernel reads them.
-        full = rows.detach().T.contiguous()[:, idx.clamp_min(0).long()]
-        d_pos, d_dir, d_tput, d_res, d_full = segment_backward(
-            pos3, dir3, tput, res, live, hit, full, u1, u2, urr, flags,
-            *(c.contiguous() for c in (ct_npos, ct_ndir, ct_ntput, ct_nres)),
-            **ctx.kw,
-        )
-        d_rows = scatter_rows(idx, d_full, rows.shape[0]) \
-            if ctx.needs_input_grad[0] else None
-        return (d_rows, d_pos, d_dir, d_tput, d_res,
-                None, None, None, None, None, None)
+        d_rows, d_state = _segment_vjp(ctx, (ct_npos, ct_ndir, ct_ntput, ct_nres))
+        return (d_rows, *d_state, None, None, None, None, None, None)
+
+
+def _segment_vjp(ctx, cts):
+    """The backward shared by :class:`WholeSegment` and
+    :class:`WholeSegmentRows`: one gather of whole winner rows (lane-major,
+    as the vjp kernel reads them), :func:`segment_backward`, and
+    :func:`scatter_rows` when ``rows`` needs a gradient. Returns (d_rows,
+    (d_pos, d_dir, d_tput, d_res))."""
+    idx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags = ctx.saved_tensors
+    d_pos, d_dir, d_tput, d_res, d_full = segment_backward(
+        pos3, dir3, tput, res, live, idx >= 0, gather_rows(rows, idx),
+        u1, u2, urr, flags, *(c.contiguous() for c in cts), **ctx.kw,
+    )
+    d_rows = scatter_rows(idx, d_full, rows.shape[0]) if ctx.needs_input_grad[0] else None
+    return d_rows, (d_pos, d_dir, d_tput, d_res)
 
 
 def whole_segment_megakernel(
@@ -546,3 +672,40 @@ def whole_segment_megakernel(
               refract_kd=bool(refract_kd), phong_model=phong_model)
     return WholeSegment.apply(rows, pos3, dir3, tput, res, live, u1, u2, urr,
                               flags, kw)
+
+
+class WholeSegmentRows(torch.autograd.Function):
+    """The differentiable segment from known winners (JAX
+    ``_make_whole_segment_rows``), the traversal path's: forward
+    :func:`rows_segment` on the detached index, backward that of
+    :class:`WholeSegment` (a gather of the winner rows, B2 and B3)."""
+
+    @staticmethod
+    def forward(ctx, rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags, kw):
+        out = rows_segment(rows, idx, pos3, dir3, tput, res, live, u1, u2,
+                           urr, flags, **kw)
+        ctx.save_for_backward(idx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(out[4])
+        return out
+
+    @staticmethod
+    def backward(ctx, ct_npos, ct_ndir, ct_ntput, ct_nres, _still):
+        d_rows, d_state = _segment_vjp(ctx, (ct_npos, ct_ndir, ct_ntput, ct_nres))
+        return (d_rows, None, *d_state, None, None, None, None, None, None)
+
+
+def whole_segment_rows(
+    rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Differentiable segment from known winners (JAX
+    ``whole_segment_rows``): the outputs of :func:`rows_segment`, with
+    gradients to ``rows`` and the ray state through
+    :class:`WholeSegmentRows`. ``idx`` carries none."""
+    _check_options(mode, phong_model)
+    kw = dict(mode=mode, illum=float(illum), eps_offset=float(eps_offset),
+              refract_kd=bool(refract_kd), phong_model=phong_model)
+    return WholeSegmentRows.apply(rows, idx, pos3, dir3, tput, res, live, u1, u2,
+                                  urr, flags, kw)

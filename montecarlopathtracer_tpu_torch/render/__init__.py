@@ -1,1 +1,1 @@
-"""Integrator, film and the progressive renderer."""
+"""Integrator, regenerating wavefront, film and the progressive renderer."""

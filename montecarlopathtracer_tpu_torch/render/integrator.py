@@ -1,19 +1,39 @@
 """Wavefront path-tracing integrator (SoA layout).
 
 The counterpart of ``montecarlopathtracer_tpu/render/integrator.py`` on
-its whole-segment megakernel path. All R rays advance one path segment
-per step; terminated lanes are masked. Each step is ONE call of
-:func:`..ops.segment_fused.mega_segment` (a kernel launch for CUDA
-tensors), and the steps are a Python loop.
+its whole-segment paths. All R rays advance one path segment per step;
+terminated lanes are masked; the steps are a Python loop. Intersectors
+(``TraceConfig.intersector``):
+
+- ``"megakernel"``: each step is ONE call of
+  :func:`..ops.segment_fused.mega_segment` (kernel B1: brute nearest hit
+  and the whole segment; a launch for CUDA tensors);
+- ``"traverse"``, for large scenes: the triangle table is in Morton
+  order, and each step is :func:`..ops.traverse_walk.traverse_select`
+  (kernel B5: a per-tile walk over reachable chunks, front to back, with
+  early exit) followed by :func:`..ops.segment_fused.rows_segment`
+  (kernel B6: the segment from the known winners).
+
+The scene-side tables (the row table, and for ``"traverse"`` the Morton
+permutation and the chunk boxes) are built once per scene and device by
+:func:`scene_tables`; pass them to reuse them across calls.
+
+``ray_sort``: each step first sorts the wavefront by
+:func:`..ops.morton.ray_sort_keys` (origin Morton code and direction
+octant; lanes that are not live last), so that a tile of the walk holds
+coherent rays and dead tiles are skipped at once. Rays carry their
+original id and draw their own random streams, so the estimator is
+bit-identical to the unsorted trace.
 
 Gradients: when autograd is on (``torch.is_grad_enabled()``), each step
-runs through :func:`..ops.segment_fused.whole_segment_megakernel`
-instead, whose backward is the segment vjp kernel and the row scatter
-(detached sampling with path replay, as in the JAX package's
-``diff/grad.py``). The backward keeps only each segment's inputs and
-winner index and recomputes the rest from them, so the JAX package's
-``remat_segments`` policies have nothing further to save here. Under
-``torch.no_grad()`` (the :class:`Renderer`) no graph is built.
+runs through :func:`..ops.segment_fused.whole_segment_megakernel` or
+:func:`..ops.segment_fused.whole_segment_rows` instead, whose backward is
+the segment vjp kernel and the row scatter (detached sampling with path
+replay, as in the JAX package's ``diff/grad.py``). The backward keeps
+only each segment's inputs and winner index and recomputes the rest from
+them, so the JAX package's ``remat_segments`` policies have nothing
+further to save here. Under ``torch.no_grad()`` (the :class:`Renderer`)
+no graph is built.
 
 Termination strategies (:class:`TraceConfig`):
 
@@ -34,13 +54,19 @@ ray tile ``i`` (``ray_chunk``) traces under ``fold_in(key, (1<<29)+i)``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from ..ops import segment_fused as F
+from ..ops import traverse_walk as TW
+from ..ops.morton import DEAD_KEY, chunk_aabbs_padded, morton_order, ray_sort_keys
 from ..ops.rng import Key, fold_in, stream_uniform
-from ..ops.segment_fused import mega_segment, pack_rows_full, whole_segment_megakernel
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
+
+INTERSECTORS = ("megakernel", "traverse")
+_UNPORTED = ("fused", "brute", "kdtree")  # ROADMAP B4, B7 and A8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,14 +80,24 @@ class TraceConfig:
     eps_offset: float = 0.01  # self-intersection offset
     refract_kd: bool = True  # CUDA multiplies Kd on refract; HLSL doesn't
     phong_model: str = "blinn"  # "blinn" (half-vector) or "phong"
-    intersector: str = "megakernel"
+    intersector: str = "megakernel"  # or "traverse" (large scenes)
+    ray_sort: bool = False  # sort the wavefront each segment
+    chunk_cull: bool = False  # not ported (kernel B1c)
     ray_chunk: int = 0  # rays per wavefront tile; 0 = whole frame
 
     def __post_init__(self):
-        if self.intersector != "megakernel":
+        if self.intersector in _UNPORTED:
             raise NotImplementedError(
-                f"intersector {self.intersector!r} is not ported yet; only "
-                "'megakernel' is (see ROADMAP.md, queue A8 and B4-B7)"
+                f"intersector {self.intersector!r} is not ported yet; "
+                f"{' and '.join(map(repr, INTERSECTORS))} are (see ROADMAP.md, "
+                "queues A8 and B4-B7)"
+            )
+        if self.intersector not in INTERSECTORS:
+            raise ValueError(f"unknown intersector {self.intersector!r}")
+        if self.chunk_cull:
+            raise NotImplementedError(
+                "chunk_cull (kernel B1c) is not ported yet; use "
+                "intersector='traverse' (see ROADMAP.md, queue B1)"
             )
         if self.mode not in ("fixed", "rr"):
             raise ValueError(f"unknown mode {self.mode!r}")
@@ -85,6 +121,70 @@ class TraceConfig:
                 flags[s, 2] = float(s >= 3 * self.rr_depth)
         return flags.to(device)
 
+    def lane_flags(self, depth: torch.Tensor) -> torch.Tensor:
+        """f32[3, R]: the flags of :meth:`segment_flags` per lane, for
+        lanes at path depth ``depth`` i64[R]."""
+        zero = torch.zeros(depth.shape, device=depth.device)
+        if self.mode == "fixed":
+            return torch.stack([(depth == self.max_depth).float(), zero, zero])
+        rr = self.rr_depth
+        return torch.stack([zero, ((depth >= rr) & (depth < 3 * rr)).float(),
+                            (depth >= 3 * rr).float()])
+
+    def kernel_options(self) -> dict:
+        return dict(mode=self.mode, illum=self.illum, eps_offset=self.eps_offset,
+                    refract_kd=self.refract_kd, phong_model=self.phong_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneTables:
+    """What the segment kernels read of a scene, on its device."""
+
+    rows: torch.Tensor  # f32[T, 48] pack_rows_full; Morton order for "traverse"
+    perm: Optional[torch.Tensor] = None  # i64[T] the Morton order ("traverse")
+    clo: Optional[torch.Tensor] = None  # f32[nc, 3] chunk boxes ("traverse")
+    chi: Optional[torch.Tensor] = None
+    lo: Optional[torch.Tensor] = None  # f32[3] scene box (ray_sort)
+    hi: Optional[torch.Tensor] = None
+
+
+def scene_tables(scene: ScenePack, config: TraceConfig) -> SceneTables:
+    """Build the scene's :class:`SceneTables` for ``config``. The row
+    table carries gradients to the scene's fields; the permutation and
+    boxes, which only choose which triangles are tested, do not."""
+    rows = F.pack_rows_full(scene)
+    extra = {}
+    with torch.no_grad():
+        if config.ray_sort:
+            extra["lo"], extra["hi"] = scene.aabb()
+        if config.intersector == "traverse":
+            a, b, c = scene.triangle_vertices()
+            perm = morton_order(a, b, c, scene.tri_valid)
+            extra["clo"], extra["chi"] = chunk_aabbs_padded(
+                a, b, c, scene.tri_valid, perm, TW.CHUNK)
+            extra["perm"] = perm
+    if config.intersector == "traverse":
+        rows = rows[extra["perm"]]
+    return SceneTables(rows=rows, **extra)
+
+
+def segment_step(tables: SceneTables, config: TraceConfig, pos, dir_, tput, res,
+                 live, u1, u2, urr, flags):
+    """One path segment of every lane: (new_pos, new_dir, new_tput,
+    new_res f32[3, R], still f32[R]). ``flags`` is f32[3, 1] or, for the
+    regenerating wavefront, f32[3, R]. Differentiable when autograd is on
+    (scalar flags only)."""
+    kw = config.kernel_options()
+    grad = torch.is_grad_enabled()
+    if config.intersector == "traverse":
+        idx = TW.traverse_select(tables.rows.detach(), tables.clo, tables.chi,
+                                 pos.detach(), dir_.detach(), live)
+        segment = F.whole_segment_rows if grad else F.rows_segment
+        return segment(tables.rows, idx, pos, dir_, tput, res, live, u1, u2, urr,
+                       flags, **kw)
+    segment = F.whole_segment_megakernel if grad else F.mega_segment
+    return segment(tables.rows, pos, dir_, tput, res, live, u1, u2, urr, flags, **kw)[1:]
+
 
 def trace_radiance_soa(
     scene: ScenePack,
@@ -92,34 +192,52 @@ def trace_radiance_soa(
     dir3: torch.Tensor,  # f32[3, R] unit
     key: Key,
     config: TraceConfig,
-    rows: torch.Tensor = None,
+    tables: Optional[SceneTables] = None,
 ) -> torch.Tensor:
     """Estimate radiance along R rays. Returns f32[3, R].
 
-    ``rows`` is :func:`pack_rows_full` of ``scene``; pass it to reuse
-    one table across calls."""
+    ``tables`` is :func:`scene_tables` of ``scene``; pass it to reuse it
+    across calls."""
     dev = pos3.device
     R = pos3.shape[1]
-    if rows is None:
-        rows = pack_rows_full(scene)
+    if tables is None:
+        tables = scene_tables(scene, config)
+    if config.ray_sort and R >= 2**24:
+        # Ray ids ride the sort's gather as f32, exact below 2^24.
+        raise ValueError(f"ray_sort supports wavefronts < 2^24 rays, got {R}; "
+                         "tile the frame with TraceConfig.ray_chunk")
     flags = config.segment_flags(dev)
     pos = pos3.contiguous()
     dir_ = dir3.contiguous()
     tput = torch.ones(3, R, device=dev)
     result = torch.zeros(3, R, device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
+    rid = torch.arange(R, device=dev)
     urr = torch.zeros(R, device=dev)
-    kw = dict(mode=config.mode, illum=config.illum, eps_offset=config.eps_offset,
-              refract_kd=config.refract_kd, phong_model=config.phong_model)
-    segment = whole_segment_megakernel if torch.is_grad_enabled() else mega_segment
+
+    def draw(sid):
+        u = stream_uniform(key, sid, R, dev)
+        return u[rid] if config.ray_sort else u
+
     for seg in range(config.num_segments):
-        u1 = stream_uniform(key, seg * 4 + 0, R, dev)
-        u2 = stream_uniform(key, seg * 4 + 1, R, dev)
+        if config.ray_sort:
+            keys = torch.where(active, ray_sort_keys(pos, dir_, tables.lo, tables.hi),
+                               DEAD_KEY)
+            order = torch.argsort(keys, stable=True)
+            # One gather of the 14 state rows; the ray id rides as f32.
+            state = torch.cat([pos, dir_, tput, result, active[None].float(),
+                               rid[None].float()])[:, order]
+            pos, dir_, tput, result = state[0:3], state[3:6], state[6:9], state[9:12]
+            active, rid = state[12] > 0.0, state[13].long()
+        u1 = draw(seg * 4 + 0)
+        u2 = draw(seg * 4 + 1)
         if config.mode == "rr":
-            urr = stream_uniform(key, seg * 4 + 3, R, dev)
-        _, pos, dir_, tput, result, still = segment(
-            rows, pos, dir_, tput, result, active, u1, u2, urr, flags[seg], **kw)
+            urr = draw(seg * 4 + 3)
+        pos, dir_, tput, result, still = segment_step(
+            tables, config, pos, dir_, tput, result, active, u1, u2, urr, flags[seg])
         active = still > 0.0
+    if config.ray_sort:  # back to the rays' own order
+        result = torch.zeros_like(result).index_copy(1, rid, result)
     return result
 
 
@@ -132,7 +250,7 @@ def render_rows_planar(
     y0: int,
     n_rows: int,
     config: TraceConfig,
-    rows: torch.Tensor = None,
+    tables: Optional[SceneTables] = None,
 ) -> torch.Tensor:
     """One sample per pixel for image rows [y0, y0+n_rows). Returns
     planar f32[3, n_rows, W]."""
@@ -144,12 +262,12 @@ def render_rows_planar(
     jx = stream_uniform(key, 1 << 30, R, dev) * 2.0 - 1.0
     jy = stream_uniform(key, (1 << 30) + 1, R, dev) * 2.0 - 1.0
     pos3, dir3 = camera.generate_rays_soa(xs, ys, jx, jy, width, height)
-    if rows is None:
-        rows = pack_rows_full(scene)
+    if tables is None:
+        tables = scene_tables(scene, config)
 
     rc = config.ray_chunk
     if rc <= 0 or rc >= R:
-        radiance = trace_radiance_soa(scene, pos3, dir3, key, config, rows)
+        radiance = trace_radiance_soa(scene, pos3, dir3, key, config, tables)
     else:
         # Ray tiles trace one after another; the padded tail rays start
         # at the origin looking +z, as in the JAX package.
@@ -161,7 +279,7 @@ def render_rows_planar(
         tiles = [
             trace_radiance_soa(
                 scene, pos3[:, s:s + rc], dir3[:, s:s + rc],
-                fold_in(key, (1 << 29) + i), config, rows,
+                fold_in(key, (1 << 29) + i), config, tables,
             )
             for i, s in enumerate(range(0, R + pad, rc))
         ]
@@ -176,8 +294,9 @@ def render_sample_batch(
     width: int,
     height: int,
     config: TraceConfig,
+    tables: Optional[SceneTables] = None,
 ) -> torch.Tensor:
     """One sample per pixel over the full frame. Returns f32[H, W, 3]."""
     return render_rows_planar(
-        scene, camera, key, width, height, 0, height, config
+        scene, camera, key, width, height, 0, height, config, tables
     ).permute(1, 2, 0)

@@ -9,7 +9,9 @@ keys, so a checkpoint from either package resumes in the other.
 
 The key chain is the JAX package's: pass ``p`` renders under
 ``fold_in(make_key(seed), p)`` and its sample ``i`` under
-``fold_in(pass_key, i)``.
+``fold_in(pass_key, i)``. A regenerating-wavefront pass
+(``RenderSettings.regen``) renders its ``spp_per_pass`` samples as one
+persistent wavefront under the pass key (:mod:`.regen`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import numpy as np
 import torch
 
 from ..ops.rng import fold_in, make_key
-from ..ops.segment_fused import pack_rows_full
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
 from ..utils.image import save_png
@@ -36,7 +37,8 @@ from .film import (
     tonemap_identity,
     tonemap_linear,
 )
-from .integrator import TraceConfig, render_rows_planar
+from .integrator import TraceConfig, render_rows_planar, scene_tables
+from .regen import render_regen_planar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,14 +56,9 @@ class RenderSettings:
     preview: bool = False  # with step_dir: also keep `preview.png`
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 0  # passes between checkpoints (0 = off)
-    regen: bool = False  # regenerating wavefront: not ported yet
-
-    def __post_init__(self):
-        if self.regen:
-            raise NotImplementedError(
-                "regenerating-wavefront passes are not ported yet (see "
-                "ROADMAP.md, queue A7)"
-            )
+    regen: bool = False  # regenerating-wavefront passes (render/regen.py):
+    # lanes restart the next sample the step their path ends. Unbiased,
+    # but not pass-exact against the scan for spp_per_pass > 1.
 
 
 class Renderer:
@@ -83,7 +80,7 @@ class Renderer:
         self.config = config
         self.settings = settings
         self.log = log or RenderLog(enabled=False)
-        self.rows = pack_rows_full(self.scene)
+        self.tables = scene_tables(self.scene, config)
         self.film = Film.zeros(settings.height, settings.width, self.device)
         self.pass_idx = 0
         if settings.checkpoint_path and os.path.exists(settings.checkpoint_path):
@@ -134,15 +131,19 @@ class Renderer:
         """One pass: the mean of ``spp_per_pass`` full-frame samples,
         folded into the film with weight ``spp_per_pass``."""
         s = self.settings
-        total = torch.zeros(3, s.height, s.width, device=self.device)
-        for i in range(s.spp_per_pass):
-            total += render_rows_planar(
-                self.scene, self.camera, fold_in(key, i), s.width, s.height,
-                0, s.height, self.config, self.rows,
-            )
+        if s.regen:
+            mean = render_regen_planar(self.scene, self.camera, key, s.width, s.height,
+                                       s.spp_per_pass, self.config, self.tables)
+        else:
+            total = torch.zeros(3, s.height, s.width, device=self.device)
+            for i in range(s.spp_per_pass):
+                total += render_rows_planar(
+                    self.scene, self.camera, fold_in(key, i), s.width, s.height,
+                    0, s.height, self.config, self.tables,
+                )
+            mean = total / s.spp_per_pass
         update = film_update_gamma if s.accum == "gamma" else film_update
-        return update(self.film, total.permute(1, 2, 0) / s.spp_per_pass,
-                      float(s.spp_per_pass))
+        return update(self.film, mean.permute(1, 2, 0), float(s.spp_per_pass))
 
     def render(self, passes: Optional[int] = None) -> Film:
         """Run progressive passes (resuming from ``self.pass_idx``)."""

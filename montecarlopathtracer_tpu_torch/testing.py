@@ -7,6 +7,8 @@ winners for a ray that grazes a triangle edge or meets two triangles at
 the same distance; :func:`compare_segment` allows those near-ties on a
 small share of lanes and holds every other output to a tolerance, with
 the same small share of ill-conditioned lanes held to a looser one.
+:func:`compare_winners` holds the traversal walk's winners to brute
+selection's with the same near-tie allowance.
 :func:`compare_images` holds whole frames to a pixel share.
 :func:`compare_grads` holds the cotangents of one segment's vjp,
 :func:`compare_scatter` the row scatter's table, and
@@ -132,6 +134,31 @@ def compare_segment(a, b, *, live, rows, pos, dir_, tol=None) -> dict:
     return report
 
 
+def compare_winners(got, want, *, live, rows, pos, dir_) -> dict:
+    """Two selections of winner indices ``idx`` i32[R] for the same rays
+    (the traversal walk against brute selection): equal on at least 99.9%
+    of live lanes, and every live lane where they differ a near-tie.
+    ``max_t_gap`` is the largest distance, in float64, between the two
+    winners' hit distances on those lanes (0 where all agree)."""
+    got, want = _np(got), _np(want)
+    live = _np(live).astype(bool)
+    rows, pos, dir_ = _np(rows), _np(pos), _np(dir_)
+    n_live = int(live.sum())
+    diff = live & (got != want)
+    ties = near_ties(rows, pos[:, diff], dir_[:, diff], got[diff], want[diff])
+    ta, _ = _hit64(rows, pos[:, diff], dir_[:, diff], got[diff])
+    tb, _ = _hit64(rows, pos[:, diff], dir_[:, diff], want[diff])
+    with np.errstate(invalid="ignore"):
+        gaps = np.abs(ta - tb)
+    agree = 1.0 - diff.sum() / max(n_live, 1)
+    rep = {"n_live": n_live, "idx_agree": float(agree), "n_idx_mismatch": int(diff.sum()),
+           "mismatches_all_near_ties": bool(ties.all()),
+           "max_t_gap": float(np.nanmax(gaps, initial=0.0)),
+           "dead_lanes_miss": bool((got[~live] == -1).all())}
+    rep["ok"] = bool(agree >= MIN_IDX_AGREEMENT and ties.all() and rep["dead_lanes_miss"])
+    return rep
+
+
 def compare_images(got, want) -> dict:
     """Two renders f32[H, W, 3] of the same key: at least 99% of pixels
     within 1e-4 (max over channels), frame means within 1e-3 relative,
@@ -187,8 +214,9 @@ def compare_grads(want, got, *, lanes=None, tol=GRAD_TOL) -> dict:
 
 
 def compare_scatter(want, got, bound, ulps=SCATTER_ULPS) -> dict:
-    """Two row scatters f32[T, 48] of the same rays, summed in different
-    orders. ``bound`` is the plain scatter of ``|dvals|``: each entry's
+    """Two row scatters [T, 48] of the same rays, summed in different
+    orders; ``want`` may be the exact sums (the plain scatter in f64).
+    ``bound`` is the plain scatter of ``|dvals|``: each entry's
     sum of magnitudes, which bounds how far f32 rounding can move it.
     Every entry must be finite and within ``ulps · eps32 · bound``, so a
     row of small entries is held to its own scale, not the table's
@@ -222,18 +250,24 @@ def compare_param_grads(want, got, tol) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel wrapper of the port (forward segment, segment
-    backward, row scatter) to its plain-torch version, on any device,
-    for the duration of the block."""
+    """Route every kernel wrapper of the port (segment forward, segment
+    from known winners, traversal walk, segment backward, row scatter)
+    to its plain-torch version, on any device, for the duration of the
+    block."""
     from .ops import scatter_rows as S
     from .ops import segment_fused as F
-    from .render import integrator
+    from .ops import traverse_walk as TW
 
-    saved = (F.mega_segment, F.segment_backward, F.scatter_rows, integrator.mega_segment)
-    F.mega_segment = integrator.mega_segment = F.mega_segment_ref
-    F.segment_backward = F.segment_backward_ref
-    F.scatter_rows = S.scatter_rows_ref
+    routes = [(F, "mega_segment", F.mega_segment_ref),
+              (F, "rows_segment", F.rows_segment_ref),
+              (F, "segment_backward", F.segment_backward_ref),
+              (F, "scatter_rows", S.scatter_rows_ref),
+              (TW, "traverse_select", TW.traverse_select_ref)]
+    saved = [getattr(mod, name) for mod, name, _ in routes]
+    for mod, name, plain in routes:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        F.mega_segment, F.segment_backward, F.scatter_rows, integrator.mega_segment = saved
+        for (mod, name, _), fn in zip(routes, saved):
+            setattr(mod, name, fn)

@@ -1,8 +1,10 @@
-"""The port's CUDA kernels on the card (the segment forward, its vjp and
-the row scatter): each builds, launches, agrees with its plain-torch
-version, counts its launches and refuses what it cannot take; a
-gradient render through the kernels agrees with the plain path. Every test here needs an NVIDIA Hopper GPU and nvcc, and skips
-elsewhere. This file imports no JAX; run it on the GPU machine, from the
+"""The port's CUDA kernels on the card (the segment forward with scalar
+and per-lane flags, its vjp, the row scatter, the traversal walk and the
+segment from known winners): each builds, launches, agrees with its
+plain-torch version, counts its launches and refuses what it cannot
+take; gradient, traversal and regen renders through the kernels agree
+with the plain path. Every test here needs an NVIDIA Hopper GPU and
+nvcc, and skips elsewhere. This file imports no JAX; run it on the GPU machine, from the
 repository root, without the JAX-pinning conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -12,20 +14,24 @@ import pytest
 import torch
 
 from montecarlopathtracer_tpu_torch.diff import grad as G
-from montecarlopathtracer_tpu_torch.models import cornell
+from montecarlopathtracer_tpu_torch.models import bunny, cornell
 from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
 from montecarlopathtracer_tpu_torch.render.integrator import (
     TraceConfig,
     render_sample_batch,
+    scene_tables,
 )
+from montecarlopathtracer_tpu_torch.render.regen import render_regen_batch
 from montecarlopathtracer_tpu_torch.testing import (
     compare_grads,
     compare_images,
     compare_param_grads,
     compare_scatter,
     compare_segment,
+    compare_winners,
     plain_kernels,
 )
 
@@ -146,8 +152,10 @@ def test_scatter_rows_kernel_matches_plain(card, T):
     got = S.scatter_rows(idx, dvals, T)
     torch.cuda.synchronize()
     assert S.scatter_rows.launches == before + 1
-    want = S.scatter_rows_ref(idx, dvals, T)
-    rep = compare_scatter(want, got, S.scatter_rows_ref(idx, dvals.abs(), T))
+    # Against the exact sums: the plain f32 index_add_ adds with atomics
+    # in no fixed order too.
+    want = S.scatter_rows_ref(idx, dvals.double(), T)
+    rep = compare_scatter(want, got, S.scatter_rows_ref(idx, dvals.double().abs(), T))
     assert rep["ok"], rep
 
 
@@ -193,3 +201,146 @@ def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
     with pytest.raises(ValueError, match="on"):
         S.scatter_rows(idx.cpu(), torch.zeros(48, 10, device="cuda"), 4)
     assert (F.segment_backward.launches, S.scatter_rows.launches) == before
+
+
+def _lane_flags(R, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.tensor([[0.3], [0.5], [0.2]], device="cuda")
+    return (torch.rand(3, R, device="cuda", generator=g) < p).float()
+
+
+@pytest.mark.parametrize("mode", ["fixed", "rr"])
+def test_lane_flag_kernel_matches_plain_on_card(card, mode):
+    _, camera, rows = card
+    args = list(_camera_args(camera, rows, [0.0, 0.0, 0.0]))
+    out = F.mega_segment(*args)  # a first-bounce wavefront
+    args[1:6] = [out[1], out[2], out[3], out[4], out[5] > 0]
+    args[9] = _lane_flags(64 * 48, seed=len(mode))
+    before = F.mega_segment.launches
+    got = F.mega_segment(*args, mode=mode)
+    torch.cuda.synchronize()
+    assert F.mega_segment.launches == before + 1
+    want = F.mega_segment_ref(*args, mode=mode)
+    rep = compare_segment(want, got, live=args[5], rows=rows, pos=args[1], dir_=args[2])
+    assert rep["ok"], rep
+
+
+@pytest.fixture(scope="module")
+def bunny_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    scene, camera = bunny.bunny_scene(subdiv=3, width=64, height=48, device="cuda")
+    return scene, camera, scene_tables(scene, TraceConfig(intersector="traverse"))
+
+
+def _bunny_waves(camera, tables):
+    """The 64x48 camera wavefront and its first bounce (with dead lanes)."""
+    args = list(_camera_args(camera, tables.rows, [0.0, 0.0, 0.0]))
+    out = F.mega_segment_ref(*args)
+    # The plain outputs may be strided views; the kernels take contiguous tensors.
+    return [tuple(x.contiguous() for x in wave)
+            for wave in (args[1:6], (out[1], out[2], out[3], out[4], out[5] > 0))]
+
+
+def test_traverse_kernel_matches_plain_on_card(bunny_card):
+    _, camera, tables = bunny_card
+    for pos, dir_, _, _, live in _bunny_waves(camera, tables):
+        nt = -(-pos.shape[1] // TW.RAY_TILE)
+        visits = torch.zeros(2, nt, dtype=torch.int32, device="cuda")
+        before = TW.traverse_select.launches
+        got = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
+                                 visits=visits)
+        torch.cuda.synchronize()
+        assert TW.traverse_select.launches == before + 1
+        want = TW.traverse_select_ref(tables.rows, tables.clo, tables.chi, pos, dir_, live)
+        rep = compare_winners(got, want, live=live, rows=tables.rows, pos=pos, dir_=dir_)
+        assert rep["ok"], rep
+        v = visits.cpu().numpy()
+        assert (v[1] <= v[0]).all() and v[0].max() <= tables.clo.shape[0]
+
+
+@pytest.mark.parametrize("lane", [False, True], ids=["B6", "B6l"])
+def test_rows_segment_kernel_matches_plain_on_card(bunny_card, lane):
+    _, camera, tables = bunny_card
+    pos, dir_, tput, res, live = _bunny_waves(camera, tables)[1]
+    R = pos.shape[1]
+    idx = TW.traverse_select_ref(tables.rows, tables.clo, tables.chi, pos, dir_, live)
+    key = make_key(6)
+    u1, u2, urr = (stream_uniform(key, s, R, "cuda") for s in (0, 1, 3))
+    flags = _lane_flags(R, seed=3) if lane else \
+        torch.tensor([[0.0], [1.0], [0.0]], device="cuda")
+    args = (tables.rows, idx, pos, dir_, tput, res, live, u1, u2, urr, flags)
+    for mode in ("fixed", "rr"):
+        before = F.rows_segment.launches
+        got = F.rows_segment(*args, mode=mode)
+        torch.cuda.synchronize()
+        assert F.rows_segment.launches == before + 1
+        want = F.rows_segment_ref(*args, mode=mode)
+        rep = compare_segment((idx, *want), (idx, *got), live=live, rows=tables.rows,
+                              pos=pos, dir_=dir_)
+        assert rep["ok"], rep
+
+
+def test_traverse_render_on_card_matches_cpu_plain_path(bunny_card):
+    scene, camera, _ = bunny_card
+    config = TraceConfig(max_depth=3, intersector="traverse", ray_sort=True)
+    got = render_sample_batch(scene, camera, make_key(2), 64, 48, config)
+    want = render_sample_batch(scene.to("cpu"), camera.to("cpu"), make_key(2), 64, 48,
+                               config)
+    rep = compare_images(got, want)
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("intersector", ["megakernel", "traverse"])
+def test_regen_on_card_matches_cpu_plain_path(card, intersector):
+    scene, camera, _ = card
+    config = TraceConfig(mode="rr", rr_depth=2, illum=1.0, intersector=intersector)
+    launches = (F.mega_segment.launches, F.rows_segment.launches)
+    got = render_regen_batch(scene, camera, make_key(5), 64, 48, 2, config)
+    assert (F.mega_segment.launches, F.rows_segment.launches) != launches
+    want = render_regen_batch(scene.to("cpu"), camera.to("cpu"), make_key(5), 64, 48, 2,
+                              config)
+    rep = compare_images(got, want)
+    assert rep["ok"], rep
+
+
+def test_traverse_gradient_render_kernels_match_plain_path(bunny_card):
+    scene, camera, _ = bunny_card
+    config = TraceConfig(max_depth=3, intersector="traverse", ray_sort=True)
+    loss_fn = G.make_loss_fn(scene, camera, torch.zeros(48, 64, 3, device="cuda"),
+                             width=64, height=48, spp=1, config=config)
+    params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
+    counts = (TW.traverse_select.launches, F.rows_segment.launches,
+              F.segment_backward.launches, S.scatter_rows.launches)
+    loss, got = G.value_and_grad(loss_fn, params, make_key(4))
+    assert (TW.traverse_select.launches, F.rows_segment.launches,
+            F.segment_backward.launches, S.scatter_rows.launches) == \
+        tuple(c + 4 for c in counts)
+    with plain_kernels():
+        loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
+    assert float(loss) == pytest.approx(float(loss_ref), rel=1e-5)
+    rep = compare_param_grads(want, got, 1e-4)
+    assert rep["ok"], rep
+
+
+def test_traverse_wrappers_refuse_bad_inputs_on_card(bunny_card):
+    _, camera, tables = bunny_card
+    pos, dir_, tput, res, live = _bunny_waves(camera, tables)[0]
+    before = (TW.traverse_select.launches, F.rows_segment.launches)
+    with pytest.raises(TypeError, match="live"):
+        TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live.float())
+    with pytest.raises(ValueError, match="chunk boxes"):
+        TW.traverse_select(tables.rows, tables.clo[:-1], tables.chi[:-1], pos, dir_, live)
+    with pytest.raises(ValueError, match="on"):
+        TW.traverse_select(tables.rows.cpu(), tables.clo, tables.chi, pos, dir_, live)
+    idx = torch.zeros(pos.shape[1], dtype=torch.int64, device="cuda")
+    u = torch.zeros(pos.shape[1], device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        F.rows_segment(tables.rows, idx, pos, dir_, tput, res, live, u, u, u,
+                       torch.zeros(3, 1, device="cuda"))
+    with pytest.raises(ValueError, match="flags"):
+        F.rows_segment(tables.rows, idx.int(), pos, dir_, tput, res, live, u, u, u,
+                       torch.zeros(3, 7, device="cuda"))
+    assert (TW.traverse_select.launches, F.rows_segment.launches) == before

@@ -203,7 +203,8 @@ def test_cli_without_gpu_fails_rather_than_using_cpu(tmp_path, capsys):
 
 
 def test_unported_options_raise():
+    for intersector in ("fused", "kdtree", "brute"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TraceConfig(intersector=intersector)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TraceConfig(intersector="traverse")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderSettings(regen=True)
+        TraceConfig(chunk_cull=True)
