@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. environment: torch/CUDA versions, the GPU (compute capability 9.0
    required), nvcc, and nvidia-smi's name and power limit;
-2. build: compile every csrc/*.cu of the port with nvcc for sm_90a, one
-   nvcc process each, all started together;
+2. build: compile every csrc/*.cu of the port (seven sources) with nvcc
+   for sm_90a, one nvcc process each, all started together;
 3. the segment kernel against its plain-torch version on the card, on
    64x48 camera rays and a full 800x600 wavefront of first-bounce rays,
    in fixed mode (final gather off and on) and RR mode (roulette, hard
@@ -72,7 +72,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
     against its plain version on those cotangents and on N(0,1) ones,
     and timed;
 22. a 64x48 bunny gradient render (subdiv 3), kernel path against plain
-    path.
+    path;
+23. the split path's kernels (nearest_shade.cu: B4 and its cull instance
+    B4c; nearest_triangle.cu: B7) and B1c (segment_fused.cu's cull
+    instance): ptxas reports;
+24. B1c against its plain version (brute selection on the Morton-ordered
+    table) on the glossy stage's 800x600 camera wavefront and its sorted
+    first bounce with dead lanes, fixed and RR, scalar and per-lane
+    flags (the segment gate), and against B1 on the same table (the same
+    winners); chunks tested per block;
+25. B4, B4c and B7 against their plain versions on phase 3's Cornell
+    800x600 first bounce and the glossy wavefronts: winners with the
+    near-tie allowance, shading rows equal, t, beta, gamma to 1e-5 or
+    within 16 x eps32 x their rounding scale of the float64 values;
+26. B1c, B4, B4c and B7 timed (median of 10 CUDA events) beside their
+    plain versions and B1 on the same wavefront;
+27. the cull main path: Renderer on the glossy stage, 800x600, fixed
+    depth 7 + gather, 4 spp/pass, chunk_cull + ray_sort, one warm-up and
+    two timed passes, B1c launches; one sample against the render
+    without culling; then one pass of the same path split (B4c);
+28. the split path: Renderer on the Cornell box, 800x600,
+    whole_segment=False, 4 spp/pass, B4 launches, its film against the
+    whole-segment film of the same passes; one pass of the fused
+    intersector (B7);
+29. the split-path gradient: value and grad at 800x600, 2 spp, {mat_kd,
+    mat_ka, vertices}, B4 and B3 launches, against the whole-segment
+    gradient of the same key;
+30. the geometry step (BASELINE config 5): make_translation_problem on
+    the Cornell lamp at 800x600, fixed depth 2, 2 spp, 4096 edge samples,
+    split path: loss and gradient finite, the gradient against a central
+    difference of the same-key loss (0.35 x max(|fd|, 0.05)), time per
+    step.
+
+Every kernel line carries its bound: the least time for its bytes (each
+input read once, each output written once, 3.35 TB/s) and its f32
+operations (67 TFLOP/s), both the H100 SXM's published rates.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -100,8 +134,14 @@ TRAVERSE_REPLACES = "montecarlopathtracer_tpu/ops/traverse_pallas.py:199"
 ROWS_SOURCE = f"{PKG}/csrc/rows_segment.cu"
 ROWS_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:911"
 ROWS_LANE_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:991"
+CULL_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:570"
+SHADE_SOURCE = f"{PKG}/csrc/nearest_shade.cu"
+SHADE_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:1006"
+SHADE_CULL_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:1297"
+TRIANGLE_SOURCE = f"{PKG}/csrc/nearest_triangle.cu"
+TRIANGLE_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:173"
 KERNEL_NAMES = ("segment_fused", "segment_backward", "scatter_rows", "traverse_select",
-                "rows_segment")
+                "rows_segment", "nearest_shade", "nearest_triangle")
 W, H = 800, 600
 SPP, DEPTH = 4, 7
 WARMUP_PASSES, TIMED_PASSES = 1, 3
@@ -227,7 +267,7 @@ def kernel_vs_plain(torch, scene, rows):
     # First-bounce wavefront: the state after the camera segment.
     out = F.mega_segment_ref(*seg_args(torch, rows, *full, key, [0.0, 0.0, 0.0]),
                              mode="fixed")
-    bounce = (out[1], out[2], out[3], out[4], out[5] > 0.0)
+    bounce = tuple(x.contiguous() for x in (out[1], out[2], out[3], out[4], out[5] > 0.0))
     print(f"first-bounce wavefront: {int(bounce[4].sum())} of {W * H} live")
     worst = 0.0
     for wname, wave in (("64x48 camera", small), ("800x600 bounce", bounce)):
@@ -276,9 +316,11 @@ def time_segment(torch, rows, bounce):
         for fn in order:
             (ks if fn is F.mega_segment else ps).append(timed(fn))
     ms, plain_ms = statistics.median(ks), statistics.median(ps)
+    bound = segment_bound(rows.shape[0], W * H, int(bounce[4].sum()))
     print(f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (median of 10, "
-          f"{int(bounce[4].sum())} live rays of {W * H}, {rows.shape[0]} triangles)")
-    return ms, plain_ms
+          f"{int(bounce[4].sum())} live rays of {W * H}, {rows.shape[0]} triangles); bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    return ms, plain_ms, bound
 
 
 def main_path(torch, scene, camera):
@@ -390,28 +432,36 @@ def whole_frame(torch, scene):
 
 
 def reset_counts():
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 
     F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
-    F.mega_segment.lane_launches = F.rows_segment.launches = 0
-    F.rows_segment.lane_launches = TW.traverse_select.launches = 0
+    F.mega_segment.lane_launches = F.mega_segment.cull_launches = 0
+    F.rows_segment.launches = F.rows_segment.lane_launches = 0
+    TW.traverse_select.launches = NS.nearest_triangle.launches = 0
+    NS.nearest_shade_full.launches = NS.nearest_shade_full.cull_launches = 0
 
 
 def read_all_counts():
-    """Launches of every kernel, B1 and B6 apart from their per-lane-flag
-    forms B1l and B6l."""
+    """Launches of every kernel: B1 apart from its per-lane-flag form B1l
+    and its culling form B1c (no path here runs both at once), B4 apart
+    from B4c, B6 apart from B6l."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 
-    return {"B1": F.mega_segment.launches - F.mega_segment.lane_launches,
-            "B1l": F.mega_segment.lane_launches,
+    B1 = F.mega_segment
+    return {"B1": B1.launches - B1.lane_launches - B1.cull_launches,
+            "B1l": B1.lane_launches, "B1c": B1.cull_launches,
             "B2": F.segment_backward.launches, "B3": S.scatter_rows.launches,
+            "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
+            "B4c": NS.nearest_shade_full.cull_launches,
             "B5": TW.traverse_select.launches,
             "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
-            "B6l": F.rows_segment.lane_launches}
+            "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches}
 
 
 def grad_builds(libs):
@@ -515,23 +565,31 @@ def scatter_vs_plain(torch, idx, d_full, T, source):
     return worst
 
 
+def event_ms(torch, fn):
+    """CUDA-event ms of one call of `fn()`."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
 def time_pair(torch, kernel, plain, n=10):
     """Median CUDA-event ms of `kernel()` and `plain()`, alternating."""
-    def timed(fn):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b)
-
-    timed(kernel)
-    timed(plain)
+    event_ms(torch, kernel)
+    event_ms(torch, plain)
     ks, ps = [], []
     for i in range(n):
         for fn in ((kernel, plain) if i % 2 == 0 else (plain, kernel)):
-            (ks if fn is kernel else ps).append(timed(fn))
+            (ks if fn is kernel else ps).append(event_ms(torch, fn))
     return statistics.median(ks), statistics.median(ps)
+
+
+def time_one(torch, fn, n=10):
+    """Median CUDA-event ms of `fn()` after one warm-up call."""
+    event_ms(torch, fn)
+    return statistics.median(event_ms(torch, fn) for _ in range(n))
 
 
 def time_backward(torch, rows, bounce):
@@ -546,9 +604,13 @@ def time_backward(torch, rows, bounce):
                     lambda: F.segment_backward_ref(*args))
     sc = time_pair(torch, lambda: S.scatter_rows(idx, d_full, T),
                    lambda: S.scatter_rows_ref(idx, d_full, T))
-    print(f"segment_backward kernel {bwd[0]:.4f} ms  plain {bwd[1]:.4f} ms; "
-          f"scatter_rows kernel {sc[0]:.4f} ms  plain {sc[1]:.4f} ms (median of 10, "
-          f"{int(bounce[4].sum())} live rays of {W * H}, {T} triangles)")
+    R, hits = W * H, int((idx >= 0).sum())
+    bwd = (*bwd, bound_of(R * (48 + 2 + 192 + 12 + 48) + 12 + R * (48 + 192), hits * 40))
+    sc = (*sc, bound_of(R * 196 + T * 192, hits * 48), library_index_add(torch, idx, d_full, T))
+    print(f"segment_backward kernel {bwd[0]:.4f} ms  plain {bwd[1]:.4f} ms (bound "
+          f"{bwd[2][0]:.4f} ms, {bwd[2][1]}); scatter_rows kernel {sc[0]:.4f} ms  plain "
+          f"{sc[1]:.4f} ms (bound {sc[2][0]:.4f} ms, {sc[2][1]}; one index_add_ {sc[3]:.4f} ms) "
+          f"(median of 10, {int(bounce[4].sum())} live rays of {W * H}, {T} triangles)")
     return bwd, sc
 
 
@@ -747,10 +809,11 @@ def lane_vs_plain(torch, rows, bounce):
         check(rep["ok"], f"B1l disagrees with plain in {mode} mode: {rep}")
     ms = time_pair(torch, lambda: F.mega_segment(*args, mode="rr"),
                    lambda: F.mega_segment_ref(*args, mode="rr"))
+    bound = segment_bound(rows.shape[0], W * H, int(bounce[4].sum()), lane=True)
     print(f"B1l kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms (median of 10, RR, "
-          f"{int(bounce[4].sum())} live rays of {W * H}); tolerance as phase 3; "
-          f"worst |err| {worst:.3e}")
-    return worst, ms
+          f"{int(bounce[4].sum())} live rays of {W * H}; bound {bound[0]:.4f} ms, {bound[1]}); "
+          f"tolerance as phase 3; worst |err| {worst:.3e}")
+    return worst, (*ms, bound)
 
 
 def regen_main_path(torch, scene, camera):
@@ -982,6 +1045,16 @@ def time_bunny(torch, tables, bounce, sub, idx, draws, cases):
     print(f"B1 brute       kernel {b1[0]:9.4f} ms   plain {b1[1]:9.4f} ms on the subset")
     print(f"walk + segment {b5[0] + b6['B6'][0]:.4f} ms against brute B1 {b1[0]:.4f} ms: "
           f"{b1[0] / (b5[0] + b6['B6'][0]):.1f}x")
+    T, R, nc, hits = rows.shape[0], BW * BH, clo.shape[0], int((idx >= 0).sum())
+    pairs = reached_pairs(torch, clo, chi, T, pos, dir_, live,
+                          winner_t(torch, rows, idx, pos, dir_))
+    b5 = (*b5, bound_of(T * 192 + nc * 24 + R * 25 + R * 4, pairs * PAIR_OPS))
+    for name, lane in (("B6", False), ("B6l", True)):
+        nbytes = T * 192 + R * 4 + R * STATE_BYTES + (12 * R if lane else 12) + R * 52
+        b6[name] = (*b6[name], bound_of(nbytes, hits * 40))
+    print(f"bounds: B5 {b5[2][0]:.4f} ms ({b5[2][1]}; {pairs:.4g} reachable pairs of "
+          f"{n_live * T} live pairs), B6 {b6['B6'][2][0]:.4f} ms ({b6['B6'][2][1]}), "
+          f"B6l {b6['B6l'][2][0]:.4f} ms ({b6['B6l'][2][1]})")
     return b5, b6, b1
 
 
@@ -1190,8 +1263,11 @@ def bunny_scatter(torch, idx, d_full, T):
                              f"{BUNNY_GRAD_W}x{BUNNY_GRAD_W} bunny vjp d_full")
     ms = time_pair(torch, lambda: S.scatter_rows(idx, d_full, T),
                    lambda: S.scatter_rows_ref(idx, d_full, T))
+    hits, R = int((idx >= 0).sum()), idx.shape[0]
+    ms = (*ms, bound_of(R * 196 + T * 192, hits * 48), library_index_add(torch, idx, d_full, T))
     print(f"scatter_rows kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms (median of 10, "
-          f"{int((idx >= 0).sum())} rays hit of {idx.shape[0]}, {T} triangles)")
+          f"{hits} rays hit of {R}, {T} triangles); bound {ms[2][0]:.4f} ms ({ms[2][1]}); "
+          f"one index_add_ {ms[3]:.4f} ms")
     return worst, ms
 
 
@@ -1221,6 +1297,491 @@ def bunny_grad_frame(torch):
     check(rep["ok"], f"bunny kernel-path gradients disagree with the plain path: {rep}")
 
 
+# ---------------------------------------------------------------- bounds
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+# f32 operations of one ray-triangle pair test: o' (3 x 6), d' (3 x 5),
+# one division, beta and gamma (2 x 2), 1 - (beta + gamma) (2).
+PAIR_OPS = 40
+STATE_BYTES = 48 + 1 + 12  # pos, dir, tput, res f32[3]; live; u1, u2, urr
+SEG_OUT_BYTES = 4 + 48 + 4  # idx, npos/ndir/ntput/nres f32[3], still
+
+
+def bound_of(nbytes, ops):
+    """(bound_ms, bound_by): the least time for ``nbytes`` of device
+    memory traffic (each input read once, each output written once) and
+    ``ops`` f32 operations at the H100's published rates. Operations
+    count the ray-triangle arithmetic only (PAIR_OPS per tested pair, 40
+    per recomputed winner, 48 adds per scattered row); the samplers' and
+    vjps' arithmetic is left out, so an elementwise kernel's bound is a
+    lower bound."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def segment_bound(T, R, live, lane=False, nc=0, pairs=None):
+    """Bound of a whole segment (B1, B1l, B1c) on R rays, ``live`` of them
+    live, over T triangles: brute selection tests live x T pairs, a
+    culling one the ``pairs`` its rays' segments reach."""
+    nbytes = T * 192 + R * STATE_BYTES + (12 * R if lane else 12) + nc * 24 + R * SEG_OUT_BYTES
+    return bound_of(nbytes, (live * T if pairs is None else pairs) * PAIR_OPS)
+
+
+def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14):
+    """Ray-triangle pairs that culling must test on these rays: for each
+    live ray, the triangles of every chunk whose box (widened as the
+    kernels widen it) its segment [0, t_best] reaches. The minimum work
+    of a culling selection on this data (B1c, B4c, B5)."""
+    nc = clo.shape[0]
+    sizes = torch.full((nc,), 128.0, device=clo.device, dtype=torch.float64)
+    sizes[-1] = T - 128 * (nc - 1)
+    m = 1e-5 * (1.0 + torch.maximum(clo.abs(), chi.abs()))
+    lo, hi = (clo - m)[None], (chi + m)[None]  # [1, nc, 3]
+    total = 0.0
+    for s in range(0, pos.shape[1], step):
+        o = pos[:, s:s + step].T[:, None, :]
+        d = dir_[:, s:s + step].T[:, None, :]
+        flat = d.abs() < 1e-12
+        inv = 1.0 / torch.where(flat, 1.0, d)
+        t0, t1 = (lo - o) * inv, (hi - o) * inv
+        inside = (o >= lo) & (o <= hi)
+        tn = torch.where(flat, torch.where(inside, -3e38, 3e38), torch.minimum(t0, t1))
+        tf = torch.where(flat, torch.where(inside, 3e38, -3e38), torch.maximum(t0, t1))
+        tn, tf = tn.amax(dim=2), tf.amin(dim=2)
+        reach = (tn <= tf) & (tf >= 0.0) & (tn <= t_best[s:s + step, None]) \
+            & live[s:s + step, None]
+        total += float((reach.double() @ sizes).sum())
+    return total
+
+
+def winner_t(torch, rows, idx, pos, dir_):
+    """f32[R] hit distance of the winners ``idx`` (3e38 for a miss)."""
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+
+    return F.recompute_rows(F.gather_rows(rows, idx), idx >= 0, pos, dir_)[0]
+
+
+def library_index_add(torch, idx, dvals, T):
+    """Median ms of one ``index_add_`` computing the row scatter on the
+    same inputs (the yardstick of B3; never called by the port)."""
+    keep = idx >= 0
+    rows = idx[keep].long()
+    vals = dvals.T[keep].contiguous()
+
+    def call():
+        torch.zeros(T, 48, device="cuda").index_add_(0, rows, vals)
+
+    return time_one(torch, call)
+
+
+# ------------------------------------------------ the split, cull and fused paths
+
+GW, GH = 800, 600  # the glossy stage's frame
+CULL_SPP, CULL_TIMED = 4, 2
+SPLIT_TIMED = 2
+GEOM_SPP, GEOM_DEPTH, GEOM_EDGES = 2, 2, 4096
+
+
+def split_builds(libs):
+    phase("23. build: the split path's kernels (B4/B4c, B7)")
+    from montecarlopathtracer_tpu_torch.ops import cuda_build
+
+    for name, src in (("nearest_shade", SHADE_SOURCE), ("nearest_triangle", TRIANGLE_SOURCE)):
+        print(f"built {libs[name].relative_to(HERE)} from {src} (sm_90a)")
+        ptxas_report(libs[name])
+        cuda_build.load(name)
+    print(f"{libs['segment_fused'].relative_to(HERE)} holds B1c (its cull instance):")
+    ptxas_report(libs["segment_fused"])
+
+
+def sorted_bounce(torch, tables, cam_wave, key, config):
+    """One fixed-mode segment of ``cam_wave`` through the culling kernel,
+    then the wavefront sort of the integrator (dead lanes last)."""
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops.morton import DEAD_KEY, ray_sort_keys
+
+    out = F.mega_segment(*seg_args(torch, tables.rows, *cam_wave, key, [0.0, 0.0, 0.0]),
+                         **tables.cull_boxes, **config.kernel_options())
+    alive = out[5] > 0.0
+    keys = torch.where(alive, ray_sort_keys(out[1], out[2], tables.lo, tables.hi), DEAD_KEY)
+    order = torch.argsort(keys, stable=True)
+    return (*(x[:, order].contiguous() for x in out[1:5]), alive[order].contiguous())
+
+
+def glossy_setup(torch):
+    phase(f"glossy stage: 1,332 triangles in Morton order, {GW}x{GH}")
+    from montecarlopathtracer_tpu_torch.models import glossy
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig, scene_tables
+
+    scene, camera = glossy.glossy_steps(width=GW, height=GH, device="cuda")
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0, chunk_cull=True,
+                         ray_sort=True)
+    tables = scene_tables(scene, config)
+    check(scene.num_triangles == 1332, f"glossy has {scene.num_triangles} triangles")
+    key = make_key(24)
+    cam = camera_wavefront(torch, camera, GW, GH, key)
+    cam = (cam[0], cam[1].contiguous(), *cam[2:])
+    bounce = sorted_bounce(torch, tables, cam, key, config)
+    print(f"{scene.num_triangles} triangles, {tables.clo.shape[0]} chunks of 128; sorted "
+          f"first bounce: {int(bounce[4].sum())} of {GW * GH} rays live")
+    return scene, camera, config, tables, (cam, bounce)
+
+
+def cull_vs_plain(torch, tables, waves):
+    phase(f"24. chunk-cull segment (B1c) vs plain and vs B1, glossy {GW}x{GH} camera and "
+          "sorted bounce wavefronts")
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.testing import compare_segment
+
+    nc = tables.clo.shape[0]
+    worst, identical = 0.0, True
+    for wname, wave in zip(("camera", "sorted bounce"), waves):
+        R = wave[0].shape[1]
+        for cname, (mode, flags) in (("fixed", CASES["fixed fg=0"]),
+                                     ("rr", CASES["rr do_rr=1"])):
+            for lane in (False, True):
+                args = list(seg_args(torch, tables.rows, *wave, make_key(25), flags))
+                if lane:
+                    args[9] = seeded_lane_flags(torch, R, seed=24 + lane)
+                tested = torch.zeros(-(-R // 128), dtype=torch.int32, device="cuda")
+                got = F.mega_segment(*args, mode=mode, tested=tested, **tables.cull_boxes)
+                torch.cuda.synchronize()
+                ref = F.mega_segment_ref(*args, mode=mode)
+                rep = compare_segment(ref, got, live=args[5], rows=tables.rows, pos=args[1],
+                                      dir_=args[2])
+                worst = max([worst, *rep["max_abs_err"].values()])
+                b1 = F.mega_segment(*args, mode=mode)  # the same table, every chunk tested
+                same = all(torch.equal(x, y) for x, y in zip(got, b1))
+                identical &= same
+                t = tested.float()
+                print(f"{wname:13s} {cname:5s} {'lane' if lane else 'scalar'} flags: idx agree "
+                      f"{rep['idx_agree']:.6f} ({rep['n_idx_mismatch']} near-tie mismatches of "
+                      f"{rep['n_live']} live), max |err| "
+                      + " ".join(f"{k} {v:.2e}" for k, v in rep["max_abs_err"].items())
+                      + f"; bit-identical to B1: {same}; chunks tested per block mean "
+                      f"{float(t.mean()):.2f} max {int(t.max())} of {nc}")
+                check(rep["ok"], f"B1c disagrees with plain on {wname} {cname} lane={lane}: "
+                      f"{rep}")
+                check(bool(torch.equal(got[0], b1[0])),
+                      f"B1c's winners differ from B1's on the same table ({wname} {cname})")
+    print(f"tolerance as phase 3; worst |err| {worst:.3e}; B1c bit-identical to B1 on every "
+          f"case: {identical}")
+    return worst
+
+
+def shade_vs_plain(torch, rows, ctables, cornell_bounce, gtables, gwaves):
+    phase(f"25. split intersectors (B4, B4c) and the fused index (B7) vs plain, Cornell "
+          f"{W}x{H} first bounce and glossy {GW}x{GH} camera and sorted bounce")
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+    from montecarlopathtracer_tpu_torch.testing import compare_shade, compare_winners
+
+    worst = {"B4": 0.0, "B4c": 0.0, "B7": 0.0}
+    cases = [("Cornell bounce", rows, ctables, cornell_bounce)]
+    cases += [(f"glossy {n}", gtables.rows, gtables, w)
+              for n, w in zip(("camera", "sorted bounce"), gwaves)]
+    for wname, table, ctab, wave in cases:
+        pos, dir_, _, _, live = wave
+        for name, tab, boxes in (("B4", table, {}), ("B4c", ctab.rows, ctab.cull_boxes)):
+            got = NS.nearest_shade_full(tab, pos, dir_, live, **boxes)
+            torch.cuda.synchronize()
+            want = NS.nearest_shade_full_ref(tab, pos, dir_, live)
+            rep = compare_shade(got, want, live=live, rows=tab, pos=pos, dir_=dir_)
+            worst[name] = max(worst[name], rep["tbg_max_abs_err"])
+            print(f"{wname:21s} {name:3s}: idx agree {rep['idx_agree']:.6f} "
+                  f"({rep['n_idx_mismatch']} near-tie mismatches of {rep['n_live']} live); "
+                  f"tbg max |err| {rep['tbg_max_abs_err']:.2e} ({rep['tbg_n_beyond_tol']} lanes "
+                  f"beyond 1e-5, at most {rep['tbg_worst_ulps']:.2f} x eps32 x scale from f64); "
+                  f"shade equal {rep['shade_equal']}")
+            check(rep["ok"], f"{name} disagrees with plain on {wname}: {rep}")
+        geom = table[:, :12].contiguous()
+        got = NS.nearest_triangle(geom, pos, dir_)
+        torch.cuda.synchronize()
+        want = NS.nearest_triangle_ref(geom, pos, dir_)
+        every = torch.ones_like(live)
+        rep = compare_winners(got, want, live=every, rows=table, pos=pos, dir_=dir_)
+        worst["B7"] = max(worst["B7"], rep["max_t_gap"])
+        print(f"{wname:21s} B7 : idx agree {rep['idx_agree']:.6f} ({rep['n_idx_mismatch']} "
+              f"near-tie mismatches of {rep['n_live']} rays, max t gap {rep['max_t_gap']:.2e})")
+        check(rep["ok"], f"B7 disagrees with plain on {wname}: {rep}")
+    print("gate: winners as phase 17's; on agreeing lanes the shading rows equal and t, beta, "
+          "gamma within rtol = atol = 1e-5, or within 16 x eps32 x their rounding scale of the "
+          "float64 values")
+    return worst
+
+
+def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
+    phase("26. B4 and B7 on the Cornell first bounce, B1c and B4c on the glossy sorted "
+          "bounce: kernel, plain, and B1 on the same wavefront (median of 10 CUDA events)")
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+
+    out = {}
+    pos, dir_, _, _, live = cornell_bounce
+    T, R, n_live = rows.shape[0], pos.shape[1], int(live.sum())
+    args = seg_args(torch, rows, *cornell_bounce, make_key(26), [0.0, 0.0, 0.0])
+    b1 = time_one(torch, lambda: F.mega_segment(*args))
+    ms = time_pair(torch, lambda: NS.nearest_shade_full(rows, pos, dir_, live),
+                   lambda: NS.nearest_shade_full_ref(rows, pos, dir_, live))
+    out["B4"] = (*ms, bound_of(T * 192 + R * 25 + R * 148, n_live * T * PAIR_OPS))
+    geom = rows[:, :12].contiguous()
+    ms = time_pair(torch, lambda: NS.nearest_triangle(geom, pos, dir_),
+                   lambda: NS.nearest_triangle_ref(geom, pos, dir_))
+    out["B7"] = (*ms, bound_of(T * 48 + R * 24 + R * 4, R * T * PAIR_OPS))
+    print(f"Cornell first bounce ({n_live} live of {R} rays, {T} triangles): B1 {b1:.4f} ms; "
+          f"B4 {out['B4'][0]:.4f} ms (plain {out['B4'][1]:.4f}); B7 {out['B7'][0]:.4f} ms "
+          f"(plain {out['B7'][1]:.4f}, every ray tested)")
+
+    pos, dir_, _, _, live = gbounce
+    gr, boxes = gtables.rows, gtables.cull_boxes
+    T, R, n_live, nc = gr.shape[0], pos.shape[1], int(live.sum()), gtables.clo.shape[0]
+    args = seg_args(torch, gr, *gbounce, make_key(26), [0.0, 0.0, 0.0])
+    b1 = time_one(torch, lambda: F.mega_segment(*args))
+    ms = time_pair(torch, lambda: F.mega_segment(*args, **boxes),
+                   lambda: F.mega_segment_ref(*args))
+    idx = F.mega_segment(*args, **boxes)[0]
+    pairs = reached_pairs(torch, gtables.clo, gtables.chi, T, pos, dir_, live,
+                          winner_t(torch, gr, idx, pos, dir_))
+    out["B1c"] = (*ms, segment_bound(T, R, n_live, nc=nc, pairs=pairs))
+    ms = time_pair(torch, lambda: NS.nearest_shade_full(gr, pos, dir_, live, **boxes),
+                   lambda: NS.nearest_shade_full_ref(gr, pos, dir_, live))
+    out["B4c"] = (*ms, bound_of(T * 192 + nc * 24 + R * 25 + R * 148, pairs * PAIR_OPS))
+    print(f"glossy sorted bounce ({n_live} live of {R} rays, {T} triangles, {pairs:.4g} of "
+          f"{n_live * T} live pairs reachable): B1 {b1:.4f} ms; B1c {out['B1c'][0]:.4f} ms "
+          f"(plain {out['B1c'][1]:.4f}); B4c {out['B4c'][0]:.4f} ms (plain "
+          f"{out['B4c'][1]:.4f})")
+    for name, (k, p, (bms, by)) in out.items():
+        print(f"  {name:3s} bound {bms:.4f} ms ({by}): kernel at {bms / k:.3f} of it")
+    return out
+
+
+def cull_main_path(torch, scene, camera, config):
+    phase(f"27. cull main path: Renderer glossy {GW}x{GH}, fixed depth {DEPTH} + gather, "
+          f"{CULL_SPP} spp/pass, chunk_cull + ray_sort")
+    import dataclasses
+
+    import numpy as np
+
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import render_sample_batch
+    from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+    from montecarlopathtracer_tpu_torch.testing import compare_images
+
+    r = Renderer(scene, camera, config,
+                 RenderSettings(width=GW, height=GH, spp_per_pass=CULL_SPP, seed=0),
+                 device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    r.render(1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r.render(CULL_TIMED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_all_counts()
+    msps = GW * GH * CULL_SPP * CULL_TIMED / dt / 1e6
+    want = config.num_segments * CULL_SPP * (1 + CULL_TIMED)
+    print(f"warm-up pass {warm:.3f} s; {CULL_TIMED} timed passes {dt:.3f} s = "
+          f"{dt / CULL_TIMED:.4f} s/pass, glossy cull forward {msps:.4f} Msamples/s")
+    print(f"launches: {counts} (expected {want} of B1c and no other segment kernel)")
+    check(counts["B1c"] == want and counts["B1"] == counts["B1l"] == 0, f"launches {counts}")
+    img = r.film.color.cpu().numpy()
+    check(np.isfinite(img).all() and img.mean() > 0.0, "glossy film is black or not finite")
+    png = os.path.join(HERE, "build", "chip_smoke_glossy_cull.png")
+    r.save_png(png)
+    print(f"film mean {img.mean():.5f}; wrote {os.path.relpath(png, HERE)}")
+    # The frame of one sample against the render without culling, same key.
+    got = render_sample_batch(scene, camera, make_key(27), GW, GH, config, r.tables)
+    plain = dataclasses.replace(config, chunk_cull=False, ray_sort=False)
+    rep = compare_images(got, render_sample_batch(scene, camera, make_key(27), GW, GH, plain))
+    print(f"one sample against the render without culling: pixels within 1e-4 "
+          f"{rep['pixel_share']:.5f}, max |err| {rep['max_abs_err']:.3e}, mean rel "
+          f"{rep['mean_rel']:.2e}")
+    check(rep["ok"], f"the cull frame disagrees with the non-cull frame: {rep}")
+    # The split path on the same tables: B4c per segment.
+    split = dataclasses.replace(config, whole_segment=False)
+    rs = Renderer(scene, camera, split,
+                  RenderSettings(width=GW, height=GH, spp_per_pass=CULL_SPP, seed=0),
+                  device="cuda")
+    rs.render(1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rs.render(1)
+    torch.cuda.synchronize()
+    sdt = time.perf_counter() - t0
+    scounts = read_all_counts()
+    print(f"split path with culling (B4c): one timed pass {sdt:.4f} s, "
+          f"{GW * GH * CULL_SPP / sdt / 1e6:.4f} Msamples/s; launches {scounts}")
+    check(scounts["B4c"] == config.num_segments * CULL_SPP and scounts["B1c"] == 0,
+          f"split cull launches {scounts}")
+    check(bool(torch.isfinite(rs.film.color).all()), "split cull film not finite")
+    return counts, scounts, dt / CULL_TIMED, msps
+
+
+def split_main_path(torch, scene, camera):
+    phase(f"28. split path: Renderer Cornell {W}x{H}, whole_segment=False, {SPP} spp/pass; "
+          "then one pass of the fused intersector")
+    import numpy as np
+
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+    from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+    from montecarlopathtracer_tpu_torch.testing import compare_images
+
+    settings = RenderSettings(width=W, height=H, spp_per_pass=SPP, seed=0)
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0, whole_segment=False)
+    r = Renderer(scene, camera, config, settings, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    r.render(1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r.render(SPLIT_TIMED)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_all_counts()
+    msps = W * H * SPP * SPLIT_TIMED / dt / 1e6
+    want = config.num_segments * SPP * (1 + SPLIT_TIMED)
+    print(f"warm-up pass {warm:.3f} s; {SPLIT_TIMED} timed passes {dt:.3f} s = "
+          f"{dt / SPLIT_TIMED:.4f} s/pass, split forward {msps:.4f} Msamples/s")
+    print(f"launches: {counts} (expected {want} of B4 and no segment kernel)")
+    check(counts["B4"] == want and counts["B1"] == counts["B4c"] == 0, f"launches {counts}")
+    img = r.film.color
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0, "split film")
+    whole = Renderer(scene, camera, TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0),
+                     settings, device="cuda")
+    whole.render(1 + SPLIT_TIMED)
+    rep = compare_images(img, whole.film.color)
+    print(f"film against the whole-segment film of the same passes: pixels within 1e-4 "
+          f"{rep['pixel_share']:.5f}, max |err| {rep['max_abs_err']:.3e}, mean rel "
+          f"{rep['mean_rel']:.2e}")
+    check(rep["ok"], f"the split film disagrees with the whole-segment film: {rep}")
+    fused = Renderer(scene, camera, TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0,
+                                                intersector="fused"), settings, device="cuda")
+    fused.render(1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fused.render(1)
+    torch.cuda.synchronize()
+    fdt = time.perf_counter() - t0
+    fcounts = read_all_counts()
+    print(f"fused intersector: one timed pass {fdt:.4f} s, {W * H * SPP / fdt / 1e6:.4f} "
+          f"Msamples/s; launches {fcounts}")
+    check(fcounts["B7"] == config.num_segments * SPP and fcounts["B4"] == 0,
+          f"fused launches {fcounts}")
+    check(np.isfinite(fused.film.color.cpu().numpy()).all(), "fused film not finite")
+    return counts, fcounts, dt / SPLIT_TIMED, msps, fdt
+
+
+def split_grad(torch, scene, camera):
+    phase(f"29. split-path gradient: value and grad, {W}x{H}, {GRAD_SPP} spp, against the "
+          "whole-segment gradient of the same key")
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+    from montecarlopathtracer_tpu_torch.testing import compare_param_grads
+
+    fields = ("mat_kd", "mat_ka", "vertices")
+    target = torch.zeros(H, W, 3, device="cuda")
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0, whole_segment=False)
+    loss_fn = G.make_loss_fn(scene, camera, target, width=W, height=H, spp=GRAD_SPP,
+                             config=config)
+    params = G.split_params(scene, fields)
+    G.value_and_grad(loss_fn, params, make_key(29))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = G.value_and_grad(loss_fn, params, make_key(29))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_all_counts()
+    want = config.num_segments * GRAD_SPP
+    print(f"one iteration {dt:.4f} s, split fwd+bwd {W * H * GRAD_SPP / dt / 1e6:.4f} "
+          f"Msamples/s (loss {float(loss):.6f}); launches {counts} (expected {want} of B4 "
+          "and of B3)")
+    check(counts["B4"] == want and counts["B3"] == want and counts["B2"] == 0,
+          f"split gradient launches {counts}")
+    whole = G.make_loss_fn(scene, camera, target, width=W, height=H, spp=GRAD_SPP,
+                           config=TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0))
+    wloss, wgrads = G.value_and_grad(whole, params, make_key(29))
+    rep = compare_param_grads(wgrads, grads, 1e-4)
+    print(f"loss {float(loss):.7f} vs whole {float(wloss):.7f}; "
+          + " ".join(f"{k} max |err| {v['max_abs_err']:.3e} of {v['scale']:.3e}"
+                     for k, v in rep.items() if k != "ok")
+          + " (tolerance 1e-4 x (|ref| + max |ref|))")
+    check(rep["ok"] and abs(float(loss) - float(wloss)) <= 1e-5 * abs(float(wloss)),
+          f"split-path gradients disagree with the whole segment's: {rep}")
+    return counts, dt
+
+
+def geometry_step(torch):
+    phase(f"30. geometry step (BASELINE config 5): lamp translation at {W}x{H}, fixed depth "
+          f"{GEOM_DEPTH}, {GEOM_SPP} spp, {GEOM_EDGES} edge samples, split path (B4)")
+    from montecarlopathtracer_tpu_torch.diff.boundary import make_translation_problem
+    from montecarlopathtracer_tpu_torch.models import cornell
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import (
+        TraceConfig,
+        render_sample_batch,
+    )
+
+    scene, camera = cornell.cornell_box(width=W, height=H, device="cuda")
+    config = TraceConfig(mode="fixed", max_depth=GEOM_DEPTH, whole_segment=False)
+    emit = (scene.mat_ka > 0).any(dim=1).nonzero()[:, 0]
+    tri_mask = torch.isin(scene.tri_mat.long(), emit).cpu().numpy()
+    with torch.no_grad():
+        target = sum(render_sample_batch(scene, camera, fold_in(make_key(123), i), W, H,
+                                         config) for i in range(GEOM_SPP)) / GEOM_SPP
+    step = make_translation_problem(scene, camera, tri_mask, target, width=W, height=H,
+                                    spp=GEOM_SPP, config=config, n_edge_samples=GEOM_EDGES)
+    th, h = torch.tensor([1.2, 0.0, 0.0], device="cuda"), 0.05
+    step(th, make_key(0))  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g = step(th, make_key(0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_all_counts()
+    lp, _ = step(th + torch.tensor([h, 0.0, 0.0], device="cuda"), make_key(0))
+    lm, _ = step(th - torch.tensor([h, 0.0, 0.0], device="cuda"), make_key(0))
+    fd = float((lp - lm) / (2 * h))
+    gx = float(g[0])
+    print(f"one step {dt:.4f} s (render {GEOM_SPP} spp + {2 * GEOM_EDGES} probe rays); "
+          f"launches {counts}; loss {float(loss):.6e}, grad {g.tolist()}")
+    print(f"d loss / d theta_x: boundary estimate {gx:.6e}, central difference (h {h}) "
+          f"{fd:.6e}; |diff| {abs(gx - fd):.3e} against the bound "
+          f"{0.35 * max(abs(fd), 0.05):.3e} (0.35 x max(|fd|, 0.05))")
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(g).all()),
+          "geometry loss or gradient not finite")
+    check(counts["B4"] > 0 and counts["B1"] == 0, f"geometry step launches {counts}")
+    check(abs(gx - fd) < 0.35 * max(abs(fd), 0.05), f"boundary gradient {gx} vs FD {fd}")
+    # For the record: the JAX package's weighting, the one pixel floor(s)
+    # (ROADMAP C8), on the same key.
+    from montecarlopathtracer_tpu_torch.diff import boundary as B
+
+    def one_pixel(image_grad, camera, sx, sy):
+        h, w = image_grad.shape[:2]
+        return image_grad[sy.floor().long().clamp(0, h - 1),
+                          sx.floor().long().clamp(0, w - 1), :].T
+
+    footprint, B._footprint_grad = B._footprint_grad, one_pixel
+    try:
+        g1 = float(step(th, make_key(0))[1][0])
+    finally:
+        B._footprint_grad = footprint
+    print(f"g / fd: {gx / fd:.4f} with the pixel footprint; {g1 / fd:.4f} with the JAX "
+          f"package's one-pixel weighting ({g1:.6e})")
+    return counts, dt
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: FAIL: {PKG} is not beside this script", file=sys.stderr)
@@ -1243,7 +1804,7 @@ def main():
         print(f"scene: procedural Cornell box with mirror + glass spheres, "
               f"{scene.num_triangles} triangles")
         bounce, max_err = kernel_vs_plain(torch, scene, rows)
-        ms, plain_ms = time_segment(torch, rows, bounce)
+        b1_timing = time_segment(torch, rows, bounce)
         launches, per_pass, msps = main_path(torch, scene, camera)
         breakdown(torch, scene, camera, per_pass)
         whole_frame(torch, scene)
@@ -1261,7 +1822,7 @@ def main():
         regen_builds(libs)
         lane_err, lane_ms = lane_vs_plain(torch, rows, bounce)
         regen_counts, regen_msps, regen_steps = regen_main_path(torch, scene, camera)
-        del scene, camera, rows, bounce, idx, d_full
+        del idx, d_full
         bscene, bcam, bconfig, tables = bunny_setup(torch)
         waves = bunny_waves(torch, bcam, bconfig, tables)
         g = torch.Generator(device="cuda").manual_seed(17)
@@ -1277,8 +1838,23 @@ def main():
         bregen_counts = bunny_regen(torch, bscene, bconfig)
         bgrad_counts, bgrad_msps, bgrad_scatter = bunny_grad(torch, bscene, bconfig)
         bsc_err, bsc_ms = bunny_scatter(torch, *bgrad_scatter)
-        del bgrad_scatter
+        del bgrad_scatter, bscene, brenderer, tables
         bunny_grad_frame(torch)
+        split_builds(libs)
+        from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig, scene_tables
+
+        gscene, gcam, gconfig, gtables, gwaves = glossy_setup(torch)
+        b1c_err = cull_vs_plain(torch, gtables, gwaves)
+        ctables = scene_tables(scene, TraceConfig(chunk_cull=True))
+        shade_err = shade_vs_plain(torch, rows, ctables, bounce, gtables, gwaves)
+        split_ms = time_split_kernels(torch, rows, bounce, gtables, gwaves[1])
+        del gwaves, ctables
+        cull_counts, cull_split_counts, cull_per_pass, cull_msps = cull_main_path(
+            torch, gscene, gcam, gconfig)
+        split_counts, fused_counts, split_per_pass, split_msps, fused_s = split_main_path(
+            torch, scene, camera)
+        split_grad_counts, split_grad_s = split_grad(torch, scene, camera)
+        geom_counts, geom_s = geometry_step(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1288,35 +1864,43 @@ def main():
           f"{regen_steps:.1f} steps/pass; bunny traverse ({BW}x{BH}, depth {DEPTH} + 1, "
           f"1 spp): {bunny_msps:.4f} Msamples/s; bunny fwd+bwd ({BUNNY_GRAD_W}x"
           f"{BUNNY_GRAD_W}, 1 spp): {bgrad_msps:.4f} Msamples/s; on {smi}")
+    print(f"glossy cull ({GW}x{GH}, {CULL_SPP} spp/pass): {cull_msps:.4f} Msamples/s; split "
+          f"path (Cornell {W}x{H}, {SPP} spp/pass): {split_msps:.4f} Msamples/s, fused pass "
+          f"{fused_s:.4f} s; split fwd+bwd {split_grad_s:.4f} s/iteration "
+          f"({split_grad_counts}); geometry step {geom_s:.4f} s ({geom_counts})")
+
+    def entry(name, source, replaces, launches, err, timing, **extra):
+        ms, plain_ms, (bound_ms, bound_by), *lib = timing
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib[0] if lib else None, **extra}
+
     print(json.dumps({"kernels": [
-        {"name": "mega_segment", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "mega_segment (lane flags, B1l)", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": LANE_REPLACES,
-         "launches": regen_counts["B1l"], "max_abs_err": lane_err,
-         "ms": lane_ms[0], "plain_ms": lane_ms[1]},
-        {"name": "segment_backward", "route": "cuda", "source": BWD_SOURCE,
-         "replaces": BWD_REPLACES, "launches": counts["B2"],
-         "max_abs_err": bwd_err, "ms": bwd_ms[0], "plain_ms": bwd_ms[1]},
-        {"name": "scatter_rows (shared-memory table, T = 652)", "route": "cuda",
-         "source": SCATTER_SOURCE, "replaces": SCATTER_REPLACES, "launches": counts["B3"],
-         "max_abs_err": sc_err, "ms": sc_ms[0], "plain_ms": sc_ms[1]},
-        {"name": "scatter_rows (f64 global atomics, T = 81,932)", "route": "cuda",
-         "source": SCATTER_SOURCE, "replaces": SCATTER_REPLACES,
-         "launches": bgrad_counts["B3"], "max_abs_err": bsc_err, "ms": bsc_ms[0],
-         "plain_ms": bsc_ms[1]},
-        {"name": "traverse_select (B5)", "route": "cuda", "source": TRAVERSE_SOURCE,
-         "replaces": TRAVERSE_REPLACES, "launches": bunny_counts["B5"],
-         "max_abs_err": b5_err, "max_t_gap_on_near_ties": b5_err, "ms": b5_ms[0],
-         "plain_ms": b5_ms[1], "rays": BW * BH, "plain_rays": SUBSET},
-        {"name": "rows_segment (B6)", "route": "cuda", "source": ROWS_SOURCE,
-         "replaces": ROWS_REPLACES, "launches": bunny_counts["B6"],
-         "max_abs_err": b6_err["B6"], "ms": b6_ms["B6"][0], "plain_ms": b6_ms["B6"][1]},
-        {"name": "rows_segment (lane flags, B6l)", "route": "cuda", "source": ROWS_SOURCE,
-         "replaces": ROWS_LANE_REPLACES, "launches": bregen_counts["B6l"],
-         "max_abs_err": b6_err["B6l"], "ms": b6_ms["B6l"][0],
-         "plain_ms": b6_ms["B6l"][1]},
+        entry("mega_segment", KERNEL_SOURCE, REPLACES, launches, max_err, b1_timing),
+        entry("mega_segment (lane flags, B1l)", KERNEL_SOURCE, LANE_REPLACES,
+              regen_counts["B1l"], lane_err, lane_ms),
+        entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms),
+        entry("scatter_rows (shared-memory table, T = 652)", SCATTER_SOURCE,
+              SCATTER_REPLACES, counts["B3"], sc_err, sc_ms),
+        entry("scatter_rows (f64 global atomics, T = 81,932)", SCATTER_SOURCE,
+              SCATTER_REPLACES, bgrad_counts["B3"], bsc_err, bsc_ms),
+        entry("traverse_select (B5)", TRAVERSE_SOURCE, TRAVERSE_REPLACES,
+              bunny_counts["B5"], b5_err, b5_ms, max_t_gap_on_near_ties=b5_err,
+              rays=BW * BH, plain_rays=SUBSET),
+        entry("rows_segment (B6)", ROWS_SOURCE, ROWS_REPLACES, bunny_counts["B6"],
+              b6_err["B6"], b6_ms["B6"]),
+        entry("rows_segment (lane flags, B6l)", ROWS_SOURCE, ROWS_LANE_REPLACES,
+              bregen_counts["B6l"], b6_err["B6l"], b6_ms["B6l"]),
+        entry("mega_segment (chunk cull, B1c)", KERNEL_SOURCE, CULL_REPLACES,
+              cull_counts["B1c"], b1c_err, split_ms["B1c"]),
+        entry("nearest_shade_full (B4)", SHADE_SOURCE, SHADE_REPLACES, split_counts["B4"],
+              shade_err["B4"], split_ms["B4"]),
+        entry("nearest_shade_full (chunk cull, B4c)", SHADE_SOURCE, SHADE_CULL_REPLACES,
+              cull_split_counts["B4c"], shade_err["B4c"], split_ms["B4c"]),
+        entry("nearest_triangle (B7)", TRIANGLE_SOURCE, TRIANGLE_REPLACES,
+              fused_counts["B7"], shade_err["B7"], split_ms["B7"],
+              max_t_gap_on_near_ties=shade_err["B7"]),
     ]}))
     print(f"bunny gradient launches: {bgrad_counts}; brute B1 on the bunny wavefront "
           f"{b1_ms[0]:.4f} ms")

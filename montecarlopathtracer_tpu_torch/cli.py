@@ -17,12 +17,22 @@ Examples:
     python -m montecarlopathtracer_tpu_torch.cli --scene bunny \
         --intersector traverse --width 1024 --height 1024 --spp-per-pass 1
 
+    # the open glossy stage with chunk culling and the wavefront sort
+    python -m montecarlopathtracer_tpu_torch.cli --scene glossy --chunk-cull on \
+        --ray-sort on
+
+    # the split path (intersector call + segment body), or the fused intersector
+    python -m montecarlopathtracer_tpu_torch.cli --whole-segment off
+    python -m montecarlopathtracer_tpu_torch.cli --intersector fused
+
 ``--device`` defaults to ``cuda``; without a GPU the run fails rather
 than moving to the CPU. ``--device cpu`` runs the plain-torch version of
 every kernel. Every option is explicit: the JAX CLI's automatic choices
-of intersector and regen were measured on a TPU and are not carried
-over. ``--regen on`` renders the frame as one wavefront, so an explicit
-``--ray-chunk`` with it is refused rather than dropped.
+of intersector, chunk culling and regen were measured on a TPU and are
+not carried over. An option that cannot take effect is refused rather
+than dropped: ``--ray-chunk`` with ``--regen on`` (one wavefront),
+``--chunk-cull on`` with another intersector than ``megakernel``, and
+``--regen on`` with ``brute`` or ``fused``.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import sys
 
 import torch
 
-from .models import bunny, cornell
+from .models import bunny, cornell, glossy
 from .render.integrator import TraceConfig
 from .render.renderer import Renderer, RenderSettings
 from .scene.camera import camera_for_scene
@@ -49,9 +59,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--scene",
         default="cornell-full",
         help="'cornell' = procedural box, 'cornell-full' = procedural box "
-        "with mirror + glass spheres, 'bunny' = procedural displaced blob "
-        "of 20*4^subdiv triangles in a room, 1/2 = reference scene "
-        "(read-only mount), or a path to an .obj file",
+        "with mirror + glass spheres, 'glossy' = procedural open stage of "
+        "glossy cubes and sphere lamps (1,332 triangles), 'bunny' = "
+        "procedural displaced blob of 20*4^subdiv triangles in a room, 1/2 = "
+        "reference scene (read-only mount), or a path to an .obj file",
     )
     p.add_argument("--subdiv", type=int, default=6,
                    help="icosphere subdivisions of --scene bunny (6: 81,932 triangles)")
@@ -64,10 +75,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=7)
     p.add_argument("--rr-depth", type=int, default=5)
     p.add_argument("--illum", type=float, default=10.0)
-    p.add_argument("--intersector", choices=["megakernel", "traverse"],
+    p.add_argument("--intersector", choices=["megakernel", "traverse", "fused", "brute"],
                    default="megakernel",
                    help="'megakernel' = brute nearest hit in the segment kernel; "
-                   "'traverse' = Morton-chunk walk, for large scenes")
+                   "'traverse' = Morton-chunk walk, for large scenes; 'fused' = "
+                   "nearest-index kernel + differentiable recompute; 'brute' = "
+                   "plain torch (the last two on the split path)")
+    p.add_argument("--whole-segment", choices=["on", "off"], default="on",
+                   help="'on' = one kernel per path segment (megakernel, traverse); "
+                   "'off' = the split path: intersector kernel + segment body in "
+                   "torch ops")
+    p.add_argument("--chunk-cull", choices=["on", "off"], default="off",
+                   help="megakernel: Morton-order the triangles and skip the "
+                   "128-triangle chunks no ray of a block can reach (open scenes)")
     p.add_argument("--ray-sort", choices=["on", "off"], default=None,
                    help="sort the wavefront each segment (default: on for "
                    "--intersector traverse, off otherwise)")
@@ -100,6 +120,8 @@ def load_scene(name: str, width: int, height: int, subdiv: int = 6):
         return cornell.load_reference_scene(int(name), width=width, height=height)
     if name == "cornell":
         return cornell.cornell_box(width=width, height=height)
+    if name == "glossy":
+        return glossy.glossy_steps(width=width, height=height)
     if name == "cornell-full":
         return cornell.cornell_box(
             with_mirror_sphere=True, with_glass_sphere=True,
@@ -121,6 +143,14 @@ def main(argv=None) -> int:
               f"honour --ray-chunk {args.ray_chunk} (drop one of the two)",
               file=sys.stderr)
         return 2
+    if args.chunk_cull == "on" and args.intersector != "megakernel":
+        print(f"error: --chunk-cull on applies to --intersector megakernel only, not "
+              f"{args.intersector!r}", file=sys.stderr)
+        return 2
+    if regen and args.intersector in ("fused", "brute"):
+        print(f"error: --regen on needs --intersector megakernel or traverse, not "
+              f"{args.intersector!r}", file=sys.stderr)
+        return 2
     scene, camera = load_scene(args.scene, args.width, args.height, args.subdiv)
     ray_sort = args.ray_sort == "on" if args.ray_sort else args.intersector == "traverse"
     config = TraceConfig(
@@ -130,7 +160,9 @@ def main(argv=None) -> int:
         illum=args.illum,
         phong_model=args.phong_model,
         intersector=args.intersector,
+        whole_segment=args.whole_segment == "on",
         ray_sort=ray_sort,
+        chunk_cull=args.chunk_cull == "on",
         ray_chunk=args.ray_chunk,
     )
     settings = RenderSettings(

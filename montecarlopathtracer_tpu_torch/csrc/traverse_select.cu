@@ -17,7 +17,9 @@
 // - per lane, a slab test of the ray segment [0, best t] against the
 //   chunk's box, widened by a small margin (the TPU kernel's
 //   `_slab_reach` has none, so a hit that grazes a box face could be
-//   skipped); `__syncthreads_or` skips the chunk when no lane reaches it;
+//   skipped); `__syncthreads_or` skips the chunk when no lane reaches it
+//   (the slab test, the staging and the pair test are those of
+//   nearest_common.cuh, shared with the culling B1c and B4c);
 // - a reached chunk's 12 geometry floats per triangle (rows[:, 0:12])
 //   are staged in shared memory as three float4 each, and every reaching
 //   lane tests all of them with B1's accept test (IEEE division,
@@ -50,6 +52,7 @@
 
 #include <climits>
 
+#include "nearest_common.cuh"
 #include "segment_common.cuh"
 
 namespace {
@@ -57,14 +60,6 @@ namespace {
 using namespace seg;
 
 constexpr int kThreads = 128;  // rays per block = rays per tile
-constexpr int kChunk = 128;    // triangles per Morton chunk
-
-// The box margin: a relative 1e-5 of the box's coordinates plus an
-// absolute 1e-5, far above the f32 rounding of a hit point or a slab
-// distance, so a chunk whose box a hit grazes is never skipped.
-__device__ __forceinline__ float margin(float lo, float hi) {
-  return 1e-5f * (1.0f + fmaxf(fabsf(lo), fabsf(hi)));
-}
 
 __global__ void __launch_bounds__(kThreads)
 traverse_kernel(const float* __restrict__ rows, int T, const float* __restrict__ clo,
@@ -83,85 +78,37 @@ traverse_kernel(const float* __restrict__ rows, int T, const float* __restrict__
     o = load3(pos, R, r);
     d = load3(dir, R, r);
   }
-  // Slab-test reciprocals; an axis with |d| < 1e-12 is tested by
-  // containment instead.
-  const float dd[3] = {d.x, d.y, d.z}, oo[3] = {o.x, o.y, o.z};
-  float inv[3];
-  bool flat[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    flat[k] = fabsf(dd[k]) < 1e-12f;
-    inv[k] = 1.0f / (flat[k] ? 1.0f : dd[k]);
-  }
+  const Slab slab = make_slab(o, d);
 
-  float best_t = kBig;
-  int best_i = INT_MAX;
+  Hit best = {kBig, 0.0f, 0.0f, INT_MAX};
   const int n = n_reach[tile];
   const int* ord = order + static_cast<size_t>(tile) * nc;
   const float* tm = tmin + static_cast<size_t>(tile) * nc;
   int walked = 0, tested = 0;
   for (int p = 0; p < n; ++p) {
     const int j = ord[p];
-    bool reach = act;
-    if (act) {
-      float tn = -kBig, tf = kBig;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float lo0 = clo[3 * j + k], hi0 = chi[3 * j + k];
-        const float m = margin(lo0, hi0);
-        const float lo = lo0 - m, hi = hi0 + m;
-        if (flat[k]) {
-          if (oo[k] < lo || oo[k] > hi) tn = kBig, tf = -kBig;
-        } else {
-          const float t0 = (lo - oo[k]) * inv[k], t1 = (hi - oo[k]) * inv[k];
-          tn = fmaxf(tn, fminf(t0, t1));
-          tf = fminf(tf, fmaxf(t0, t1));
-        }
-      }
-      reach = tn <= tf && tf >= 0.0f && tn <= best_t;
-    }
+    const bool reach = act && slab_reach(slab, clo, chi, j, best.t);
     ++walked;
     if (__syncthreads_or(reach)) {
       ++tested;
       const int base = j * kChunk;
       const int cnt = min(kChunk, T - base);
-      for (int q = threadIdx.x; q < 3 * cnt; q += kThreads) {
-        geom[q] = reinterpret_cast<const float4*>(rows + static_cast<size_t>(base + q / 3) * 48)[q % 3];
-      }
+      stage_geometry(geom, rows, 48, base, cnt);
       __syncthreads();
-      if (reach) {
-        for (int k = 0; k < cnt; ++k) {
-          const float4 gx = geom[3 * k], gy = geom[3 * k + 1], gz = geom[3 * k + 2];
-          const float opx = gx.x * o.x + gx.y * o.y + gx.z * o.z + gx.w;
-          const float opy = gy.x * o.x + gy.y * o.y + gy.z * o.z + gy.w;
-          const float opz = gz.x * o.x + gz.y * o.y + gz.z * o.z + gz.w;
-          const float dpx = gx.x * d.x + gx.y * d.y + gx.z * d.z;
-          const float dpy = gy.x * d.x + gy.y * d.y + gy.z * d.z;
-          const float w = gz.x * d.x + gz.y * d.y + gz.z * d.z;
-          const float t = -opz / w;
-          const float beta = opx + t * dpx;
-          const float gamma = opy + t * dpy;
-          const int i = base + k;
-          if (beta > 0.0f && gamma > 0.0f && t > 0.0f && 1.0f - (beta + gamma) > 0.0f &&
-              (t < best_t || (t == best_t && i < best_i))) {
-            best_t = t;
-            best_i = i;
-          }
-        }
-      }
+      if (reach) test_tile<false, false>(geom, cnt, base, o, d, best);
       __syncthreads();
     }
     // Early exit: tmin is sorted ascending and lower-bounds every hit
     // in the chunks after p, so once it passes every live lane's best t
     // (with slack) nothing later can win.
-    const bool more = p + 1 < n && act && tm[p + 1] <= best_t * (1.0f + 1e-6f) + 1e-6f;
+    const bool more = p + 1 < n && act && tm[p + 1] <= best.t * (1.0f + 1e-6f) + 1e-6f;
     if (!__syncthreads_or(more)) break;
   }
   if (visits != nullptr && threadIdx.x == 0) {
     visits[tile] = walked;
     visits[gridDim.x + tile] = tested;
   }
-  if (r < R) idx_out[r] = best_t < kBig ? best_i : -1;
+  if (r < R) idx_out[r] = best.t < kBig ? best.i : -1;
 }
 
 }  // namespace

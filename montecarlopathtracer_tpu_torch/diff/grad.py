@@ -11,11 +11,16 @@ same strategy, *detached sampling with path replay*:
   products (× Kd / Ks / Ka), the emitter value (Ka × illum) and the hit
   geometry (t, β, γ through the per-triangle transforms to the vertex
   positions; shading normals through the normal buffer);
-- each path segment's backward is the segment vjp kernel and the row
+- a whole segment's backward is the segment vjp kernel and the row
   scatter (:func:`..ops.segment_fused.whole_segment_megakernel`, or
   :func:`..ops.segment_fused.whole_segment_rows` on the traversal path),
-  which keep only the segment's inputs and winner index. On the
-  traversal path the row table is in Morton order, and its gradient
+  which keep only the segment's inputs and winner index. On the split
+  path (``whole_segment=False``, ``"brute"``, ``"fused"``) the
+  intersector's backward is a row gather, elementwise autograd and the
+  row scatter (:class:`..ops.nearest_shade.NearestShadeFull`), or plain
+  autograd through :func:`..ops.nearest_shade.refine_hit` and the brute
+  oracle, and the segment body is torch ops. With chunk culling or on
+  the traversal path the row table is in Morton order, and its gradient
   flows back through the permutation to the scene's fields.
 
 Parameters are a plain dict of :class:`ScenePack` fields
@@ -27,8 +32,7 @@ Known limitation (by the math, as in the JAX package): with the
 reference's material model every geometric factor cancels against its
 importance sampler, so path radiance is a product of albedos × Ka and
 the vertex gradient is exactly zero in the interior. Nonzero geometry
-gradients need boundary terms (JAX ``diff/boundary.py``, which waits for
-kernel B4; see ROADMAP.md).
+gradients come from the boundary terms of :mod:`.boundary`.
 
 Random streams: ``key`` is a :mod:`..ops.rng` key, and sample batch
 ``i`` renders under ``fold_in(key, i)`` as in the JAX package, so a

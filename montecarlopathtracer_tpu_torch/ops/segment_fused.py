@@ -15,9 +15,14 @@ Forward (JAX ``mega_segment_fwd``, Pallas kernel ``_mega_segment_kernel``):
   runs :func:`mega_segment_ref`. It never falls back from one to the
   other: a CUDA tensor that the kernel cannot take raises. Flags may be
   per segment f32[3, 1] (B1) or per lane f32[3, R] (B1l, JAX
-  ``lane_flags=True``, for the regenerating wavefront).
+  ``lane_flags=True``, for the regenerating wavefront). Given the chunk
+  boxes ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered
+  table, the kernel skips the 128-triangle chunks that no live ray of a
+  block can reach with its current best t (B1c, JAX ``cull=True``); the
+  winners are those of brute selection over the same table.
 - :func:`mega_segment_ref` is the plain-torch version: brute f32
-  selection, a gather of the winner row, and :func:`_epilogue`.
+  selection, a gather of the winner row, and :func:`_epilogue` (the
+  chunk boxes only prune, so it takes none).
 - :func:`pack_rows_full` builds the per-triangle row table f32[T, 48]
   that both read: geometry 12 | shading 32 | pad 4, with the geometry
   block ``[m_k0 m_k1 m_k2 −m_a_k]`` for k = 0..2.
@@ -233,11 +238,16 @@ def _epilogue(
 def mega_segment_ref(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
-    refract_kd: bool = True, phong_model: str = "blinn",
+    refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
+    tested=None,
 ):
     """Plain-torch whole segment (see the module docstring for the
-    contract): brute selection, then :func:`_epilogue`."""
+    contract): brute selection, then :func:`_epilogue`. ``clo``, ``chi``
+    are accepted and not needed: culling never changes the winners."""
     _check_options(mode, phong_model)
+    if tested is not None:
+        raise ValueError("chunk counts come from the kernel; the plain version "
+                         "tests every triangle")
     best_t, best_i, best_b, best_g = _select_ref(rows, pos3, dir3)
     hit = best_t < _BIG
     hitf = hit.to(torch.float32)
@@ -357,8 +367,9 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,  # lane_flags, R
         ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
         ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
+        _P, _P, ctypes.c_int,  # clo, chi, cull
         _P, _P, _P, _P, _P, _P,  # idx, npos, ndir, ntput, nres, still
-        _P,  # stream
+        _P, _P,  # tested, stream
     ]
     return lib
 
@@ -444,14 +455,39 @@ def _check_cuda_inputs(rows, vec3, vec1, live, flags) -> None:
         raise ValueError("R and T must fit in int32")
 
 
+def check_chunk_boxes(rows, clo, chi, chunk=128) -> None:
+    """Chunk boxes f32[ceil(T / chunk), 3] on the table's device, for the
+    culling kernels (B1c, B4c)."""
+    nc = -(-rows.shape[0] // chunk)
+    for x in (clo, chi):
+        if x.device != rows.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"chunk boxes must be contiguous float32 on {rows.device}")
+        if tuple(x.shape) != (nc, 3):
+            raise ValueError(f"chunk boxes must be [{nc}, 3] for {rows.shape[0]} triangles, "
+                             f"got {tuple(x.shape)}")
+
+
+def check_tested(tested, R, dev, block=128) -> None:
+    """The per-block chunk counts: a contiguous int32 [ceil(R / block)] on ``dev``."""
+    nb = -(-R // block)
+    if tested.device != dev or tested.dtype != torch.int32 or tuple(tested.shape) != (nb,) \
+            or not tested.is_contiguous():
+        raise ValueError(f"tested must be a contiguous int32 [{nb}] tensor on {dev}")
+
+
 def _mega_segment_cuda(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
-    mode, illum, eps_offset, refract_kd, phong_model,
+    mode, illum, eps_offset, refract_kd, phong_model, clo, chi, tested,
 ):
     _check_options(mode, phong_model)
     _check_cuda_inputs(rows, (pos3, dir3, tput, res), (u1, u2, urr), live, flags)
     R = pos3.shape[1]
     dev = pos3.device
+    cull = clo is not None
+    if cull:
+        check_chunk_boxes(rows, clo, chi)
+    if tested is not None:
+        check_tested(tested, R, dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
     npos, ndir, ntput, nres = (torch.empty_like(pos3) for _ in range(4))
     still = torch.empty(R, dtype=torch.float32, device=dev)
@@ -465,28 +501,37 @@ def _mega_segment_cuda(
             flags.data_ptr(), int(flags.shape[1] != 1), R,
             int(mode == "rr"), float(illum), float(eps_offset),
             int(bool(refract_kd)), int(phong_model == "phong"),
+            clo.data_ptr() if cull else None, chi.data_ptr() if cull else None, int(cull),
             idx.data_ptr(), npos.data_ptr(), ndir.data_ptr(),
             ntput.data_ptr(), nres.data_ptr(), still.data_ptr(),
-            stream,
+            None if tested is None else tested.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"mega_segment kernel launch failed: cudaError {err}")
     mega_segment.launches += 1
     mega_segment.lane_launches += flags.shape[1] != 1
+    mega_segment.cull_launches += cull
     return idx, npos, ndir, ntput, nres, still
 
 
 def mega_segment(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
-    refract_kd: bool = True, phong_model: str = "blinn",
+    refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
+    tested=None,
 ):
     """Whole-segment forward (see the module docstring). CUDA tensors
     launch the kernel and add one to ``mega_segment.launches`` (and to
-    ``mega_segment.lane_launches`` for per-lane flags); CPU tensors run
-    :func:`mega_segment_ref`."""
+    ``mega_segment.lane_launches`` for per-lane flags, to
+    ``mega_segment.cull_launches`` with chunk boxes); CPU tensors run
+    :func:`mega_segment_ref`.
+
+    ``tested``, on CUDA only: an int32 [ceil(R / 128)] tensor that the
+    kernel fills with the 128-triangle chunks each block of 128 rays
+    tested."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
-              refract_kd=refract_kd, phong_model=phong_model)
+              refract_kd=refract_kd, phong_model=phong_model, clo=clo, chi=chi,
+              tested=tested)
     args = (rows, pos3, dir3, tput, res, live, u1, u2, urr, flags)
     if pos3.device.type == "cuda":
         return _mega_segment_cuda(*args, **kw)
@@ -495,8 +540,9 @@ def mega_segment(
     raise ValueError(f"no segment kernel for device {pos3.device}")
 
 
-mega_segment.launches = 0  # kernel launches, per-lane flags included
+mega_segment.launches = 0  # kernel launches, per-lane flags and culling included
 mega_segment.lane_launches = 0  # of which with per-lane flags (B1l)
+mega_segment.cull_launches = 0  # of which with chunk culling (B1c)
 
 
 def _rows_segment_cuda(
@@ -623,15 +669,17 @@ segment_backward.launches = 0
 class WholeSegment(torch.autograd.Function):
     """The differentiable whole segment (JAX ``_make_whole_segment``).
 
-    Forward: :func:`mega_segment`, saving the winner index and the
-    inputs. Backward: one gather of the winner rows, :func:`segment_backward`
-    and :func:`.scatter_rows.scatter_rows` into d_rows f32[T, 48]. The
-    index, ``still``, the masks, the uniforms and the flags carry no
-    gradient (the winner is piecewise constant in the geometry)."""
+    Forward: :func:`mega_segment` (B1, or B1c given chunk boxes), saving
+    the winner index and the inputs. Backward: one gather of the winner
+    rows, :func:`segment_backward` and :func:`.scatter_rows.scatter_rows`
+    into d_rows f32[T, 48]. The index, ``still``, the masks, the
+    uniforms, the flags and the chunk boxes carry no gradient (the winner
+    is piecewise constant in the geometry)."""
 
     @staticmethod
-    def forward(ctx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, kw):
-        out = mega_segment(rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, **kw)
+    def forward(ctx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, clo, chi, kw):
+        out = mega_segment(rows, pos3, dir3, tput, res, live, u1, u2, urr, flags,
+                           clo=clo, chi=chi, **kw)
         ctx.save_for_backward(out[0], rows, pos3, dir3, tput, res, live, u1, u2,
                               urr, flags)
         ctx.kw = kw
@@ -641,7 +689,7 @@ class WholeSegment(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _idx, ct_npos, ct_ndir, ct_ntput, ct_nres, _still):
         d_rows, d_state = _segment_vjp(ctx, (ct_npos, ct_ndir, ct_ntput, ct_nres))
-        return (d_rows, *d_state, None, None, None, None, None, None)
+        return (d_rows, *d_state, None, None, None, None, None, None, None, None)
 
 
 def _segment_vjp(ctx, cts):
@@ -662,16 +710,17 @@ def _segment_vjp(ctx, cts):
 def whole_segment_megakernel(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
-    refract_kd: bool = True, phong_model: str = "blinn",
+    refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
 ):
     """Differentiable whole segment (JAX ``whole_segment_megakernel``):
     the outputs of :func:`mega_segment`, with gradients to ``rows`` and
-    the ray state through :class:`WholeSegment`."""
+    the ray state through :class:`WholeSegment`; chunk boxes ``clo``,
+    ``chi`` select the culling kernel B1c."""
     _check_options(mode, phong_model)
     kw = dict(mode=mode, illum=float(illum), eps_offset=float(eps_offset),
               refract_kd=bool(refract_kd), phong_model=phong_model)
     return WholeSegment.apply(rows, pos3, dir3, tput, res, live, u1, u2, urr,
-                              flags, kw)
+                              flags, clo, chi, kw)
 
 
 class WholeSegmentRows(torch.autograd.Function):

@@ -8,8 +8,11 @@ here lane ``i`` is pinned to pixel ``i`` and traces that pixel's ``spp``
 samples back to back. The step a path ends (miss, emitter, final gather,
 RR death, hard kill), its radiance is added to the lane's sum and the
 lane restarts with a fresh camera ray, until every lane has finished its
-quota. Each step is one segment with per-lane flags (kernel B1l, or B5
-and B6l on the traversal path), since one wavefront mixes path depths.
+quota. Each step is one whole segment with per-lane flags (kernel B1l,
+B1l with chunk culling when ``chunk_cull`` is set, or B5 and B6l on the
+traversal path), since one wavefront mixes path depths. As in the JAX
+package, regen needs the ``"megakernel"`` or ``"traverse"`` intersector
+and runs whole segments whatever ``whole_segment`` says.
 
 Estimator: unbiased and deterministic, with the JAX package's stream
 ids: a step's segment draws come from streams ``(step-1)*4 + k``, the
@@ -35,7 +38,7 @@ import torch
 from ..ops.rng import Key, stream_uniform
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
-from .integrator import SceneTables, TraceConfig, scene_tables, segment_step
+from .integrator import WHOLE_SEGMENT, SceneTables, TraceConfig, scene_tables, segment_step
 
 LIVE_CHECK_EVERY = 8  # steps between two reads of the live mask
 
@@ -56,6 +59,9 @@ def render_regen_planar(
     ``ray_chunk`` is refused rather than ignored. (The JAX function's
     row band ``y0``, ``n_rows`` serves its sharded renderer, which is not
     ported.)"""
+    if config.intersector not in WHOLE_SEGMENT:
+        raise ValueError("regen rendering needs intersector='megakernel' or 'traverse', "
+                         f"got {config.intersector!r}")
     if config.ray_chunk:
         raise ValueError(
             "the regenerating wavefront renders the frame as one wavefront; "

@@ -63,7 +63,8 @@ class RenderSettings:
 
 class Renderer:
     """Progressive path-tracing loop bound to one scene + camera on
-    one device."""
+    one device: the card by default (``device="cuda"``, which raises
+    without one); ``device="cpu"`` runs the plain-torch path."""
 
     def __init__(
         self,
@@ -72,9 +73,12 @@ class Renderer:
         config: TraceConfig = TraceConfig(),
         settings: RenderSettings = RenderSettings(),
         log: Optional[RenderLog] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Renderer: no CUDA device is available; pass device='cpu' "
+                               "to render with the plain-torch path")
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
         self.config = config

@@ -8,7 +8,8 @@ the same distance; :func:`compare_segment` allows those near-ties on a
 small share of lanes and holds every other output to a tolerance, with
 the same small share of ill-conditioned lanes held to a looser one.
 :func:`compare_winners` holds the traversal walk's winners to brute
-selection's with the same near-tie allowance.
+selection's with the same near-tie allowance, and :func:`compare_shade`
+the split path's intersector outputs.
 :func:`compare_images` holds whole frames to a pixel share.
 :func:`compare_grads` holds the cotangents of one segment's vjp,
 :func:`compare_scatter` the row scatter's table, and
@@ -37,6 +38,11 @@ GRAD_TOL = 1e-5
 # Row scatter: |got - want| <= SCATTER_ULPS * eps32 * (scatter of |dvals|)
 # per entry (compare_scatter).
 SCATTER_ULPS = 16
+# Split intersector: t, β and γ beyond `tol` of the other side must lie
+# within SHADE_ULPS * eps32 * (their rounding scale) of the float64 value
+# (compare_shade).
+SHADE_ULPS = 16
+EPS32 = float(np.finfo(np.float32).eps)
 # Near-tie bounds, in float64 on the f32 rows: accept margins this close
 # to 0 flip under f32 rounding, and so do distances this close together.
 _MARGIN_TIE = 1e-5
@@ -49,18 +55,32 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _hit64(rows, pos, dir_, idx):
-    """(t, accept margin min(β, γ, 1-β-γ)) of triangle ``idx`` per lane,
-    in float64; NaN where idx < 0."""
+def _winner64(rows, pos, dir_, idx):
+    """(t, β, γ) of triangle ``idx`` per lane in float64, f64[3, R], and
+    their rounding scales f64[3, R]: the sums of the magnitudes that f32
+    arithmetic rounds on the way to each (a product or sum of terms of
+    size s is off by about eps32 * s), so that |f32 − f64| is a few eps32
+    times the scale."""
     g = rows[np.maximum(idx, 0), 0:12].astype(np.float64).reshape(-1, 3, 4)
     o = pos.T.astype(np.float64)
     d = dir_.T.astype(np.float64)
-    op = np.einsum("rkj,rj->rk", g[:, :, :3], o) + g[:, :, 3]
-    dp = np.einsum("rkj,rj->rk", g[:, :, :3], d)
+    go, gd = g[:, :, :3] * o[:, None, :], g[:, :, :3] * d[:, None, :]
+    op, dp = go.sum(axis=2) + g[:, :, 3], gd.sum(axis=2)
+    op_abs, dp_abs = np.abs(go).sum(axis=2) + np.abs(g[:, :, 3]), np.abs(gd).sum(axis=2)
     with np.errstate(divide="ignore", invalid="ignore"):
         t = -op[:, 2] / dp[:, 2]
-    beta = op[:, 0] + t * dp[:, 0]
-    gamma = op[:, 1] + t * dp[:, 1]
+        s_t = np.abs(t) + (op_abs[:, 2] + np.abs(t) * dp_abs[:, 2]) / np.abs(dp[:, 2])
+        beta = op[:, 0] + t * dp[:, 0]
+        gamma = op[:, 1] + t * dp[:, 1]
+        s_b, s_g = (op_abs[:, k] + np.abs(t) * dp_abs[:, k] + np.abs(dp[:, k]) * s_t
+                    for k in (0, 1))
+    return np.stack([t, beta, gamma]), np.stack([s_t, s_b, s_g])
+
+
+def _hit64(rows, pos, dir_, idx):
+    """(t, accept margin min(β, γ, 1-β-γ)) of triangle ``idx`` per lane,
+    in float64; NaN where idx < 0."""
+    (t, beta, gamma), _ = _winner64(rows, pos, dir_, idx)
     margin = np.minimum(np.minimum(beta, gamma), 1.0 - beta - gamma)
     bad = idx < 0
     return np.where(bad, np.nan, t), np.where(bad, np.nan, margin)
@@ -159,6 +179,36 @@ def compare_winners(got, want, *, live, rows, pos, dir_) -> dict:
     return rep
 
 
+def compare_shade(got, want, *, live, rows, pos, dir_, tol=(1e-5, 1e-5)) -> dict:
+    """Two results ``(idx, tbg, shade)`` of the split path's intersector
+    for the same rays: winners as :func:`compare_winners` holds them;
+    on live lanes whose winners agree, ``shade`` (a copy of the winner's
+    row) equal, and ``tbg`` within ``tol`` (``(rtol, atol)``). A lane
+    beyond ``tol`` passes only where ``got``'s t, β and γ each lie within
+    ``SHADE_ULPS`` × eps32 × their rounding scale of the float64 values
+    (:func:`_winner64`): on a small or distant triangle β = o'_x + t·d'_x
+    cancels terms of size ~100, and a fused multiply-add and two
+    roundings part by ~1e-4 there, both as far from the exact value."""
+    got, want = tuple(map(_np, got)), tuple(map(_np, want))
+    live = _np(live).astype(bool)
+    rows, pos, dir_ = _np(rows), _np(pos), _np(dir_)
+    rep = compare_winners(got[0], want[0], live=live, rows=rows, pos=pos, dir_=dir_)
+    agree = live & (got[0] == want[0])
+    g, w = got[1][:, agree], want[1][:, agree]
+    beyond = ~np.isclose(g, w, rtol=tol[0], atol=tol[1]).all(axis=0)
+    lanes = np.flatnonzero(agree)[beyond]
+    exact, scale = _winner64(rows, pos[:, lanes], dir_[:, lanes], got[0][lanes])
+    with np.errstate(invalid="ignore"):
+        ulps = np.abs(g[:3, beyond] - exact) / (EPS32 * scale)
+    rep["tbg_max_abs_err"] = float(np.abs(g - w).max()) if g.size else 0.0
+    rep["tbg_n_beyond_tol"] = int(beyond.sum())
+    rep["tbg_worst_ulps"] = float(np.nanmax(ulps, initial=0.0))
+    rep["shade_equal"] = bool(np.array_equal(got[2][:, agree], want[2][:, agree]))
+    rep["ok"] = bool(rep["ok"] and rep["shade_equal"] and (got[0][lanes] >= 0).all()
+                     and (ulps <= SHADE_ULPS).all())
+    return rep
+
+
 def compare_images(got, want) -> dict:
     """Two renders f32[H, W, 3] of the same key: at least 99% of pixels
     within 1e-4 (max over channels), frame means within 1e-3 relative,
@@ -250,10 +300,12 @@ def compare_param_grads(want, got, tol) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel wrapper of the port (segment forward, segment
-    from known winners, traversal walk, segment backward, row scatter)
-    to its plain-torch version, on any device, for the duration of the
-    block."""
+    """Route every kernel wrapper of the port (segment forward with or
+    without culling, segment from known winners, traversal walk, segment
+    backward, row scatter, the split path's nearest hit, the fused
+    intersector's index) to its plain-torch version, on any device, for
+    the duration of the block."""
+    from .ops import nearest_shade as NS
     from .ops import scatter_rows as S
     from .ops import segment_fused as F
     from .ops import traverse_walk as TW
@@ -262,7 +314,10 @@ def plain_kernels():
               (F, "rows_segment", F.rows_segment_ref),
               (F, "segment_backward", F.segment_backward_ref),
               (F, "scatter_rows", S.scatter_rows_ref),
-              (TW, "traverse_select", TW.traverse_select_ref)]
+              (TW, "traverse_select", TW.traverse_select_ref),
+              (NS, "nearest_shade_full", NS.nearest_shade_full_ref),
+              (NS, "nearest_triangle", NS.nearest_triangle_ref),
+              (NS, "scatter_rows", S.scatter_rows_ref)]
     saved = [getattr(mod, name) for mod, name, _ in routes]
     for mod, name, plain in routes:
         setattr(mod, name, plain)

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card (the segment forward with scalar
-and per-lane flags, its vjp, the row scatter, the traversal walk and the
-segment from known winners): each builds, launches, agrees with its
-plain-torch version, counts its launches and refuses what it cannot
-take; gradient, traversal and regen renders through the kernels agree
-with the plain path. Every test here needs an NVIDIA Hopper GPU and
+and per-lane flags and with chunk culling, its vjp, the row scatter, the
+traversal walk, the segment from known winners, the split path's nearest
+hit with and without culling and the fused intersector's index): each
+builds, launches, agrees with its plain-torch version, counts its
+launches and refuses what it cannot take; gradient, traversal, regen,
+split, fused and cull renders through the kernels agree with the plain
+path. Every test here needs an NVIDIA Hopper GPU and
 nvcc, and skips elsewhere. This file imports no JAX; run it on the GPU machine, from the
 repository root, without the JAX-pinning conftest:
 
@@ -14,7 +16,8 @@ import pytest
 import torch
 
 from montecarlopathtracer_tpu_torch.diff import grad as G
-from montecarlopathtracer_tpu_torch.models import bunny, cornell
+from montecarlopathtracer_tpu_torch.models import bunny, cornell, glossy
+from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
 from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
@@ -31,6 +34,7 @@ from montecarlopathtracer_tpu_torch.testing import (
     compare_param_grads,
     compare_scatter,
     compare_segment,
+    compare_shade,
     compare_winners,
     plain_kernels,
 )
@@ -235,9 +239,9 @@ def bunny_card():
     return scene, camera, scene_tables(scene, TraceConfig(intersector="traverse"))
 
 
-def _bunny_waves(camera, tables):
+def _waves(camera, rows):
     """The 64x48 camera wavefront and its first bounce (with dead lanes)."""
-    args = list(_camera_args(camera, tables.rows, [0.0, 0.0, 0.0]))
+    args = list(_camera_args(camera, rows, [0.0, 0.0, 0.0]))
     out = F.mega_segment_ref(*args)
     # The plain outputs may be strided views; the kernels take contiguous tensors.
     return [tuple(x.contiguous() for x in wave)
@@ -246,7 +250,7 @@ def _bunny_waves(camera, tables):
 
 def test_traverse_kernel_matches_plain_on_card(bunny_card):
     _, camera, tables = bunny_card
-    for pos, dir_, _, _, live in _bunny_waves(camera, tables):
+    for pos, dir_, _, _, live in _waves(camera, tables.rows):
         nt = -(-pos.shape[1] // TW.RAY_TILE)
         visits = torch.zeros(2, nt, dtype=torch.int32, device="cuda")
         before = TW.traverse_select.launches
@@ -264,7 +268,7 @@ def test_traverse_kernel_matches_plain_on_card(bunny_card):
 @pytest.mark.parametrize("lane", [False, True], ids=["B6", "B6l"])
 def test_rows_segment_kernel_matches_plain_on_card(bunny_card, lane):
     _, camera, tables = bunny_card
-    pos, dir_, tput, res, live = _bunny_waves(camera, tables)[1]
+    pos, dir_, tput, res, live = _waves(camera, tables.rows)[1]
     R = pos.shape[1]
     idx = TW.traverse_select_ref(tables.rows, tables.clo, tables.chi, pos, dir_, live)
     key = make_key(6)
@@ -327,7 +331,7 @@ def test_traverse_gradient_render_kernels_match_plain_path(bunny_card):
 
 def test_traverse_wrappers_refuse_bad_inputs_on_card(bunny_card):
     _, camera, tables = bunny_card
-    pos, dir_, tput, res, live = _bunny_waves(camera, tables)[0]
+    pos, dir_, tput, res, live = _waves(camera, tables.rows)[0]
     before = (TW.traverse_select.launches, F.rows_segment.launches)
     with pytest.raises(TypeError, match="live"):
         TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live.float())
@@ -344,3 +348,130 @@ def test_traverse_wrappers_refuse_bad_inputs_on_card(bunny_card):
         F.rows_segment(tables.rows, idx.int(), pos, dir_, tput, res, live, u, u, u,
                        torch.zeros(3, 7, device="cuda"))
     assert (TW.traverse_select.launches, F.rows_segment.launches) == before
+
+
+@pytest.fixture(scope="module")
+def glossy_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    scene, camera = glossy.glossy_steps(width=64, height=48, device="cuda")
+    return scene, camera, scene_tables(scene, TraceConfig(chunk_cull=True))
+
+
+@pytest.mark.parametrize("lane", [False, True], ids=["B1c", "B1c_lane_flags"])
+def test_cull_kernel_matches_plain_on_card(glossy_card, lane):
+    _, camera, tables = glossy_card
+    for pos, dir_, tput, res, live in _waves(camera, tables.rows):
+        R = pos.shape[1]
+        key = make_key(9)
+        u1, u2, urr = (stream_uniform(key, s, R, "cuda") for s in (0, 1, 3))
+        flags = _lane_flags(R, seed=5) if lane else torch.tensor([[0.0], [1.0], [0.0]],
+                                                                  device="cuda")
+        args = (tables.rows, pos, dir_, tput, res, live, u1, u2, urr, flags)
+        for mode in ("fixed", "rr"):
+            tested = torch.zeros(-(-R // 128), dtype=torch.int32, device="cuda")
+            before = (F.mega_segment.launches, F.mega_segment.cull_launches)
+            got = F.mega_segment(*args, mode=mode, tested=tested, **tables.cull_boxes)
+            torch.cuda.synchronize()
+            assert (F.mega_segment.launches, F.mega_segment.cull_launches) == \
+                (before[0] + 1, before[1] + 1)
+            want = F.mega_segment_ref(*args, mode=mode)
+            rep = compare_segment(want, got, live=live, rows=tables.rows, pos=pos, dir_=dir_)
+            assert rep["ok"], rep
+            t = tested.cpu()
+            assert t.max() <= tables.clo.shape[0] and t.float().mean() < tables.clo.shape[0]
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["B4", "B4c"])
+def test_nearest_shade_kernel_matches_plain_on_card(card, glossy_card, cull):
+    cases = [(card[1], card[2], {}),
+             (glossy_card[1], glossy_card[2].rows if cull else F.pack_rows_full(glossy_card[0]),
+              glossy_card[2].cull_boxes if cull else {})]
+    if cull:
+        cases = cases[1:]
+    for camera, rows, boxes in cases:
+        for pos, dir_, _, _, live in _waves(camera, rows):
+            before = (NS.nearest_shade_full.launches, NS.nearest_shade_full.cull_launches)
+            got = NS.nearest_shade_full(rows, pos, dir_, live, **boxes)
+            torch.cuda.synchronize()
+            assert (NS.nearest_shade_full.launches, NS.nearest_shade_full.cull_launches) == \
+                (before[0] + 1, before[1] + cull)
+            want = NS.nearest_shade_full_ref(rows, pos, dir_, live)
+            rep = compare_shade(got, want, live=live, rows=rows, pos=pos, dir_=dir_)
+            assert rep["ok"], rep
+
+
+def test_nearest_triangle_kernel_matches_plain_on_card(card, glossy_card):
+    for scene, camera in (card[:2], glossy_card[:2]):
+        rows = F.pack_rows_full(scene)
+        geom = rows[:, :12].contiguous()
+        for pos, dir_, _, _, _ in _waves(camera, rows):
+            before = NS.nearest_triangle.launches
+            got = NS.nearest_triangle(geom, pos, dir_)
+            torch.cuda.synchronize()
+            assert NS.nearest_triangle.launches == before + 1
+            want = NS.nearest_triangle_ref(geom, pos, dir_)
+            rep = compare_winners(got, want, live=torch.ones_like(got, dtype=torch.bool),
+                                  rows=rows, pos=pos, dir_=dir_)
+            assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("kw", [dict(whole_segment=False), dict(intersector="fused"),
+                                dict(chunk_cull=True), dict(chunk_cull=True, ray_sort=True),
+                                dict(whole_segment=False, chunk_cull=True)],
+                         ids=["split", "fused", "cull", "cull_sort", "split_cull"])
+def test_split_and_cull_renders_on_card_match_cpu_plain_path(glossy_card, kw):
+    scene, camera, _ = glossy_card
+    config = TraceConfig(max_depth=3, **kw)
+    counts = (F.mega_segment.cull_launches, NS.nearest_shade_full.launches,
+              NS.nearest_triangle.launches)
+    got = render_sample_batch(scene, camera, make_key(2), 64, 48, config)
+    assert (F.mega_segment.cull_launches, NS.nearest_shade_full.launches,
+            NS.nearest_triangle.launches) != counts
+    want = render_sample_batch(scene.to("cpu"), camera.to("cpu"), make_key(2), 64, 48, config)
+    rep = compare_images(got, want)
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("intersector", ["megakernel", "fused"])
+def test_split_gradient_kernels_match_plain_path(card, intersector):
+    scene, camera, _ = card
+    config = TraceConfig(max_depth=3, intersector=intersector, whole_segment=False)
+    loss_fn = G.make_loss_fn(scene, camera, torch.zeros(48, 64, 3, device="cuda"),
+                             width=64, height=48, spp=1, config=config)
+    params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
+    counts = (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
+              S.scatter_rows.launches)
+    loss, got = G.value_and_grad(loss_fn, params, make_key(4))
+    split = intersector == "megakernel"
+    assert (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
+            S.scatter_rows.launches) == (counts[0] + 4 * split, counts[1] + 4 * (not split),
+                                         counts[2] + 4 * split)
+    with plain_kernels():
+        loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
+    assert float(loss) == pytest.approx(float(loss_ref), rel=1e-5)
+    rep = compare_param_grads(want, got, 1e-4)
+    assert rep["ok"], rep
+
+
+def test_split_wrappers_refuse_bad_inputs_on_card(glossy_card):
+    _, camera, tables = glossy_card
+    pos, dir_, _, _, live = _waves(camera, tables.rows)[0]
+    before = (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
+              F.mega_segment.launches)
+    with pytest.raises(TypeError, match="live"):
+        NS.nearest_shade_full(tables.rows, pos, dir_, live.float())
+    with pytest.raises(ValueError, match="chunk boxes"):
+        NS.nearest_shade_full(tables.rows, pos, dir_, live, tables.clo[:-1], tables.chi[:-1])
+    with pytest.raises(ValueError, match="chunk boxes"):
+        F.mega_segment(tables.rows, pos, dir_, pos, pos, live, live.float(), live.float(),
+                       live.float(), torch.zeros(3, 1, device="cuda"), clo=tables.clo.cpu(),
+                       chi=tables.chi)
+    with pytest.raises(ValueError, match=r"\[T, 12\]"):
+        NS.nearest_triangle(tables.rows, pos, dir_)
+    with pytest.raises(ValueError, match="contiguous"):
+        NS.nearest_triangle(tables.rows[:, :12], pos, dir_)
+    assert (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
+            F.mega_segment.launches) == before

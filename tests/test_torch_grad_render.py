@@ -193,7 +193,8 @@ def test_forward_paths_build_no_graph():
     """The Renderer and a render under no_grad call the forward segment
     directly; a render with grad on goes through WholeSegment."""
     scene, cam = _scene()
-    r = Renderer(scene, cam, CFG, RenderSettings(width=W, height=H, spp_per_pass=1, seed=0))
+    r = Renderer(scene, cam, CFG, RenderSettings(width=W, height=H, spp_per_pass=1, seed=0),
+                 device="cpu")
     r.render(1)
     assert not r.film.color.requires_grad
     params = {"mat_kd": scene.mat_kd.clone().requires_grad_(True)}

@@ -206,7 +206,8 @@ def test_regen_renderer_pass_matches_jax():
                    JRenderSettings(width=W, height=H, spp_per_pass=spp, seed=3, regen=True))
     jr.render(1)
     r = Renderer(ts, tcam, TraceConfig(**kw),
-                 RenderSettings(width=W, height=H, spp_per_pass=spp, seed=3, regen=True))
+                 RenderSettings(width=W, height=H, spp_per_pass=spp, seed=3, regen=True),
+                 device="cpu")
     r.render(1)
     assert float(r.film.weight) == float(jr.film.weight) == spp
     rep = compare_images(r.film.color.numpy(), np.asarray(jr.film.color))

@@ -185,7 +185,8 @@ def test_renderer_step_pngs_and_preview(tmp_path):
     steps = str(tmp_path / "steps")
     r = Renderer(ts, tcam, TraceConfig(max_depth=1),
                  RenderSettings(width=16, height=12, spp_per_pass=1, seed=1,
-                                step_dir=steps, preview=True, accum="gamma"))
+                                step_dir=steps, preview=True, accum="gamma"),
+                 device="cpu")
     r.render(2)
     assert sorted(os.listdir(steps)) == ["preview.png", "step000000.png",
                                          "step000001.png"]
@@ -203,8 +204,23 @@ def test_cli_without_gpu_fails_rather_than_using_cpu(tmp_path, capsys):
 
 
 def test_unported_options_raise():
-    for intersector in ("fused", "kdtree", "brute"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TraceConfig(intersector=intersector)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TraceConfig(chunk_cull=True)
+        TraceConfig(intersector="kdtree")
+    for intersector in ("megakernel", "traverse", "fused", "brute"):
+        for whole in (True, False):
+            cfg = TraceConfig(intersector=intersector, whole_segment=whole)
+            assert cfg.use_whole == (whole and intersector in ("megakernel", "traverse"))
+    assert TraceConfig(chunk_cull=True).chunk_cull
+    for intersector in ("traverse", "fused", "brute"):
+        with pytest.raises(ValueError, match="chunk_cull"):
+            TraceConfig(intersector=intersector, chunk_cull=True)
+
+
+def test_renderer_defaults_to_the_card():
+    """A Renderer built without a device renders on the card and, with
+    none present, raises rather than moving to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, _, ts, tcam = _scenes(8, 6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Renderer(ts, tcam, TraceConfig(max_depth=1), RenderSettings(width=8, height=6))
