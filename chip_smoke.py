@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. environment: torch/CUDA versions, the GPU (compute capability 9.0
    required), nvcc, and nvidia-smi's name and power limit;
-2. build: compile every csrc/*.cu of the port (seven sources) with nvcc
+2. build: compile every csrc/*.cu of the port (eight sources) with nvcc
    for sm_90a, one nvcc process each, all started together;
 3. the segment kernel against its plain-torch version on the card, on
    64x48 camera rays and a full 800x600 wavefront of first-bounce rays,
@@ -102,11 +102,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
     the Cornell lamp at 800x600, fixed depth 2, 2 spp, 4096 edge samples,
     split path: loss and gradient finite, the gradient against a central
     difference of the same-key loss (0.35 x max(|fd|, 0.05)), time per
-    step.
+    step;
+31. the selection microkernels (selection_micro.cu: B12, B13, B14): their
+    ptxas report; the g++ build of the native host library
+    (native/mcpt_native.cpp) and the Cornell box's KD tree, native build
+    bit-equal to the Python one;
+32. the superseded selection entries B8-B11 (thin entries over B4 and
+    B4c) against their plain versions on phase 3's Cornell 800x600 first
+    bounce and, for the culling forms, the glossy sorted bounce with dead
+    lanes (the phase 25 gate); timed beside their plain versions;
+33. the intersector gate of tools/tpu_check.py: B8, B10, B10 with cull,
+    B11, the fused index and the KD walk against the brute oracle on its
+    4,096 camera and 4,096 random rays (compare_winners, t within 1e-4);
+34. the tool twins, the main path of B8-B10 and B12-B14:
+    tools.kernel_bench (Cornell and the bunny, 480,000 rays, each entry
+    timed) and tools.kernel_micro (R = 491,520, T = 768; B13's p_all is
+    9.06 GB), with their launch counts; then each tool's own outputs
+    against the plain versions on the same inputs: B8-B10 on 16,384 of
+    kernel_bench's rays per scene (compare_shade), B12-B14 on all
+    491,520 rays (bit for bit), the plain versions timed at that size;
+35. the KD-tree main path: one walk of the Cornell 800x600 first bounce
+    timed, then Renderer at 800x600, fixed depth 7 + gather, 1 spp per
+    pass, intersector="kdtree": one warm-up and one timed pass, the film
+    against the whole-segment film of the same passes.
 
 Every kernel line carries its bound: the least time for its bytes (each
-input read once, each output written once, 3.35 TB/s) and its f32
-operations (67 TFLOP/s), both the H100 SXM's published rates.
+input read once, each output written once, 3.35 TB/s) and its
+operations at the rate of their type, the H100 SXM's published rates:
+f32 (67 TFLOP/s), and for B12's contraction of bf16 inputs the bf16
+tensor cores (989 TFLOP/s). B12's entries also carry the contraction's
+time on the f32 CUDA cores, where the kernel runs it
+(bound_f32_cuda_cores_ms).
 
 Prints one JSON line of per-kernel numbers, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -140,8 +166,22 @@ SHADE_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:1006"
 SHADE_CULL_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:1297"
 TRIANGLE_SOURCE = f"{PKG}/csrc/nearest_triangle.cu"
 TRIANGLE_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:173"
+# B8-B11: the superseded selection entries, over nearest_shade.cu (B4, B4c).
+VARIANT_REPLACES = {
+    "B8": "montecarlopathtracer_tpu/ops/intersect_pallas.py:319",
+    "B9": "montecarlopathtracer_tpu/ops/intersect_pallas.py:605",
+    "B10": "montecarlopathtracer_tpu/ops/intersect_pallas.py:775",
+    "B10c": "montecarlopathtracer_tpu/ops/intersect_pallas.py:950",
+    "B11": "montecarlopathtracer_tpu/ops/intersect_pallas.py:1766",
+}
+MICRO_SOURCE = f"{PKG}/csrc/selection_micro.cu"
+MICRO_REPLACES = {
+    "full": "tools/kernel_micro.py:167", "matmul_only": "tools/kernel_micro.py:105",
+    "matmul_bf16": "tools/kernel_micro.py:124", "B13": "tools/kernel_micro.py:214",
+    "B14": "tools/kernel_micro.py:281",
+}
 KERNEL_NAMES = ("segment_fused", "segment_backward", "scatter_rows", "traverse_select",
-                "rows_segment", "nearest_shade", "nearest_triangle")
+                "rows_segment", "nearest_shade", "nearest_triangle", "selection_micro")
 W, H = 800, 600
 SPP, DEPTH = 4, 7
 WARMUP_PASSES, TIMED_PASSES = 1, 3
@@ -433,8 +473,10 @@ def whole_frame(torch, scene):
 
 def reset_counts():
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+    from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 
     F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
@@ -442,26 +484,50 @@ def reset_counts():
     F.rows_segment.launches = F.rows_segment.lane_launches = 0
     TW.traverse_select.launches = NS.nearest_triangle.launches = 0
     NS.nearest_shade_full.launches = NS.nearest_shade_full.cull_launches = 0
+    NV.nearest_shade.launches = NV.nearest_shade2.launches = NV.nearest_shade_culled.launches = 0
+    NV.nearest_shade_streamed.launches = NV.nearest_shade_streamed.cull_launches = 0
+    SM.selection_micro.launches = dict.fromkeys(SM.VARIANTS, 0)
+    SM.epilogue_only.launches = SM.epilogue_shared.launches = 0
+
+
+class Counts(dict):
+    """Launch counts of every kernel; printed with the kernels that
+    launched only."""
+
+    def __repr__(self):
+        return repr({k: v for k, v in self.items() if v})
 
 
 def read_all_counts():
     """Launches of every kernel: B1 apart from its per-lane-flag form B1l
     and its culling form B1c (no path here runs both at once), B4 apart
-    from B4c, B6 apart from B6l."""
+    from B4c, B6 apart from B6l; the entries B8-B11 (each also counted
+    under B4 or B4c, which it launches), B10 apart from B10c; B12 per
+    variant, B13, B14."""
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+    from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 
     B1 = F.mega_segment
-    return {"B1": B1.launches - B1.lane_launches - B1.cull_launches,
-            "B1l": B1.lane_launches, "B1c": B1.cull_launches,
-            "B2": F.segment_backward.launches, "B3": S.scatter_rows.launches,
-            "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
-            "B4c": NS.nearest_shade_full.cull_launches,
-            "B5": TW.traverse_select.launches,
-            "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
-            "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches}
+    B10 = NV.nearest_shade_streamed
+    return Counts({
+        "B8": NV.nearest_shade.launches, "B9": NV.nearest_shade2.launches,
+        "B10": B10.launches - B10.cull_launches, "B10c": B10.cull_launches,
+        "B11": NV.nearest_shade_culled.launches,
+        **{f"B12 {v}": n for v, n in SM.selection_micro.launches.items()},
+        "B13": SM.epilogue_only.launches, "B14": SM.epilogue_shared.launches,
+        "B1": B1.launches - B1.lane_launches - B1.cull_launches,
+        "B1l": B1.lane_launches, "B1c": B1.cull_launches,
+        "B2": F.segment_backward.launches, "B3": S.scatter_rows.launches,
+        "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
+        "B4c": NS.nearest_shade_full.cull_launches,
+        "B5": TW.traverse_select.launches,
+        "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
+        "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches,
+    })
 
 
 def grad_builds(libs):
@@ -1308,16 +1374,17 @@ STATE_BYTES = 48 + 1 + 12  # pos, dir, tput, res f32[3]; live; u1, u2, urr
 SEG_OUT_BYTES = 4 + 48 + 4  # idx, npos/ndir/ntput/nres f32[3], still
 
 
-def bound_of(nbytes, ops):
+def bound_of(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """(bound_ms, bound_by): the least time for ``nbytes`` of device
     memory traffic (each input read once, each output written once) and
-    ``ops`` f32 operations at the H100's published rates. Operations
+    ``ops`` operations of one type at the H100's published rates (f32
+    outside the tensor cores unless ``ops_per_s`` says else). Operations
     count the ray-triangle arithmetic only (PAIR_OPS per tested pair, 40
     per recomputed winner, 48 adds per scattered row); the samplers' and
     vjps' arithmetic is left out, so an elementwise kernel's bound is a
     lower bound."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / F32_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -1329,14 +1396,15 @@ def segment_bound(T, R, live, lane=False, nc=0, pairs=None):
     return bound_of(nbytes, (live * T if pairs is None else pairs) * PAIR_OPS)
 
 
-def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14):
+def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14, box=128):
     """Ray-triangle pairs that culling must test on these rays: for each
-    live ray, the triangles of every chunk whose box (widened as the
-    kernels widen it) its segment [0, t_best] reaches. The minimum work
-    of a culling selection on this data (B1c, B4c, B5)."""
+    live ray, the triangles of every chunk (of ``box`` triangles) whose
+    box (widened as the kernels widen it) its segment [0, t_best]
+    reaches. The minimum work of a culling selection on this data (B1c,
+    B4c, B5)."""
     nc = clo.shape[0]
-    sizes = torch.full((nc,), 128.0, device=clo.device, dtype=torch.float64)
-    sizes[-1] = T - 128 * (nc - 1)
+    sizes = torch.full((nc,), float(box), device=clo.device, dtype=torch.float64)
+    sizes[-1] = T - box * (nc - 1)
     m = 1e-5 * (1.0 + torch.maximum(clo.abs(), chi.abs()))
     lo, hi = (clo - m)[None], (chi + m)[None]  # [1, nc, 3]
     total = 0.0
@@ -1782,6 +1850,377 @@ def geometry_step(torch):
     return counts, dt
 
 
+# ------------------------- the selection entries, the microkernels, the KD tree
+
+GATE_RAYS = 8192  # tpu_check's rays: 4,096 camera rays of a 64x64 frame, 4,096 random
+BENCH_SUBSET = 16_384  # kernel_bench rays per scene on which B8-B10 are compared with plain
+BENCH_KERNELS = {"v1": "B8", "v2": "B9", "v3": "B10", "v3_cull_tc128": "B10c"}
+CHAIN_OPS = 12  # f32 operations of one accept chain: reciprocal, t, beta, gamma,
+# 1 - (beta + gamma), four comparisons and the select
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+KD_SPP = 1
+
+
+def selection_builds(libs):
+    phase("31. build: the selection microkernels (selection_micro.cu), the native host "
+          "library (g++) and the Cornell box's KD tree, native against Python")
+    import numpy as np
+
+    from montecarlopathtracer_tpu_torch import native
+    from montecarlopathtracer_tpu_torch.accel import kdtree as K
+    from montecarlopathtracer_tpu_torch.models import cornell
+    from montecarlopathtracer_tpu_torch.ops import cuda_build
+
+    print(f"built {libs['selection_micro'].relative_to(HERE)} from {MICRO_SOURCE} (sm_90a)")
+    ptxas_report(libs["selection_micro"])
+    cuda_build.load("selection_micro")
+    t0 = time.perf_counter()
+    lib = native.build()
+    check(native.available(), f"native library: {native.build_error()}")
+    print(f"g++ built {lib.relative_to(HERE)} from native/mcpt_native.cpp in "
+          f"{time.perf_counter() - t0:.2f} s")
+    scene, _ = cornell.cornell_box(with_mirror_sphere=True, with_glass_sphere=True)
+    a, b, c = (x.numpy() for x in scene.triangle_vertices())
+    valid = scene.tri_valid.numpy()
+    t0 = time.perf_counter()
+    nat = K.build_flat_kdtree(a, b, c, valid, backend="native")
+    t1 = time.perf_counter()
+    py = K.build_flat_kdtree(a, b, c, valid, backend="python")
+    t2 = time.perf_counter()
+    same = all(np.array_equal(getattr(nat, f), getattr(py, f)) for f in
+               ("node_lo", "node_hi", "node_skip", "leaf_start", "leaf_count", "leaf_tris"))
+    print(f"KD tree of {scene.num_triangles} triangles: {nat.num_nodes} nodes, "
+          f"{len(nat.leaf_tris)} leaf entries, largest leaf {int(nat.leaf_count.max())}; native "
+          f"{(t1 - t0) * 1e3:.1f} ms, Python {(t2 - t1) * 1e3:.1f} ms; bit-equal: {same}")
+    check(same, "the native KD tree differs from the Python build's")
+
+
+def variant_setup(torch, scene):
+    """The packings of B8-B11 for ``scene`` padded to a multiple of 128
+    triangles (as the JAX scenes are): a dict of tensors on the card."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+    from montecarlopathtracer_tpu_torch.ops.intersect import triangle_transforms
+    from montecarlopathtracer_tpu_torch.ops.morton import chunk_aabbs, chunk_aabbs_padded
+    from montecarlopathtracer_tpu_torch.ops.morton import morton_order
+    from montecarlopathtracer_tpu_torch.tools.kernel_bench import pad_scene
+
+    s = pad_scene(scene)  # B9's and B11's packings need the JAX padding
+    a, b, c = s.triangle_vertices()
+    m, m_a = triangle_transforms(a, b, c)
+    valid, T = s.tri_valid, s.num_triangles
+    perm = morton_order(a, b, c, valid)
+    table = NV.pack_shading_table(s)
+    w = NV.pack_transforms(m, m_a, valid)
+    tc = NV.divisor_chunk(T, NV.T_CHUNK)
+    wp = NV.pack_transforms(m[perm], m_a[perm], valid[perm])
+    box = 256 if T % 256 == 0 else 128  # JAX nearest_shade_culled's chunk, min(256, T)
+    return dict(
+        T=T, perm=perm, table=table, w=w, geom=NV._geometry(w).contiguous(), tc=tc,
+        wf=NV.pack_transforms_fused(m, m_a, valid, tc),
+        ws=NV.pack_transforms_stream(m, m_a, valid, 256),
+        wp=wp, tp=table[perm].contiguous(), gp=NV._geometry(wp).contiguous(),
+        ws_c=NV.pack_transforms_stream(m[perm], m_a[perm], valid[perm], 128),
+        boxes_c=chunk_aabbs_padded(a, b, c, valid, perm, 128),
+        box=box, boxes_11=chunk_aabbs(a, b, c, valid, perm, box),
+        rows=NV._rows(NV._geometry(w), table), rows_p=NV._rows(NV._geometry(wp), table[perm]),
+    )
+
+
+def variant_calls(torch, v, pos, dir_, live):
+    """``{name: (call, row table of its indices, whether it takes the live
+    mask)}`` of B8-B11 on rays ``pos``, ``dir_``."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+
+    return {
+        "B8": (lambda: NV.nearest_shade(v["w"], v["table"], pos, dir_), v["rows"], False),
+        "B9": (lambda: NV.nearest_shade2(v["wf"], v["geom"], v["table"], pos, dir_,
+                                         t_chunk=v["tc"]), v["rows"], False),
+        "B10": (lambda: NV.nearest_shade_streamed(v["ws"], v["geom"], v["table"], pos, dir_,
+                                                  live, t_chunk=256), v["rows"], True),
+        "B10c": (lambda: NV.nearest_shade_streamed(v["ws_c"], v["gp"], v["tp"], pos, dir_, live,
+                                                   *v["boxes_c"], t_chunk=128, cull=True),
+                 v["rows_p"], True),
+        "B11": (lambda: NV.nearest_shade_culled(v["wp"], v["tp"], *v["boxes_11"], pos, dir_,
+                                                live), v["rows_p"], True),
+    }
+
+
+def variant_bound(v, name, R, n_live, pairs=None):
+    """Bound of one entry: its packed inputs, the rays (and mask) and its
+    outputs (idx, tbg, the shading row) once; the pair tests of the rays it
+    tests (all R for B8 and B9, which take no mask), or ``pairs``."""
+    T = v["T"]
+    layout = {"B8": 192 * T, "B9": 192 * T + 48 * T, "B10": 192 * T + 48 * T,
+              "B10c": 192 * T + 48 * T, "B11": 192 * T}[name]
+    nbytes = layout + 128 * T + (24 if name in ("B8", "B9") else 25) * R + 148 * R
+    rays = R if name in ("B8", "B9") else n_live
+    return bound_of(nbytes, (rays * T if pairs is None else pairs) * PAIR_OPS)
+
+
+def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
+    phase(f"32. the selection entries B8-B11 (thin over B4 / B4c) vs their plain versions: "
+          f"Cornell {W}x{H} first bounce (768 triangles with the JAX padding) and the glossy "
+          "sorted bounce (1,408) for the culling forms; timed (median of 10 CUDA events), "
+          "B8-B10 on the Cornell bounce, the culling forms on the glossy one")
+    from montecarlopathtracer_tpu_torch.testing import compare_shade, plain_kernels
+
+    out, worst = {}, {}
+    cv = variant_setup(torch, cscene)
+    gv = variant_setup(torch, gscene)
+    cases = [("Cornell bounce", cv, cornell_bounce, ("B8", "B9", "B10", "B10c", "B11")),
+             ("glossy bounce", gv, gbounce, ("B10c", "B11"))]
+    for wname, v, wave, names in cases:
+        pos, dir_, _, _, live = wave
+        R, n_live = pos.shape[1], int(live.sum())
+        calls = variant_calls(torch, v, pos, dir_, live)
+        for name in names:
+            call, rows, masked = calls[name]
+            got = call()
+            torch.cuda.synchronize()
+            with plain_kernels():
+                want = call()
+            lanes = live if masked else torch.ones_like(live)
+            rep = compare_shade(got, want, live=lanes, rows=rows, pos=pos, dir_=dir_)
+            worst[name] = max(worst.get(name, 0.0), rep["tbg_max_abs_err"])
+            print(f"{wname:14s} {name:4s}: idx agree {rep['idx_agree']:.6f} "
+                  f"({rep['n_idx_mismatch']} near-tie mismatches of {rep['n_live']} lanes); tbg "
+                  f"max |err| {rep['tbg_max_abs_err']:.2e} ({rep['tbg_n_beyond_tol']} beyond "
+                  f"1e-5); shade equal {rep['shade_equal']}")
+            check(rep["ok"], f"{name} disagrees with plain on {wname}: {rep}")
+            if (name in ("B10c", "B11")) != (wname == "glossy bounce"):
+                continue  # the culling forms are timed where culling has work to skip
+            def plain_call(call=call):
+                with plain_kernels():
+                    return call()
+
+            ms = time_pair(torch, call, plain_call)
+            pairs = None
+            if name in ("B10c", "B11"):
+                boxes = v["boxes_c"] if name == "B10c" else v["boxes_11"]
+                pairs = reached_pairs(torch, *boxes, v["T"], pos, dir_, live,
+                                      winner_t(torch, rows, got[0], pos, dir_),
+                                      box=128 if name == "B10c" else v["box"])
+            out[name] = (*ms, variant_bound(v, name, R, n_live, pairs))
+            print(f"{'':14s} {name:4s}: {ms[0]:.4f} ms (plain {ms[1]:.4f}); bound "
+                  f"{out[name][2][0]:.4f} ms ({out[name][2][1]})")
+    print("gate: testing.compare_shade, as phase 25 (B8 and B9 take no live mask: every lane)")
+    return out, worst
+
+
+def intersector_gate(torch, scene):
+    phase("33. intersector gate (tools/tpu_check.py's checks 1-4): B8, B10, B10 with cull, "
+          "B11, the fused index and the KD walk against the brute oracle, Cornell, 4,096 "
+          "camera + 4,096 random rays")
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+    from montecarlopathtracer_tpu_torch.ops.intersect import intersect_brute, triangle_transforms
+    from montecarlopathtracer_tpu_torch.ops.traverse import intersect_kdtree
+    from montecarlopathtracer_tpu_torch.render.integrator import kd_tree
+    from montecarlopathtracer_tpu_torch.scene.camera import camera_for_scene
+    from montecarlopathtracer_tpu_torch.testing import compare_winners
+    from montecarlopathtracer_tpu_torch.tools.kernel_bench import rays_for
+
+    pos, dir_ = rays_for(scene, camera_for_scene(1, 64, 64, device="cuda"), GATE_RAYS,
+                         frame=64)
+    R = pos.shape[1]
+    live = torch.ones(R, dtype=torch.bool, device="cuda")
+    m, m_a = triangle_transforms(*scene.triangle_vertices())
+    brute = intersect_brute(m, m_a, scene.tri_valid, pos.T, dir_.T)
+    v = variant_setup(torch, scene)
+    calls = variant_calls(torch, v, pos, dir_, live)
+    kd = kd_tree(scene)
+    reset_counts()
+    got = {name: calls[name][0]() for name in ("B8", "B10", "B10c", "B11")}
+    got["fused"] = NS.intersect_fused(m, m_a, scene.tri_valid, pos.T, dir_.T)
+    got["kdtree"] = intersect_kdtree(kd, m, m_a, scene.tri_valid, pos.T, dir_.T)
+    torch.cuda.synchronize()
+    counts = read_all_counts()
+    perm, rows = v["perm"], v["rows"][:scene.num_triangles]
+    worst = 0.0
+    for name, out in got.items():
+        if name in ("fused", "kdtree"):
+            idx, t = out.tri_id, out.t
+        else:
+            idx, t = out[0], out[1][0]
+            if name in ("B10c", "B11"):  # indices in Morton order: back to the scene's
+                idx = torch.where(idx >= 0, perm[idx.clamp_min(0).long()].int(), -1)
+        rep = compare_winners(idx, brute.tri_id, live=live, rows=rows, pos=pos, dir_=dir_)
+        same = (idx == brute.tri_id) & (idx >= 0)
+        rel = float(((t[same] - brute.t[same]).abs() / brute.t[same].clamp_min(1e-3)).max())
+        worst = max(worst, rep["max_t_gap"])
+        print(f"  {name:6s}: agree {rep['idx_agree']:.6f} ({rep['n_idx_mismatch']} near-tie "
+              f"mismatches, max t gap {rep['max_t_gap']:.2e}); miss status equal "
+              f"{bool(((idx < 0) == (brute.tri_id < 0)).all())}; max rel t err {rel:.2e}")
+        check(rep["ok"] and rel < 1e-4, f"{name} fails the intersector gate: {rep}")
+    print(f"launches: {counts}; gate: testing.compare_winners (>= 99.9% equal, every "
+          "mismatch a near-tie, misses where brute misses), hit distances within 1e-4 "
+          "relative (tools/tpu_check.py: 98% agreement, ties within 1e-3, t within 1e-4)")
+    check(all(counts[k] == 1 for k in ("B8", "B10", "B10c", "B11")), f"gate launches {counts}")
+    return counts, worst
+
+
+def bench_vs_plain(torch, bench):
+    """The kernel_bench run's own outputs against the plain versions on
+    BENCH_SUBSET of its rays per scene (testing.compare_shade): B8-B10 at
+    the shapes the tool runs them at, the bunny's 82,048 triangles
+    included. Returns the worst t/beta/gamma error per kernel."""
+    from montecarlopathtracer_tpu_torch.testing import compare_shade, plain_kernels
+
+    worst = {}
+    g = torch.Generator(device="cuda").manual_seed(29)
+    for sname, k in bench.items():
+        v = variant_setup(torch, k["scene"])
+        sub = torch.randperm(k["pos3"].shape[1], device="cuda", generator=g)[:BENCH_SUBSET]
+        sub = sub.sort().values
+        pos, dir_ = k["pos3"][:, sub].contiguous(), k["dir3"][:, sub].contiguous()
+        lanes = torch.ones(sub.shape[0], dtype=torch.bool, device="cuda")
+        for kernel, call in k["calls"].items():
+            got = tuple(x[..., sub] for x in k["out"][kernel])
+            t0 = time.perf_counter()
+            with plain_kernels():
+                want = call(pos, dir_)
+            torch.cuda.synchronize()
+            rows = v["rows_p"] if kernel == "v3_cull_tc128" else v["rows"]
+            rep = compare_shade(got, want, live=lanes, rows=rows, pos=pos, dir_=dir_)
+            name = BENCH_KERNELS[kernel]
+            worst[name] = max(worst.get(name, 0.0), rep["tbg_max_abs_err"])
+            print(f"  {sname:7s} {kernel:14s} ({name:4s}): idx agree {rep['idx_agree']:.6f} "
+                  f"({rep['n_idx_mismatch']} near-tie mismatches of {rep['n_live']}); tbg max "
+                  f"|err| {rep['tbg_max_abs_err']:.2e}; shade equal {rep['shade_equal']}; "
+                  f"plain {time.perf_counter() - t0:.2f} s")
+            check(rep["ok"], f"kernel_bench {kernel} on {sname} disagrees with plain: {rep}")
+    return worst
+
+
+def tool_twins(torch):
+    phase("34. the tool twins on the card: montecarlopathtracer_tpu_torch.tools.kernel_bench "
+          "(B8-B10, Cornell + bunny, 480,000 rays) and .kernel_micro (B12-B14, R = 491,520, "
+          "T = 768); then each run's own outputs against the plain versions on the same "
+          f"inputs (B8-B10 on {BENCH_SUBSET:,} of the rays per scene, B12-B14 on all of them) "
+          "and the plain B12-B14 timed at the tool's size")
+    from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
+    from montecarlopathtracer_tpu_torch.tools import kernel_bench, kernel_micro
+
+    reset_counts()
+    t0 = time.perf_counter()
+    bench = {}
+    bench_rows = kernel_bench.run(rays=480_000, keep=bench)
+    torch.cuda.synchronize()
+    bench_counts = read_all_counts()
+    print(f"kernel_bench: {time.perf_counter() - t0:.1f} s; launches {bench_counts}")
+    for row in bench_rows:
+        print(f"  {row['scene']:7s} T {row['T']:6d} {row['kernel']:14s} {row['ms']:9.4f} ms  "
+              f"{row['mray_segments_s']:9.2f} Mray-segments/s")
+    check(all(bench_counts[k] > 0 for k in ("B8", "B9", "B10", "B10c")),
+          f"kernel_bench launches {bench_counts}")
+    print(f"kernel_bench's outputs against the plain versions ({BENCH_SUBSET:,} rays per scene):")
+    bench_err = bench_vs_plain(torch, bench)
+    del bench
+    reset_counts()
+    t0 = time.perf_counter()
+    micro = {}
+    micro_rows = kernel_micro.run(keep=micro)
+    torch.cuda.synchronize()
+    micro_counts = read_all_counts()
+    print(f"kernel_micro: {time.perf_counter() - t0:.1f} s; launches {micro_counts}")
+    for row in micro_rows:
+        print(f"  {row['variant']:20s} t_chunk {row['t_chunk']} {row['ms']:9.4f} ms  "
+              f"{row['gel_s']:9.2f} G ray-triangle/s")
+    check(all(micro_counts[k] > 0 for k in ("B12 full", "B12 matmul_only", "B12 matmul_bf16",
+                                            "B13", "B14")),
+          f"kernel_micro launches {micro_counts}")
+    tool_ms = {r["variant"]: r["ms"] for r in micro_rows}
+
+    ws, x, p_blk, p_all, tc = (micro[k] for k in ("ws", "rays", "p_blk", "p_all", "t_chunk"))
+    T, R = ws.shape[1] // 6, x.shape[1]
+    cases = {  # name: (kernel_micro's variant, plain version on the tool's own inputs)
+        "full": ("v3_full", lambda: SM.selection_micro_ref(ws, x, tc, "full")),
+        "matmul_only": ("matmul_only_f32out",
+                        lambda: SM.selection_micro_ref(ws, x, tc, "matmul_only")),
+        "matmul_bf16": ("matmul_only_bf16out",
+                        lambda: SM.selection_micro_ref(ws, x, tc, "matmul_bf16")),
+        "B13": ("epilogue_resident", lambda: SM.epilogue_only_ref(p_all, tc)),
+        "B14": ("epilogue_only", lambda: SM.epilogue_shared_ref(p_blk, T, R)),
+    }
+    # B12's contraction multiplies bf16 inputs, so its least time is on the
+    # bf16 tensor cores; the accept chain (full) or the running min over the
+    # 6T products (matmul forms) is f32 work beside it.
+    contract = R * 6 * T * SM.K * 2  # multiply-adds of the contraction, two operations each
+    chain = R * T * CHAIN_OPS
+    io = SM.K * 6 * T * 2 + SM.K * R * 2 + 4 * R
+    tensor = bound_of(io, contract, BF16_OPS_PER_S)
+    bounds = {
+        "full": max(tensor, bound_of(io, chain)),
+        "matmul_only": max(tensor, bound_of(io, R * 6 * T)),
+        "matmul_bf16": max(tensor, bound_of(io, R * 6 * T)),
+        "B13": bound_of(6 * T * R * 4 + 4 * R, chain),
+        "B14": bound_of(p_blk.numel() * 4 + 4 * R, chain),
+    }
+    f32_cores = bound_of(io, contract)  # the contraction where this kernel runs it
+    out = {}
+    for name, (row, plain) in cases.items():
+        got = micro["out"][row]
+        want = plain()
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        hits = float((want >= 0).float().mean()) if name in ("full", "B13", "B14") else None
+        plain_ms = time_one(torch, plain)
+        out[name] = (tool_ms[row], plain_ms, bounds[name], err)
+        (bms, by) = bounds[name]
+        print(f"{name:12s}: the tool's output equal to plain on all {R} rays: {err == 0} (max "
+              f"|diff| {err}" + (f", {hits:.4f} hit" if hits is not None else "") + f"); "
+              f"{tool_ms[row]:.4f} ms, plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by}), "
+              f"kernel at {bms / tool_ms[row]:.3f} of it")
+        check(err == 0, f"{name} disagrees with its plain version")
+    print(f"B12's bound is its contraction on the bf16 tensor cores ({BF16_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s); the same contraction on the f32 CUDA cores, where this kernel runs it: "
+          f"{f32_cores[0]:.4f} ms. B13's p_all: {p_all.numel() * 4 / 1e9:.2f} GB")
+    del micro, p_all
+    return bench_rows, bench_counts, bench_err, micro_counts, out, f32_cores[0]
+
+
+def kdtree_main_path(torch, scene, camera, bounce):
+    phase(f"35. KD-tree main path: the walk on the Cornell {W}x{H} first bounce, then "
+          f"Renderer {W}x{H}, fixed depth {DEPTH} + gather, {KD_SPP} spp/pass, "
+          "intersector='kdtree', against the whole-segment film of the same key")
+    from montecarlopathtracer_tpu_torch.ops.intersect import triangle_transforms
+    from montecarlopathtracer_tpu_torch.ops.traverse import intersect_kdtree
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig, kd_tree
+    from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+    from montecarlopathtracer_tpu_torch.testing import compare_images
+
+    pos, dir_, _, _, live = bounce
+    kd = kd_tree(scene)
+    m, m_a = triangle_transforms(*scene.triangle_vertices())
+    walk = lambda: intersect_kdtree(kd, m, m_a, scene.tri_valid, pos.T, dir_.T)  # noqa: E731
+    walk_ms = time_one(torch, walk, n=3)
+    print(f"walk of {pos.shape[1]} rays ({int(live.sum())} live, the walk takes no mask) over "
+          f"{kd.num_nodes} nodes: {walk_ms:.2f} ms (median of 3 CUDA events)")
+    settings = RenderSettings(width=W, height=H, spp_per_pass=KD_SPP, seed=0)
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0, intersector="kdtree")
+    r = Renderer(scene, camera, config, settings, device="cuda", accel=kd)
+    t0 = time.perf_counter()
+    r.render(1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r.render(1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"warm-up pass {warm:.3f} s; timed pass {dt:.4f} s, kdtree forward "
+          f"{W * H * KD_SPP / dt / 1e6:.4f} Msamples/s")
+    img = r.film.color
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0, "kdtree film")
+    whole = Renderer(scene, camera, TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0),
+                     settings, device="cuda")
+    whole.render(2)
+    rep = compare_images(img, whole.film.color)
+    print(f"film against the whole-segment film of the same passes: pixels within 1e-4 "
+          f"{rep['pixel_share']:.5f}, max |err| {rep['max_abs_err']:.3e}, mean rel "
+          f"{rep['mean_rel']:.2e}")
+    check(rep["ok"], f"the kdtree film disagrees with the whole-segment film: {rep}")
+    return walk_ms, dt
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: FAIL: {PKG} is not beside this script", file=sys.stderr)
@@ -1848,6 +2287,7 @@ def main():
         ctables = scene_tables(scene, TraceConfig(chunk_cull=True))
         shade_err = shade_vs_plain(torch, rows, ctables, bounce, gtables, gwaves)
         split_ms = time_split_kernels(torch, rows, bounce, gtables, gwaves[1])
+        gbounce = gwaves[1]
         del gwaves, ctables
         cull_counts, cull_split_counts, cull_per_pass, cull_msps = cull_main_path(
             torch, gscene, gcam, gconfig)
@@ -1855,6 +2295,12 @@ def main():
             torch, scene, camera)
         split_grad_counts, split_grad_s = split_grad(torch, scene, camera)
         geom_counts, geom_s = geometry_step(torch)
+        selection_builds(libs)
+        var_ms, var_err = variants_vs_plain(torch, scene, bounce, gscene, gbounce)
+        del gbounce
+        gate_counts, gate_gap = intersector_gate(torch, scene)
+        bench_rows, bench_counts, bench_err, micro_counts, micro, f32_cores = tool_twins(torch)
+        walk_ms, kd_pass = kdtree_main_path(torch, scene, camera, bounce)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1868,6 +2314,11 @@ def main():
           f"path (Cornell {W}x{H}, {SPP} spp/pass): {split_msps:.4f} Msamples/s, fused pass "
           f"{fused_s:.4f} s; split fwd+bwd {split_grad_s:.4f} s/iteration "
           f"({split_grad_counts}); geometry step {geom_s:.4f} s ({geom_counts})")
+
+    print(f"selection entries (Cornell {W}x{H} bounce): " + ", ".join(
+        f"{k} {v[0]:.4f} ms" for k, v in var_ms.items()) + f"; intersector gate max t gap on "
+        f"near-ties {gate_gap:.2e}; KD walk {walk_ms:.2f} ms per {W}x{H} wavefront, kdtree "
+        f"pass ({KD_SPP} spp) {kd_pass:.4f} s")
 
     def entry(name, source, replaces, launches, err, timing, **extra):
         ms, plain_ms, (bound_ms, bound_by), *lib = timing
@@ -1901,6 +2352,25 @@ def main():
         entry("nearest_triangle (B7)", TRIANGLE_SOURCE, TRIANGLE_REPLACES,
               fused_counts["B7"], shade_err["B7"], split_ms["B7"],
               max_t_gap_on_near_ties=shade_err["B7"]),
+        *(entry(label, SHADE_SOURCE, VARIANT_REPLACES[k], n,
+                max(var_err[k], bench_err.get(k, 0.0)), var_ms[k])
+          for k, label, n in (
+              ("B8", "nearest_shade (B8, entry over B4)", bench_counts["B8"]),
+              ("B9", "nearest_shade2 (B9, entry over B4)", bench_counts["B9"]),
+              ("B10", "nearest_shade_streamed (B10, entry over B4)", bench_counts["B10"]),
+              ("B10c", "nearest_shade_streamed cull (B10, entry over B4c)",
+               bench_counts["B10c"]),
+              ("B11", "nearest_shade_culled (B11, entry over B4c with the d'z test)",
+               gate_counts["B11"]))),
+        *(entry(label, MICRO_SOURCE, MICRO_REPLACES[k], micro_counts[n], micro[k][3],
+                micro[k][:3], rays=491_520,
+                **({"bound_f32_cuda_cores_ms": f32_cores} if k not in ("B13", "B14") else {}))
+          for k, label, n in (
+              ("full", "selection_micro full (B12, body_v3)", "B12 full"),
+              ("matmul_only", "selection_micro matmul_only (B12)", "B12 matmul_only"),
+              ("matmul_bf16", "selection_micro matmul_bf16 (B12)", "B12 matmul_bf16"),
+              ("B13", "epilogue_only, resident p_all (B13)", "B13"),
+              ("B14", "epilogue_shared, one p block (B14)", "B14"))),
     ]}))
     print(f"bunny gradient launches: {bgrad_counts}; brute B1 on the bunny wavefront "
           f"{b1_ms[0]:.4f} ms")

@@ -13,9 +13,13 @@ scalar or per-lane flags and with or without chunk culling, the segment
 from known winners and the segment's vjp, ``ops/segment_fused.py``; the
 row-cotangent scatter, ``ops/scatter_rows.py``; the Morton-chunk
 traversal walk, ``ops/traverse_walk.py``; the split path's nearest hit
-and the fused intersector's index, ``ops/nearest_shade.py``) are
+and the fused intersector's index, ``ops/nearest_shade.py``, which the
+superseded selection entries of ``ops/nearest_variants.py`` call too;
+the selection microkernels of ``ops/selection_micro.py``) are
 hand-written CUDA for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at
-first use.
+first use. The KD-tree intersector (``accel/kdtree.py``,
+``ops/traverse.py``) walks its tree with torch ops; the repository's C++
+OBJ parser and KD construction load through :mod:`.native`.
 Every kernel has a plain-torch version beside it that runs for CPU
 tensors.
 

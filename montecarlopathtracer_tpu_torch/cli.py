@@ -25,6 +25,9 @@ Examples:
     python -m montecarlopathtracer_tpu_torch.cli --whole-segment off
     python -m montecarlopathtracer_tpu_torch.cli --intersector fused
 
+    # the KD-tree walk (the tree built on the host, natively if the C++ library builds)
+    python -m montecarlopathtracer_tpu_torch.cli --intersector kdtree
+
 ``--device`` defaults to ``cuda``; without a GPU the run fails rather
 than moving to the CPU. ``--device cpu`` runs the plain-torch version of
 every kernel. Every option is explicit: the JAX CLI's automatic choices
@@ -32,7 +35,7 @@ of intersector, chunk culling and regen were measured on a TPU and are
 not carried over. An option that cannot take effect is refused rather
 than dropped: ``--ray-chunk`` with ``--regen on`` (one wavefront),
 ``--chunk-cull on`` with another intersector than ``megakernel``, and
-``--regen on`` with ``brute`` or ``fused``.
+``--regen on`` with ``brute``, ``fused`` or ``kdtree``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import sys
 import torch
 
 from .models import bunny, cornell, glossy
-from .render.integrator import TraceConfig
+from .render.integrator import TraceConfig, kd_tree
 from .render.renderer import Renderer, RenderSettings
 from .scene.camera import camera_for_scene
 from .scene.scene import load_obj_scene
@@ -75,12 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=7)
     p.add_argument("--rr-depth", type=int, default=5)
     p.add_argument("--illum", type=float, default=10.0)
-    p.add_argument("--intersector", choices=["megakernel", "traverse", "fused", "brute"],
+    p.add_argument("--intersector",
+                   choices=["megakernel", "traverse", "fused", "brute", "kdtree"],
                    default="megakernel",
                    help="'megakernel' = brute nearest hit in the segment kernel; "
                    "'traverse' = Morton-chunk walk, for large scenes; 'fused' = "
                    "nearest-index kernel + differentiable recompute; 'brute' = "
-                   "plain torch (the last two on the split path)")
+                   "plain torch; 'kdtree' = KD-tree walk in torch ops, the tree "
+                   "built on the host (the last three on the split path)")
     p.add_argument("--whole-segment", choices=["on", "off"], default="on",
                    help="'on' = one kernel per path segment (megakernel, traverse); "
                    "'off' = the split path: intersector kernel + segment body in "
@@ -147,11 +152,14 @@ def main(argv=None) -> int:
         print(f"error: --chunk-cull on applies to --intersector megakernel only, not "
               f"{args.intersector!r}", file=sys.stderr)
         return 2
-    if regen and args.intersector in ("fused", "brute"):
+    if regen and args.intersector in ("fused", "brute", "kdtree"):
         print(f"error: --regen on needs --intersector megakernel or traverse, not "
               f"{args.intersector!r}", file=sys.stderr)
         return 2
     scene, camera = load_scene(args.scene, args.width, args.height, args.subdiv)
+    accel = None
+    if args.intersector == "kdtree":
+        accel = kd_tree(scene.to(device))
     ray_sort = args.ray_sort == "on" if args.ray_sort else args.intersector == "traverse"
     config = TraceConfig(
         mode=args.mode,
@@ -179,7 +187,7 @@ def main(argv=None) -> int:
         regen=regen,
     )
     log = RenderLog(enabled=not args.quiet)
-    r = Renderer(scene, camera, config, settings, log=log, device=device)
+    r = Renderer(scene, camera, config, settings, log=log, device=device, accel=accel)
     r.render()
     r.save_png(args.out)
     if not args.quiet:

@@ -13,7 +13,12 @@ imports JAX::
 
 Parameter and gradient dicts (the JAX package's ``split_params`` and
 ``jax.grad`` outputs, ``{field: array}``) cross with
-:func:`params_from_numpy` and :func:`params_to_numpy`.
+:func:`params_from_numpy` and :func:`params_to_numpy`. A KD tree of the
+JAX package (its ``FlatKDTree``, all numpy) crosses with
+:func:`kdtree_from_numpy`::
+
+    flat = convert.kdtree_from_numpy(
+        {f: getattr(jax_flat, f) for f in convert.KD_FIELDS})
 
 A film checkpoint written by the JAX package's
 ``Renderer.save_checkpoint`` has the same ``.npz`` keys as the port's
@@ -28,10 +33,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .accel.kdtree import FlatKDTree
 from .scene.camera import Camera
 from .scene.scene import FIELDS, ScenePack
 
 CAMERA_FIELDS = ("eye", "forward", "up", "right", "tan_half_x", "tan_half_y")
+KD_FIELDS = ("node_lo", "node_hi", "node_skip", "leaf_start", "leaf_count", "leaf_tris")
 
 _INT_FIELDS = ("tri_v", "tri_n", "tri_mat")
 
@@ -85,3 +92,15 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict:
     """``{field: f32 numpy array}`` from a parameter or gradient dict of
     tensors, on any device."""
     return {f: t.detach().cpu().numpy().astype(np.float32) for f, t in params.items()}
+
+
+def kdtree_from_numpy(arrays: Mapping[str, np.ndarray]) -> FlatKDTree:
+    """The port's :class:`.accel.kdtree.FlatKDTree` from the six arrays of
+    a JAX ``FlatKDTree`` (float32 boxes, int32 links and leaf lists)."""
+    missing = [f for f in KD_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"missing FlatKDTree fields: {missing}")
+    return FlatKDTree(**{
+        f: np.array(arrays[f], np.float32 if f in ("node_lo", "node_hi") else np.int32)
+        for f in KD_FIELDS
+    })

@@ -89,8 +89,9 @@ __device__ __forceinline__ void stage_geometry(float4* geom, const float* __rest
 }
 
 // Test one lane against the n staged triangles base .. base + n - 1.
-// kDzTest: also reject |d'_z| <= 1e-12 explicitly (the TPU kernel
-// `_nearest_kernel` does; the others rely on NaN and inf comparisons).
+// kDzTest: also reject |d'_z| <= 1e-12 explicitly (the TPU kernels
+// `_nearest_kernel` and `_nearest_shade_culled_kernel` do; the others
+// rely on NaN and inf comparisons).
 // kOrdered: every earlier tile held smaller indices, so a strict `<` on
 // t keeps the smallest index of a tie; otherwise (B5 visits chunks front
 // to back, not in index order) an equal t goes to the smaller index.

@@ -5,7 +5,14 @@
 // (montecarlopathtracer_tpu/ops/intersect_pallas.py, entry
 // `nearest_shade_full`), without (B4) and with (`cull=True`, B4c) chunk
 // culling. The plain PyTorch version is `nearest_shade_full_ref` in
-// ops/nearest_shade.py.
+// ops/nearest_shade.py. The TPU kernels of the superseded entries
+// `nearest_shade`, `nearest_shade2`, `nearest_shade_streamed` (with and
+// without cull) and `nearest_shade_culled` (B8-B11) compute the same
+// function in other layouts; ops/nearest_variants.py unpacks their
+// layouts into this kernel's row table and launches it. For them the
+// launch argument `dz_test` adds the explicit |d'_z| > 1e-12 test of
+// `_nearest_shade_culled_kernel` (a template instance, as for B7); the
+// entries regrid their chunk boxes to this kernel's 128-triangle tiles.
 //
 // What bounds it on an H100: as B1 (segment_fused.cu), the f32 pair
 // tests, ~15 FMAs and one IEEE division per ray x triangle pair (per
@@ -45,7 +52,7 @@ using namespace seg;
 
 constexpr int kThreads = 128;  // rays per block
 
-template <bool kCull>
+template <bool kCull, bool kDzTest>
 __global__ void __launch_bounds__(kThreads)
 nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restrict__ pos,
                      const float* __restrict__ dir, const bool* __restrict__ live, int R,
@@ -65,7 +72,8 @@ nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restr
 
   // Every thread reaches every barrier: no return before the selection ends.
   int tested;
-  const Hit best = nearest_in_block<kCull, false>(geom, rows, 48, T, o, d, act, clo, chi, tested);
+  const Hit best =
+      nearest_in_block<kCull, kDzTest>(geom, rows, 48, T, o, d, act, clo, chi, tested);
   if (tested_out != nullptr && threadIdx.x == 0) tested_out[blockIdx.x] = tested;
   if (!in_range) return;
 
@@ -91,15 +99,18 @@ nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restr
 }  // namespace
 
 // Launches the selection on `stream` (the cull instance when `cull` is
-// set); returns cudaGetLastError() so the caller can raise on a refused
-// launch.
+// set; the |d'_z| test when `dz_test` is set); returns
+// cudaGetLastError() so the caller can raise on a refused launch.
 extern "C" int nearest_shade_launch(const float* rows, int T, const float* pos,
                                     const float* dir, const bool* live, int R, const float* clo,
-                                    const float* chi, int cull, int* idx, float* tbg,
-                                    float* shade, int* tested, void* stream) {
+                                    const float* chi, int cull, int dz_test, int* idx,
+                                    float* tbg, float* shade, int* tested, void* stream) {
   if (R > 0) {
     const int blocks = (R + kThreads - 1) / kThreads;
-    auto kernel = cull ? nearest_shade_kernel<true> : nearest_shade_kernel<false>;
+    auto kernel = cull ? (dz_test ? nearest_shade_kernel<true, true>
+                                  : nearest_shade_kernel<true, false>)
+                       : (dz_test ? nearest_shade_kernel<false, true>
+                                  : nearest_shade_kernel<false, false>);
     kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         rows, T, pos, dir, live, R, clo, chi, idx, tbg, shade, tested);
   }

@@ -63,7 +63,8 @@ _P = ctypes.c_void_p
 _DET_EPS = 1e-12
 
 
-def nearest_shade_full_ref(rows, pos3, dir3, live, clo=None, chi=None, *, tested=None):
+def nearest_shade_full_ref(rows, pos3, dir3, live, clo=None, chi=None, *, tested=None,
+                           dz_test=False):
     """Plain version of :func:`nearest_shade_full`: brute f32 selection
     over ``rows`` f32[T, 48] and a gather of the winner's shading row.
     ``clo``, ``chi`` are accepted and not needed: culling never changes
@@ -71,7 +72,7 @@ def nearest_shade_full_ref(rows, pos3, dir3, live, clo=None, chi=None, *, tested
     if tested is not None:
         raise ValueError("chunk counts come from the kernel; the plain version "
                          "tests every triangle")
-    best_t, best_i, best_b, best_g = _select_ref(rows, pos3, dir3)
+    best_t, best_i, best_b, best_g = _select_ref(rows, pos3, dir3, dz_test=dz_test)
     hit = (best_t < _BIG) & live
     hitf = hit.to(torch.float32)
     idx = torch.where(hit, best_i, -1).to(torch.int32)
@@ -87,7 +88,7 @@ def _shade_lib() -> ctypes.CDLL:
     fn.argtypes = [
         _P, ctypes.c_int,  # rows, T
         _P, _P, _P, ctypes.c_int,  # pos, dir, live, R
-        _P, _P, ctypes.c_int,  # clo, chi, cull
+        _P, _P, ctypes.c_int, ctypes.c_int,  # clo, chi, cull, dz_test
         _P, _P, _P, _P, _P,  # idx, tbg, shade, tested, stream
     ]
     return lib
@@ -121,7 +122,7 @@ def _check_table(table, dev, width) -> None:
         raise ValueError("the triangle table must be 16-byte aligned for float4 loads")
 
 
-def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested):
+def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested, dz_test):
     dev = pos3.device
     R = pos3.shape[1]
     _check_rays(dev, R, pos3, dir3, live)
@@ -140,8 +141,9 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested):
         err = lib.nearest_shade_launch(
             rows.data_ptr(), rows.shape[0], pos3.data_ptr(), dir3.data_ptr(),
             live.data_ptr(), R, clo.data_ptr() if cull else None,
-            chi.data_ptr() if cull else None, int(cull), idx.data_ptr(), tbg.data_ptr(),
-            shade.data_ptr(), None if tested is None else tested.data_ptr(), stream,
+            chi.data_ptr() if cull else None, int(cull), int(bool(dz_test)), idx.data_ptr(),
+            tbg.data_ptr(), shade.data_ptr(), None if tested is None else tested.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"nearest_shade kernel launch failed: cudaError {err}")
@@ -150,21 +152,25 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested):
     return idx, tbg, shade
 
 
-def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, *, tested=None):
+def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, *, tested=None,
+                       dz_test=False):
     """Nearest hit per ray of ``pos3``, ``dir3`` f32[3, R] (``live``
     bool[R]) over ``rows`` f32[T, 48]: (idx, tbg, shade) as the module
     docstring says. CUDA tensors launch B4, or B4c given the chunk boxes
-    ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered table, and
-    add one to ``nearest_shade_full.launches`` (and to ``.cull_launches``
-    for B4c); CPU tensors run :func:`nearest_shade_full_ref`.
+    ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered table,
+    and add one to
+    ``nearest_shade_full.launches`` (and to ``.cull_launches`` for B4c);
+    CPU tensors run :func:`nearest_shade_full_ref`. ``dz_test`` adds the
+    explicit |d'_z| > 1e-12 test (JAX ``nearest_shade_culled``).
 
     ``tested``, on CUDA only: an int32 [ceil(R / 128)] tensor that the
     kernel fills with the 128-triangle chunks each block of 128 rays
     tested."""
     if pos3.device.type == "cuda":
-        return _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested)
+        return _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested, dz_test)
     if pos3.device.type == "cpu":
-        return nearest_shade_full_ref(rows, pos3, dir3, live, clo, chi, tested=tested)
+        return nearest_shade_full_ref(rows, pos3, dir3, live, clo, chi, tested=tested,
+                                      dz_test=dz_test)
     raise ValueError(f"no nearest_shade kernel for device {pos3.device}")
 
 

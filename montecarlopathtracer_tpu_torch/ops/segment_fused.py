@@ -112,9 +112,11 @@ def pack_rows_full(scene) -> torch.Tensor:
     return torch.cat([table, pad], dim=1).contiguous()
 
 
-def _select_ref(rows: torch.Tensor, pos3: torch.Tensor, dir3: torch.Tensor):
+def _select_ref(rows: torch.Tensor, pos3: torch.Tensor, dir3: torch.Tensor, *,
+                dz_test: bool = False):
     """Nearest accepted triangle per ray, in plain f32: (best t f32[R]
-    with _BIG for a miss, index i64[R], β, γ of the winner)."""
+    with _BIG for a miss, index i64[R], β, γ of the winner). ``dz_test``
+    also rejects |d'_z| <= 1e-12 explicitly."""
     g = rows[:, 0:12]
     T = rows.shape[0]
     cols = torch.arange(T, device=rows.device)
@@ -141,6 +143,8 @@ def _select_ref(rows: torch.Tensor, pos3: torch.Tensor, dir3: torch.Tensor):
         # parallel triangle) fails every one of them.
         ok = (beta > 0.0) & (gamma > 0.0) & (t > 0.0) \
             & (1.0 - (beta + gamma) > 0.0)
+        if dz_test:
+            ok &= w.abs() > 1e-12
         tm = torch.where(ok, t, _BIG)
         best = tm.amin(dim=1)
         # Ties go to the smallest index; a miss (all BIG) picks column 0.

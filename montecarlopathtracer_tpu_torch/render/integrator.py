@@ -19,23 +19,31 @@ masked; the steps are a Python loop. Intersectors
   any device (the JAX package's lax oracle), on the split path;
 - ``"fused"``: :func:`..ops.nearest_shade.intersect_fused` (kernel B7's
   nearest index, then a differentiable recompute of the hit), on the
-  split path.
+  split path;
+- ``"kdtree"``: :func:`..ops.traverse.intersect_kdtree` (the stackless
+  walk of a KD tree in torch ops; no hand-written kernel), then the same
+  differentiable recompute, on the split path. The tree is built once
+  per scene on the host (:func:`..accel.kdtree.build_flat_kdtree`, the
+  native C++ build when its library builds) or passed in as ``accel``. The JAX
+  package refuses this intersector on the TPU, whose runtime it faulted;
+  here it runs on the card like the others.
 
-The split path (``whole_segment=False``, and always for ``"brute"`` and
-``"fused"``) runs each segment as an intersector call, which returns the
-winner's distance, barycentrics, hit point, corner normals and material
-(:func:`make_intersect_shade`; kernel B4, or B4c with ``chunk_cull``, for
-``"megakernel"``; B5 and a differentiable recompute for ``"traverse"``),
-followed by the segment body in torch ops (:func:`split_segment`). It
+The split path (``whole_segment=False``, and always for ``"brute"``,
+``"fused"`` and ``"kdtree"``) runs each segment as an intersector call,
+which returns the winner's distance, barycentrics, hit point, corner
+normals and material (:func:`make_intersect_shade`; kernel B4, or B4c
+with ``chunk_cull``, for ``"megakernel"``; B5 and a differentiable
+recompute for ``"traverse"``), followed by the segment body in torch ops
+(:func:`split_segment`). It
 computes what the whole segment computes, with the JAX package's split
 body: its Russian roulette takes ``tput.amax`` (whose adjoint splits a
 three-way tie in thirds), where the whole segment nests pairwise maxima.
 
 The scene-side tables (the row table, for ``"traverse"`` and
 ``chunk_cull`` the Morton permutation and the chunk boxes, for
-``"brute"`` and ``"fused"`` the triangle transforms) are built once per
-scene and device by :func:`scene_tables`; pass them to reuse them across
-calls.
+``"brute"``, ``"fused"`` and ``"kdtree"`` the triangle transforms, for
+``"kdtree"`` the tree) are built once per scene and device by
+:func:`scene_tables`; pass them to reuse them across calls.
 
 ``ray_sort`` (``"megakernel"`` and ``"traverse"`` only, as in the JAX
 package): each step first sorts the wavefront by
@@ -95,10 +103,11 @@ from ..ops.sampling import (
     sample_phong,
     sample_phong_reflect,
 )
+from ..ops.traverse import KDArrays, intersect_kdtree
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
 
-INTERSECTORS = ("megakernel", "traverse", "brute", "fused")
+INTERSECTORS = ("megakernel", "traverse", "brute", "fused", "kdtree")
 WHOLE_SEGMENT = ("megakernel", "traverse")  # the intersectors with a whole-segment kernel
 
 
@@ -113,7 +122,7 @@ class TraceConfig:
     eps_offset: float = 0.01  # self-intersection offset
     refract_kd: bool = True  # CUDA multiplies Kd on refract; HLSL doesn't
     phong_model: str = "blinn"  # "blinn" (half-vector) or "phong"
-    intersector: str = "megakernel"  # "megakernel" | "traverse" | "brute" | "fused"
+    intersector: str = "megakernel"  # "megakernel" | "traverse" | "brute" | "fused" | "kdtree"
     whole_segment: bool = True  # one kernel per segment ("megakernel", "traverse");
     # False runs the split path (intersector call + segment body in torch ops)
     ray_sort: bool = False  # sort the wavefront each segment ("megakernel", "traverse")
@@ -121,11 +130,6 @@ class TraceConfig:
     ray_chunk: int = 0  # rays per wavefront tile; 0 = whole frame
 
     def __post_init__(self):
-        if self.intersector == "kdtree":
-            raise NotImplementedError(
-                "intersector 'kdtree' is not ported yet (see ROADMAP.md, queue A8); "
-                f"use one of {INTERSECTORS}"
-            )
         if self.intersector not in INTERSECTORS:
             raise ValueError(f"unknown intersector {self.intersector!r}")
         if self.chunk_cull and self.intersector != "megakernel":
@@ -190,9 +194,10 @@ class SceneTables:
     chi: Optional[torch.Tensor] = None
     lo: Optional[torch.Tensor] = None  # f32[3] scene box (ray_sort)
     hi: Optional[torch.Tensor] = None
-    m: Optional[torch.Tensor] = None  # f32[T, 3, 3] transforms ("brute", "fused")
+    m: Optional[torch.Tensor] = None  # f32[T, 3, 3] transforms ("brute", "fused", "kdtree")
     m_a: Optional[torch.Tensor] = None  # f32[T, 3]
     geom: Optional[torch.Tensor] = None  # f32[T, 12] B7's table ("fused")
+    kd: Optional[KDArrays] = None  # the KD tree ("kdtree")
 
     @property
     def cull_boxes(self) -> dict:
@@ -200,11 +205,25 @@ class SceneTables:
         return dict(clo=self.clo, chi=self.chi)
 
 
-def scene_tables(scene: ScenePack, config: TraceConfig) -> SceneTables:
+def kd_tree(scene: ScenePack) -> KDArrays:
+    """The KD tree of the scene's valid triangles, built on the host
+    (:func:`..accel.kdtree.build_flat_kdtree`: the native C++ build when its
+    library builds) and put on the scene's device."""
+    from ..accel.kdtree import build_flat_kdtree
+
+    a, b, c = (x.detach().cpu().numpy() for x in scene.triangle_vertices())
+    flat = build_flat_kdtree(a, b, c, scene.tri_valid.cpu().numpy())
+    return KDArrays.from_flat(flat, scene.vertices.device)
+
+
+def scene_tables(scene: ScenePack, config: TraceConfig,
+                 accel: Optional[KDArrays] = None) -> SceneTables:
     """Build the scene's :class:`SceneTables` for ``config``. The row
     table and the transforms carry gradients to the scene's fields; the
-    permutation, the boxes and B7's table, which only choose which
-    triangles win, do not."""
+    permutation, the boxes, B7's table and the KD tree, which only choose
+    which triangles win, do not. ``accel`` is a prebuilt KD tree for
+    ``"kdtree"`` (JAX's ``accel`` argument); without it the tree is
+    built here (:func:`kd_tree`)."""
     extra = {}
     with torch.no_grad():
         if config.use_sort:
@@ -215,10 +234,12 @@ def scene_tables(scene: ScenePack, config: TraceConfig) -> SceneTables:
             extra["clo"], extra["chi"] = chunk_aabbs_padded(
                 a, b, c, scene.tri_valid, perm, TW.CHUNK)
             extra["perm"] = perm
-    if config.intersector in ("brute", "fused"):
+    if config.intersector in ("brute", "fused", "kdtree"):
         m, m_a = triangle_transforms(*scene.triangle_vertices())
         if config.intersector == "fused":
             extra["geom"] = NS.pack_geom_rows(m.detach(), m_a.detach(), scene.tri_valid)
+        if config.intersector == "kdtree":
+            extra["kd"] = kd_tree(scene) if accel is None else accel
         return SceneTables(m=m, m_a=m_a, **extra)
     rows = F.pack_rows_full(scene)
     if "perm" in extra:
@@ -260,9 +281,10 @@ def make_intersect_shade(scene: ScenePack, config: TraceConfig,
     and :func:`..ops.nearest_shade.recompute_winner`; a miss there has
     t = 3e38, the normals +Y and Ni = 1 (zero normals would make the
     Fresnel sampler's square roots 0·∞ = NaN under autograd).
-    ``"brute"`` and ``"fused"`` gather the material and corner normals
-    of the winner (of triangle 0 for a miss, whose t is inf and whose
-    point is the origin)."""
+    ``"brute"``, ``"fused"`` and ``"kdtree"`` gather the material and
+    corner normals of the winner (of triangle 0 for a miss, whose t is
+    inf and whose point is the origin); ``"kdtree"`` recomputes the hit
+    of the walk's winner with :func:`..ops.nearest_shade.refine_hit`."""
     if tables is None:
         tables = scene_tables(scene, config)
 
@@ -295,9 +317,13 @@ def make_intersect_shade(scene: ScenePack, config: TraceConfig,
         return intersect_shade
 
     def intersect_shade(pos3, dir3, live=None):
-        # The brute and fused intersectors gain nothing from the mask.
+        # The brute, fused and kdtree intersectors gain nothing from the mask.
         if config.intersector == "brute":
             hit = intersect_brute(tables.m, tables.m_a, scene.tri_valid, pos3.T, dir3.T)
+        elif config.intersector == "kdtree":
+            tri_id = intersect_kdtree(tables.kd, tables.m.detach(), tables.m_a.detach(),
+                                      scene.tri_valid, pos3.detach().T, dir3.detach().T).tri_id
+            hit = NS.refine_hit(tables.m, tables.m_a, pos3.T, dir3.T, tri_id)
         else:
             hit = NS.intersect_fused(tables.m, tables.m_a, scene.tri_valid, pos3.T, dir3.T,
                                      geom=tables.geom)

@@ -64,7 +64,9 @@ class RenderSettings:
 class Renderer:
     """Progressive path-tracing loop bound to one scene + camera on
     one device: the card by default (``device="cuda"``, which raises
-    without one); ``device="cpu"`` runs the plain-torch path."""
+    without one); ``device="cpu"`` runs the plain-torch path. ``accel``
+    is a prebuilt KD tree for ``intersector="kdtree"`` (else
+    :func:`.integrator.scene_tables` builds it)."""
 
     def __init__(
         self,
@@ -74,6 +76,7 @@ class Renderer:
         settings: RenderSettings = RenderSettings(),
         log: Optional[RenderLog] = None,
         device="cuda",
+        accel=None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -84,7 +87,7 @@ class Renderer:
         self.config = config
         self.settings = settings
         self.log = log or RenderLog(enabled=False)
-        self.tables = scene_tables(self.scene, config)
+        self.tables = scene_tables(self.scene, config, accel)
         self.film = Film.zeros(settings.height, settings.width, self.device)
         self.pass_idx = 0
         if settings.checkpoint_path and os.path.exists(settings.checkpoint_path):

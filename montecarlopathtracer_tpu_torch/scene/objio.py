@@ -15,8 +15,9 @@ triangle soup:
   resolves to it;
 - `g` switches the active group; groups accumulate triangle indices.
 
-Only the pure-Python parser is carried: the JAX package's optional C++
-parser lives in a module that imports JAX.
+:func:`read_obj` dispatches between this pure-Python parser and the
+repository's C++ parser (``native/mcpt_native.cpp``, loaded by the
+port's own :mod:`..native`) as the JAX package does.
 """
 
 from __future__ import annotations
@@ -147,8 +148,32 @@ def _find_material(model: ObjModel, name: str) -> int:
     return 0
 
 
-def read_obj(path: str) -> ObjModel:
-    """Load an OBJ file (plus any ``mtllib``) into an :class:`ObjModel`."""
+def read_obj(path: str, backend: str = "auto") -> ObjModel:
+    """Load an OBJ file (plus any ``mtllib``) into an :class:`ObjModel`.
+
+    ``backend``: ``"native"`` forces the C++ parser (:mod:`..native`),
+    ``"python"`` this module's parser, ``"auto"`` (default) the C++
+    parser when its library builds and this one otherwise, as the JAX
+    package does. Both give the same model (tested). The ``MCPT_NATIVE``
+    environment variable (0/1) overrides ``"auto"``."""
+    if backend == "auto":
+        env = os.environ.get("MCPT_NATIVE")
+        if env is not None:
+            backend = "native" if env not in ("0", "false", "") else "python"
+    if backend in ("auto", "native"):
+        from .. import native
+
+        if native.available():
+            return native.read_obj_native(path)
+        if backend == "native":
+            raise RuntimeError(f"native parser unavailable: {native.build_error()}")
+    elif backend != "python":
+        raise ValueError(f"unknown backend {backend!r}")
+    return _read_obj_py(path)
+
+
+def _read_obj_py(path: str) -> ObjModel:
+    """The pure-Python parser of :func:`read_obj`."""
     model = ObjModel(path=path)
     group = "default"
     model.groups.setdefault(group, [])

@@ -302,15 +302,20 @@ def compare_param_grads(want, got, tol) -> dict:
 def plain_kernels():
     """Route every kernel wrapper of the port (segment forward with or
     without culling, segment from known winners, traversal walk, segment
-    backward, row scatter, the split path's nearest hit, the fused
-    intersector's index) to its plain-torch version, on any device, for
-    the duration of the block."""
+    backward, row scatter, the split path's nearest hit, which the
+    superseded selection entries call too, the fused intersector's index,
+    the selection microkernels) to its plain-torch version, on any
+    device, for the duration of the block."""
     from .ops import nearest_shade as NS
     from .ops import scatter_rows as S
     from .ops import segment_fused as F
+    from .ops import selection_micro as SM
     from .ops import traverse_walk as TW
 
-    routes = [(F, "mega_segment", F.mega_segment_ref),
+    routes = [(SM, "selection_micro", SM.selection_micro_ref),
+              (SM, "epilogue_only", SM.epilogue_only_ref),
+              (SM, "epilogue_shared", SM.epilogue_shared_ref),
+              (F, "mega_segment", F.mega_segment_ref),
               (F, "rows_segment", F.rows_segment_ref),
               (F, "segment_backward", F.segment_backward_ref),
               (F, "scatter_rows", S.scatter_rows_ref),

@@ -1,11 +1,12 @@
 """The port's CUDA kernels on the card (the segment forward with scalar
 and per-lane flags and with chunk culling, its vjp, the row scatter, the
 traversal walk, the segment from known winners, the split path's nearest
-hit with and without culling and the fused intersector's index): each
+hit with and without culling and the fused intersector's index, the
+superseded selection entries over it, the selection microkernels): each
 builds, launches, agrees with its plain-torch version, counts its
 launches and refuses what it cannot take; gradient, traversal, regen,
-split, fused and cull renders through the kernels agree with the plain
-path. Every test here needs an NVIDIA Hopper GPU and
+split, fused, cull and kdtree renders through the kernels agree with the
+plain path. Every test here needs an NVIDIA Hopper GPU and
 nvcc, and skips elsewhere. This file imports no JAX; run it on the GPU machine, from the
 repository root, without the JAX-pinning conftest:
 
@@ -18,9 +19,13 @@ import torch
 from montecarlopathtracer_tpu_torch.diff import grad as G
 from montecarlopathtracer_tpu_torch.models import bunny, cornell, glossy
 from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
 from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
 from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
+from montecarlopathtracer_tpu_torch.ops.intersect import triangle_transforms
+from montecarlopathtracer_tpu_torch.ops.morton import chunk_aabbs, chunk_aabbs_padded
 from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
 from montecarlopathtracer_tpu_torch.render.integrator import (
     TraceConfig,
@@ -475,3 +480,104 @@ def test_split_wrappers_refuse_bad_inputs_on_card(glossy_card):
         NS.nearest_triangle(tables.rows[:, :12], pos, dir_)
     assert (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
             F.mega_segment.launches) == before
+
+
+def _variant_calls(scene, perm, pos, dir_, live):
+    """``{name: (entry, its row table)}`` of B8-B11 on one scene padded to
+    a multiple of 128 triangles (``perm`` its Morton order)."""
+    pad = -scene.num_triangles % 128
+    a, b, c = (torch.cat([x, torch.zeros(pad, 3, device="cuda")]) for x in
+               scene.triangle_vertices())
+    valid = torch.cat([scene.tri_valid, torch.zeros(pad, dtype=torch.bool, device="cuda")])
+    perm = torch.cat([perm, torch.arange(scene.num_triangles, len(valid), device="cuda")])
+    m, m_a = triangle_transforms(a, b, c)
+    table = torch.cat([NV.pack_shading_table(scene), torch.zeros(pad, 32, device="cuda")])
+    w = NV.pack_transforms(m, m_a, valid)
+    geom = NV._geometry(w).contiguous()
+    wp = NV.pack_transforms(m[perm], m_a[perm], valid[perm])
+    tp = table[perm].contiguous()
+    ws_c = NV.pack_transforms_stream(m[perm], m_a[perm], valid[perm], 128)
+    boxes = chunk_aabbs_padded(a, b, c, valid, perm, 128)
+    rows, rows_p = NV._rows(geom, table), NV._rows(NV._geometry(wp), tp)
+    return {
+        "B8": (lambda: NV.nearest_shade(w, table, pos, dir_), rows),
+        "B9": (lambda: NV.nearest_shade2(NV.pack_transforms_fused(m, m_a, valid, 128), geom,
+                                         table, pos, dir_, t_chunk=128), rows),
+        "B10": (lambda: NV.nearest_shade_streamed(NV.pack_transforms_stream(m, m_a, valid, 256),
+                                                  geom, table, pos, dir_, live, t_chunk=256),
+                rows),
+        "B10c": (lambda: NV.nearest_shade_streamed(ws_c, geom[perm], tp, pos, dir_, live,
+                                                   *boxes, t_chunk=128, cull=True), rows_p),
+        "B11": (lambda: NV.nearest_shade_culled(wp, tp, *chunk_aabbs(a, b, c, valid, perm, 128),
+                                                pos, dir_, live), rows_p),
+        # Boxes of 352 triangles, which tile_boxes regrids to B4c's tiles of 128.
+        "B11w": (lambda: NV.nearest_shade_culled(wp, tp, *chunk_aabbs(a, b, c, valid, perm, 352),
+                                                 pos, dir_, live), rows_p),
+    }
+
+
+@pytest.mark.parametrize("name", ["B8", "B9", "B10", "B10c", "B11", "B11w"])
+def test_selection_entries_match_plain_on_card(glossy_card, name):
+    """B8-B11 launch B4 (B4c for the culling entries), count their
+    launches and agree with their plain versions (``testing.compare_shade``)
+    on the glossy camera wavefront and its first bounce with dead lanes."""
+    scene, camera, tables = glossy_card
+    entry = {"B8": NV.nearest_shade, "B9": NV.nearest_shade2, "B10": NV.nearest_shade_streamed,
+             "B10c": NV.nearest_shade_streamed, "B11": NV.nearest_shade_culled,
+             "B11w": NV.nearest_shade_culled}[name]
+    for pos, dir_, _, _, live in _waves(camera, tables.rows):
+        call, rows = _variant_calls(scene, tables.perm, pos, dir_, live)[name]
+        before = (entry.launches, NS.nearest_shade_full.launches,
+                  NS.nearest_shade_full.cull_launches)
+        got = call()
+        torch.cuda.synchronize()
+        cull = name in ("B10c", "B11", "B11w")
+        assert (entry.launches, NS.nearest_shade_full.launches,
+                NS.nearest_shade_full.cull_launches) == (before[0] + 1, before[1] + 1,
+                                                         before[2] + cull)
+        with plain_kernels():
+            want = call()
+        every = name in ("B8", "B9")  # these entries have no live mask
+        lanes = torch.ones_like(live) if every else live
+        rep = compare_shade(got, want, live=lanes, rows=rows, pos=pos, dir_=dir_)
+        assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("variant", SM.VARIANTS)
+def test_selection_micro_matches_plain_on_card(card, variant):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ws = torch.randn(SM.K, 6 * 768, device="cuda", generator=g).to(torch.bfloat16)
+    rays = torch.randn(SM.K, 5000, device="cuda", generator=g).to(torch.bfloat16)
+    before = SM.selection_micro.launches[variant]
+    got = SM.selection_micro(ws, rays, 256, variant)
+    torch.cuda.synchronize()
+    assert SM.selection_micro.launches[variant] == before + 1
+    assert torch.equal(got, SM.selection_micro_ref(ws, rays, 256, variant))
+    with pytest.raises(ValueError, match="contiguous"):
+        SM.selection_micro(ws, rays[:, ::2], 256, variant)
+    assert SM.selection_micro.launches[variant] == before + 1
+
+
+def test_selection_epilogues_match_plain_on_card(card):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    p_all = torch.randn(6 * 768, 3000, device="cuda", generator=g)
+    before = SM.epilogue_only.launches
+    got = SM.epilogue_only(p_all, 256)
+    torch.cuda.synchronize()
+    assert SM.epilogue_only.launches == before + 1
+    assert torch.equal(got, SM.epilogue_only_ref(p_all, 256))
+    p_blk = torch.randn(6 * 256, 512, device="cuda", generator=g)
+    before = SM.epilogue_shared.launches
+    got = SM.epilogue_shared(p_blk, 768, 3000)
+    torch.cuda.synchronize()
+    assert SM.epilogue_shared.launches == before + 1
+    assert torch.equal(got, SM.epilogue_shared_ref(p_blk, 768, 3000))
+
+
+def test_kdtree_render_on_card_matches_cpu(card):
+    scene, camera, _ = card
+    config = TraceConfig(max_depth=3, intersector="kdtree")
+    got = render_sample_batch(scene, camera, make_key(2), 64, 48, config)
+    want = render_sample_batch(scene.to("cpu"), camera.to("cpu"), make_key(2), 64, 48, config)
+    rep = compare_images(got, want)
+    assert rep["ok"], rep

@@ -204,9 +204,10 @@ def test_cli_without_gpu_fails_rather_than_using_cpu(tmp_path, capsys):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TraceConfig(intersector="kdtree")
-    for intersector in ("megakernel", "traverse", "fused", "brute"):
+    # Every intersector of the JAX package is ported; an unknown one raises.
+    with pytest.raises(ValueError, match="unknown intersector"):
+        TraceConfig(intersector="bvh")
+    for intersector in ("megakernel", "traverse", "fused", "brute", "kdtree"):
         for whole in (True, False):
             cfg = TraceConfig(intersector=intersector, whole_segment=whole)
             assert cfg.use_whole == (whole and intersector in ("megakernel", "traverse"))
