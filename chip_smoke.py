@@ -15,7 +15,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    64x48 camera rays and a full 800x600 wavefront of first-bounce rays,
    in fixed mode (final gather off and on) and RR mode (roulette, hard
    kill), with the tolerances of montecarlopathtracer_tpu_torch.testing;
-4. one 800x600 segment timed, kernel and plain (median of CUDA events);
+   and B1's winners (idx, and t recomputed from them) bit-equal to those
+   of B4 (nearest_shade.cu) on the same rays;
+4. one 800x600 segment timed, kernel and plain (median of CUDA events),
+   and the kernel's device time per launch beside the previous design's;
+   its bound counts the sphere test on every live pair and the exact
+   test on the pairs inside the spheres (counted on the same inputs);
 5. the main path: Renderer at 800x600, fixed depth 7, 4 spp/pass, one
    warm-up and three timed passes, with the kernel's launch count and
    checks on the film; then a per-segment time breakdown of one sample;
@@ -28,8 +33,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (roulette on tied grey throughput, hard kill) and classic Phong;
 9. the row scatter kernel (B3) against its plain version, 652 triangles,
    480,000 rays, on phase 8's row cotangents and on N(0,1) ones, each
-   entry held to its own rounding bound;
-10. one 800x600 segment's B2 and B3 timed against their plain versions;
+   entry held to its own rounding bound, and two calls bit-equal;
+10. one 800x600 segment's B2 and B3 timed against their plain versions,
+    with their device times and index_add_'s (zero-fill included);
 11. the gradient main path (bench.py's fwd+bwd): value and gradient of
     an L2 pixel loss at 800x600, 2 spp, fixed depth 7, params
     {mat_kd, mat_ka, vertices}; one warm-up and three timed iterations,
@@ -42,7 +48,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 15. the segment kernel with per-lane flags (B1l) against its plain
     version on phase 3's 800x600 first-bounce wavefront, flags drawn per
     lane from a seed (final gather, roulette and hard kill mixed), fixed
-    and RR mode, with the segment gate; B1l timed against plain;
+    and RR mode, with the segment gate and its winners bit-equal to B4's;
+    B1l timed against plain, with its device time;
 16. the regen main path: Renderer on the Cornell box, RR (rr_depth 5,
     illum 1), 800x600, 32 spp per pass, regen; one warm-up and two timed
     passes, steps and B1l launches per pass, and the film mean held
@@ -57,8 +64,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 18. the segment from known winners (B6, and B6l with per-lane flags)
     against its plain version on the bunny's bounce wavefront;
 19. B5, B6 and the brute B1 timed on that 1024x1024 wavefront (median of
-    10 CUDA events), with their plain versions (B5's and B1's on the
-    subset);
+    10 CUDA events, and device times), with their plain versions (B5's
+    and B1's on the subset);
 20. the bunny main path: Renderer 1024x1024, fixed depth 7 + final
     gather, 1 spp per pass, traverse + ray sort; one warm-up and two
     timed passes, launch counts, and a per-step breakdown of one sample
@@ -68,9 +75,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 21. the bunny gradient: value and grad at 512x512, 1 spp, params
     {mat_kd, mat_ka, vertices}, launch counts of B5, B6, B2 and B3;
     21b: the row scatter (B3) of that gradient's segment with the most
-    hits, 81,932 triangles x 262,144 rays (its f64 global-atomics path),
+    hits, 81,932 triangles x 262,144 rays (two passes of its sort),
     against its plain version on those cotangents and on N(0,1) ones,
-    and timed;
+    two calls bit-equal, and timed with its device time and
+    index_add_'s;
 22. a 64x48 bunny gradient render (subdiv 3), kernel path against plain
     path;
 23. the split path's kernels (nearest_shade.cu: B4 and its cull instance
@@ -80,13 +88,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
     table) on the glossy stage's 800x600 camera wavefront and its sorted
     first bounce with dead lanes, fixed and RR, scalar and per-lane
     flags (the segment gate), and against B1 on the same table (the same
-    winners); chunks tested per block;
+    outputs); B1c's winners and chunks tested per group of 128 rays equal
+    to B4c's, B1's winners to B4's;
 25. B4, B4c and B7 against their plain versions on phase 3's Cornell
     800x600 first bounce and the glossy wavefronts: winners with the
     near-tie allowance, shading rows equal, t, beta, gamma to 1e-5 or
     within 16 x eps32 x their rounding scale of the float64 values;
-26. B1c, B4, B4c and B7 timed (median of 10 CUDA events) beside their
-    plain versions and B1 on the same wavefront;
+26. B1c, B4, B4c and B7 timed (median of 10 CUDA events, and device
+    times) beside their plain versions and B1 on the same wavefront;
 27. the cull main path: Renderer on the glossy stage, 800x600, fixed
     depth 7 + gather, 4 spp/pass, chunk_cull + ray_sort, one warm-up and
     two timed passes, B1c launches; one sample against the render
@@ -126,7 +135,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
     pass, intersector="kdtree": one warm-up and one timed pass, the film
     against the whole-segment film of the same passes.
 
-Every kernel line carries its bound: the least time for its bytes (each
+A kernel's device time per launch comes from CUDA events around 20
+back-to-back calls queued behind a torch.cuda._sleep, so that the card,
+not the host, sets their pace (median of three such spans, over 20); the
+event pair around one call, which includes the wrapper's host work, is
+kept beside it. Every kernel line carries its bound: the least time for its bytes (each
 input read once, each output written once, 3.35 TB/s) and its
 operations at the rate of their type, the H100 SXM's published rates:
 f32 (67 TFLOP/s), and for B12's contraction of bf16 inputs the bf16
@@ -309,12 +322,15 @@ def kernel_vs_plain(torch, scene, rows):
                              mode="fixed")
     bounce = tuple(x.contiguous() for x in (out[1], out[2], out[3], out[4], out[5] > 0.0))
     print(f"first-bounce wavefront: {int(bounce[4].sum())} of {W * H} live")
-    worst = 0.0
+    worst, identical = 0.0, True
     for wname, wave in (("64x48 camera", small), ("800x600 bounce", bounce)):
         for cname, (mode, flags) in CASES.items():
             args = seg_args(torch, rows, *wave, make_key(5), flags)
             got = F.mega_segment(*args, mode=mode)
             torch.cuda.synchronize()
+            vs = versus_split(torch, rows, got[0], args[1], args[2], args[5])
+            check(vs[0] and vs[1], f"B1's winners differ from B4's on {wname} {cname}")
+            identical &= vs[0] and vs[1]
             ref = F.mega_segment_ref(*args, mode=mode)
             torch.cuda.synchronize()
             rep = compare_segment(ref, got, live=args[5], rows=rows, pos=args[1],
@@ -329,6 +345,8 @@ def kernel_vs_plain(torch, scene, rows):
             check(rep["ok"], f"kernel disagrees with plain on {wname} {cname}: {rep}")
     print("tolerance: rtol = atol = 1e-5 on agreeing lanes, at most 0.1% of them "
           f"within 1e-2 instead; worst |err| {worst:.3e}")
+    print(f"B1's idx and the t recomputed from its winners bit-equal to B4's (nearest_shade.cu, "
+          f"the same pair test one ray per thread) on every case: {identical}")
     return bounce, worst
 
 
@@ -356,10 +374,15 @@ def time_segment(torch, rows, bounce):
         for fn in order:
             (ks if fn is F.mega_segment else ps).append(timed(fn))
     ms, plain_ms = statistics.median(ks), statistics.median(ps)
-    bound = segment_bound(rows.shape[0], W * H, int(bounce[4].sum()))
+    pairs = sphere_pairs(torch, rows, bounce[0], bounce[1], bounce[4])
+    bound = segment_bound(rows.shape[0], W * H, pairs)
     print(f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (median of 10, "
           f"{int(bounce[4].sum())} live rays of {W * H}, {rows.shape[0]} triangles); bound "
-          f"{bound[0]:.4f} ms ({bound[1]})")
+          f"{bound[0]:.4f} ms ({bound[1]}: the sphere test on {pairs[0]} pairs, the exact "
+          f"test on the {pairs[1]} that pass it; all {pairs[0]} at {PAIR_OPS} operations "
+          f"would give {bound_of(0, pairs[0] * PAIR_OPS)[0]:.4f} ms)")
+    record_device(torch, "B1", lambda: F.mega_segment(*args, mode="fixed"))
+    device_line("B1", ms, bound)
     return ms, plain_ms, bound
 
 
@@ -596,8 +619,8 @@ def backward_vs_plain(torch, rows, bounce):
 def scatter_vs_plain(torch, idx, d_full, T, source):
     """B3 against its plain version on the row cotangents ``d_full`` of
     one segment (``source`` names it) and on N(0,1) ones of the same
-    shape, each entry held to its own rounding bound; returns the worst
-    |err|.
+    shape, each entry held to its own rounding bound, and two calls held
+    bit-equal to each other; returns the worst |err|.
 
     The reference is the plain version on the same values in float64,
     i.e. the exact sums to f32's eyes: in f32 the plain version's
@@ -615,7 +638,9 @@ def scatter_vs_plain(torch, idx, d_full, T, source):
                         ("N(0,1) cotangents", torch.randn(d_full.shape, device="cuda",
                                                           generator=g))):
         got = S.scatter_rows(idx, dvals, T)
+        again = S.scatter_rows(idx, dvals, T)
         torch.cuda.synchronize()
+        same = bool(torch.equal(got, again))
         exact = S.scatter_rows_ref(idx, dvals.double(), T)
         bound = S.scatter_rows_ref(idx, dvals.double().abs(), T)
         rep = compare_scatter(exact, got, bound)
@@ -624,8 +649,10 @@ def scatter_vs_plain(torch, idx, d_full, T, source):
         print(f"{name:34s} {int(hit.sum())} rays hit, at most {most} into one row; "
               f"max |err| {rep['max_abs_err']:.3e} of a table max "
               f"{float(exact.abs().max()):.3e}; worst |err| / (eps32 x sum |dvals|) "
-              f"{rep['worst_ulps']:.3f} (plain in f32: {plain['worst_ulps']:.3f})")
+              f"{rep['worst_ulps']:.3f} (plain in f32: {plain['worst_ulps']:.3f}); two calls "
+              f"bit-equal: {same}")
         check(rep["ok"], f"scatter_rows disagrees with plain on {name}: {rep}")
+        check(same, f"two scatter_rows calls on {name} differ")
     print(f"tolerance per entry: |err| <= {SCATTER_ULPS} x eps32 x (sum of |dvals| "
           f"added into it) against the plain version in float64")
     return worst
@@ -641,21 +668,105 @@ def event_ms(torch, fn):
     return a.elapsed_time(b)
 
 
-def time_pair(torch, kernel, plain, n=10):
-    """Median CUDA-event ms of `kernel()` and `plain()`, alternating."""
+def device_ms(torch, fn, n=20):
+    """Device time per call of ``fn()``: CUDA events around ``n``
+    back-to-back calls queued behind a ``torch.cuda._sleep`` that outlasts
+    their enqueueing, so the events see the card's work and not the
+    host's (the wrappers do not synchronize); the median of three such
+    spans, divided by n. Returns (ms, source, host_ms): host_ms is the
+    host's time to enqueue one call. (torch.profiler's kernel times,
+    tried first, lost kernels after a few profiles in one process: a
+    kernel came out faster than its bound.)"""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(3 * host * 2e9) + 1_000_000)  # cycles, ~2 GHz
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        spans.append(a.elapsed_time(b) / n)
+    return statistics.median(spans), "queued events", host * 1e3 / n
+
+
+# Device time per call by kernel label (B1, B3 T652, ...; index_add_ T652,
+# ...), filled by time_pair / time_one / record_device; read into the
+# kernels' JSON line.
+DEVICE_MS = {}
+
+
+def record_device(torch, label, fn):
+    DEVICE_MS[label] = device_ms(torch, fn)
+    return DEVICE_MS[label]
+
+
+# The previous designs' figures (B1/B1l/B1c one ray per thread without a
+# pre-test; B3 atomics into a shared-memory or f64 table), from this
+# script's run of them on an NVIDIA H100 80GB HBM3 at 700.00 W: (event
+# pair ms, profiler ms per launch or None where that run took none). The
+# event pairs were taken as this script takes them now, on the same
+# phases' inputs: they are the like-for-like comparison. The profiler
+# figures are another method on other inputs, not comparable with the
+# device times measured here: B1's and B3's are torch.profiler totals of
+# one gradient iteration (phase 11: 9.809 ms / 16 and 4.747 ms / 16
+# launches, other wavefronts than phases 4 and 10), B1l's that of a regen
+# pass (phase 16: 125.202 ms / 336 launches, other wavefronts than phase
+# 15's).
+PREVIOUS_MS = {
+    "B1": (0.7956, 9.809 / 16), "B1l": (0.8622, 125.202 / 336), "B1c": (0.7017, None),
+    "B3 T652": (0.6008, 4.747 / 16), "B3 T81932": (0.6442, None),
+}
+
+
+def device_line(label, event_pair, bound, library=None):
+    """One line of a kernel's device time beside its event pair, bound and
+    the previous design's figures."""
+    dev, src, host = DEVICE_MS[label]
+    old = PREVIOUS_MS.get(label)
+    line = (f"{label}: device {dev:.4f} ms per launch ({src}, 20 back-to-back calls; the "
+            f"host enqueues one in {host:.4f} ms), event pair {event_pair:.4f} ms; bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), device time at {bound[0] / dev:.3f} of it")
+    if library is not None:
+        ldev = DEVICE_MS[library][0]
+        line += f"; {library} (zero-fill included) device {ldev:.4f} ms"
+    if old is not None:
+        line += (f"; previous design: event pair {old[0]:.4f} ms (same method and inputs), "
+                 + ("device not measured" if old[1] is None else
+                    f"torch.profiler {old[1]:.4f} ms per launch on other wavefronts "
+                    "(another method, not comparable)"))
+    print(line)
+
+
+def time_pair(torch, kernel, plain, n=10, label=None):
+    """Median CUDA-event ms of `kernel()` and `plain()`, alternating; with
+    `label`, also the kernel's device time into DEVICE_MS."""
     event_ms(torch, kernel)
     event_ms(torch, plain)
     ks, ps = [], []
     for i in range(n):
         for fn in ((kernel, plain) if i % 2 == 0 else (plain, kernel)):
             (ks if fn is kernel else ps).append(event_ms(torch, fn))
+    if label is not None:
+        record_device(torch, label, kernel)
     return statistics.median(ks), statistics.median(ps)
 
 
-def time_one(torch, fn, n=10):
-    """Median CUDA-event ms of `fn()` after one warm-up call."""
+def time_one(torch, fn, n=10, label=None):
+    """Median CUDA-event ms of `fn()` after one warm-up call; with `label`,
+    also its device time into DEVICE_MS."""
     event_ms(torch, fn)
-    return statistics.median(event_ms(torch, fn) for _ in range(n))
+    ms = statistics.median(event_ms(torch, fn) for _ in range(n))
+    if label is not None:
+        record_device(torch, label, fn)
+    return ms
 
 
 def time_backward(torch, rows, bounce):
@@ -667,9 +778,9 @@ def time_backward(torch, rows, bounce):
     d_full = F.segment_backward(*args)[4]
     T = rows.shape[0]
     bwd = time_pair(torch, lambda: F.segment_backward(*args),
-                    lambda: F.segment_backward_ref(*args))
+                    lambda: F.segment_backward_ref(*args), label="B2")
     sc = time_pair(torch, lambda: S.scatter_rows(idx, d_full, T),
-                   lambda: S.scatter_rows_ref(idx, d_full, T))
+                   lambda: S.scatter_rows_ref(idx, d_full, T), label="B3 T652")
     R, hits = W * H, int((idx >= 0).sum())
     bwd = (*bwd, bound_of(R * (48 + 2 + 192 + 12 + 48) + 12 + R * (48 + 192), hits * 40))
     sc = (*sc, bound_of(R * 196 + T * 192, hits * 48), library_index_add(torch, idx, d_full, T))
@@ -677,6 +788,8 @@ def time_backward(torch, rows, bounce):
           f"{bwd[2][0]:.4f} ms, {bwd[2][1]}); scatter_rows kernel {sc[0]:.4f} ms  plain "
           f"{sc[1]:.4f} ms (bound {sc[2][0]:.4f} ms, {sc[2][1]}; one index_add_ {sc[3]:.4f} ms) "
           f"(median of 10, {int(bounce[4].sum())} live rays of {W * H}, {T} triangles)")
+    device_line("B2", bwd[0], bwd[2])
+    device_line("B3 T652", sc[0], sc[2], library="index_add_ T652")
     return bwd, sc
 
 
@@ -864,6 +977,8 @@ def lane_vs_plain(torch, rows, bounce):
         args[9] = seeded_lane_flags(torch, W * H, seed=i)
         got = F.mega_segment(*args, mode=mode)
         torch.cuda.synchronize()
+        vs = versus_split(torch, rows, got[0], args[1], args[2], args[5])
+        check(vs[0] and vs[1], f"B1l's winners differ from B4's in {mode} mode")
         ref = F.mega_segment_ref(*args, mode=mode)
         rep = compare_segment(ref, got, live=args[5], rows=rows, pos=args[1], dir_=args[2])
         errs = rep["max_abs_err"]
@@ -871,14 +986,18 @@ def lane_vs_plain(torch, rows, bounce):
         print(f"{mode:6s} lane flags: idx agree {rep['idx_agree']:.6f} "
               f"({rep['n_idx_mismatch']} near-tie mismatches of {rep['n_live']} live) "
               "max |err| " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
-              + f"; lanes beyond 1e-5: {rep['n_outliers']}")
+              + f"; lanes beyond 1e-5: {rep['n_outliers']}; idx and t bit-equal to B4's: "
+              f"{vs[0] and vs[1]}")
         check(rep["ok"], f"B1l disagrees with plain in {mode} mode: {rep}")
     ms = time_pair(torch, lambda: F.mega_segment(*args, mode="rr"),
-                   lambda: F.mega_segment_ref(*args, mode="rr"))
-    bound = segment_bound(rows.shape[0], W * H, int(bounce[4].sum()), lane=True)
+                   lambda: F.mega_segment_ref(*args, mode="rr"), label="B1l")
+    pairs = sphere_pairs(torch, rows, bounce[0], bounce[1], bounce[4])
+    bound = segment_bound(rows.shape[0], W * H, pairs, lane=True)
     print(f"B1l kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms (median of 10, RR, "
-          f"{int(bounce[4].sum())} live rays of {W * H}; bound {bound[0]:.4f} ms, {bound[1]}); "
+          f"{int(bounce[4].sum())} live rays of {W * H}; bound {bound[0]:.4f} ms, {bound[1]}: "
+          f"{pairs[0]} pairs sphere-tested, {pairs[1]} exact); "
           f"tolerance as phase 3; worst |err| {worst:.3e}")
+    device_line("B1l", ms[0], bound)
     return worst, (*ms, bound)
 
 
@@ -1091,17 +1210,17 @@ def time_bunny(torch, tables, bounce, sub, idx, draws, cases):
     p, d, _, _, lv = subset_of(torch, bounce, sub)
     rows, clo, chi = tables.rows, tables.clo, tables.chi
     b5 = time_pair(torch, lambda: TW.traverse_select(rows, clo, chi, pos, dir_, live),
-                   lambda: TW.traverse_select_ref(rows, clo, chi, p, d, lv))
+                   lambda: TW.traverse_select_ref(rows, clo, chi, p, d, lv), label="B5")
     u1, u2, urr = draws
     b6 = {name: time_pair(torch, lambda f=flags: F.rows_segment(
         rows, idx, pos, dir_, tput, res, live, u1, u2, urr, f),
         lambda f=flags: F.rows_segment_ref(rows, idx, pos, dir_, tput, res, live, u1, u2,
-                                           urr, f)) for name, flags in cases}
+                                           urr, f), label=name) for name, flags in cases}
     fl = cases[0][1]
     sub_args = (*subset_of(torch, bounce, sub), u1[sub], u2[sub], urr[sub], fl)
     b1 = time_pair(torch, lambda: F.mega_segment(rows, pos, dir_, tput, res, live, u1, u2,
                                                  urr, fl),
-                   lambda: F.mega_segment_ref(rows, *sub_args))
+                   lambda: F.mega_segment_ref(rows, *sub_args), label="B1 bunny")
     n_live = int(live.sum())
     print(f"({n_live} live of {BW * BH} rays; plain B5 and B1 on the {SUBSET}-ray subset; "
           "median of 10 CUDA events)")
@@ -1121,6 +1240,10 @@ def time_bunny(torch, tables, bounce, sub, idx, draws, cases):
     print(f"bounds: B5 {b5[2][0]:.4f} ms ({b5[2][1]}; {pairs:.4g} reachable pairs of "
           f"{n_live * T} live pairs), B6 {b6['B6'][2][0]:.4f} ms ({b6['B6'][2][1]}), "
           f"B6l {b6['B6l'][2][0]:.4f} ms ({b6['B6l'][2][1]})")
+    for name, timing in (("B5", b5), ("B6", b6["B6"]), ("B6l", b6["B6l"])):
+        device_line(name, timing[0], timing[2])
+    print(f"B1 bunny (brute, every live pair): device {DEVICE_MS['B1 bunny'][0]:.4f} ms per "
+          f"launch ({DEVICE_MS['B1 bunny'][1]})")
     return b5, b6, b1
 
 
@@ -1315,25 +1438,19 @@ def bunny_grad(torch, scene, config):
 
 def bunny_scatter(torch, idx, d_full, T):
     phase(f"21b. row scatter kernel (B3) vs plain on the bunny gradient's segment: "
-          f"{T:,} triangles x {idx.shape[0]:,} rays, f64 global atomics")
+          f"{T:,} triangles x {idx.shape[0]:,} rays (two sort passes)")
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 
-    # scatter_rows.cu keeps a private f32 table in shared memory when it
-    # fits, and adds into an f64 table with global atomics when it does not.
-    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    bytes_ = T * 48 * 4
-    print(f"table {bytes_:,} B against {smem:,} B of shared memory per block: "
-          "the f64 global-atomics path")
-    check(bytes_ > smem, "the bunny's row table fits in shared memory")
     worst = scatter_vs_plain(torch, idx, d_full, T,
                              f"{BUNNY_GRAD_W}x{BUNNY_GRAD_W} bunny vjp d_full")
     ms = time_pair(torch, lambda: S.scatter_rows(idx, d_full, T),
-                   lambda: S.scatter_rows_ref(idx, d_full, T))
+                   lambda: S.scatter_rows_ref(idx, d_full, T), label="B3 T81932")
     hits, R = int((idx >= 0).sum()), idx.shape[0]
     ms = (*ms, bound_of(R * 196 + T * 192, hits * 48), library_index_add(torch, idx, d_full, T))
     print(f"scatter_rows kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms (median of 10, "
           f"{hits} rays hit of {R}, {T} triangles); bound {ms[2][0]:.4f} ms ({ms[2][1]}); "
           f"one index_add_ {ms[3]:.4f} ms")
+    device_line("B3 T81932", ms[0], ms[2], library="index_add_ T81932")
     return worst, ms
 
 
@@ -1370,6 +1487,10 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data shee
 # f32 operations of one ray-triangle pair test: o' (3 x 6), d' (3 x 5),
 # one division, beta and gamma (2 x 2), 1 - (beta + gamma) (2).
 PAIR_OPS = 40
+# f32 operations of segment_fused.cu's `sphere_pass`, which B1/B1l/B1c
+# run on every pair in front of the pair test: v = c - o (3), v.d (5),
+# v.v (5), v.v d.d' - (v.d)^2 (3), r^2 d.d (1).
+SPHERE_OPS = 17
 STATE_BYTES = 48 + 1 + 12  # pos, dir, tput, res f32[3]; live; u1, u2, urr
 SEG_OUT_BYTES = 4 + 48 + 4  # idx, npos/ndir/ntput/nres f32[3], still
 
@@ -1379,49 +1500,109 @@ def bound_of(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     memory traffic (each input read once, each output written once) and
     ``ops`` operations of one type at the H100's published rates (f32
     outside the tensor cores unless ``ops_per_s`` says else). Operations
-    count the ray-triangle arithmetic only (PAIR_OPS per tested pair, 40
-    per recomputed winner, 48 adds per scattered row); the samplers' and
-    vjps' arithmetic is left out, so an elementwise kernel's bound is a
-    lower bound."""
+    count the ray-triangle arithmetic only (PAIR_OPS per tested pair,
+    SPHERE_OPS per pair that B1's sphere test sees, 40 per recomputed
+    winner, 48 adds per scattered row); the samplers' and vjps'
+    arithmetic is left out, so an elementwise kernel's bound is a lower
+    bound."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def segment_bound(T, R, live, lane=False, nc=0, pairs=None):
-    """Bound of a whole segment (B1, B1l, B1c) on R rays, ``live`` of them
-    live, over T triangles: brute selection tests live x T pairs, a
-    culling one the ``pairs`` its rays' segments reach."""
+def segment_bound(T, R, pairs, lane=False, nc=0):
+    """Bound of a whole segment (B1, B1l, B1c) on R rays over T triangles,
+    from ``pairs`` = sphere_pairs(...): SPHERE_OPS for every pair its
+    selection must test, PAIR_OPS more for each that passes the sphere
+    test."""
     nbytes = T * 192 + R * STATE_BYTES + (12 * R if lane else 12) + nc * 24 + R * SEG_OUT_BYTES
-    return bound_of(nbytes, (live * T if pairs is None else pairs) * PAIR_OPS)
+    return bound_of(nbytes, pairs[0] * SPHERE_OPS + pairs[1] * PAIR_OPS)
+
+
+def chunk_reach(torch, clo, chi, o, d, t_best, live):
+    """bool[s, nc]: the segment [0, t_best] of each of the rays o, d
+    f32[s, 3] reaches the box of chunk j (widened as the kernels widen
+    it), for the live rays."""
+    m = 1e-5 * (1.0 + torch.maximum(clo.abs(), chi.abs()))
+    lo, hi = (clo - m)[None], (chi + m)[None]  # [1, nc, 3]
+    o, d = o[:, None, :], d[:, None, :]
+    flat = d.abs() < 1e-12
+    inv = 1.0 / torch.where(flat, 1.0, d)
+    t0, t1 = (lo - o) * inv, (hi - o) * inv
+    inside = (o >= lo) & (o <= hi)
+    tn = torch.where(flat, torch.where(inside, -3e38, 3e38), torch.minimum(t0, t1))
+    tf = torch.where(flat, torch.where(inside, 3e38, -3e38), torch.maximum(t0, t1))
+    tn, tf = tn.amax(dim=2), tf.amin(dim=2)
+    return (tn <= tf) & (tf >= 0.0) & (tn <= t_best[:, None]) & live[:, None]
 
 
 def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14, box=128):
     """Ray-triangle pairs that culling must test on these rays: for each
     live ray, the triangles of every chunk (of ``box`` triangles) whose
     box (widened as the kernels widen it) its segment [0, t_best]
-    reaches. The minimum work of a culling selection on this data (B1c,
-    B4c, B5)."""
+    reaches. The minimum work of a culling selection on this data (B4c,
+    B5)."""
     nc = clo.shape[0]
     sizes = torch.full((nc,), float(box), device=clo.device, dtype=torch.float64)
     sizes[-1] = T - box * (nc - 1)
-    m = 1e-5 * (1.0 + torch.maximum(clo.abs(), chi.abs()))
-    lo, hi = (clo - m)[None], (chi + m)[None]  # [1, nc, 3]
     total = 0.0
     for s in range(0, pos.shape[1], step):
-        o = pos[:, s:s + step].T[:, None, :]
-        d = dir_[:, s:s + step].T[:, None, :]
-        flat = d.abs() < 1e-12
-        inv = 1.0 / torch.where(flat, 1.0, d)
-        t0, t1 = (lo - o) * inv, (hi - o) * inv
-        inside = (o >= lo) & (o <= hi)
-        tn = torch.where(flat, torch.where(inside, -3e38, 3e38), torch.minimum(t0, t1))
-        tf = torch.where(flat, torch.where(inside, 3e38, -3e38), torch.maximum(t0, t1))
-        tn, tf = tn.amax(dim=2), tf.amin(dim=2)
-        reach = (tn <= tf) & (tf >= 0.0) & (tn <= t_best[s:s + step, None]) \
-            & live[s:s + step, None]
+        reach = chunk_reach(torch, clo, chi, pos[:, s:s + step].T, dir_[:, s:s + step].T,
+                            t_best[s:s + step], live[s:s + step])
         total += float((reach.double() @ sizes).sum())
     return total
+
+
+def sphere_pairs(torch, rows, pos, dir_, live, boxes=None, t_best=None, step=1 << 12):
+    """(tested, exact): the ray-triangle pairs that B1's selection must
+    test on these rays, and those of them whose ray line meets the
+    triangle's widened bounding sphere, so that the exact pair test runs.
+    Tested pairs are live x T, or with culling (``boxes`` = the chunk
+    boxes, ``t_best`` the winners' t) the pairs of the chunks each ray's
+    segment reaches. The spheres are segment_fused.cu's
+    `triangle_sphere` and `sphere_pass` computed in float64 on the same
+    f32 rows, with the radius of the kernel's block of 256 rays; pairs on
+    the rounding edge of the test may count on the other side."""
+    T, R = rows.shape[0], pos.shape[1]
+    g = rows[:, :12].double().reshape(T, 3, 4)
+    r0, r1, r2 = g[:, 0, :3], g[:, 1, :3], g[:, 2, :3]
+    a = -g[:, :, 3]
+    cross = torch.linalg.cross
+    c0, c1, c2 = cross(r1, r2), cross(r2, r0), cross(r0, r1)
+    inv = 1.0 / (r0 * c0).sum(1)
+    ex, ey = c0 * inv[:, None], c1 * inv[:, None]
+    A = (a[:, :1] * c0 + a[:, 1:2] * c1 + a[:, 2:] * c2) * inv[:, None]
+    mid = (ex + ey) / 3.0
+    ctr = A + mid
+    rho = torch.stack([(mid * mid).sum(1), ((ex - mid) ** 2).sum(1),
+                       ((ey - mid) ** 2).sum(1)]).amax(0).sqrt()
+    n_inv = (c0 * c0 + c1 * c1 + c2 * c2).sum(1).sqrt() * inv.abs()
+    kappa = (g[:, :, :3] ** 2).sum((1, 2)).sqrt() * n_inv
+    E = kappa * 2.0 ** -16
+    K0 = rho + E * (ctr.norm(dim=1) + rho + n_inv * (a.norm(dim=1) + 1.0))
+    ok = (kappa < 2.0 ** 16) & K0.isfinite()
+    # The block's largest finite |o| of a live ray (blocks of 256 rays).
+    on = pos.double().norm(dim=0)
+    on = torch.where(live & (on < 3e38), on, 0.0)
+    on = torch.nn.functional.pad(on, (0, -R % 256))
+    omax = on.reshape(-1, 256).amax(1).repeat_interleave(256)[:R]
+    tested = exact = 0
+    for s in range(0, R, step):
+        o, d = pos[:, s:s + step].T.double(), dir_[:, s:s + step].T.double()
+        mask = live[s:s + step, None].expand(-1, T)
+        if boxes is not None:
+            reach = chunk_reach(torch, boxes["clo"], boxes["chi"], pos[:, s:s + step].T,
+                                dir_[:, s:s + step].T, t_best[s:s + step], live[s:s + step])
+            mask = reach.repeat_interleave(128, dim=1)[:, :T]
+        K = (K0[None] + 2.0 * E[None] * omax[s:s + step, None]) * (1.0 + 2.0 ** -16)
+        K = torch.where(ok[None] & (K < 2.0 ** 60), K, torch.inf)
+        v = ctr[None] - o[:, None]
+        b = (v * d[:, None]).sum(2)
+        dd = (d * d).sum(1)[:, None]
+        hit = (v * v).sum(2) * dd * (1.0 - 2.0 ** -18) - b * b <= K * K * dd
+        tested += int(mask.sum())
+        exact += int((mask & hit).sum())
+    return tested, exact
 
 
 def winner_t(torch, rows, idx, pos, dir_):
@@ -1431,9 +1612,27 @@ def winner_t(torch, rows, idx, pos, dir_):
     return F.recompute_rows(F.gather_rows(rows, idx), idx >= 0, pos, dir_)[0]
 
 
+def versus_split(torch, rows, idx, pos, dir_, live, boxes=None, tested=None):
+    """The whole-segment kernel's winners ``idx`` (B1, B1l, or B1c with
+    chunk boxes and its ``tested`` counts) against the split path's
+    kernel on the same rays and table (B4, or B4c with the same boxes):
+    (idx bit-equal, t recomputed from the two kernels' winners bit-equal,
+    tested counts equal or None without culling)."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+
+    want_tested = None if tested is None else torch.full_like(tested, -1)
+    b4 = NS.nearest_shade_full(rows, pos, dir_, live, tested=want_tested, **(boxes or {}))
+    same = bool(torch.equal(idx, b4[0]))
+    t_same = bool(torch.equal(winner_t(torch, rows, idx, pos, dir_),
+                              winner_t(torch, rows, b4[0], pos, dir_)))
+    return same, t_same, None if tested is None else bool(torch.equal(tested, want_tested))
+
+
 def library_index_add(torch, idx, dvals, T):
     """Median ms of one ``index_add_`` computing the row scatter on the
-    same inputs (the yardstick of B3; never called by the port)."""
+    same inputs (the yardstick of B3; never called by the port), its
+    zero-fill included; its device time (the fill and the index_add_
+    kernels) goes into DEVICE_MS as "index_add_ T<T>"."""
     keep = idx >= 0
     rows = idx[keep].long()
     vals = dvals.T[keep].contiguous()
@@ -1441,7 +1640,7 @@ def library_index_add(torch, idx, dvals, T):
     def call():
         torch.zeros(T, 48, device="cuda").index_add_(0, rows, vals)
 
-    return time_one(torch, call)
+    return time_one(torch, call, label=f"index_add_ T{T}")
 
 
 # ------------------------------------------------ the split, cull and fused paths
@@ -1525,13 +1724,21 @@ def cull_vs_plain(torch, tables, waves):
                 b1 = F.mega_segment(*args, mode=mode)  # the same table, every chunk tested
                 same = all(torch.equal(x, y) for x, y in zip(got, b1))
                 identical &= same
+                vc = versus_split(torch, tables.rows, got[0], args[1], args[2], args[5],
+                                  boxes=tables.cull_boxes, tested=tested)
+                vb = versus_split(torch, tables.rows, b1[0], args[1], args[2], args[5])
+                check(all(vc) and vb[0] and vb[1],
+                      f"B1c/B1 winners or tested counts differ from B4c/B4 ({wname} {cname}): "
+                      f"{vc} {vb}")
                 t = tested.float()
                 print(f"{wname:13s} {cname:5s} {'lane' if lane else 'scalar'} flags: idx agree "
                       f"{rep['idx_agree']:.6f} ({rep['n_idx_mismatch']} near-tie mismatches of "
                       f"{rep['n_live']} live), max |err| "
                       + " ".join(f"{k} {v:.2e}" for k, v in rep["max_abs_err"].items())
-                      + f"; bit-identical to B1: {same}; chunks tested per block mean "
-                      f"{float(t.mean()):.2f} max {int(t.max())} of {nc}")
+                      + f"; bit-identical to B1: {same}; idx, t and tested equal to B4c's: "
+                      f"{all(vc)}; B1's idx and t equal to B4's: {vb[0] and vb[1]}; chunks "
+                      f"tested per group of 128 rays mean {float(t.mean()):.2f} max "
+                      f"{int(t.max())} of {nc}")
                 check(rep["ok"], f"B1c disagrees with plain on {wname} {cname} lane={lane}: "
                       f"{rep}")
                 check(bool(torch.equal(got[0], b1[0])),
@@ -1594,11 +1801,11 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
     args = seg_args(torch, rows, *cornell_bounce, make_key(26), [0.0, 0.0, 0.0])
     b1 = time_one(torch, lambda: F.mega_segment(*args))
     ms = time_pair(torch, lambda: NS.nearest_shade_full(rows, pos, dir_, live),
-                   lambda: NS.nearest_shade_full_ref(rows, pos, dir_, live))
+                   lambda: NS.nearest_shade_full_ref(rows, pos, dir_, live), label="B4")
     out["B4"] = (*ms, bound_of(T * 192 + R * 25 + R * 148, n_live * T * PAIR_OPS))
     geom = rows[:, :12].contiguous()
     ms = time_pair(torch, lambda: NS.nearest_triangle(geom, pos, dir_),
-                   lambda: NS.nearest_triangle_ref(geom, pos, dir_))
+                   lambda: NS.nearest_triangle_ref(geom, pos, dir_), label="B7")
     out["B7"] = (*ms, bound_of(T * 48 + R * 24 + R * 4, R * T * PAIR_OPS))
     print(f"Cornell first bounce ({n_live} live of {R} rays, {T} triangles): B1 {b1:.4f} ms; "
           f"B4 {out['B4'][0]:.4f} ms (plain {out['B4'][1]:.4f}); B7 {out['B7'][0]:.4f} ms "
@@ -1610,20 +1817,25 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
     args = seg_args(torch, gr, *gbounce, make_key(26), [0.0, 0.0, 0.0])
     b1 = time_one(torch, lambda: F.mega_segment(*args))
     ms = time_pair(torch, lambda: F.mega_segment(*args, **boxes),
-                   lambda: F.mega_segment_ref(*args))
+                   lambda: F.mega_segment_ref(*args), label="B1c")
     idx = F.mega_segment(*args, **boxes)[0]
-    pairs = reached_pairs(torch, gtables.clo, gtables.chi, T, pos, dir_, live,
-                          winner_t(torch, gr, idx, pos, dir_))
-    out["B1c"] = (*ms, segment_bound(T, R, n_live, nc=nc, pairs=pairs))
+    t_best = winner_t(torch, gr, idx, pos, dir_)
+    pairs = reached_pairs(torch, gtables.clo, gtables.chi, T, pos, dir_, live, t_best)
+    spairs = sphere_pairs(torch, gr, pos, dir_, live, boxes=boxes, t_best=t_best)
+    check(spairs[0] == pairs, f"reached pairs {pairs} but {spairs[0]} counted for B1c")
+    out["B1c"] = (*ms, segment_bound(T, R, spairs, nc=nc))
     ms = time_pair(torch, lambda: NS.nearest_shade_full(gr, pos, dir_, live, **boxes),
-                   lambda: NS.nearest_shade_full_ref(gr, pos, dir_, live))
+                   lambda: NS.nearest_shade_full_ref(gr, pos, dir_, live), label="B4c")
     out["B4c"] = (*ms, bound_of(T * 192 + nc * 24 + R * 25 + R * 148, pairs * PAIR_OPS))
     print(f"glossy sorted bounce ({n_live} live of {R} rays, {T} triangles, {pairs:.4g} of "
-          f"{n_live * T} live pairs reachable): B1 {b1:.4f} ms; B1c {out['B1c'][0]:.4f} ms "
+          f"{n_live * T} live pairs reachable, {spairs[1]} of them inside B1c's spheres): "
+          f"B1 {b1:.4f} ms; B1c {out['B1c'][0]:.4f} ms "
           f"(plain {out['B1c'][1]:.4f}); B4c {out['B4c'][0]:.4f} ms (plain "
           f"{out['B4c'][1]:.4f})")
     for name, (k, p, (bms, by)) in out.items():
         print(f"  {name:3s} bound {bms:.4f} ms ({by}): kernel at {bms / k:.3f} of it")
+    for name, (k, p, bound) in out.items():
+        device_line(name, k, bound)
     return out
 
 
@@ -1993,7 +2205,7 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
                 with plain_kernels():
                     return call()
 
-            ms = time_pair(torch, call, plain_call)
+            ms = time_pair(torch, call, plain_call, label=name)
             pairs = None
             if name in ("B10c", "B11"):
                 boxes = v["boxes_c"] if name == "B10c" else v["boxes_11"]
@@ -2156,6 +2368,13 @@ def tool_twins(torch):
         "B14": bound_of(p_blk.numel() * 4 + 4 * R, chain),
     }
     f32_cores = bound_of(io, contract)  # the contraction where this kernel runs it
+    kernels = {  # the kernels on the same inputs, for their device time
+        "full": lambda: SM.selection_micro(ws, x, tc, "full"),
+        "matmul_only": lambda: SM.selection_micro(ws, x, tc, "matmul_only"),
+        "matmul_bf16": lambda: SM.selection_micro(ws, x, tc, "matmul_bf16"),
+        "B13": lambda: SM.epilogue_only(p_all, tc),
+        "B14": lambda: SM.epilogue_shared(p_blk, T, R),
+    }
     out = {}
     for name, (row, plain) in cases.items():
         got = micro["out"][row]
@@ -2171,6 +2390,9 @@ def tool_twins(torch):
               f"{tool_ms[row]:.4f} ms, plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by}), "
               f"kernel at {bms / tool_ms[row]:.3f} of it")
         check(err == 0, f"{name} disagrees with its plain version")
+        label = name if name in ("B13", "B14") else f"B12 {name}"
+        record_device(torch, label, kernels[name])
+        print(f"{'':12s}  device {DEVICE_MS[label][0]:.4f} ms per launch ({DEVICE_MS[label][1]})")
     print(f"B12's bound is its contraction on the bf16 tensor cores ({BF16_OPS_PER_S / 1e12:.0f} "
           f"TFLOP/s); the same contraction on the f32 CUDA cores, where this kernel runs it: "
           f"{f32_cores[0]:.4f} ms. B13's p_all: {p_all.numel() * 4 / 1e9:.2f} GB")
@@ -2320,40 +2542,47 @@ def main():
         f"near-ties {gate_gap:.2e}; KD walk {walk_ms:.2f} ms per {W}x{H} wavefront, kdtree "
         f"pass ({KD_SPP} spp) {kd_pass:.4f} s")
 
-    def entry(name, source, replaces, launches, err, timing, **extra):
+    def entry(name, source, replaces, launches, err, timing, dev, lib_dev=None, **extra):
+        """One kernel's numbers; ``ms`` is the CUDA-event pair around one
+        call (host work of the wrapper included), ``device_ms`` the device
+        time per launch (DEVICE_MS[dev])."""
         ms, plain_ms, (bound_ms, bound_by), *lib = timing
+        dms, src, _ = DEVICE_MS[dev]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": dms,
+                "device_ms_source": src, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib[0] if lib else None, **extra}
+                "library_ms": lib[0] if lib else None,
+                **({"library_device_ms": DEVICE_MS[lib_dev][0]} if lib_dev else {}), **extra}
 
     print(json.dumps({"kernels": [
-        entry("mega_segment", KERNEL_SOURCE, REPLACES, launches, max_err, b1_timing),
+        entry("mega_segment", KERNEL_SOURCE, REPLACES, launches, max_err, b1_timing, "B1"),
         entry("mega_segment (lane flags, B1l)", KERNEL_SOURCE, LANE_REPLACES,
-              regen_counts["B1l"], lane_err, lane_ms),
-        entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms),
-        entry("scatter_rows (shared-memory table, T = 652)", SCATTER_SOURCE,
-              SCATTER_REPLACES, counts["B3"], sc_err, sc_ms),
-        entry("scatter_rows (f64 global atomics, T = 81,932)", SCATTER_SOURCE,
-              SCATTER_REPLACES, bgrad_counts["B3"], bsc_err, bsc_ms),
+              regen_counts["B1l"], lane_err, lane_ms, "B1l"),
+        entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms,
+              "B2"),
+        entry("scatter_rows (T = 652)", SCATTER_SOURCE, SCATTER_REPLACES, counts["B3"], sc_err,
+              sc_ms, "B3 T652", "index_add_ T652"),
+        entry("scatter_rows (T = 81,932)", SCATTER_SOURCE, SCATTER_REPLACES,
+              bgrad_counts["B3"], bsc_err, bsc_ms, "B3 T81932", "index_add_ T81932"),
         entry("traverse_select (B5)", TRAVERSE_SOURCE, TRAVERSE_REPLACES,
-              bunny_counts["B5"], b5_err, b5_ms, max_t_gap_on_near_ties=b5_err,
+              bunny_counts["B5"], b5_err, b5_ms, "B5", max_t_gap_on_near_ties=b5_err,
               rays=BW * BH, plain_rays=SUBSET),
         entry("rows_segment (B6)", ROWS_SOURCE, ROWS_REPLACES, bunny_counts["B6"],
-              b6_err["B6"], b6_ms["B6"]),
+              b6_err["B6"], b6_ms["B6"], "B6"),
         entry("rows_segment (lane flags, B6l)", ROWS_SOURCE, ROWS_LANE_REPLACES,
-              bregen_counts["B6l"], b6_err["B6l"], b6_ms["B6l"]),
+              bregen_counts["B6l"], b6_err["B6l"], b6_ms["B6l"], "B6l"),
         entry("mega_segment (chunk cull, B1c)", KERNEL_SOURCE, CULL_REPLACES,
-              cull_counts["B1c"], b1c_err, split_ms["B1c"]),
+              cull_counts["B1c"], b1c_err, split_ms["B1c"], "B1c"),
         entry("nearest_shade_full (B4)", SHADE_SOURCE, SHADE_REPLACES, split_counts["B4"],
-              shade_err["B4"], split_ms["B4"]),
+              shade_err["B4"], split_ms["B4"], "B4"),
         entry("nearest_shade_full (chunk cull, B4c)", SHADE_SOURCE, SHADE_CULL_REPLACES,
-              cull_split_counts["B4c"], shade_err["B4c"], split_ms["B4c"]),
+              cull_split_counts["B4c"], shade_err["B4c"], split_ms["B4c"], "B4c"),
         entry("nearest_triangle (B7)", TRIANGLE_SOURCE, TRIANGLE_REPLACES,
-              fused_counts["B7"], shade_err["B7"], split_ms["B7"],
+              fused_counts["B7"], shade_err["B7"], split_ms["B7"], "B7",
               max_t_gap_on_near_ties=shade_err["B7"]),
         *(entry(label, SHADE_SOURCE, VARIANT_REPLACES[k], n,
-                max(var_err[k], bench_err.get(k, 0.0)), var_ms[k])
+                max(var_err[k], bench_err.get(k, 0.0)), var_ms[k], k)
           for k, label, n in (
               ("B8", "nearest_shade (B8, entry over B4)", bench_counts["B8"]),
               ("B9", "nearest_shade2 (B9, entry over B4)", bench_counts["B9"]),
@@ -2363,7 +2592,7 @@ def main():
               ("B11", "nearest_shade_culled (B11, entry over B4c with the d'z test)",
                gate_counts["B11"]))),
         *(entry(label, MICRO_SOURCE, MICRO_REPLACES[k], micro_counts[n], micro[k][3],
-                micro[k][:3], rays=491_520,
+                micro[k][:3], k if k in ("B13", "B14") else f"B12 {k}", rays=491_520,
                 **({"bound_f32_cuda_cores_ms": f32_cores} if k not in ("B13", "B14") else {}))
           for k, label, n in (
               ("full", "selection_micro full (B12, body_v3)", "B12 full"),

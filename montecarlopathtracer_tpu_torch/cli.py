@@ -28,6 +28,10 @@ Examples:
     # the KD-tree walk (the tree built on the host, natively if the C++ library builds)
     python -m montecarlopathtracer_tpu_torch.cli --intersector kdtree
 
+    # a camera of one's own, a live preview page and a profiler trace
+    python -m montecarlopathtracer_tpu_torch.cli --eye 0 5 20 --lookat 0 4 0 \
+        --fov 50 --step-dir steps --preview --profile-dir prof
+
 ``--device`` defaults to ``cuda``; without a GPU the run fails rather
 than moving to the CPU. ``--device cpu`` runs the plain-torch version of
 every kernel. Every option is explicit: the JAX CLI's automatic choices
@@ -35,7 +39,10 @@ of intersector, chunk culling and regen were measured on a TPU and are
 not carried over. An option that cannot take effect is refused rather
 than dropped: ``--ray-chunk`` with ``--regen on`` (one wavefront),
 ``--chunk-cull on`` with another intersector than ``megakernel``, and
-``--regen on`` with ``brute``, ``fused`` or ``kdtree``.
+``--regen on`` with ``brute``, ``fused`` or ``kdtree``. ``--lookat``
+without ``--eye`` exits with the JAX CLI's message. The JAX CLI's
+``--ray-tile``, ``--stream-chunk`` and ``--kernel-precision`` tune its
+TPU kernels and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ from .render.integrator import TraceConfig, kd_tree
 from .render.renderer import Renderer, RenderSettings
 from .scene.camera import camera_for_scene
 from .scene.scene import load_obj_scene
+from .scene.camera import Camera
 from .utils.logging import RenderLog
+from .utils.profiling import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,8 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="'cornell' = procedural box, 'cornell-full' = procedural box "
         "with mirror + glass spheres, 'glossy' = procedural open stage of "
         "glossy cubes and sphere lamps (1,332 triangles), 'bunny' = "
-        "procedural displaced blob of 20*4^subdiv triangles in a room, 1/2 = "
-        "reference scene (read-only mount), or a path to an .obj file",
+        "procedural displaced blob of 20*4^subdiv triangles in a room, 1/2/3 = "
+        "reference scene (read-only mount), 'mcrt' = the MCRT backend's scene01 "
+        "variant (per-triangle materials, pi/4 camera; read-only mount), or a "
+        "path to an .obj file",
     )
     p.add_argument("--subdiv", type=int, default=6,
                    help="icosphere subdivisions of --scene bunny (6: 81,932 triangles)")
@@ -78,6 +89,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=7)
     p.add_argument("--rr-depth", type=int, default=5)
     p.add_argument("--illum", type=float, default=10.0)
+    p.add_argument("--eye", type=float, nargs=3, default=None, metavar=("X", "Y", "Z"),
+                   help="camera position (overrides the scene's hardcoded camera)")
+    p.add_argument("--lookat", type=float, nargs=3, default=None, metavar=("X", "Y", "Z"),
+                   help="camera look-at point (requires --eye)")
+    p.add_argument("--up", type=float, nargs=3, default=(0.0, 1.0, 0.0),
+                   metavar=("X", "Y", "Z"), help="camera up vector (with --eye/--lookat)")
+    p.add_argument("--fov", type=float, default=60.0,
+                   help="horizontal FOV in degrees (with --eye)")
     p.add_argument("--intersector",
                    choices=["megakernel", "traverse", "fused", "brute", "kdtree"],
                    default="megakernel",
@@ -110,8 +129,14 @@ def build_parser() -> argparse.ArgumentParser:
                    "or 'gamma' (MCRT's gamma-space running mean)")
     p.add_argument("--out", default="result.png")
     p.add_argument("--step-dir", default=None, help="per-pass PNG dump dir")
+    p.add_argument("--preview", action="store_true",
+                   help="with --step-dir: keep an atomically replaced preview.png and "
+                   "a self-refreshing index.html beside it for a live view")
     p.add_argument("--checkpoint", default=None, help="film checkpoint path")
     p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the render here "
+                   "(trace.json)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain-torch path")
@@ -121,8 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
 def load_scene(name: str, width: int, height: int, subdiv: int = 6):
     if name == "bunny":
         return bunny.bunny_scene(subdiv=subdiv, width=width, height=height)
-    if name in ("1", "2"):
+    if name in ("1", "2", "3"):
         return cornell.load_reference_scene(int(name), width=width, height=height)
+    if name == "mcrt":
+        return cornell.load_mcrt_scene(width=width, height=height)
     if name == "cornell":
         return cornell.cornell_box(width=width, height=height)
     if name == "glossy":
@@ -133,6 +160,22 @@ def load_scene(name: str, width: int, height: int, subdiv: int = 6):
             width=width, height=height,
         )
     return load_obj_scene(name), camera_for_scene(1, width, height)
+
+
+def look_camera(args, camera: Camera) -> Camera:
+    """The camera of ``--eye`` (looking at ``--lookat``, or down -z
+    without it), ``--up`` and ``--fov``, with the scene camera's jitter;
+    the scene's own camera without ``--eye``. ``--lookat`` without
+    ``--eye`` exits, as in the JAX CLI."""
+    if args.eye is None:
+        if args.lookat is not None:
+            raise SystemExit("--lookat requires --eye")
+        return camera
+    eye = [float(x) for x in args.eye]
+    lookat = args.lookat if args.lookat is not None else (eye[0], eye[1], eye[2] - 1.0)
+    forward = [float(a) - b for a, b in zip(lookat, eye)]
+    return Camera.look(eye, forward, args.up, width=args.width, height=args.height,
+                       fov_x_deg=args.fov, jitter=camera.jitter)
 
 
 def main(argv=None) -> int:
@@ -157,6 +200,7 @@ def main(argv=None) -> int:
               f"{args.intersector!r}", file=sys.stderr)
         return 2
     scene, camera = load_scene(args.scene, args.width, args.height, args.subdiv)
+    camera = look_camera(args, camera)
     accel = None
     if args.intersector == "kdtree":
         accel = kd_tree(scene.to(device))
@@ -182,13 +226,15 @@ def main(argv=None) -> int:
         tonemap=args.tonemap,
         accum=args.accum,
         step_dir=args.step_dir,
+        preview=args.preview,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
         regen=regen,
     )
     log = RenderLog(enabled=not args.quiet)
     r = Renderer(scene, camera, config, settings, log=log, device=device, accel=accel)
-    r.render()
+    with trace(args.profile_dir):
+        r.render()
     r.save_png(args.out)
     if not args.quiet:
         print(f"wrote {args.out} ({args.width}x{args.height}, "

@@ -1,8 +1,10 @@
-// Nearest-hit selection shared by every kernel that tests rays against
-// triangles: the whole segment B1/B1l/B1c (segment_fused.cu), the
-// split-path intersector B4/B4c (nearest_shade.cu), the fused
-// intersector's index kernel B7 (nearest_triangle.cu) and the traversal
-// walk B5 (traverse_select.cu, which visits chunks in its own order).
+// Nearest-hit selection shared by the kernels that test rays against
+// triangles one ray per thread: the split-path intersector B4/B4c
+// (nearest_shade.cu), the fused intersector's index kernel B7
+// (nearest_triangle.cu) and the traversal walk B5 (traverse_select.cu,
+// which visits chunks in its own order). The whole segment B1/B1l/B1c
+// (segment_fused.cu) has its own loop in front of the same pair test and
+// shares the chunk-cull test.
 //
 // One thread per ray. A block stages the 12 geometry floats of
 // kChunk triangles at a time in shared memory (three float4 each:
@@ -88,6 +90,29 @@ __device__ __forceinline__ void stage_geometry(float4* geom, const float* __rest
   }
 }
 
+// One ray against one triangle's geometry rows gx, gy, gz: t, beta,
+// gamma, w = d'_z, and whether the pair passes the accept test without
+// the comparison to the best t (NaN fails). Every selection loop calls
+// this one function, so their winners agree bit for bit.
+struct Pair {
+  float t, beta, gamma, w;
+  bool inside;
+};
+
+__device__ __forceinline__ Pair pair_test(float4 gx, float4 gy, float4 gz, V3 o, V3 d) {
+  const float opx = gx.x * o.x + gx.y * o.y + gx.z * o.z + gx.w;
+  const float opy = gy.x * o.x + gy.y * o.y + gy.z * o.z + gy.w;
+  const float opz = gz.x * o.x + gz.y * o.y + gz.z * o.z + gz.w;
+  const float dpx = gx.x * d.x + gx.y * d.y + gx.z * d.z;
+  const float dpy = gy.x * d.x + gy.y * d.y + gy.z * d.z;
+  const float w = gz.x * d.x + gz.y * d.y + gz.z * d.z;
+  const float t = -opz / w;
+  const float beta = opx + t * dpx;
+  const float gamma = opy + t * dpy;
+  return {t, beta, gamma, w,
+          beta > 0.0f && gamma > 0.0f && t > 0.0f && 1.0f - (beta + gamma) > 0.0f};
+}
+
 // Test one lane against the n staged triangles base .. base + n - 1.
 // kDzTest: also reject |d'_z| <= 1e-12 explicitly (the TPU kernels
 // `_nearest_kernel` and `_nearest_shade_culled_kernel` do; the others
@@ -99,21 +124,11 @@ template <bool kDzTest, bool kOrdered>
 __device__ __forceinline__ void test_tile(const float4* geom, int n, int base, V3 o, V3 d,
                                           Hit& h) {
   for (int k = 0; k < n; ++k) {
-    const float4 gx = geom[3 * k], gy = geom[3 * k + 1], gz = geom[3 * k + 2];
-    const float opx = gx.x * o.x + gx.y * o.y + gx.z * o.z + gx.w;
-    const float opy = gy.x * o.x + gy.y * o.y + gy.z * o.z + gy.w;
-    const float opz = gz.x * o.x + gz.y * o.y + gz.z * o.z + gz.w;
-    const float dpx = gx.x * d.x + gx.y * d.y + gx.z * d.z;
-    const float dpy = gy.x * d.x + gy.y * d.y + gy.z * d.z;
-    const float w = gz.x * d.x + gz.y * d.y + gz.z * d.z;
-    const float t = -opz / w;
-    const float beta = opx + t * dpx;
-    const float gamma = opy + t * dpy;
+    const Pair p = pair_test(geom[3 * k], geom[3 * k + 1], geom[3 * k + 2], o, d);
     const int i = base + k;
-    if (beta > 0.0f && gamma > 0.0f && t > 0.0f && 1.0f - (beta + gamma) > 0.0f &&
-        (!kDzTest || fabsf(w) > 1e-12f) &&
-        (t < h.t || (!kOrdered && t == h.t && i < h.i))) {
-      h = {t, beta, gamma, i};
+    if (p.inside && (!kDzTest || fabsf(p.w) > 1e-12f) &&
+        (p.t < h.t || (!kOrdered && p.t == h.t && i < h.i))) {
+      h = {p.t, p.beta, p.gamma, i};
     }
   }
 }

@@ -1,148 +1,461 @@
 // Scatter-add of per-ray row cotangents into the triangle row table:
-// out[idx[r], k] += dvals[k, r] for every ray r with idx[r] >= 0.
+// out[idx[r], k] = sum of dvals[k, r] over the rays r with idx[r] = row.
 //
 // Replaces the TPU kernel `_scatter_rows_kernel`
 // (montecarlopathtracer_tpu/ops/intersect_pallas.py, entry
 // `scatter_rows`), which built the sum as a one-hot matmul on the MXU
 // from a bf16 term split of the cotangents, one ray tile per sequential
-// grid step. Here the sum is plain f32 or f64 addition. The plain
-// PyTorch version is `scatter_rows_ref` in ops/scatter_rows.py
-// (index_add_).
+// grid step, so its sums came out in a fixed order. The plain PyTorch
+// version is `scatter_rows_ref` in ops/scatter_rows.py (index_add_).
 //
-// What bounds it on an H100: contention, not bytes. An 800x600 segment
-// reads 480,000 x 48 floats (92 MB), but in a Cornell box tens of
-// thousands of rays hit the same few wall triangles, so atomics on the
-// same 48 addresses serialize.
+// What bounds it on an H100: bytes. An 800x600 segment reads 480,000 x 48
+// floats (92 MB) of cotangents and 1.9 MB of indices and writes a table of
+// T x 192 bytes; ~0.03 ms at 3.35 TB/s. The hard part is the many rays
+// per row: in a Cornell box tens of thousands of rays hit one wall
+// triangle, and adding them with atomics serializes on the same 48
+// addresses and adds in no fixed order.
 //
-// What the design does about it:
-// - when the whole table fits in one block's shared memory (T * 192
-//   bytes; the 652-triangle Cornell box takes 125 KB of Hopper's 227 KB)
-//   each block accumulates a private f32 copy there with shared-memory
-//   atomics over a grid-stride loop of rays, then adds its nonzero
-//   entries to the output once with global atomics; larger tables (the
-//   81,932-triangle bunny's is 15.7 MB) take f64 global atomics directly
-//   into a table `wide` that a second kernel rounds to f32. A chain of
-//   f32 atomics into a row that tens of thousands of rays hit (the
-//   bunny's floor and walls) loses more than 16 x eps32 x sum |dvals|
-//   (PERF.md); in f64 only the warps' f32 partial sums of 32 rays and
-//   the final rounding lose anything;
-// - a warp whose 32 rays all hit the same triangle (neighbouring pixels
-//   on a wall, the common case) sums each column with shuffles first and
-//   issues one atomic instead of 32;
-// - a warp reads dvals[k, r .. r+31] for one column k at a time, which
-//   coalesces, and each thread issues its ray's 48 loads before its
-//   first add, so that a block of 16 warps keeps enough reads in flight.
-// Atomics add in no fixed order: the sums differ from index_add_'s in
-// the last bits, and from run to run.
+// What the design does about it: group, then sum, with no atomics on the
+// table and every sum in a fixed order, so two calls give bit-equal
+// tables, as the TPU kernel's do. It works tile by tile in ray order, as
+// the TPU kernel's grid did, so that each sum reads a small window of
+// each column: after a sort of all rays by row, 32 consecutive sorted
+// rays of an incoherent bounce read 48 x 32 scattered sectors, ~7x the
+// bytes, and that sum took most of the scatter's time.
+// A. Each tile of 4,096 consecutive rays sorts its hitting rays by row,
+//    stably, with an LSD counting sort written here (no library sort): one
+//    pass of <= 10-bit digits for T <= 1,024 (the Cornell box's 652), two
+//    for T <= 2^20 (the bunny's 81,932), three up to the contract's limit.
+//    Equal digits in a warp are grouped with __match_any_sync, so counts
+//    are integer adds by one lane and ranks follow lane order. Rays with
+//    idx = -1 (and any index outside [0, T)) are dropped.
+// B. Per (tile, 4 columns): thread i owns the tile's sorted entries
+//    [16 i, 16 i + 16); it adds its entries of each run of equal rows in
+//    order in f64, a block segmented scan in a fixed tree order completes
+//    the runs that cross threads, and each run's sum is rounded to f32
+//    into a partial table [tile, column, run]. The tile's 16 KB window of
+//    each column is read coalesced into shared memory (the next column's
+//    loads in flight meanwhile), and the sorted entries read it there:
+//    gathers straight from L1 cost one transaction per lane.
+// C. One warp per row adds the partials of the tiles that hold the row
+//    (a bitmap per tile, then a search of the tile's run list), in tile
+//    order, in f64, and writes the row once, 0 where no ray hit.
+// Error: f64 sums, one f32 rounding per tile's partial (their magnitudes
+// add up to at most sum |dvals|) and one at the end: ~eps32 x sum |dvals|
+// per entry, inside the 16 x eps32 x sum |dvals| of
+// testing.compare_scatter (sequential f32 chains over 36,000 rays are
+// not). Every entry of `out` is written once; the caller allocates it
+// with torch.empty, and the workspace needs no zeroing (each tile clears
+// its own row bitmap).
+// Grid sizes follow from R and T alone: no device queries, three
+// launches.
 //
 // Contract (that of scatter_rows): idx i32[R] (-1 = adds nothing),
-// dvals f32[48, R]; out f32[T, 48]. With `wide` null (the table fits in
-// shared memory) out is zeroed by the caller; otherwise `wide` is an f64
-// [T, 48] table zeroed by the caller, and out is written whole.
+// dvals f32[48, R]; out f32[T, 48]; `work` holds
+// scatter_rows_workspace(R, T) bytes, 256-byte aligned.
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+
 namespace {
 
-constexpr int kThreads = 512;
 constexpr int kCols = 48;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;                  // threads per block of the three kernels
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 4096;                    // rays per tile
+constexpr int kPerThread = kTile / kThreads;   // sorted entries per thread (16)
+constexpr int kWarpSteps = kTile / kWarps / 32;  // 32-entry steps per warp in the sort (16)
+constexpr int kMaxDigitBits = 10;
+constexpr int kMaxBuckets = 1 << kMaxDigitBits;
+constexpr int kColGroup = 4;                   // columns per block of the sum kernel
+constexpr int kBatch = 8;                      // tiles whose partials the combine loads together
 
-// Adds ray r's 48 cotangents into acc[row * 48 + k] (f32 in shared
-// memory, or f64 in global memory). Every lane of the warp calls it
-// together. All 48 loads are issued before the first add, so one ray's
-// reads are in flight together.
-template <typename Acc>
-__device__ __forceinline__ void add_ray(Acc* acc, int row, const float* __restrict__ dvals,
-                                        int r, size_t R) {
-  const int lead = __shfl_sync(kFull, row, 0);
-  const bool uniform = __all_sync(kFull, row == lead);
-  if (row < 0) return;  // in a uniform warp, every lane returns here
-  float v[kCols];
+// The sort's digits and passes for rows [0, T).
+struct Digits {
+  int passes, bits;
+};
+
+__host__ __device__ inline Digits digits_of(int T) {
+  int nbits = 1;
+  while (nbits < 31 && ((T - 1) >> nbits) != 0) ++nbits;
+  const int passes = (nbits + kMaxDigitBits - 1) / kMaxDigitBits;
+  return {passes, (nbits + passes - 1) / passes};
+}
+
+// Block-wide exclusive scan of one int per thread (kThreads of them);
+// `total` receives the sum. `scratch` holds kWarps ints.
+__device__ __forceinline__ int block_exclusive_scan(int x, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int incl = x;
 #pragma unroll
-  for (int k = 0; k < kCols; ++k) v[k] = dvals[k * R + r];
-  if (uniform) {
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) scratch[w] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      float s = v[k];
+  for (int v = 0; v < kWarps; ++v) {
+    const int c = scratch[v];
+    before += v < w ? c : 0;
+    total += c;
+  }
+  __syncthreads();
+  return before + incl - x;
+}
+
+// A. Each tile of kTile consecutive rays sorts its hitting rays by row,
+// stably: an LSD counting sort in 1-3 passes of <= 10-bit digits, in the
+// tile's own region of the (row, ray) buffers. Per pass each warp counts
+// its 512 entries' digits (__match_any_sync groups equal digits, so the
+// counts are integer adds by one lane), the block scans (digit, warp) in
+// that order, and each warp writes its entries in order, ranking equal
+// digits among its lanes. Rays with idx outside [0, T) (idx = -1) are
+// dropped by the first pass. The tile's count goes to tile_n, and its
+// row bitmap is cleared for kernel B.
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_sort_kernel(const int* __restrict__ idx, int R, int T, int* __restrict__ keys0,
+                         int* __restrict__ ids0, int* __restrict__ keys1, int* __restrict__ ids1,
+                         int* __restrict__ tile_n, unsigned* __restrict__ bitmap, int words) {
+  __shared__ int off[kWarps][kMaxBuckets];
+  __shared__ int scratch[kWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int base = blockIdx.x * kTile;
+  const Digits dg = digits_of(T);
+  const int nb = 1 << dg.bits;
+  const unsigned below = (1u << lane) - 1u;
+  for (int q = threadIdx.x; q < words; q += kThreads) bitmap[(size_t)blockIdx.x * words + q] = 0u;
+  int len = min(kTile, R - base);  // entries of this pass's input
+  for (int p = 0; p < dg.passes; ++p) {
+    const int* kin = p == 0 ? idx + base : ((p & 1) ? keys0 : keys1) + base;
+    const int* iin = ((p & 1) ? ids0 : ids1) + base;
+    int* kout = ((p & 1) ? keys1 : keys0) + base;
+    int* iout = ((p & 1) ? ids1 : ids0) + base;
+    const int shift = p * dg.bits;
+    int kr[kWarpSteps], ir[kWarpSteps];  // the warp's entries, all loads in flight together
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-      if ((threadIdx.x & 31) == 0) atomicAdd(acc + (size_t)row * kCols + k, Acc(s));
+    for (int s = 0; s < kWarpSteps; ++s) {
+      const int i = (w * kWarpSteps + s) * 32 + lane;
+      const int k = i < len ? kin[i] : -1;
+      kr[s] = (p > 0 || (k >= 0 && k < T)) ? k : -1;
+      ir[s] = p == 0 ? base + i : (i < len ? iin[i] : 0);
     }
-  } else {
+    for (int b = threadIdx.x; b < nb; b += kThreads)
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) atomicAdd(acc + (size_t)row * kCols + k, Acc(v[k]));
+      for (int v = 0; v < kWarps; ++v) off[v][b] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kWarpSteps; ++s) {
+      const int d = kr[s] < 0 ? -1 : (kr[s] >> shift) & (nb - 1);
+      const unsigned peers = __match_any_sync(kFull, d);
+      if (d >= 0 && lane == __ffs(peers) - 1) off[w][d] += __popc(peers);
+    }
+    __syncthreads();
+    // Digit totals, scanned over digits; thread t owns digits t, t + 256, ...
+    // in blocks of four consecutive digits.
+    int mine = 0;
+#pragma unroll
+    for (int q = 0; q < kMaxBuckets / kThreads; ++q) {
+      const int b = threadIdx.x * (kMaxBuckets / kThreads) + q;
+      if (b < nb)
+#pragma unroll
+        for (int v = 0; v < kWarps; ++v) mine += off[v][b];
+    }
+    int n_kept;
+    int run = block_exclusive_scan(mine, scratch, n_kept);
+#pragma unroll
+    for (int q = 0; q < kMaxBuckets / kThreads; ++q) {
+      const int b = threadIdx.x * (kMaxBuckets / kThreads) + q;
+      if (b < nb) {
+#pragma unroll
+        for (int v = 0; v < kWarps; ++v) {
+          const int c = off[v][b];
+          off[v][b] = run;
+          run += c;
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kWarpSteps; ++s) {
+      const int d = kr[s] < 0 ? -1 : (kr[s] >> shift) & (nb - 1);
+      const unsigned peers = __match_any_sync(kFull, d);
+      if (d >= 0) {
+        const int pos = off[w][d] + __popc(peers & below);
+        kout[pos] = kr[s];
+        iout[pos] = ir[s];
+      }
+      __syncwarp();
+      if (d >= 0 && lane == __ffs(peers) - 1) off[w][d] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();  // this pass's output is the next one's input
+    len = n_kept;
   }
+  if (threadIdx.x == 0) tile_n[blockIdx.x] = len;
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_rows_shared_kernel(const int* __restrict__ idx, const float* __restrict__ dvals, int R,
-                           int T, float* __restrict__ out) {
-  extern __shared__ float acc[];
-  const int n = T * kCols;
-  for (int i = threadIdx.x; i < n; i += kThreads) acc[i] = 0.0f;
+// (value, starts-a-segment) pairs of a segmented inclusive scan: a
+// segment start drops what came before it.
+struct Seg {
+  double v;
+  int f;
+};
+
+__device__ __forceinline__ Seg seg_combine(Seg a, Seg b) {
+  return {b.f ? b.v : a.v + b.v, a.f | b.f};
+}
+
+// Block-wide segmented inclusive scan over one Seg per thread, in a fixed
+// tree order. `scratch` holds kWarps Segs.
+__device__ __forceinline__ Seg block_seg_scan(Seg x, Seg* scratch) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Seg y = {__shfl_up_sync(kFull, x.v, off), __shfl_up_sync(kFull, x.f, off)};
+    if (lane >= off) x = seg_combine(y, x);
+  }
+  if (lane == 31) scratch[w] = x;
   __syncthreads();
-  // base is the same for every thread of the block, so whole warps
-  // enter add_ray together.
-  for (int base = blockIdx.x * kThreads; base < R; base += gridDim.x * kThreads) {
-    const int r = base + threadIdx.x;
-    add_ray(acc, r < R ? idx[r] : -1, dvals, r, R);
+  Seg carry = {0.0, 0};
+  bool have = false;
+  for (int v = 0; v < w; ++v) {
+    carry = have ? seg_combine(carry, scratch[v]) : scratch[v];
+    have = true;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(out + i, v);
+  return have ? seg_combine(carry, x) : x;
+}
+
+// B. Block (tile, column group): the sum of every run of equal rows of
+// the tile's sorted list over kColGroup columns. Thread i owns the sorted
+// entries [16 i, 16 i + 16); it adds its entries of each run in order in
+// f64, and a block segmented scan over the threads completes the runs
+// that cross threads. Each run's sum is rounded to f32 into
+// part[tile][column][ordinal] (ordinal: the run's place in the tile);
+// blockIdx.y = 0 also lists the runs' rows and sets the tile's row
+// bitmap. The values come from the tile's 16 KB
+// window of each column, staged in shared memory by coalesced loads.
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_sum_kernel(const int* __restrict__ keys, const int* __restrict__ ids,
+                        const int* __restrict__ tile_n, const float* __restrict__ dvals, int R,
+                        int cap, float* __restrict__ part, int* __restrict__ run_rows,
+                        int* __restrict__ run_n, unsigned* __restrict__ bitmap, int words) {
+  __shared__ int scratch[kWarps];
+  __shared__ Seg seg_scratch[kWarps];
+  __shared__ double hand[kThreads];  // each thread's inclusive scan value
+  __shared__ float window[kTile];    // the tile's values of the current column
+  const int b = blockIdx.x, base = b * kTile;
+  const int n = tile_n[b];
+  const int e0 = threadIdx.x * kPerThread;
+  int kr[kPerThread], ir[kPerThread];
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int e = e0 + q;
+    kr[q] = e < n ? keys[base + e] : -1;
+    ir[q] = e < n ? ids[base + e] : 0;
+  }
+  const int before = (e0 > 0 && e0 <= n) ? keys[base + e0 - 1] : -1;
+  const int after = e0 + kPerThread < n ? keys[base + e0 + kPerThread] : -1;
+  // Run starts and ends among the thread's entries, as bit masks.
+  unsigned starts = 0, ends = 0;
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    if (e0 + q >= n) break;
+    const int prev = q == 0 ? before : kr[q - 1];
+    const int next = q + 1 < kPerThread ? kr[q + 1] : after;
+    if (kr[q] != prev) starts |= 1u << q;
+    if (kr[q] != next) ends |= 1u << q;
+  }
+  int runs;
+  const int ord0 = block_exclusive_scan(__popc(starts), scratch, runs);
+  if (blockIdx.y == 0) {
+    int o = ord0;
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      if (starts & (1u << q)) {
+        run_rows[(size_t)b * cap + o++] = kr[q];
+        atomicOr(bitmap + (size_t)b * words + (kr[q] >> 5), 1u << (kr[q] & 31));
+      }
+    }
+    if (threadIdx.x == 0) run_n[b] = runs;
+  }
+  const int m = max(0, min(n - e0, kPerThread));  // the thread's entries
+  // The thread's first run began in an earlier thread; its last one goes
+  // on into a later thread.
+  const bool open_first = m > 0 && !(starts & 1u);
+  const bool open_last = m > 0 && !(ends & (1u << (m - 1)));
+  // The tile's window of a column, read coalesced (thread i takes rays
+  // base + i, base + i + 256, ...); the next column's loads are in flight
+  // while the current one is summed.
+  const int span = min(kTile, R - base);
+  float next[kPerThread];
+  auto load_window = [&](int k) {
+    const float* col = dvals + (size_t)k * R + base;
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const int i = q * kThreads + threadIdx.x;
+      next[q] = i < span ? __ldg(col + i) : 0.0f;
+    }
+  };
+  load_window(blockIdx.y * kColGroup);
+  for (int c = 0; c < kColGroup; ++c) {
+    const int k = blockIdx.y * kColGroup + c;
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) window[q * kThreads + threadIdx.x] = next[q];
+    __syncthreads();
+    if (c + 1 < kColGroup) load_window(k + 1);
+    float v[kPerThread];
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) v[q] = q < m ? window[ir[q] - base] : 0.0f;
+    float* out = part + ((size_t)b * kCols + k) * cap;
+    double acc = 0.0, first = 0.0;
+    bool in_first = open_first, first_done = false;
+    int o = ord0 - 1;  // the ordinal of the run in progress
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      if (q >= m) break;
+      if (starts & (1u << q)) {
+        ++o;
+        in_first = false;
+      }
+      acc += static_cast<double>(v[q]);
+      if (ends & (1u << q)) {
+        if (in_first) {  // completed below, with what the earlier threads hold
+          first = acc;
+          first_done = true;
+        } else {
+          out[o] = static_cast<float>(acc);
+        }
+        acc = 0.0;
+        in_first = false;
+      }
+    }
+    // Handed on: the open run's sum so far, which starts a segment of the
+    // scan unless it is the run this thread received.
+    const bool through = open_first && !first_done && open_last;
+    const Seg incl = block_seg_scan({open_last ? acc : 0.0, through ? 0 : 1}, seg_scratch);
+    hand[threadIdx.x] = incl.v;
+    __syncthreads();
+    if (first_done) out[ord0 - 1] = static_cast<float>(hand[threadIdx.x - 1] + first);
+    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_rows_global_kernel(const int* __restrict__ idx, const float* __restrict__ dvals, int R,
-                           double* __restrict__ wide) {
-  const int base = blockIdx.x * kThreads;
-  const int r = base + threadIdx.x;
-  add_ray(wide, r < R ? idx[r] : -1, dvals, r, R);
+// First position of `rows` [0, n) (ascending) holding a row >= t.
+__device__ __forceinline__ int lower_bound(const int* __restrict__ rows, int n, int t) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (rows[mid] < t) lo = mid + 1; else hi = mid;
+  }
+  return lo;
 }
 
+// C. One warp per row t: the tiles that hold t (their bitmaps), each
+// tile's run of t (a search of its run list), and the sum of those runs'
+// partials over the tiles in order, in f64, rounded once; kBatch tiles'
+// loads are issued before their adds. A row no ray hits gets 0. Every entry of
+// `out` is written here, once.
 __global__ void __launch_bounds__(kThreads)
-scatter_rows_round_kernel(const double* __restrict__ wide, size_t n, float* __restrict__ out) {
-  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * kThreads)
-    out[i] = static_cast<float>(wide[i]);
+scatter_rows_combine_kernel(const float* __restrict__ part, const int* __restrict__ run_rows,
+                            const int* __restrict__ run_n, const unsigned* __restrict__ bitmap,
+                            int words, int ntiles, int cap, int T, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const bool hi = lane < kCols - 32;  // the lane also owns column lane + 32
+  double acc0 = 0.0, acc1 = 0.0;
+  for (int b0 = 0; b0 < ntiles; b0 += 32) {
+    const int b = b0 + lane;
+    const bool has = b < ntiles && ((bitmap[(size_t)b * words + (t >> 5)] >> (t & 31)) & 1u);
+    const int j = has ? lower_bound(run_rows + (size_t)b * cap, run_n[b], t) : 0;
+    unsigned mask = __ballot_sync(kFull, has);
+    while (mask) {
+      float v0[kBatch], v1[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const bool any = mask != 0;
+        const int src = any ? __ffs(mask) - 1 : 0;
+        mask &= mask - 1;
+        const int jb = __shfl_sync(kFull, j, src);
+        const float* p = part + (size_t)(b0 + src) * kCols * cap + jb;
+        v0[q] = any ? p[(size_t)lane * cap] : 0.0f;
+        v1[q] = any && hi ? p[(size_t)(lane + 32) * cap] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {  // adding a missing tile's 0 changes nothing
+        acc0 += static_cast<double>(v0[q]);
+        acc1 += static_cast<double>(v1[q]);
+      }
+    }
+  }
+  out[(size_t)t * kCols + lane] = static_cast<float>(acc0);
+  if (hi) out[(size_t)t * kCols + 32 + lane] = static_cast<float>(acc1);
+}
+
+struct Layout {
+  int ntiles, cap, words;
+  size_t keys[2], ids[2], tile_n, run_n, run_rows, bitmap, part, bytes;
+};
+
+size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
+
+// The workspace's layout for R rays and T rows.
+Layout layout(int R, int T) {
+  Layout L;
+  L.ntiles = R > 0 ? (R + kTile - 1) / kTile : 1;
+  L.cap = T < kTile ? T : kTile;  // runs per tile
+  L.words = (T + 31) / 32;
+  const size_t nt = L.ntiles, rays = (size_t)L.ntiles * kTile;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    const size_t here = at;
+    at = align256(at + bytes);
+    return here;
+  };
+  for (int b = 0; b < 2; ++b) {
+    L.keys[b] = take(rays * sizeof(int));
+    L.ids[b] = take(rays * sizeof(int));
+  }
+  L.tile_n = take(nt * sizeof(int));
+  L.run_n = take(nt * sizeof(int));
+  L.run_rows = take(nt * L.cap * sizeof(int));
+  L.bitmap = take(nt * L.words * sizeof(unsigned));
+  L.part = take(nt * kCols * L.cap * sizeof(float));
+  L.bytes = at;
+  return L;
 }
 
 }  // namespace
 
-// Launches the scatter on `stream` into `out`: through a private table in
-// shared memory when `wide` is null, through the f64 table `wide`
-// otherwise (see the contract above). Returns the first CUDA error, so
-// the caller can raise on a refused launch or a table that does not fit.
+// Bytes of workspace that scatter_rows_launch needs for R rays and T rows.
+extern "C" size_t scatter_rows_workspace(int R, int T) { return layout(R, T).bytes; }
+
+// Launches the tile sort, the run sums and the combine on `stream`;
+// returns the first CUDA error so the caller can raise on a refused launch.
 extern "C" int scatter_rows_launch(const int* idx, const float* dvals, int R, int T, float* out,
-                                   double* wide, void* stream) {
+                                   void* work, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ray_blocks = (R + kThreads - 1) / kThreads;
-  if (wide != nullptr) {
-    if (R > 0) scatter_rows_global_kernel<<<ray_blocks, kThreads, 0, s>>>(idx, dvals, R, wide);
-    const size_t n = (size_t)T * kCols, want = (n + kThreads - 1) / kThreads;
-    scatter_rows_round_kernel<<<(int)(want < 4096 ? want : 4096), kThreads, 0, s>>>(wide, n, out);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (R <= 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // A table larger than the block's shared memory fails here.
-  const size_t bytes = (size_t)T * kCols * sizeof(float);
-  err = cudaFuncSetAttribute(scatter_rows_shared_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scatter_rows_shared_kernel,
-                                                        kThreads, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // One private table per resident block: enough blocks to fill the
-  // card, no more, since each one flushes a whole table.
-  const int blocks = ray_blocks < sms * per_sm ? ray_blocks : sms * (per_sm > 0 ? per_sm : 1);
-  scatter_rows_shared_kernel<<<blocks, kThreads, bytes, s>>>(idx, dvals, R, T, out);
+  const Layout L = layout(R, T);
+  char* w = static_cast<char*>(work);
+  auto at = [&](size_t off) { return reinterpret_cast<int*>(w + off); };
+  // The sorted (row, ray) pairs end in buffer 0 after an odd number of
+  // passes and in buffer 1 after an even one.
+  const int last = (digits_of(T).passes - 1) & 1;
+  unsigned* bitmap = reinterpret_cast<unsigned*>(w + L.bitmap);
+  scatter_rows_sort_kernel<<<L.ntiles, kThreads, 0, s>>>(
+      idx, R, T, at(L.keys[0]), at(L.ids[0]), at(L.keys[1]), at(L.ids[1]), at(L.tile_n), bitmap,
+      L.words);
+  scatter_rows_sum_kernel<<<dim3(L.ntiles, kCols / kColGroup), kThreads, 0, s>>>(
+      at(L.keys[last]), at(L.ids[last]), at(L.tile_n), dvals, R, L.cap,
+      reinterpret_cast<float*>(w + L.part), at(L.run_rows), at(L.run_n), bitmap, L.words);
+  scatter_rows_combine_kernel<<<(T + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      reinterpret_cast<const float*>(w + L.part), at(L.run_rows), at(L.run_n), bitmap, L.words,
+      L.ntiles, L.cap, T, out);
   return static_cast<int>(cudaGetLastError());
 }

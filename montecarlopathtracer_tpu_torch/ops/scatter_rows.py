@@ -15,12 +15,13 @@ gradient of a segment from the rays back to the table of
   ``index_add_``.
 
 The TPU kernel's bf16 term split, one-hot matmul and 16k cap on T are
-TPU-only and are not ported: the kernel adds with atomics and takes any
-T, in f32 into a private table in shared memory when the [T, 48] table
-fits there, and in f64 into a global table otherwise (long chains of f32
-atomics into one row lose too much). Atomics add in no fixed order, so
-the kernel's sums differ from the plain version's in the last bits, and
-from run to run.
+TPU-only and are not ported. The kernel groups the rays by row with a
+counting sort of ``idx`` written by hand, then sums each row's rays in a
+fixed order (see the source): no atomics touch the table, every entry is
+written once, and two calls on the same inputs give bit-equal tables, as
+the TPU kernel's do. It takes any T; its sums differ from the plain
+version's in the last bits (``index_add_`` on a CUDA tensor adds with
+atomics in no fixed order).
 """
 
 from __future__ import annotations
@@ -47,8 +48,11 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("scatter_rows")
     fn = lib.scatter_rows_launch
     fn.restype = ctypes.c_int
-    # idx, dvals, R, T, out, wide, stream
+    # idx, dvals, R, T, out, work, stream
     fn.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P]
+    ws = lib.scatter_rows_workspace
+    ws.restype = ctypes.c_size_t
+    ws.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -68,16 +72,15 @@ def _scatter_rows_cuda(idx, dvals, T):
                          f"and {tuple(dvals.shape)}")
     if not 0 < T < 2**31 // 48 or R >= 2**31:
         raise ValueError(f"T = {T} and R = {R} out of range")
-    if T * 48 * 4 <= torch.cuda.get_device_properties(dev).shared_memory_per_block_optin:
-        out, wide = torch.zeros(T, 48, dtype=torch.float32, device=dev), None
-    else:
-        out = torch.empty(T, 48, dtype=torch.float32, device=dev)
-        wide = torch.zeros(T, 48, dtype=torch.float64, device=dev)
     lib = _lib()
+    # Every entry of `out` is written by the kernel; the workspace (sort
+    # buffers, counts, f64 partials) needs no zeroing either.
+    out = torch.empty(T, 48, dtype=torch.float32, device=dev)
+    work = torch.empty(lib.scatter_rows_workspace(R, T), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.scatter_rows_launch(idx.data_ptr(), dvals.data_ptr(), R, T, out.data_ptr(),
-                                      None if wide is None else wide.data_ptr(), stream)
+                                      work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
     scatter_rows.launches += 1

@@ -18,8 +18,12 @@ Forward (JAX ``mega_segment_fwd``, Pallas kernel ``_mega_segment_kernel``):
   ``lane_flags=True``, for the regenerating wavefront). Given the chunk
   boxes ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered
   table, the kernel skips the 128-triangle chunks that no live ray of a
-  block can reach with its current best t (B1c, JAX ``cull=True``); the
-  winners are those of brute selection over the same table.
+  group of 128 rays can reach with its current best t (B1c, JAX
+  ``cull=True``); the winners are those of brute selection over the same
+  table. In front of the exact pair test the kernel rejects a pair whose
+  ray misses the triangle's widened bounding sphere, which changes no
+  winner: B1, B1l and B1c pick the winners of ``nearest_shade_full``
+  (B4, B4c) bit for bit.
 - :func:`mega_segment_ref` is the plain-torch version: brute f32
   selection, a gather of the winner row, and :func:`_epilogue` (the
   chunk boxes only prune, so it takes none).
@@ -531,8 +535,8 @@ def mega_segment(
     :func:`mega_segment_ref`.
 
     ``tested``, on CUDA only: an int32 [ceil(R / 128)] tensor that the
-    kernel fills with the 128-triangle chunks each block of 128 rays
-    tested."""
+    kernel fills with the 128-triangle chunks each group of 128 rays
+    (rays ``128 g`` to ``128 g + 127``) tested."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
               refract_kd=refract_kd, phong_model=phong_model, clo=clo, chi=chi,
               tested=tested)

@@ -113,7 +113,16 @@ WHOLE_SEGMENT = ("megakernel", "traverse")  # the intersectors with a whole-segm
 
 @dataclasses.dataclass(frozen=True)
 class TraceConfig:
-    """Integrator configuration."""
+    """Integrator configuration.
+
+    Two defaults differ from the JAX package's ``TraceConfig``: here
+    ``intersector="megakernel"`` and ``ray_chunk=0`` (the whole frame as
+    one wavefront), there ``intersector="brute"`` and ``ray_chunk=8192``.
+    A tiled frame traces tile ``i`` under ``fold_in(key, (1<<29)+i)``,
+    so ``TraceConfig()`` in the two packages gives a different estimator
+    for the same key, on another intersector: pass ``intersector`` and
+    ``ray_chunk`` explicitly to compare the two.
+    """
 
     mode: str = "fixed"  # "fixed" (CUDA) or "rr" (HLSL)
     max_depth: int = 7  # scatter bounces in "fixed" mode

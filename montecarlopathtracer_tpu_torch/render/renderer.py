@@ -3,7 +3,8 @@
 The counterpart of ``montecarlopathtracer_tpu/render/renderer.py``: run
 passes of ``spp_per_pass`` full-frame samples, fold each pass into the
 film, optionally write per-pass PNGs (``step%06d.png``, plus a live
-``preview.png``), and checkpoint the exact restartable state (film +
+``preview.png`` and its self-refreshing ``index.html``), and
+checkpoint the exact restartable state (film +
 weight + m2 + seed + pass index) as ``.npz`` with the JAX package's
 keys, so a checkpoint from either package resumes in the other.
 
@@ -53,7 +54,7 @@ class RenderSettings:
     tonemap: str = "linear"  # "linear" (CUDA) or "gamma" (MCRT display)
     accum: str = "linear"  # "linear" (CUDA) or "gamma" (MCRT running mean)
     step_dir: Optional[str] = None  # per-pass PNG dumps when set
-    preview: bool = False  # with step_dir: also keep `preview.png`
+    preview: bool = False  # with step_dir: also keep `preview.png` + `index.html`
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 0  # passes between checkpoints (0 = off)
     regen: bool = False  # regenerating-wavefront passes (render/regen.py):
@@ -181,9 +182,7 @@ class Renderer:
                     img_u8,
                 )
                 if s.preview:
-                    tmp = os.path.join(s.step_dir, ".preview.tmp.png")
-                    save_png(tmp, img_u8)
-                    os.replace(tmp, os.path.join(s.step_dir, "preview.png"))
+                    self._write_preview(img_u8)
             if (
                 s.checkpoint_path
                 and s.checkpoint_every
@@ -193,6 +192,30 @@ class Renderer:
         if s.checkpoint_path:
             self.save_checkpoint(s.checkpoint_path)
         return self.film
+
+    def _write_preview(self, img_u8: np.ndarray) -> None:
+        """Live progressive preview: atomically replace preview.png and
+        (once) write a self-refreshing viewer page next to it, the JAX
+        package's page byte for byte."""
+        s = self.settings
+        tmp = os.path.join(s.step_dir, ".preview.tmp.png")
+        save_png(tmp, img_u8)
+        os.replace(tmp, os.path.join(s.step_dir, "preview.png"))
+        index = os.path.join(s.step_dir, "index.html")
+        if not os.path.exists(index):
+            with open(index, "w") as f:
+                f.write(
+                    "<!doctype html><title>montecarlopathtracer_tpu"
+                    " preview</title>\n"
+                    "<body style='margin:0;background:#111;display:flex;"
+                    "align-items:center;justify-content:center;"
+                    "height:100vh'>\n"
+                    "<img id=v style='image-rendering:pixelated;"
+                    "max-width:100vw;max-height:100vh'>\n"
+                    "<script>const v=document.getElementById('v');\n"
+                    "setInterval(()=>{v.src='preview.png?'+Date.now()},"
+                    "1000);v.src='preview.png';</script>\n"
+                )
 
     def image_u8(self) -> np.ndarray:
         if self.settings.accum == "gamma":

@@ -1,1 +1,1 @@
-"""Host utilities: PNG I/O and render logging."""
+"""Host utilities: PNG I/O, render logging and profiling."""

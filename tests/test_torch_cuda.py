@@ -13,6 +13,7 @@ repository root, without the JAX-pinning conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -150,22 +151,50 @@ def test_segment_backward_kernel_matches_plain(card, mode, flags, opts):
     assert rep["ok"], rep
 
 
-@pytest.mark.parametrize("T", [652, 2000])  # shared-memory table, global atomics
-def test_scatter_rows_kernel_matches_plain(card, T):
-    g = torch.Generator(device="cuda").manual_seed(T)
-    R = 100_000
-    idx = torch.randint(-1, T, (R,), device="cuda", generator=g, dtype=torch.int32)
-    idx[:20_000] = 7  # a hot row
-    dvals = torch.randn(48, R, device="cuda", generator=g)
+def _scatter_inputs(R, T, hot, seed):
+    """Seeded rays: about a tenth with idx = -1, ``hot`` of them into row 7
+    (when T > 7), the rest uniform over the rows; N(0, 1) cotangents."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, T, (R,), device="cuda", generator=g, dtype=torch.int32)
+    idx[torch.rand(R, device="cuda", generator=g) < 0.1] = -1
+    if T > 7:
+        idx[:hot] = 7
+    return idx, torch.randn(48, R, device="cuda", generator=g)
+
+
+@pytest.mark.parametrize("R,T,hot", [
+    (100_000, 652, 36_063), (100_000, 2000, 20_000), (262_144, 5000, 36_063),
+    (262_144, 81_932, 30_000), (0, 5, 0), (1, 1, 0), (37, 3, 0), (8193, 1, 0),
+    (70_000, 1025, 0),
+], ids=["T652", "T2000", "T5000", "T81932", "R0", "R1", "R37", "R8193-T1", "T1025"])
+def test_scatter_rows_kernel_matches_plain(card, R, T, hot):
+    idx, dvals = _scatter_inputs(R, T, hot, seed=T + R)
     before = S.scatter_rows.launches
     got = S.scatter_rows(idx, dvals, T)
     torch.cuda.synchronize()
     assert S.scatter_rows.launches == before + 1
     # Against the exact sums: the plain f32 index_add_ adds with atomics
-    # in no fixed order too.
+    # in no fixed order.
     want = S.scatter_rows_ref(idx, dvals.double(), T)
     rep = compare_scatter(want, got, S.scatter_rows_ref(idx, dvals.double().abs(), T))
     assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("T", [652, 5000, 81_932])
+def test_scatter_rows_kernel_is_deterministic(card, T):
+    """Two calls give bit-equal tables, and every entry is written: the
+    memory the table is allocated from is filled with NaN before each
+    call."""
+    idx, dvals = _scatter_inputs(262_144, T, 36_063, seed=T)
+    tables = []
+    for _ in range(2):
+        poison = torch.full((T * 48 * 4,), float("nan"), device="cuda")
+        del poison
+        tables.append(S.scatter_rows(idx, dvals, T))
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(tables[0]).all())
+    assert torch.equal(tables[0], tables[1])
+    assert int((idx == 7).sum()) >= 30_000 and bool((idx < 0).any())
 
 
 def test_gradient_render_kernels_match_plain_path(card):
@@ -209,6 +238,10 @@ def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
         S.scatter_rows(idx, torch.zeros(10, 48, device="cuda"), 4)
     with pytest.raises(ValueError, match="on"):
         S.scatter_rows(idx.cpu(), torch.zeros(48, 10, device="cuda"), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        S.scatter_rows(idx, torch.zeros(10, 48, device="cuda").T, 4)
+    with pytest.raises(ValueError, match="out of range"):
+        S.scatter_rows(idx, torch.zeros(48, 10, device="cuda"), 0)
     assert (F.segment_backward.launches, S.scatter_rows.launches) == before
 
 
@@ -387,6 +420,132 @@ def test_cull_kernel_matches_plain_on_card(glossy_card, lane):
             assert rep["ok"], rep
             t = tested.cpu()
             assert t.max() <= tables.clo.shape[0] and t.float().mean() < tables.clo.shape[0]
+
+
+@pytest.mark.parametrize("case", ["B1 Cornell", "B1l Cornell", "B1 glossy", "B1c glossy",
+                                  "B1c lane flags glossy"])
+def test_whole_segment_winners_equal_split_kernel_on_card(card, glossy_card, case):
+    """B1, B1l and B1c pick the winners of B4 (B4c for B1c, with the same
+    chunks tested per block) bit for bit: the same accept chain on the same
+    table, behind the segment kernel's division-free rejection."""
+    cull = "B1c" in case
+    if "Cornell" in case:
+        camera, rows, boxes = card[1], card[2], {}
+    else:
+        camera, tables = glossy_card[1], glossy_card[2]
+        rows = tables.rows if cull else F.pack_rows_full(glossy_card[0])
+        boxes = tables.cull_boxes if cull else {}
+    for pos, dir_, tput, res, live in _waves(camera, rows):
+        R = pos.shape[1]
+        key = make_key(13)
+        u1, u2, urr = (stream_uniform(key, s, R, "cuda") for s in (0, 1, 3))
+        lane = case.startswith("B1l") or "lane" in case
+        flags = _lane_flags(R, seed=7) if lane else \
+            torch.tensor([[0.0], [1.0], [0.0]], device="cuda")
+        nb = -(-R // 128)
+        tested = torch.full((nb,), -1, dtype=torch.int32, device="cuda") if cull else None
+        got = F.mega_segment(rows, pos, dir_, tput, res, live, u1, u2, urr, flags, mode="rr",
+                             tested=tested, **boxes)
+        want_tested = torch.full((nb,), -2, dtype=torch.int32, device="cuda") if cull else None
+        want = NS.nearest_shade_full(rows, pos, dir_, live, tested=want_tested, **boxes)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        if cull:
+            assert torch.equal(tested, want_tested)
+
+
+def _hard_soup(case, T, R, seed, device):
+    """A seeded soup of T triangles and R rays aimed at points of them just
+    inside or outside an edge (barycentrics within 1e-7..0.1 of it), where
+    the segment kernel's sphere rejection has the least slack: "grazing"
+    rays (|cos| to the plane 1e-7..1e-2), "slivers" (widths down to where
+    kappa passes 2^16), "far" origins (1e3-3e4 away), "large" coordinates
+    (the scene scaled by 1e3 and moved to 3e4), "degenerate" (zero-area
+    triangles, and rows holding NaN, +-inf or zeros). Returns the vertices
+    a, b, c f32[T, 3], the rows f32[T, 48] (geometry only) and pos, dir
+    f32[3, R], rays sorted by the triangle they aim at."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (T, 3))
+    e1, e2 = rng.normal(size=(T, 3)) * 0.3, rng.normal(size=(T, 3)) * 0.3
+    if case == "slivers":
+        perp = np.cross(e1, rng.normal(size=(T, 3)))
+        perp *= np.linalg.norm(e1, axis=1, keepdims=True) / np.linalg.norm(perp, axis=1,
+                                                                           keepdims=True)
+        e2 = e1 * rng.uniform(0.1, 0.9, (T, 1)) + perp * 10.0 ** rng.uniform(-5.5, -2.0, (T, 1))
+    scale = 1e3 if case == "large" else 1.0
+    a = a * scale + (3e4 if case == "large" else 0.0)
+    e1, e2 = e1 * scale, e2 * scale
+    j = np.sort(rng.integers(0, T, R))
+    near = 10.0 ** rng.uniform(-7.0, -1.0, R) * rng.choice([-1.0, 1.0], R)
+    free = rng.uniform(0.0, 1.0, R) * (1.0 - np.abs(near))
+    edge = rng.integers(0, 3, R)  # beta, gamma or 1 - beta - gamma near 0
+    beta = np.where(edge == 0, near, free)
+    gamma = np.where(edge == 1, near, np.where(edge == 0, free, 1.0 - near - free))
+    p = a[j] + beta[:, None] * e1[j] + gamma[:, None] * e2[j]
+    n = np.cross(e1, e2)[j]
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    d = rng.normal(size=(R, 3))
+    if case == "grazing":
+        u = np.cross(n, d)
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        d = u + n * (10.0 ** rng.uniform(-7.0, -2.0, (R, 1)) * rng.choice([-1.0, 1.0], (R, 1)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lo, hi = (3.0, 4.5) if case == "far" else (-1.0, 0.5)
+    o = p - 10.0 ** rng.uniform(lo, hi, (R, 1)) * scale * d
+    b, c = a + e1, a + e2
+    if case == "degenerate":
+        k = rng.permutation(T)[:T // 4]
+        c[k[0::2]] = a[k[0::2]] + 0.5 * e1[k[0::2]]  # collinear
+        b[k[1::2]] = c[k[1::2]] = a[k[1::2]]  # one point
+    verts = [torch.tensor(x, dtype=torch.float32, device=device) for x in (a, b, c)]
+    m, m_a = triangle_transforms(*verts)
+    geom = torch.cat([m, -m_a[:, :, None]], dim=2).reshape(-1, 12)
+    if case == "degenerate":
+        bad = torch.tensor(rng.permutation(T)[:T // 8], device=device)
+        geom[bad[0::4], 3] = float("nan")
+        geom[bad[1::4], 8] = float("inf")
+        geom[bad[2::4], 1] = -float("inf")
+        geom[bad[3::4]] = 0.0
+    rows = torch.cat([geom, torch.zeros(T, 36, device=device)], dim=1).contiguous()
+    pos, dir_ = (torch.tensor(x.T, dtype=torch.float32, device=device).contiguous()
+                 for x in (o, d))
+    return verts, rows, pos, dir_
+
+
+@pytest.mark.parametrize("T", [700, 1500], ids=["whole_table", "tile_ring"])
+@pytest.mark.parametrize("case", ["random", "grazing", "slivers", "far", "large",
+                                  "degenerate"])
+def test_whole_segment_winners_equal_split_kernel_on_hard_soups(card, case, T):
+    """B1 and B1c pick B4's and B4c's winners bit for bit (and B1c tests
+    B4c's chunks) on soups made to find a pair that the sphere rejection
+    drops wrongly, through both the whole-table path (T <= 760) and the
+    tile ring."""
+    R = 16384
+    verts, rows, pos, dir_ = _hard_soup(case, T, R, seed=T, device="cuda")
+    ones = torch.ones(3, R, device="cuda")
+    live = torch.ones(R, dtype=torch.bool, device="cuda")
+    u = torch.full((R,), 0.5, device="cuda")
+    flags = torch.zeros(3, 1, device="cuda")
+    perm = torch.arange(T, device="cuda")
+    clo, chi = chunk_aabbs_padded(*verts, torch.ones(T, dtype=torch.bool, device="cuda"), perm,
+                                  128)
+    for boxes in ({}, dict(clo=clo, chi=chi)):
+        nb = -(-R // 128)
+        tested = torch.full((nb,), -1, dtype=torch.int32, device="cuda") if boxes else None
+        want_tested = torch.full((nb,), -2, dtype=torch.int32, device="cuda") if boxes else None
+        got = F.mega_segment(rows, pos, dir_, ones, ones, live, u, u, u, flags, tested=tested,
+                             **boxes)
+        want = NS.nearest_shade_full(rows, pos, dir_, live, tested=want_tested, **boxes)
+        torch.cuda.synchronize()
+        hits = want[0] >= 0
+        assert hits.float().mean() > 0.25, (case, T, float(hits.float().mean()))
+        assert torch.equal(got[0], want[0]), int((got[0] != want[0]).sum())
+        if boxes:
+            assert torch.equal(tested, want_tested)
+    if case == "slivers":  # winners on both sides of the kappa = 2^16 cut
+        m = rows[want[0][hits].long(), :12].double().reshape(-1, 3, 4)[:, :, :3]
+        kappa = m.flatten(1).norm(dim=1) * torch.linalg.inv(m).flatten(1).norm(dim=1)
+        assert ((kappa >= 2.0 ** 15) & (kappa < 2.0 ** 16)).any() and (kappa >= 2.0 ** 16).any()
 
 
 @pytest.mark.parametrize("cull", [False, True], ids=["B4", "B4c"])

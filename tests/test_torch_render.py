@@ -188,7 +188,7 @@ def test_renderer_step_pngs_and_preview(tmp_path):
                                 step_dir=steps, preview=True, accum="gamma"),
                  device="cpu")
     r.render(2)
-    assert sorted(os.listdir(steps)) == ["preview.png", "step000000.png",
+    assert sorted(os.listdir(steps)) == ["index.html", "preview.png", "step000000.png",
                                          "step000001.png"]
     np.testing.assert_array_equal(load_png(os.path.join(steps, "preview.png")),
                                   r.image_u8())
