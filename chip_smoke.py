@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    in fixed mode (final gather off and on) and RR mode (roulette, hard
    kill), with the tolerances of montecarlopathtracer_tpu_torch.testing;
    and B1's winners (idx, and t recomputed from them) bit-equal to those
-   of B4 (nearest_shade.cu) on the same rays;
+   of B4 (nearest_shade.cu, the same selection loop without the
+   epilogue) on the same rays, and B4's with the |d'_z| test to those of
+   B7 (nearest_triangle.cu, the one-ray-per-thread loop without the
+   sphere rejection);
 4. one 800x600 segment timed, kernel and plain (median of CUDA events),
    and the kernel's device time per launch beside the previous design's;
    its bound counts the sphere test on every live pair and the exact
@@ -54,26 +57,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
     illum 1), 800x600, 32 spp per pass, regen; one warm-up and two timed
     passes, steps and B1l launches per pass, and the film mean held
     against a 32-spp scan render within 5 standard errors;
-17. the traversal walk (B5) against its plain version on the 81,932-
-    triangle bunny: a 1024x1024 camera wavefront and its sorted bounce
-    wavefront with dead lanes, the kernel on every ray and the plain
-    brute selection on a seeded subset of 65,536 of them; winners agree
-    on >= 99.9% of live lanes, mismatches near-ties on which the brute
-    CUDA kernel B1 (the same f32 pair test) sides with B5; chunks walked
-    and tested per tile;
+17. the traversal walk (B5) on the 81,932-triangle bunny: its tables
+    (tree and triangle records, built by traverse_select.cu's
+    traverse_tables_launch) against their plain version, and their build
+    time; then a 1024x1024 camera wavefront and its sorted bounce
+    wavefront with dead lanes: B5's winners (idx, and t recomputed)
+    bit-equal to B4's (every triangle) on every lane, and against the
+    plain brute selection on a seeded subset of 65,536 rays (winners on
+    >= 99.9% of live lanes, mismatches near-ties on which the brute CUDA
+    kernel B1 sides with B5); nodes and leaves per ray (mean, p99);
 18. the segment from known winners (B6, and B6l with per-lane flags)
     against its plain version on the bunny's bounce wavefront;
 19. B5, B6 and the brute B1 timed on that 1024x1024 wavefront (median of
     10 CUDA events, and device times), with their plain versions (B5's
-    and B1's on the subset);
+    and B1's on the subset); B5's bound counts the sphere and exact tests
+    of the leaves each ray reaches on the subset, scaled by live rays,
+    beside the old count (every pair of the reached 128-triangle chunks);
+    then B5 with leaves of 16, 32 and 64 triangles, and on its 1,024
+    longest walks alone;
 20. the bunny main path: Renderer 1024x1024, fixed depth 7 + final
     gather, 1 spp per pass, traverse + ray sort; one warm-up and two
-    timed passes, launch counts, and a per-step breakdown of one sample
-    (sort + gather, RNG, traverse_select, B6; a profile splits B5's
-    kernel from the tile lists); then a regen pass on the same path at
-    512x512, RR, 4 spp (B5 + B6l);
+    timed passes, launch counts (the Renderer's tables build included),
+    and a per-step breakdown of one sample (sort + gather, RNG,
+    traverse_select, B6; a profile splits B5's kernel from the wrapper's
+    host work); then a regen pass on the same path at 512x512, RR, 4 spp
+    (B5 + B6l);
 21. the bunny gradient: value and grad at 512x512, 1 spp, params
-    {mat_kd, mat_ka, vertices}, launch counts of B5, B6, B2 and B3;
+    {mat_kd, mat_ka, vertices}, launch counts of B5, its tables, B6, B2
+    and B3;
     21b: the row scatter (B3) of that gradient's segment with the most
     hits, 81,932 triangles x 262,144 rays (two passes of its sort),
     against its plain version on those cotangents and on N(0,1) ones,
@@ -93,9 +104,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
 25. B4, B4c and B7 against their plain versions on phase 3's Cornell
     800x600 first bounce and the glossy wavefronts: winners with the
     near-tie allowance, shading rows equal, t, beta, gamma to 1e-5 or
-    within 16 x eps32 x their rounding scale of the float64 values;
+    within 16 x eps32 x their rounding scale of the float64 values; B4's
+    with the |d'_z| test bit-equal to B7's;
 26. B1c, B4, B4c and B7 timed (median of 10 CUDA events, and device
-    times) beside their plain versions and B1 on the same wavefront;
+    times) beside their plain versions, B1 on the same wavefront and the
+    earlier run's figures; B4's and B4c's bounds count their sphere and
+    exact tests as B1's do;
 27. the cull main path: Renderer on the glossy stage, 800x600, fixed
     depth 7 + gather, 4 spp/pass, chunk_cull + ray_sort, one warm-up and
     two timed passes, B1c launches; one sample against the render
@@ -119,7 +133,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 32. the superseded selection entries B8-B11 (thin entries over B4 and
     B4c) against their plain versions on phase 3's Cornell 800x600 first
     bounce and, for the culling forms, the glossy sorted bounce with dead
-    lanes (the phase 25 gate); timed beside their plain versions;
+    lanes (the phase 25 gate); timed beside their plain versions, with
+    their device times beside the earlier run's;
 33. the intersector gate of tools/tpu_check.py: B8, B10, B10 with cull,
     B11, the fused index and the KD walk against the brute oracle on its
     4,096 camera and 4,096 random rays (compare_winners, t within 1e-4);
@@ -129,7 +144,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
     9.06 GB), with their launch counts; then each tool's own outputs
     against the plain versions on the same inputs: B8-B10 on 16,384 of
     kernel_bench's rays per scene (compare_shade), B12-B14 on all
-    491,520 rays (bit for bit), the plain versions timed at that size;
+    491,520 rays (bit for bit), the plain versions timed at that size,
+    and cuBLAS's bf16 product (torch.matmul, in slices of rays) with a
+    column min beside B12's matmul_only;
 35. the KD-tree main path: one walk of the Cornell 800x600 first bounce
     timed, then Renderer at 800x600, fixed depth 7 + gather, 1 spp per
     pass, intersector="kdtree": one warm-up and one timed pass, the film
@@ -139,7 +156,8 @@ A kernel's device time per launch comes from CUDA events around 20
 back-to-back calls queued behind a torch.cuda._sleep, so that the card,
 not the host, sets their pace (median of three such spans, over 20); the
 event pair around one call, which includes the wrapper's host work, is
-kept beside it. Every kernel line carries its bound: the least time for its bytes (each
+kept beside it, and beside both the figures of this script's earlier run
+on the same phase (before B4/B4c and B5 were redesigned). Every kernel line carries its bound: the least time for its bytes (each
 input read once, each output written once, 3.35 TB/s) and its
 operations at the rate of their type, the H100 SXM's published rates:
 f32 (67 TFLOP/s), and for B12's contraction of bf16 inputs the bf16
@@ -170,6 +188,8 @@ SCATTER_SOURCE = f"{PKG}/csrc/scatter_rows.cu"
 SCATTER_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:1367"
 TRAVERSE_SOURCE = f"{PKG}/csrc/traverse_select.cu"
 TRAVERSE_REPLACES = "montecarlopathtracer_tpu/ops/traverse_pallas.py:199"
+# B5's tables take the place of the TPU walk's per-tile chunk lists.
+TABLES_REPLACES = "montecarlopathtracer_tpu/ops/traverse_pallas.py:87"
 ROWS_SOURCE = f"{PKG}/csrc/rows_segment.cu"
 ROWS_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:911"
 ROWS_LANE_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:991"
@@ -324,6 +344,8 @@ def kernel_vs_plain(torch, scene, rows):
     print(f"first-bounce wavefront: {int(bounce[4].sum())} of {W * H} live")
     worst, identical = 0.0, True
     for wname, wave in (("64x48 camera", small), ("800x600 bounce", bounce)):
+        check(versus_b7(torch, rows, wave[0], wave[1], wave[4]),
+              f"B4 with the d'z test differs from B7 on {wname}")
         for cname, (mode, flags) in CASES.items():
             args = seg_args(torch, rows, *wave, make_key(5), flags)
             got = F.mega_segment(*args, mode=mode)
@@ -346,7 +368,8 @@ def kernel_vs_plain(torch, scene, rows):
     print("tolerance: rtol = atol = 1e-5 on agreeing lanes, at most 0.1% of them "
           f"within 1e-2 instead; worst |err| {worst:.3e}")
     print(f"B1's idx and the t recomputed from its winners bit-equal to B4's (nearest_shade.cu, "
-          f"the same pair test one ray per thread) on every case: {identical}")
+          f"the same selection loop) on every case: {identical}; B4's with the d'z test "
+          "bit-equal to B7's (the one-ray-per-thread loop) on both wavefronts: True")
     return bounce, worst
 
 
@@ -505,7 +528,7 @@ def reset_counts():
     F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
     F.mega_segment.lane_launches = F.mega_segment.cull_launches = 0
     F.rows_segment.launches = F.rows_segment.lane_launches = 0
-    TW.traverse_select.launches = NS.nearest_triangle.launches = 0
+    TW.traverse_select.launches = TW.walk_tables.launches = NS.nearest_triangle.launches = 0
     NS.nearest_shade_full.launches = NS.nearest_shade_full.cull_launches = 0
     NV.nearest_shade.launches = NV.nearest_shade2.launches = NV.nearest_shade_culled.launches = 0
     NV.nearest_shade_streamed.launches = NV.nearest_shade_streamed.cull_launches = 0
@@ -524,9 +547,10 @@ class Counts(dict):
 def read_all_counts():
     """Launches of every kernel: B1 apart from its per-lane-flag form B1l
     and its culling form B1c (no path here runs both at once), B4 apart
-    from B4c, B6 apart from B6l; the entries B8-B11 (each also counted
-    under B4 or B4c, which it launches), B10 apart from B10c; B12 per
-    variant, B13, B14."""
+    from B4c, B5's tables (B5t, one count per build) apart from B5, B6
+    apart from B6l; the entries B8-B11 (each also counted under B4 or
+    B4c, which it launches), B10 apart from B10c; B12 per variant, B13,
+    B14."""
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
@@ -547,7 +571,7 @@ def read_all_counts():
         "B2": F.segment_backward.launches, "B3": S.scatter_rows.launches,
         "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
         "B4c": NS.nearest_shade_full.cull_launches,
-        "B5": TW.traverse_select.launches,
+        "B5": TW.traverse_select.launches, "B5t": TW.walk_tables.launches,
         "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
         "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches,
     })
@@ -708,40 +732,35 @@ def record_device(torch, label, fn):
     return DEVICE_MS[label]
 
 
-# The previous designs' figures (B1/B1l/B1c one ray per thread without a
-# pre-test; B3 atomics into a shared-memory or f64 table), from this
-# script's run of them on an NVIDIA H100 80GB HBM3 at 700.00 W: (event
-# pair ms, profiler ms per launch or None where that run took none). The
-# event pairs were taken as this script takes them now, on the same
-# phases' inputs: they are the like-for-like comparison. The profiler
-# figures are another method on other inputs, not comparable with the
-# device times measured here: B1's and B3's are torch.profiler totals of
-# one gradient iteration (phase 11: 9.809 ms / 16 and 4.747 ms / 16
-# launches, other wavefronts than phases 4 and 10), B1l's that of a regen
-# pass (phase 16: 125.202 ms / 336 launches, other wavefronts than phase
-# 15's).
-PREVIOUS_MS = {
-    "B1": (0.7956, 9.809 / 16), "B1l": (0.8622, 125.202 / 336), "B1c": (0.7017, None),
-    "B3 T652": (0.6008, 4.747 / 16), "B3 T81932": (0.6442, None),
+# This script's earlier run on an NVIDIA H100 80GB HBM3 at 700.00 W, on
+# the same phases' inputs and by the same methods: (device ms per launch,
+# event pair ms). B4/B4c and B5 were redesigned after it (B4/B4c on B1's
+# selection loop, B5 a per-ray tree walk), and B8-B11 ride B4/B4c.
+EARLIER_MS = {
+    "B1": (0.3498, 0.5604), "B1c": (0.3166, 0.5390), "B1l": (0.3545, 0.5603),
+    "B2": (0.0985, 0.3109), "B3 T652": (0.1415, 0.1919), "B3 T81932": (0.0986, 0.1705),
+    "B4": (0.5868, 0.7597), "B4c": (0.3950, 0.6540), "B5": (8.1439, 9.0728),
+    "B6": (0.0514, 0.1943), "B6l": (0.0517, 0.1832), "B7": (0.5903, 0.7455),
+    "B8": (0.7546, 1.1444), "B9": (0.7531, 1.2032), "B10": (0.7576, 1.2166),
+    "B10c": (0.4396, 1.1210), "B11": (0.4290, 1.0494), "B12 full": (13.2872, 13.5116),
+    "B12 matmul_only": (12.0840, 12.3012), "B12 matmul_bf16": (12.1649, 12.3733),
+    "B13": (3.0448, 3.1231), "B14": (1.1904, 1.2350),
 }
 
 
 def device_line(label, event_pair, bound, library=None):
     """One line of a kernel's device time beside its event pair, bound and
-    the previous design's figures."""
+    the earlier run's figures."""
     dev, src, host = DEVICE_MS[label]
-    old = PREVIOUS_MS.get(label)
+    old = EARLIER_MS.get(label)
     line = (f"{label}: device {dev:.4f} ms per launch ({src}, 20 back-to-back calls; the "
             f"host enqueues one in {host:.4f} ms), event pair {event_pair:.4f} ms; bound "
             f"{bound[0]:.4f} ms ({bound[1]}), device time at {bound[0] / dev:.3f} of it")
     if library is not None:
         ldev = DEVICE_MS[library][0]
-        line += f"; {library} (zero-fill included) device {ldev:.4f} ms"
+        line += f"; {library} device {ldev:.4f} ms"
     if old is not None:
-        line += (f"; previous design: event pair {old[0]:.4f} ms (same method and inputs), "
-                 + ("device not measured" if old[1] is None else
-                    f"torch.profiler {old[1]:.4f} ms per launch on other wavefronts "
-                    "(another method, not comparable)"))
+        line += f"; earlier run: device {old[0]:.4f} ms, event pair {old[1]:.4f} ms"
     print(line)
 
 
@@ -1102,7 +1121,8 @@ def bunny_waves(torch, camera, config, tables):
     pos, dir_, tput, res, live = cam
     cam = (pos, dir_.contiguous(), tput, res, live)
     R = BW * BH
-    idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, *cam[:2], live)
+    idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, *cam[:2], live,
+                             tables=tables.walk)
     u1, u2 = (stream_uniform(key, s, R, "cuda") for s in (0, 1))
     out = F.rows_segment(tables.rows, idx, *cam, u1, u2, torch.zeros(R, device="cuda"),
                          config.segment_flags("cuda")[0])
@@ -1117,54 +1137,108 @@ def subset_of(torch, wave, sub):
     return tuple((x[:, sub] if x.dim() == 2 else x[sub]).contiguous() for x in wave)
 
 
-def traverse_vs_plain(torch, tables, waves, sub):
-    phase(f"17. traversal walk (B5) vs plain brute selection, bunny {BW}x{BH}")
+def walk_tables_vs_plain(torch, scene, tables):
+    """B5's tables (tree and triangle records, as scene_tables built them
+    with the kernel) against their plain version; their build timed.
+    Returns (the leaf boxes (lo, hi), max |err| of the float fields,
+    (event ms, plain ms, bound))."""
+    from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
+
+    walk = tables.walk
+    lo, hi, big = TW.walk_boxes(*scene.triangle_vertices(), scene.tri_valid, tables.perm)
+    rows = tables.rows.detach()
+    want = TW.walk_tables_ref(rows, lo, hi, TW.LEAF, big)
+    box = [0, 1, 2, 4, 5, 6]
+    check(torch.equal(walk.tree[:, box], want.tree[:, box]) and torch.equal(walk.big, big)
+          and torch.equal(walk.tri[:, 4:], want.tri[:, 4:]),
+          "B5's tree boxes, large triangles or record geometry differ from the plain version")
+    fin = torch.isfinite(want.tri[:, 3])
+    check(torch.equal(fin, torch.isfinite(walk.tri[:, 3])), "B5's infinite spheres differ")
+    # The kernel contracts FMAs where the plain version rounds each step.
+    # Centers and radii are held to 1e-5 of |c| + K0, grow to 1e-5 of
+    # itself; ext, a slack K0 - rho computed by cancellation, to 1e-5 of
+    # the largest K0 (it only widens the boxes).
+    d_sph = (walk.tri[fin, :4] - want.tri[fin, :4]).abs()
+    scale = want.tri[fin, :3].norm(dim=1, keepdim=True) + want.tri[fin, 3:4]
+    d_ext = (walk.tree[:, 3] - want.tree[:, 3]).abs()
+    d_grow = (walk.tree[:, 7] - want.tree[:, 7]).abs()
+    rel = max(float((d_sph / scale).max()), float((d_ext / want.tri[fin, 3].max()).max()),
+              float((d_grow / want.tree[:, 7].abs().clamp_min(1e-30)).max()))
+    err = max(float(d_sph.max()), float(d_ext.max()), float(d_grow.max()))
+    check(rel < 1e-5, f"B5's spheres, ext or grow differ from plain by {rel:.3e} of their "
+          "scale")
+    T, nb, P = rows.shape[0], lo.shape[0], walk.leaves
+    ms = time_pair(torch, lambda: TW.walk_tables(rows, lo, hi, TW.LEAF, big),
+                   lambda: TW.walk_tables_ref(rows, lo, hi, TW.LEAF, big), label="B5t")
+    # Bytes: the rows' geometry and the boxes read, the records and the tree
+    # written; operations: about 120 per triangle record (sphere_parts).
+    bound = bound_of(T * 48 + nb * 24 + T * 64 + 2 * P * 32, T * 120)
+    print(f"B5's tables: {nb} leaves of {TW.LEAF} triangles (P = {P}), {big.shape[0]} large "
+          f"triangles listed apart; tree boxes, large list and record geometry bit-equal to "
+          f"plain, spheres, ext and grow within {rel:.2e} of their scale ({err:.2e} "
+          f"absolute); "
+          f"build {ms[0]:.4f} ms (plain {ms[1]:.4f} ms)")
+    device_line("B5t", ms[0], bound)
+    return (lo, hi), err, (*ms, bound)
+
+
+def traverse_vs_plain(torch, scene, tables, waves, sub):
+    phase(f"17. traversal walk (B5): its tables vs plain, then B5 vs B4 on every lane and vs "
+          f"plain brute selection on a subset, bunny {BW}x{BH}")
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
     from montecarlopathtracer_tpu_torch.testing import compare_winners
 
+    b5t = walk_tables_vs_plain(torch, scene, tables)
     R = BW * BH
-    nt, nc = R // TW.RAY_TILE, tables.clo.shape[0]
     worst = 0.0
     zeros = torch.zeros(SUBSET, device="cuda")
     for name, wave in zip(("camera", "sorted bounce"), waves):
         pos, dir_, _, _, live = wave
-        visits = torch.zeros(2, nt, dtype=torch.int32, device="cuda")
+        visits = torch.full((2, R), -1, dtype=torch.int32, device="cuda")
         got = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
-                                 visits=visits)
+                                 tables=tables.walk, visits=visits)
+        b4 = NS.nearest_shade_full(tables.rows, pos, dir_, live)[0]
         torch.cuda.synchronize()
+        same = bool(torch.equal(got, b4))
+        t_same = bool(torch.equal(winner_t(torch, tables.rows, got, pos, dir_),
+                                  winner_t(torch, tables.rows, b4, pos, dir_)))
         p, d, tp, rs, lv = subset_of(torch, wave, sub)
         want = TW.traverse_select_ref(tables.rows, tables.clo, tables.chi, p, d, lv)
         rep = compare_winners(got[sub], want, live=lv, rows=tables.rows, pos=p, dir_=d)
         worst = max(worst, rep["max_t_gap"])
         # The brute CUDA kernel B1 runs B5's pair test in the same f32
         # arithmetic (FMA contraction included) over every triangle: where
-        # B5 parts from the plain version, B1 must side with B5. A lane
-        # that B5's slab test or early exit dropped would side with plain.
+        # B5 parts from the plain version, B1 must side with B5.
         brute = F.mega_segment(tables.rows, p, d, tp, rs, lv, zeros, zeros, zeros,
                                torch.zeros(3, 1, device="cuda"))[0]
         diff = lv & (got[sub] != want)
         n_b1 = int((brute[diff] == got[sub][diff]).sum())
-        n_b1_all = int((brute[lv] == got[sub][lv]).sum())
-        v = visits.cpu().numpy()
-        busy = v[0] > 0
-        walked, tested = (float(x[busy].mean()) if busy.any() else 0.0 for x in v)
-        print(f"{name:13s}: {int(live.sum())} live of {R} rays; on the subset of "
-              f"{SUBSET} ({rep['n_live']} live) winners agree {rep['idx_agree']:.6f} "
-              f"({rep['n_idx_mismatch']} mismatches, all near-ties: "
-              f"{rep['mismatches_all_near_ties']}, max t gap {rep['max_t_gap']:.2e})")
-        print(f"{'':15s}brute kernel B1 equals B5 on {n_b1} of the {rep['n_idx_mismatch']} "
-              f"mismatched lanes, and on {n_b1_all} of the subset's {rep['n_live']} live")
-        print(f"{'':15s}chunks per tile of {TW.RAY_TILE} rays ({int(busy.sum())} of {nt} "
-              f"tiles walk): walked mean {walked:.1f} max {v[0].max()}, tested "
-              f"mean {tested:.1f} max {v[1].max()}, of {nc} chunks")
+        v = visits[:, live].float()
+        n_live = int(live.sum())
+        print(f"{name:13s}: {n_live} live of {R} rays; B5's idx equal to B4's on every lane: "
+              f"{same}, t recomputed from the winners equal: {t_same}")
+        print(f"{'':15s}on the subset of {SUBSET} ({rep['n_live']} live) winners agree with "
+              f"plain {rep['idx_agree']:.6f} ({rep['n_idx_mismatch']} mismatches, all "
+              f"near-ties: {rep['mismatches_all_near_ties']}, max t gap "
+              f"{rep['max_t_gap']:.2e}); B1 sides with B5 on {n_b1} of them")
+        print(f"{'':15s}per live ray: interior nodes mean {float(v[0].mean()):.2f} p99 "
+              f"{float(v[0].quantile(0.99)):.0f} max {int(v[0].max())}, leaves of "
+              f"{tables.walk.leaf} mean {float(v[1].mean()):.2f} p99 "
+              f"{float(v[1].quantile(0.99)):.0f} max {int(v[1].max())}; dead lanes 0: "
+              f"{bool((visits[:, ~live] == 0).all())}")
+        check(same and t_same, f"B5's winners differ from B4's on the {name} wavefront on "
+              f"{int((got != b4).sum())} lanes")
         check(rep["ok"], f"B5 disagrees with brute selection on the {name} wavefront: {rep}")
         check(n_b1 == rep["n_idx_mismatch"],
               f"B5 parts from the brute kernel B1 on {rep['n_idx_mismatch'] - n_b1} lanes "
               f"where it parts from plain ({name} wavefront)")
-    print("gate: winners equal on >= 99.9% of live lanes, every mismatch a near-tie on "
-          "which B1 (same f32 arithmetic) agrees with B5, dead lanes -1")
-    return worst
+        check(bool((visits[:, ~live] == 0).all()) and bool((visits >= 0).all()),
+              "visit counts of dead lanes")
+    print("gate: B5's idx and t bit-equal to B4's on every lane; against plain, winners equal "
+          "on >= 99.9% of live lanes, every mismatch a near-tie on which B1 agrees with B5")
+    return worst, b5t
 
 
 def rows_vs_plain(torch, tables, bounce):
@@ -1176,7 +1250,8 @@ def rows_vs_plain(torch, tables, bounce):
 
     pos, dir_, tput, res, live = bounce
     R = pos.shape[1]
-    idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live)
+    idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
+                             tables=tables.walk)
     key = make_key(18)
     u1, u2, urr = (stream_uniform(key, s, R, "cuda") for s in (0, 1, 3))
     worst = {}
@@ -1201,15 +1276,16 @@ def rows_vs_plain(torch, tables, bounce):
     return worst, idx, (u1, u2, urr), cases
 
 
-def time_bunny(torch, tables, bounce, sub, idx, draws, cases):
+def time_bunny(torch, scene, tables, boxes, bounce, sub, idx, draws, cases):
     phase(f"19. bunny {BW}x{BH} bounce wavefront: B5, B6 and brute B1 timed")
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 
     pos, dir_, tput, res, live = bounce
     p, d, _, _, lv = subset_of(torch, bounce, sub)
-    rows, clo, chi = tables.rows, tables.clo, tables.chi
-    b5 = time_pair(torch, lambda: TW.traverse_select(rows, clo, chi, pos, dir_, live),
+    rows, clo, chi, walk = tables.rows, tables.clo, tables.chi, tables.walk
+    b5 = time_pair(torch, lambda: TW.traverse_select(rows, clo, chi, pos, dir_, live,
+                                                     tables=walk),
                    lambda: TW.traverse_select_ref(rows, clo, chi, p, d, lv), label="B5")
     u1, u2, urr = draws
     b6 = {name: time_pair(torch, lambda f=flags: F.rows_segment(
@@ -1231,20 +1307,72 @@ def time_bunny(torch, tables, bounce, sub, idx, draws, cases):
     print(f"walk + segment {b5[0] + b6['B6'][0]:.4f} ms against brute B1 {b1[0]:.4f} ms: "
           f"{b1[0] / (b5[0] + b6['B6'][0]):.1f}x")
     T, R, nc, hits = rows.shape[0], BW * BH, clo.shape[0], int((idx >= 0).sum())
-    pairs = reached_pairs(torch, clo, chi, T, pos, dir_, live,
-                          winner_t(torch, rows, idx, pos, dir_))
-    b5 = (*b5, bound_of(T * 192 + nc * 24 + R * 25 + R * 4, pairs * PAIR_OPS))
+    t_best = winner_t(torch, rows, idx, pos, dir_)
+    # B5's bound: the sphere test of every triangle of the leaves each ray
+    # reaches at its winner's t (and of the large triangles), the exact
+    # test of those inside their spheres, counted on the subset and scaled
+    # by live rays; its bytes are the tables, the rays and the winners.
+    P, nb = walk.leaves, boxes[0].shape[0]
+    ext, grow = walk.tree[P:P + nb, 3], walk.tree[P:P + nb, 7]
+    sp = sphere_pairs(torch, rows, p, d, lv, boxes=dict(clo=boxes[0], chi=boxes[1]),
+                      t_best=t_best[sub], step=256, box=walk.leaf, widen=(ext, grow),
+                      always=walk.big, per_ray=True)
+    scale = n_live / max(1, int(lv.sum()))
+    tested, exact = sp[0] * scale, sp[1] * scale
+    b5 = (*b5, bound_of(T * 64 + 2 * P * 32 + R * 29, tested * B5_SPHERE_OPS
+                        + exact * PAIR_OPS))
+    pairs = reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best)
+    old = bound_of(T * 192 + nc * 24 + R * 25 + R * 4, pairs * PAIR_OPS)
     for name, lane in (("B6", False), ("B6l", True)):
         nbytes = T * 192 + R * 4 + R * STATE_BYTES + (12 * R if lane else 12) + R * 52
         b6[name] = (*b6[name], bound_of(nbytes, hits * 40))
-    print(f"bounds: B5 {b5[2][0]:.4f} ms ({b5[2][1]}; {pairs:.4g} reachable pairs of "
-          f"{n_live * T} live pairs), B6 {b6['B6'][2][0]:.4f} ms ({b6['B6'][2][1]}), "
-          f"B6l {b6['B6l'][2][0]:.4f} ms ({b6['B6l'][2][1]})")
+    print(f"bounds: B5 {b5[2][0]:.4f} ms ({b5[2][1]}; on the subset {sp[0]} pairs in the "
+          f"leaves of {walk.leaf} reached at the winners' t and the {walk.big.shape[0]} large "
+          f"triangles, {sp[1]} of them inside their spheres, x {scale:.3f} for all live rays: "
+          f"{tested:.4g} sphere tests at {B5_SPHERE_OPS} operations, {exact:.4g} exact at "
+          f"{PAIR_OPS}); old count {old[0]:.4f} ms ({old[1]}; {pairs:.4g} pairs of the "
+          f"reached 128-triangle chunks at {PAIR_OPS} operations, of {n_live * T} live pairs); "
+          f"B6 {b6['B6'][2][0]:.4f} ms ({b6['B6'][2][1]}), B6l {b6['B6l'][2][0]:.4f} ms "
+          f"({b6['B6l'][2][1]})")
     for name, timing in (("B5", b5), ("B6", b6["B6"]), ("B6l", b6["B6l"])):
         device_line(name, timing[0], timing[2])
     print(f"B1 bunny (brute, every live pair): device {DEVICE_MS['B1 bunny'][0]:.4f} ms per "
           f"launch ({DEVICE_MS['B1 bunny'][1]})")
-    return b5, b6, b1
+    walk_sweep(torch, scene, tables, bounce)
+    return b5, b6, b1, old
+
+
+def walk_sweep(torch, scene, tables, bounce):
+    """B5 on the bounce wavefront with the tree's leaves at 16, 32 (the
+    render path's) and 64 triangles, then on its 1,024 longest walks
+    alone: the time of those few walks' chains of dependent loads is a
+    floor under the whole launch's."""
+    from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
+
+    pos, dir_, _, _, live = bounce
+    rows, clo, chi = tables.rows, tables.clo, tables.chi
+    verts = scene.triangle_vertices()
+    for leaf in (16, TW.LEAF, 64):
+        lo, hi, big = TW.walk_boxes(*verts, scene.tri_valid, tables.perm, leaf)
+        walk = TW.walk_tables(rows, lo, hi, leaf, big)
+        vis = torch.zeros(2, pos.shape[1], dtype=torch.int32, device="cuda")
+        TW.traverse_select(rows, clo, chi, pos, dir_, live, tables=walk, visits=vis)
+        v = vis[:, live].float()
+        ms = device_ms(torch, lambda: TW.traverse_select(rows, clo, chi, pos, dir_, live,
+                                                         tables=walk))[0]
+        print(f"B5 with leaves of {leaf:2d}: device {ms:.4f} ms; per live ray interior nodes "
+              f"mean {float(v[0].mean()):.2f} p99 {float(v[0].quantile(0.99)):.0f}, leaves "
+              f"mean {float(v[1].mean()):.2f} p99 {float(v[1].quantile(0.99)):.0f}, "
+              f"triangles in them {float(v[1].mean()) * leaf:.1f}")
+    vis = torch.zeros(2, pos.shape[1], dtype=torch.int32, device="cuda")
+    TW.traverse_select(rows, clo, chi, pos, dir_, live, tables=tables.walk, visits=vis)
+    slow = torch.argsort(vis[0] + vis[1], descending=True)[:1024].sort().values
+    p, d, lv = pos[:, slow].contiguous(), dir_[:, slow].contiguous(), live[slow].contiguous()
+    ms = device_ms(torch, lambda: TW.traverse_select(rows, clo, chi, p, d, lv,
+                                                     tables=tables.walk))[0]
+    print(f"B5 on the 1024 longest walks alone (nodes mean "
+          f"{float(vis[0][slow].float().mean()):.1f}, leaves mean "
+          f"{float(vis[1][slow].float().mean()):.1f}): device {ms:.4f} ms")
 
 
 def bunny_main_path(torch, scene, camera, config):
@@ -1255,8 +1383,8 @@ def bunny_main_path(torch, scene, camera, config):
     from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
 
     settings = RenderSettings(width=BW, height=BH, spp_per_pass=1, seed=0)
+    reset_counts()  # the Renderer builds B5's tables once
     r = Renderer(scene, camera, config, settings, device="cuda")
-    reset_counts()
     t0 = time.perf_counter()
     r.render(1)
     torch.cuda.synchronize()
@@ -1270,8 +1398,9 @@ def bunny_main_path(torch, scene, camera, config):
     print(f"warm-up pass {warm:.3f} s; {BUNNY_TIMED} timed passes {dt:.3f} s = "
           f"{dt / BUNNY_TIMED:.4f} s/pass, bunny traverse {msps:.4f} Msamples/s")
     want = config.num_segments * (1 + BUNNY_TIMED)
-    print(f"launches: {counts} (expected {want} each of B5 and B6)")
-    check(counts["B5"] == want and counts["B6"] == want, f"launches {counts}")
+    print(f"launches: {counts} (expected {want} each of B5 and B6, one tables build B5t)")
+    check(counts["B5"] == want and counts["B6"] == want and counts["B5t"] == 1,
+          f"launches {counts}")
     check(counts["B1"] == counts["B1l"] == counts["B6l"] == 0, f"launches {counts}")
     img = r.film.color.cpu().numpy()
     check(img.shape == (BH, BW, 3) and np.isfinite(img).all(), "bunny film not finite")
@@ -1288,8 +1417,9 @@ def bunny_breakdown(torch, camera, config, r, per_pass):
     steps queue as in the Renderer's pass and a span holds both the
     step's kernels and any wait of the device for the host's launches.
     Then the device time of one Renderer pass by kernel, whose B5 kernel
-    time splits the traverse_select span into the walk and the rest
-    (tile lists and launch waits)."""
+    time splits the traverse_select span into the walk and the rest (the
+    wrapper's host work and launch waits; the tree was built once, with
+    the Renderer's tables)."""
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
     from montecarlopathtracer_tpu_torch.ops.morton import DEAD_KEY, ray_sort_keys
@@ -1320,7 +1450,8 @@ def bunny_breakdown(torch, camera, config, r, per_pass):
         u1 = stream_uniform(key, 4 * seg, R, "cuda")[rid]
         u2 = stream_uniform(key, 4 * seg + 1, R, "cuda")[rid]
         ev[2].record()
-        idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live)
+        idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
+                                 tables=tables.walk)
         ev[3].record()
         pos, dir_, tput, res, still = F.rows_segment(tables.rows, idx, pos, dir_, tput, res,
                                                      live, u1, u2, urr, flags[seg])
@@ -1342,7 +1473,9 @@ def bunny_breakdown(torch, camera, config, r, per_pass):
         walk = prof["B5 traverse_select"]
         span = sum(ms["traverse_select"])
         print(f"traverse_select spans {span:.2f} ms per sample: B5 kernel {walk:.2f} ms "
-              f"(profiled pass), tile lists and launch waits {span - walk:.2f} ms")
+              f"(profiled pass), the wrapper's host work and launch waits "
+              f"{span - walk:.2f} ms; the tables build, once per Renderer: device "
+              f"{DEVICE_MS['B5t'][0]:.4f} ms (phase 17)")
 
 
 def bunny_regen(torch, scene, config):
@@ -1405,9 +1538,11 @@ def bunny_grad(torch, scene, config):
           f"= {dt / BUNNY_GRAD_ITERS:.4f} s/iteration, bunny fwd+bwd {msps:.4f} Msamples/s "
           f"(loss {float(loss):.6f})")
     want = config.num_segments * (1 + BUNNY_GRAD_ITERS)
-    print(f"launches: {counts} (expected {want} each of B5, B6, B2 and B3)")
+    print(f"launches: {counts} (expected {want} each of B5, B6, B2 and B3, and "
+          f"{1 + BUNNY_GRAD_ITERS} tables builds B5t, one per iteration)")
     for name in ("B5", "B6", "B2", "B3"):
         check(counts[name] == want, f"{name} launched {counts[name]} times, expected {want}")
+    check(counts["B5t"] == 1 + BUNNY_GRAD_ITERS, f"B5t launched {counts['B5t']} times")
     for name, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"gradient of {name} is not finite")
         print(f"grad {name}: shape {tuple(g.shape)} max |g| {float(g.abs().max()):.6e}")
@@ -1491,6 +1626,8 @@ PAIR_OPS = 40
 # run on every pair in front of the pair test: v = c - o (3), v.d (5),
 # v.v (5), v.v d.d' - (v.d)^2 (3), r^2 d.d (1).
 SPHERE_OPS = 17
+# B5's sphere test: the same, after the radius K0 + grow |o| (2).
+B5_SPHERE_OPS = SPHERE_OPS + 2
 STATE_BYTES = 48 + 1 + 12  # pos, dir, tput, res f32[3]; live; u1, u2, urr
 SEG_OUT_BYTES = 4 + 48 + 4  # idx, npos/ndir/ntput/nres f32[3], still
 
@@ -1519,12 +1656,16 @@ def segment_bound(T, R, pairs, lane=False, nc=0):
     return bound_of(nbytes, pairs[0] * SPHERE_OPS + pairs[1] * PAIR_OPS)
 
 
-def chunk_reach(torch, clo, chi, o, d, t_best, live):
+def chunk_reach(torch, clo, chi, o, d, t_best, live, widen=None):
     """bool[s, nc]: the segment [0, t_best] of each of the rays o, d
-    f32[s, 3] reaches the box of chunk j (widened as the kernels widen
-    it), for the live rays."""
+    f32[s, 3] reaches the box of chunk j (widened as the kernels widen it:
+    the box margin, and with ``widen`` = (ext, grow) f32[nc] also ext +
+    grow |o|, as B5's tree does), for the live rays."""
     m = 1e-5 * (1.0 + torch.maximum(clo.abs(), chi.abs()))
     lo, hi = (clo - m)[None], (chi + m)[None]  # [1, nc, 3]
+    if widen is not None:
+        w = (widen[0][None, :] + widen[1][None, :] * o.norm(dim=1)[:, None])[..., None]
+        lo, hi = lo - w, hi + w  # [s, nc, 3]
     o, d = o[:, None, :], d[:, None, :]
     flat = d.abs() < 1e-12
     inv = 1.0 / torch.where(flat, 1.0, d)
@@ -1540,8 +1681,8 @@ def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14, box
     """Ray-triangle pairs that culling must test on these rays: for each
     live ray, the triangles of every chunk (of ``box`` triangles) whose
     box (widened as the kernels widen it) its segment [0, t_best]
-    reaches. The minimum work of a culling selection on this data (B4c,
-    B5)."""
+    reaches. The minimum work of a culling selection on this data (B4c;
+    B5's old count)."""
     nc = clo.shape[0]
     sizes = torch.full((nc,), float(box), device=clo.device, dtype=torch.float64)
     sizes[-1] = T - box * (nc - 1)
@@ -1553,16 +1694,20 @@ def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14, box
     return total
 
 
-def sphere_pairs(torch, rows, pos, dir_, live, boxes=None, t_best=None, step=1 << 12):
+def sphere_pairs(torch, rows, pos, dir_, live, boxes=None, t_best=None, step=1 << 12, box=128,
+                 widen=None, always=None, per_ray=False):
     """(tested, exact): the ray-triangle pairs that B1's selection must
     test on these rays, and those of them whose ray line meets the
     triangle's widened bounding sphere, so that the exact pair test runs.
-    Tested pairs are live x T, or with culling (``boxes`` = the chunk
-    boxes, ``t_best`` the winners' t) the pairs of the chunks each ray's
-    segment reaches. The spheres are segment_fused.cu's
-    `triangle_sphere` and `sphere_pass` computed in float64 on the same
-    f32 rows, with the radius of the kernel's block of 256 rays; pairs on
-    the rounding edge of the test may count on the other side."""
+    Tested pairs are live x T, or with culling (``boxes`` = the boxes of
+    runs of ``box`` triangles, ``widen`` their widening as chunk_reach
+    takes it, ``t_best`` the winners' t) the pairs of the boxes each ray's
+    segment reaches, and the triangles ``always`` (B5's large ones) for
+    every live ray. The spheres are sphere_select.cuh's `triangle_sphere`
+    and `sphere_pass` computed in float64 on the same f32 rows, with the
+    radius of the kernel's block of 256 rays, or with ``per_ray`` that of
+    each ray's own |o| (B5); pairs on the rounding edge of the test may
+    count on the other side."""
     T, R = rows.shape[0], pos.shape[1]
     g = rows[:, :12].double().reshape(T, 3, 4)
     r0, r1, r2 = g[:, 0, :3], g[:, 1, :3], g[:, 2, :3]
@@ -1581,20 +1726,23 @@ def sphere_pairs(torch, rows, pos, dir_, live, boxes=None, t_best=None, step=1 <
     E = kappa * 2.0 ** -16
     K0 = rho + E * (ctr.norm(dim=1) + rho + n_inv * (a.norm(dim=1) + 1.0))
     ok = (kappa < 2.0 ** 16) & K0.isfinite()
-    # The block's largest finite |o| of a live ray (blocks of 256 rays).
     on = pos.double().norm(dim=0)
-    on = torch.where(live & (on < 3e38), on, 0.0)
-    on = torch.nn.functional.pad(on, (0, -R % 256))
-    omax = on.reshape(-1, 256).amax(1).repeat_interleave(256)[:R]
+    if not per_ray:  # the block's largest finite |o| of a live ray (blocks of 256 rays)
+        on = torch.where(live & (on < 3e38), on, 0.0)
+        on = torch.nn.functional.pad(on, (0, -R % 256))
+        on = on.reshape(-1, 256).amax(1).repeat_interleave(256)[:R]
     tested = exact = 0
     for s in range(0, R, step):
         o, d = pos[:, s:s + step].T.double(), dir_[:, s:s + step].T.double()
         mask = live[s:s + step, None].expand(-1, T)
         if boxes is not None:
             reach = chunk_reach(torch, boxes["clo"], boxes["chi"], pos[:, s:s + step].T,
-                                dir_[:, s:s + step].T, t_best[s:s + step], live[s:s + step])
-            mask = reach.repeat_interleave(128, dim=1)[:, :T]
-        K = (K0[None] + 2.0 * E[None] * omax[s:s + step, None]) * (1.0 + 2.0 ** -16)
+                                dir_[:, s:s + step].T, t_best[s:s + step], live[s:s + step],
+                                widen)
+            mask = reach.repeat_interleave(box, dim=1)[:, :T]
+            if always is not None:
+                mask[:, always.long()] |= live[s:s + step, None]
+        K = (K0[None] + 2.0 * E[None] * on[s:s + step, None]) * (1.0 + 2.0 ** -16)
         K = torch.where(ok[None] & (K < 2.0 ** 60), K, torch.inf)
         v = ctr[None] - o[:, None]
         b = (v * d[:, None]).sum(2)
@@ -1626,6 +1774,17 @@ def versus_split(torch, rows, idx, pos, dir_, live, boxes=None, tested=None):
     t_same = bool(torch.equal(winner_t(torch, rows, idx, pos, dir_),
                               winner_t(torch, rows, b4[0], pos, dir_)))
     return same, t_same, None if tested is None else bool(torch.equal(tested, want_tested))
+
+
+def versus_b7(torch, rows, pos, dir_, live):
+    """B4 with the |d'_z| test against B7 (the one-ray-per-thread loop
+    without the sphere rejection) launched on the same table's geometry
+    columns: idx bit-equal on every live lane, -1 on the others."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+
+    b4 = NS.nearest_shade_full(rows, pos, dir_, live, dz_test=True)[0]
+    b7 = NS.nearest_triangle(rows[:, :12].contiguous(), pos, dir_)
+    return bool(torch.equal(b4, torch.where(live, b7, -1)))
 
 
 def library_index_add(torch, idx, dvals, T):
@@ -1779,9 +1938,12 @@ def shade_vs_plain(torch, rows, ctables, cornell_bounce, gtables, gwaves):
         every = torch.ones_like(live)
         rep = compare_winners(got, want, live=every, rows=table, pos=pos, dir_=dir_)
         worst["B7"] = max(worst["B7"], rep["max_t_gap"])
+        same = versus_b7(torch, table, pos, dir_, live)
         print(f"{wname:21s} B7 : idx agree {rep['idx_agree']:.6f} ({rep['n_idx_mismatch']} "
-              f"near-tie mismatches of {rep['n_live']} rays, max t gap {rep['max_t_gap']:.2e})")
+              f"near-tie mismatches of {rep['n_live']} rays, max t gap {rep['max_t_gap']:.2e}); "
+              f"B4 with the d'z test bit-equal to it on the live lanes: {same}")
         check(rep["ok"], f"B7 disagrees with plain on {wname}: {rep}")
+        check(same, f"B4 with the d'z test differs from B7 on {wname}")
     print("gate: winners as phase 17's; on agreeing lanes the shading rows equal and t, beta, "
           "gamma within rtol = atol = 1e-5, or within 16 x eps32 x their rounding scale of the "
           "float64 values")
@@ -1802,7 +1964,11 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
     b1 = time_one(torch, lambda: F.mega_segment(*args))
     ms = time_pair(torch, lambda: NS.nearest_shade_full(rows, pos, dir_, live),
                    lambda: NS.nearest_shade_full_ref(rows, pos, dir_, live), label="B4")
-    out["B4"] = (*ms, bound_of(T * 192 + R * 25 + R * 148, n_live * T * PAIR_OPS))
+    # B4 and B4c are counted as B1 and B1c: the sphere test on every pair
+    # they must test, the exact test on those inside a sphere.
+    spairs = sphere_pairs(torch, rows, pos, dir_, live)
+    out["B4"] = (*ms, bound_of(T * 192 + R * 25 + R * 148,
+                               spairs[0] * SPHERE_OPS + spairs[1] * PAIR_OPS))
     geom = rows[:, :12].contiguous()
     ms = time_pair(torch, lambda: NS.nearest_triangle(geom, pos, dir_),
                    lambda: NS.nearest_triangle_ref(geom, pos, dir_), label="B7")
@@ -1826,7 +1992,8 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
     out["B1c"] = (*ms, segment_bound(T, R, spairs, nc=nc))
     ms = time_pair(torch, lambda: NS.nearest_shade_full(gr, pos, dir_, live, **boxes),
                    lambda: NS.nearest_shade_full_ref(gr, pos, dir_, live), label="B4c")
-    out["B4c"] = (*ms, bound_of(T * 192 + nc * 24 + R * 25 + R * 148, pairs * PAIR_OPS))
+    out["B4c"] = (*ms, bound_of(T * 192 + nc * 24 + R * 25 + R * 148,
+                                spairs[0] * SPHERE_OPS + spairs[1] * PAIR_OPS))
     print(f"glossy sorted bounce ({n_live} live of {R} rays, {T} triangles, {pairs:.4g} of "
           f"{n_live * T} live pairs reachable, {spairs[1]} of them inside B1c's spheres): "
           f"B1 {b1:.4f} ms; B1c {out['B1c'][0]:.4f} ms "
@@ -2157,16 +2324,17 @@ def variant_calls(torch, v, pos, dir_, live):
     }
 
 
-def variant_bound(v, name, R, n_live, pairs=None):
+def variant_bound(v, name, R, spairs):
     """Bound of one entry: its packed inputs, the rays (and mask) and its
-    outputs (idx, tbg, the shading row) once; the pair tests of the rays it
-    tests (all R for B8 and B9, which take no mask), or ``pairs``."""
+    outputs (idx, tbg, the shading row) once; B4's work on the rays it
+    tests (all R for B8 and B9, which take no mask): ``spairs`` =
+    sphere_pairs(...), SPHERE_OPS on each pair it must test, PAIR_OPS
+    more on each inside a sphere."""
     T = v["T"]
     layout = {"B8": 192 * T, "B9": 192 * T + 48 * T, "B10": 192 * T + 48 * T,
               "B10c": 192 * T + 48 * T, "B11": 192 * T}[name]
     nbytes = layout + 128 * T + (24 if name in ("B8", "B9") else 25) * R + 148 * R
-    rays = R if name in ("B8", "B9") else n_live
-    return bound_of(nbytes, (rays * T if pairs is None else pairs) * PAIR_OPS)
+    return bound_of(nbytes, spairs[0] * SPHERE_OPS + spairs[1] * PAIR_OPS)
 
 
 def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
@@ -2174,6 +2342,7 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
           f"Cornell {W}x{H} first bounce (768 triangles with the JAX padding) and the glossy "
           "sorted bounce (1,408) for the culling forms; timed (median of 10 CUDA events), "
           "B8-B10 on the Cornell bounce, the culling forms on the glossy one")
+    from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
     from montecarlopathtracer_tpu_torch.testing import compare_shade, plain_kernels
 
     out, worst = {}, {}
@@ -2206,15 +2375,18 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
                     return call()
 
             ms = time_pair(torch, call, plain_call, label=name)
-            pairs = None
-            if name in ("B10c", "B11"):
-                boxes = v["boxes_c"] if name == "B10c" else v["boxes_11"]
-                pairs = reached_pairs(torch, *boxes, v["T"], pos, dir_, live,
-                                      winner_t(torch, rows, got[0], pos, dir_),
-                                      box=128 if name == "B10c" else v["box"])
-            out[name] = (*ms, variant_bound(v, name, R, n_live, pairs))
+            boxes = {}
+            if name in ("B10c", "B11"):  # the 128-triangle tile boxes that B4c tests
+                b = v["boxes_c"] if name == "B10c" else \
+                    NV.tile_boxes(*v["boxes_11"], v["box"], v["T"])
+                boxes = dict(boxes=dict(clo=b[0], chi=b[1]),
+                             t_best=winner_t(torch, rows, got[0], pos, dir_))
+            spairs = sphere_pairs(torch, rows, pos, dir_, lanes, **boxes)
+            out[name] = (*ms, variant_bound(v, name, R, spairs))
             print(f"{'':14s} {name:4s}: {ms[0]:.4f} ms (plain {ms[1]:.4f}); bound "
-                  f"{out[name][2][0]:.4f} ms ({out[name][2][1]})")
+                  f"{out[name][2][0]:.4f} ms ({out[name][2][1]}; {spairs[0]} pairs tested, "
+                  f"{spairs[1]} inside their spheres)")
+            device_line(name, ms[0], out[name][2])
     print("gate: testing.compare_shade, as phase 25 (B8 and B9 take no live mask: every lane)")
     return out, worst
 
@@ -2392,12 +2564,48 @@ def tool_twins(torch):
         check(err == 0, f"{name} disagrees with its plain version")
         label = name if name in ("B13", "B14") else f"B12 {name}"
         record_device(torch, label, kernels[name])
-        print(f"{'':12s}  device {DEVICE_MS[label][0]:.4f} ms per launch ({DEVICE_MS[label][1]})")
+        device_line(label, tool_ms[row], bounds[name])
     print(f"B12's bound is its contraction on the bf16 tensor cores ({BF16_OPS_PER_S / 1e12:.0f} "
           f"TFLOP/s); the same contraction on the f32 CUDA cores, where this kernel runs it: "
           f"{f32_cores[0]:.4f} ms. B13's p_all: {p_all.numel() * 4 / 1e9:.2f} GB")
+    lib = cublas_min(torch, ws, x, micro["out"]["matmul_only_f32out"])
     del micro, p_all
-    return bench_rows, bench_counts, bench_err, micro_counts, out, f32_cores[0]
+    return bench_rows, bench_counts, bench_err, micro_counts, out, f32_cores[0], lib
+
+
+def cublas_min(torch, ws, x, b12):
+    """The library yardstick of B12's matmul_only (never called by the
+    port): cuBLAS's product of the same bf16 operands (torch.matmul, f32
+    out where torch.mm takes out_dtype, else bf16), in slices of rays so
+    that each f32 product stays under 1 GB, then the column min. Returns
+    its median event ms; its device time goes into DEVICE_MS as
+    "cuBLAS B12"."""
+    a = ws.T.contiguous()  # bf16[6T, 48]
+    step = (1 << 30) // (4 * a.shape[0])  # rays per slice
+    try:
+        torch.mm(a, x[:, :8], out_dtype=torch.float32)
+        out = "f32"
+    except (TypeError, RuntimeError):
+        out = "bf16"
+
+    def call():
+        low = []
+        for s in range(0, x.shape[1], step):
+            if out == "f32":
+                p = torch.mm(a, x[:, s:s + step], out_dtype=torch.float32)
+            else:
+                p = torch.matmul(a, x[:, s:s + step])
+            low.append(p.amin(0))
+        return torch.cat(low)
+
+    got = call().float().to(torch.int32)
+    agree = float((got == b12).float().mean())
+    ms = time_one(torch, call, label="cuBLAS B12")
+    print(f"cuBLAS yardstick of B12 matmul_only: torch.mm of the bf16 operands ({out} out, "
+          f"{-(-x.shape[1] // step)} slices of {step} rays) then amin: {ms:.4f} ms (event "
+          f"pair), device {DEVICE_MS['cuBLAS B12'][0]:.4f} ms; int32 of its min equals B12's on "
+          f"{agree:.4f} of the rays (another summation order)")
+    return ms
 
 
 def kdtree_main_path(torch, scene, camera, bounce):
@@ -2488,10 +2696,10 @@ def main():
         waves = bunny_waves(torch, bcam, bconfig, tables)
         g = torch.Generator(device="cuda").manual_seed(17)
         sub = torch.randperm(BW * BH, device="cuda", generator=g)[:SUBSET].sort().values
-        b5_err = traverse_vs_plain(torch, tables, waves, sub)
+        b5_err, b5t = traverse_vs_plain(torch, bscene, tables, waves, sub)
         b6_err, b_idx, b_draws, b6_cases = rows_vs_plain(torch, tables, waves[1])
-        b5_ms, b6_ms, b1_ms = time_bunny(torch, tables, waves[1], sub, b_idx, b_draws,
-                                         b6_cases)
+        b5_ms, b6_ms, b1_ms, b5_old = time_bunny(torch, bscene, tables, b5t[0], waves[1], sub,
+                                                 b_idx, b_draws, b6_cases)
         del waves, b_idx, b_draws, b6_cases
         bunny_counts, bunny_per_pass, bunny_msps, brenderer = bunny_main_path(
             torch, bscene, bcam, bconfig)
@@ -2521,7 +2729,8 @@ def main():
         var_ms, var_err = variants_vs_plain(torch, scene, bounce, gscene, gbounce)
         del gbounce
         gate_counts, gate_gap = intersector_gate(torch, scene)
-        bench_rows, bench_counts, bench_err, micro_counts, micro, f32_cores = tool_twins(torch)
+        bench_rows, bench_counts, bench_err, micro_counts, micro, f32_cores, cublas_ms = \
+            tool_twins(torch)
         walk_ms, kd_pass = kdtree_main_path(torch, scene, camera, bounce)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2567,7 +2776,9 @@ def main():
               bgrad_counts["B3"], bsc_err, bsc_ms, "B3 T81932", "index_add_ T81932"),
         entry("traverse_select (B5)", TRAVERSE_SOURCE, TRAVERSE_REPLACES,
               bunny_counts["B5"], b5_err, b5_ms, "B5", max_t_gap_on_near_ties=b5_err,
-              rays=BW * BH, plain_rays=SUBSET),
+              rays=BW * BH, plain_rays=SUBSET, bound_old_count_ms=b5_old[0]),
+        entry("traverse tables (B5t: B5's tree and triangle records)", TRAVERSE_SOURCE,
+              TABLES_REPLACES, bunny_counts["B5t"], b5t[1], b5t[2], "B5t"),
         entry("rows_segment (B6)", ROWS_SOURCE, ROWS_REPLACES, bunny_counts["B6"],
               b6_err["B6"], b6_ms["B6"], "B6"),
         entry("rows_segment (lane flags, B6l)", ROWS_SOURCE, ROWS_LANE_REPLACES,
@@ -2592,7 +2803,9 @@ def main():
               ("B11", "nearest_shade_culled (B11, entry over B4c with the d'z test)",
                gate_counts["B11"]))),
         *(entry(label, MICRO_SOURCE, MICRO_REPLACES[k], micro_counts[n], micro[k][3],
-                micro[k][:3], k if k in ("B13", "B14") else f"B12 {k}", rays=491_520,
+                (*micro[k][:3], *((cublas_ms,) if k == "matmul_only" else ())),
+                k if k in ("B13", "B14") else f"B12 {k}",
+                "cuBLAS B12" if k == "matmul_only" else None, rays=491_520,
                 **({"bound_f32_cuda_cores_ms": f32_cores} if k not in ("B13", "B14") else {}))
           for k, label, n in (
               ("full", "selection_micro full (B12, body_v3)", "B12 full"),

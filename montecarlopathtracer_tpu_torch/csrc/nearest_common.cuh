@@ -1,20 +1,29 @@
-// Nearest-hit selection shared by the kernels that test rays against
-// triangles one ray per thread: the split-path intersector B4/B4c
-// (nearest_shade.cu), the fused intersector's index kernel B7
-// (nearest_triangle.cu) and the traversal walk B5 (traverse_select.cu,
-// which visits chunks in its own order). The whole segment B1/B1l/B1c
-// (segment_fused.cu) has its own loop in front of the same pair test and
-// shares the chunk-cull test.
+// Nearest-hit pieces shared by the selection kernels: the exact
+// ray-triangle pair test that decides every winner (`pair_test`), the
+// slab test of chunk culling and of the traversal walk's tree
+// (`slab_box`), and the one-ray-per-thread loop `nearest_in_block` of the
+// fused intersector's index kernel B7 (nearest_triangle.cu).
 //
-// One thread per ray. A block stages the 12 geometry floats of
-// kChunk triangles at a time in shared memory (three float4 each:
-// [m_k0 m_k1 m_k2 -m_a_k] for k = 0..2), so each triangle is read from
-// global memory once per block and broadcast to its threads. The pair
-// test is the reference's accept test in plain f32 with an IEEE
+// The pair test is the reference's accept test in plain f32 with an IEEE
 // division: beta > 0, gamma > 0, t > 0, 1 - (beta + gamma) > 0, written
 // as explicit comparisons so that a NaN (zero geometry, a parallel ray)
-// never wins. Chunk culling (B1c, B4c, B5) slab-tests each lane's
-// segment [0, best t] against the chunk's box widened by a small margin.
+// never wins. Every selection calls this one function (B1/B1l/B1c and
+// B4/B4c through sphere_select.cuh's `select_two`, B5's leaves in
+// traverse_select.cu, B7 here), so their winners agree bit for bit.
+//
+// `nearest_in_block`: one thread per ray; a block stages the 12 geometry
+// floats of kChunk triangles at a time in shared memory (three float4
+// each: [m_k0 m_k1 m_k2 -m_a_k] for k = 0..2), so each triangle is read
+// from global memory once per block and broadcast to its threads. What
+// bounds it on an H100 is the ~40 f32 operations of every ray x triangle
+// pair; B4 runs the same selection in about half its time behind
+// sphere_select.cuh's division-free rejection. B7 keeps this loop as the
+// bit-for-bit control of that rejection.
+//
+// Chunk culling (B1c, B4c) slab-tests each lane's segment [0, best t]
+// against a chunk's box widened by a small margin; the walk's tree (B5)
+// widens its boxes further by its triangles' sphere slack (`slab_box`'s
+// ext).
 
 #pragma once
 
@@ -59,16 +68,16 @@ __device__ __forceinline__ float box_margin(float lo, float hi) {
   return 1e-5f * (1.0f + fmaxf(fabsf(lo), fabsf(hi)));
 }
 
-// True when the ray's segment [0, tmax] can enter the widened box of
-// chunk j (clo/chi f32[nc, 3]).
-__device__ __forceinline__ bool slab_reach(const Slab& s, const float* __restrict__ clo,
-                                           const float* __restrict__ chi, int j, float tmax) {
+// The entry distance tn of the ray into the box [lo, hi] widened by
+// box_margin + ext on every side, and whether its segment [0, tmax]
+// reaches that box.
+__device__ __forceinline__ bool slab_box(const Slab& s, const float lo_[3], const float hi_[3],
+                                         float ext, float tmax, float& tn_out) {
   float tn = -kBig, tf = kBig;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float lo0 = clo[3 * j + k], hi0 = chi[3 * j + k];
-    const float m = box_margin(lo0, hi0);
-    const float lo = lo0 - m, hi = hi0 + m;
+    const float m = box_margin(lo_[k], hi_[k]) + ext;
+    const float lo = lo_[k] - m, hi = hi_[k] + m;
     if (s.flat[k]) {
       if (s.o[k] < lo || s.o[k] > hi) tn = kBig, tf = -kBig;
     } else {
@@ -77,7 +86,16 @@ __device__ __forceinline__ bool slab_reach(const Slab& s, const float* __restric
       tf = fminf(tf, fmaxf(t0, t1));
     }
   }
+  tn_out = tn;
   return tn <= tf && tf >= 0.0f && tn <= tmax;
+}
+
+// True when the ray's segment [0, tmax] can enter the widened box of
+// chunk j (clo/chi f32[nc, 3]).
+__device__ __forceinline__ bool slab_reach(const Slab& s, const float* __restrict__ clo,
+                                           const float* __restrict__ chi, int j, float tmax) {
+  float tn;
+  return slab_box(s, clo + 3 * j, chi + 3 * j, 0.0f, tmax, tn);
 }
 
 // Stage the geometry of triangles [base, base + n) of a table with
@@ -113,22 +131,19 @@ __device__ __forceinline__ Pair pair_test(float4 gx, float4 gy, float4 gz, V3 o,
           beta > 0.0f && gamma > 0.0f && t > 0.0f && 1.0f - (beta + gamma) > 0.0f};
 }
 
-// Test one lane against the n staged triangles base .. base + n - 1.
-// kDzTest: also reject |d'_z| <= 1e-12 explicitly (the TPU kernels
-// `_nearest_kernel` and `_nearest_shade_culled_kernel` do; the others
-// rely on NaN and inf comparisons).
-// kOrdered: every earlier tile held smaller indices, so a strict `<` on
-// t keeps the smallest index of a tie; otherwise (B5 visits chunks front
-// to back, not in index order) an equal t goes to the smaller index.
-template <bool kDzTest, bool kOrdered>
+// Test one lane against the n staged triangles base .. base + n - 1, in
+// ascending order after every earlier tile: a strict `<` on t keeps the
+// smallest index of a tie. kDzTest: also reject |d'_z| <= 1e-12
+// explicitly (the TPU kernels `_nearest_kernel` and
+// `_nearest_shade_culled_kernel` do; the others rely on NaN and inf
+// comparisons).
+template <bool kDzTest>
 __device__ __forceinline__ void test_tile(const float4* geom, int n, int base, V3 o, V3 d,
                                           Hit& h) {
   for (int k = 0; k < n; ++k) {
     const Pair p = pair_test(geom[3 * k], geom[3 * k + 1], geom[3 * k + 2], o, d);
-    const int i = base + k;
-    if (p.inside && (!kDzTest || fabsf(p.w) > 1e-12f) &&
-        (p.t < h.t || (!kOrdered && p.t == h.t && i < h.i))) {
-      h = {p.t, p.beta, p.gamma, i};
+    if (p.inside && (!kDzTest || fabsf(p.w) > 1e-12f) && p.t < h.t) {
+      h = {p.t, p.beta, p.gamma, base + k};
     }
   }
 }
@@ -136,32 +151,18 @@ __device__ __forceinline__ void test_tile(const float4* geom, int n, int base, V
 // The nearest accepted triangle of each lane of the block, over the T
 // triangles of `table`, scanned in ascending order one staged tile at a
 // time. Lanes with act = false test nothing and come back with t = kBig.
-// With kCull (clo/chi f32[ceil(T / kChunk), 3], the table in Morton
-// order), a lane tests a tile only when its segment [0, best t] reaches
-// the tile's chunk box, and the block skips a tile that no lane reaches
-// (lanes that are not live vote no). `tested` is the number of tiles
-// the block tested. Every thread of the block must call this: it holds
-// the block's barriers.
-template <bool kCull, bool kDzTest>
+// Every thread of the block must call this: it holds the block's
+// barriers.
+template <bool kDzTest>
 __device__ __forceinline__ Hit nearest_in_block(float4* geom, const float* __restrict__ table,
-                                                int stride, int T, V3 o, V3 d, bool act,
-                                                const float* __restrict__ clo,
-                                                const float* __restrict__ chi, int& tested) {
+                                                int stride, int T, V3 o, V3 d, bool act) {
   Hit h = {kBig, 0.0f, 0.0f, -1};
-  tested = 0;
   if (!__syncthreads_or(act)) return h;
-  const Slab s = make_slab(o, d);  // dead code without kCull
   for (int base = 0; base < T; base += kChunk) {
-    bool test = act;
-    if constexpr (kCull) {
-      test = act && slab_reach(s, clo, chi, base / kChunk, h.t);
-      if (!__syncthreads_or(test)) continue;
-    }
-    ++tested;
     const int n = min(kChunk, T - base);
     stage_geometry(geom, table, stride, base, n);
     __syncthreads();
-    if (test) test_tile<kDzTest, true>(geom, n, base, o, d, h);
+    if (act) test_tile<kDzTest>(geom, n, base, o, d, h);
     __syncthreads();
   }
   return h;

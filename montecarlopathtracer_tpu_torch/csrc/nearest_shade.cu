@@ -11,72 +11,56 @@
 // function in other layouts; ops/nearest_variants.py unpacks their
 // layouts into this kernel's row table and launches it. For them the
 // launch argument `dz_test` adds the explicit |d'_z| > 1e-12 test of
-// `_nearest_shade_culled_kernel` (a template instance, as for B7); the
-// entries regrid their chunk boxes to this kernel's 128-triangle tiles.
+// `_nearest_shade_culled_kernel` (a template instance); the entries
+// regrid their chunk boxes to this kernel's 128-triangle tiles.
 //
-// What bounds it on an H100: as B1 (segment_fused.cu), the f32 pair
-// tests, ~15 FMAs and one IEEE division per ray x triangle pair (per
-// pair of the tested chunks with culling); the outputs are 37 floats per
-// ray (idx, tbg, the 32-float shading row), 0.3 ms of writes at
-// 3.35 TB/s for 480,000 rays.
+// What bounds it on an H100: as B1's selection, f32 arithmetic over the
+// ray x triangle pairs (over the pairs of the chunks each group of 128
+// rays tests, with culling): the 17-operation sphere test on every pair,
+// the ~40-operation exact test on the pairs inside a sphere. The outputs
+// are 37 floats per ray (idx, tbg, the 32-float shading row): 71 MB,
+// 0.021 ms of writes at 3.35 TB/s, for 480,000 rays.
 //
-// What the design does about it: B1's selection with its epilogue left
-// out (nearest_common.cuh, shared with B1, B5 and B7): one thread per
-// ray, the geometry of 128 triangles at a time staged in shared memory,
-// strict `<` in ascending order (smallest index wins a tie), explicit
-// comparisons so NaN never wins, culling as a template instance chosen
-// by the launch argument `cull`. The winner's shading row is read once
-// per ray from global memory as eight float4 and written lane-major, so
-// each of the 32 output rows is one coalesced store per warp. The TPU
-// kernel's one-hot MXU row fetch and its split-bf16 contraction are
-// TPU-only and not ported.
+// What the design does about it: B1's selection without its epilogue,
+// sphere_select.cuh's `select_two`, the same loop that segment_fused.cu
+// runs (so B1's winners are B4's and B1c's are B4c's, `tested` included):
+// the widened bounding sphere of each triangle rejects a pair without a
+// division, and only a pair inside it runs nearest_common.cuh's exact
+// `pair_test`; the table is staged once per block (a cp.async ring of two
+// 128-triangle tiles above 760 triangles); two rays per thread; strict
+// `<` in ascending order (the smallest index wins a tie), explicit
+// comparisons so NaN never wins. The sphere rejection drops only pairs
+// that the exact test would drop, so the winners are those of the
+// one-ray-per-thread loop `nearest_in_block` that B7 (nearest_triangle.cu)
+// keeps: with `dz_test` and no cull, B4's idx is B7's bit for bit. The
+// winner's shading row is read once per ray from global memory as eight
+// float4 and written lane-major, so each of the 32 output rows is one
+// coalesced store per warp. The TPU kernel's one-hot MXU row fetch and
+// its split-bf16 contraction are TPU-only and not ported.
 //
 // Contract (that of nearest_shade_full): rows f32[T, 48]; pos/dir
 // f32[3, R]; live bool[R]; with cull, the table in Morton order and
 // clo/chi f32[nc, 3], nc = ceil(T / 128). Outputs idx i32[R] (-1 =
 // miss), tbg f32[4, R] = (t or 3e38, beta * hit, gamma * hit, hit) and
 // shade f32[32, R] = rows[idx, 12:44] (0 on a miss); with `tested`
-// non-null, tested[block] = the chunks the block of 128 rays tested.
-// A lane that is not live comes back as a miss (the TPU kernel computed
-// such lanes' winners when their tile had a live lane; the integrator
-// reads neither).
+// non-null, tested[g] = the chunks that the group of rays
+// [128 g, 128 g + 128) tested. A lane that is not live comes back as a
+// miss (the TPU kernel computed such lanes' winners when their tile had a
+// live lane; the integrator reads neither).
 
 #include <cuda_runtime.h>
 
-#include "nearest_common.cuh"
 #include "segment_common.cuh"
+#include "sphere_select.cuh"
 
 namespace {
 
 using namespace seg;
 
-constexpr int kThreads = 128;  // rays per block
-
-template <bool kCull, bool kDzTest>
-__global__ void __launch_bounds__(kThreads)
-nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restrict__ pos,
-                     const float* __restrict__ dir, const bool* __restrict__ live, int R,
-                     const float* __restrict__ clo, const float* __restrict__ chi,
-                     int* __restrict__ idx_out, float* __restrict__ tbg,
-                     float* __restrict__ shade, int* __restrict__ tested_out) {
-  __shared__ float4 geom[kChunk * 3];
-
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = r < R;
-  const bool act = in_range && live[r];
-  V3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 1.0f};
-  if (in_range) {
-    o = load3(pos, R, r);
-    d = load3(dir, R, r);
-  }
-
-  // Every thread reaches every barrier: no return before the selection ends.
-  int tested;
-  const Hit best =
-      nearest_in_block<kCull, kDzTest>(geom, rows, 48, T, o, d, act, clo, chi, tested);
-  if (tested_out != nullptr && threadIdx.x == 0) tested_out[blockIdx.x] = tested;
-  if (!in_range) return;
-
+// One ray's outputs (see the contract).
+__device__ __forceinline__ void store_hit(const float* __restrict__ rows, int r, int R,
+                                          const Hit& best, int* __restrict__ idx_out,
+                                          float* __restrict__ tbg, float* __restrict__ shade) {
   const bool hit = best.t < kBig;  // lanes that are not live tested nothing
   const size_t R_ = static_cast<size_t>(R);
   idx_out[r] = hit ? best.i : -1;
@@ -96,6 +80,28 @@ nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restr
   }
 }
 
+template <bool kCull, bool kDzTest>
+__global__ void __launch_bounds__(kSelThreads)
+nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restrict__ pos,
+                     const float* __restrict__ dir, const bool* __restrict__ live, int R,
+                     const float* __restrict__ clo, const float* __restrict__ chi,
+                     int* __restrict__ idx_out, float* __restrict__ tbg,
+                     float* __restrict__ shade, int* __restrict__ tested_out) {
+  const int ra_i = blockIdx.x * kSelRays + threadIdx.x, rb_i = ra_i + kSelThreads;
+  const bool in_a = ra_i < R, in_b = rb_i < R;
+  const bool act_a = in_a && live[ra_i], act_b = in_b && live[rb_i];
+  const V3 o0 = {0.0f, 0.0f, 0.0f}, d0 = {0.0f, 0.0f, 1.0f};
+  Ray ra = make_ray(in_a ? load3(pos, R, ra_i) : o0, in_a ? load3(dir, R, ra_i) : d0);
+  Ray rb = make_ray(in_b ? load3(pos, R, rb_i) : o0, in_b ? load3(dir, R, rb_i) : d0);
+
+  // Every thread reaches every barrier: no return before the selection ends.
+  int tested_a, tested_b;
+  select_two<kCull, kDzTest>(rows, T, ra, act_a, rb, act_b, clo, chi, tested_a, tested_b);
+  store_tested(tested_out, R, tested_a, tested_b);
+  if (in_a) store_hit(rows, ra_i, R, ra.h, idx_out, tbg, shade);
+  if (in_b) store_hit(rows, rb_i, R, rb.h, idx_out, tbg, shade);
+}
+
 }  // namespace
 
 // Launches the selection on `stream` (the cull instance when `cull` is
@@ -106,12 +112,13 @@ extern "C" int nearest_shade_launch(const float* rows, int T, const float* pos,
                                     const float* chi, int cull, int dz_test, int* idx,
                                     float* tbg, float* shade, int* tested, void* stream) {
   if (R > 0) {
-    const int blocks = (R + kThreads - 1) / kThreads;
+    const int blocks = (R + seg::kSelRays - 1) / seg::kSelRays;
     auto kernel = cull ? (dz_test ? nearest_shade_kernel<true, true>
                                   : nearest_shade_kernel<true, false>)
                        : (dz_test ? nearest_shade_kernel<false, true>
                                   : nearest_shade_kernel<false, false>);
-    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<blocks, seg::kSelThreads, seg::select_smem_bytes(T),
+             static_cast<cudaStream_t>(stream)>>>(
         rows, T, pos, dir, live, R, clo, chi, idx, tbg, shade, tested);
   }
   return static_cast<int>(cudaGetLastError());

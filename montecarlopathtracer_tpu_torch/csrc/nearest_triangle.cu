@@ -9,13 +9,15 @@
 // differentiable torch ops (`refine_hit`).
 //
 // What bounds it on an H100: the f32 pair tests, ~15 FMAs and one IEEE
-// division per ray x triangle pair, as B1 and B4; it writes 4 bytes per
-// ray.
+// division per ray x triangle pair; it writes 4 bytes per ray.
 //
-// What the design does about it: the selection of nearest_common.cuh
-// (shared with B1, B4 and B5), one thread per ray, the geometry of 128
-// triangles at a time staged in shared memory, strict `<` in ascending
-// order (smallest index wins a tie). The TPU kernel reads the
+// What the design does about it: nearest_common.cuh's one-ray-per-thread
+// loop `nearest_in_block` over the `pair_test` that every selection
+// calls, the geometry of 128 triangles at a time staged in shared
+// memory, strict `<` in ascending order (smallest index wins a tie).
+// B4 (nearest_shade.cu) runs the same selection behind a sphere
+// rejection; with its `dz_test` it gives this kernel's winners bit for
+// bit, and this loop stays as that control. The TPU kernel reads the
 // transforms as w f32[6, 8, T] for its MXU contraction; this one reads
 // the same values as a geometry table f32[T, 12] (`pack_geom_rows`:
 // [m_k0 m_k1 m_k2 -m_a_k] for k = 0..2) whose rows are zero for invalid
@@ -49,9 +51,7 @@ nearest_triangle_kernel(const float* __restrict__ geom_table, int T,
     o = load3(pos, R, r);
     d = load3(dir, R, r);
   }
-  int tested;
-  const Hit best = nearest_in_block<false, true>(geom, geom_table, 12, T, o, d, in_range,
-                                                 nullptr, nullptr, tested);
+  const Hit best = nearest_in_block<true>(geom, geom_table, 12, T, o, d, in_range);
   if (in_range) idx_out[r] = best.t < kBig ? best.i : -1;
 }
 

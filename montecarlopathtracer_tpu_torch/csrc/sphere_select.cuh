@@ -1,0 +1,361 @@
+// The selection loop of the whole segment B1/B1l/B1c (segment_fused.cu)
+// and the split path's intersector B4/B4c (nearest_shade.cu): the nearest
+// accepted triangle of two rays per thread over a whole row table, behind
+// a division-free rejection by each triangle's widened bounding sphere.
+// The traversal walk B5 (traverse_select.cu) tests its leaves with the
+// same sphere, precomputed once per table (`triangle_sphere_split`).
+//
+// What bounds it on an H100: f32 arithmetic over the ray x triangle
+// pairs. The sphere test is 17 operations a pair; the exact test of
+// nearest_common.cuh's `pair_test` (six dot products, an IEEE division,
+// beta and gamma, four compares, ~40 operations) runs only on the pairs
+// that pass it.
+//
+// What the design does about it:
+// - a division-free rejection first. Each block derives a bounding
+//   sphere of every triangle from its geometry rows (the vertices are
+//   m^-1 (m_a + {0, e1, e2})), widened by a slack that covers the f32
+//   rounding of the sphere itself and of the exact test for the origins
+//   of the block's rays (see `triangle_sphere`); a pair whose ray line
+//   misses the widened sphere cannot be accepted. The test is 17
+//   operations without a branch, and in the Cornell box few pairs and
+//   few warps pass it. Only a pair that passes runs the exact test,
+//   unchanged, so the winners, t, beta and gamma are the bits of the one-
+//   ray-per-thread loop `nearest_in_block` over the same `pair_test`
+//   (B7, nearest_triangle.cu, is that control);
+// - the table staged once per block when it fits in 48 KB of dynamic
+//   shared memory (T <= 760, 64 bytes a triangle: geometry and sphere;
+//   the Cornell box's 652 take 41.7 KB, so five blocks fit on an SM): one
+//   barrier, then each warp runs through all triangles without another.
+//   A larger table goes through a ring of two 128-triangle tiles filled by
+//   cp.async, so the next tile loads while the current one is tested;
+// - two rays per thread (rays r and r + 128 of a 256-ray block) and the
+//   spheres of four triangles at a time, so each sphere read from shared
+//   memory serves two rays and eight independent tests interleave.
+// Culling (kCull) takes the triangles in Morton order with one box per
+// 128-triangle chunk: each lane slab-tests the chunk's box against its
+// segment [0, best t], and each group of 128 rays (the rays r of the
+// block, and the rays r + 128) votes; a chunk that neither group reaches
+// is skipped, and `tested` counts, per group of 128 rays, the chunks it
+// voted for. kDzTest adds the explicit |d'_z| > 1e-12 test of the TPU
+// kernels `_nearest_kernel` and `_nearest_shade_culled_kernel`. Selection
+// runs in plain f32: no tensor cores (TF32 or bf16 picks wrong winners
+// near edges) and IEEE division (compile without --use_fast_math).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "nearest_common.cuh"
+#include "segment_common.cuh"
+
+namespace seg {
+
+constexpr int kSelThreads = 128;              // threads per block; each takes two rays
+constexpr int kSelRays = 2 * kSelThreads;     // rays per block: r and r + kSelThreads
+constexpr int kWholeMax = 760;                // triangles staged at once: 64 B each, < 48 KB
+constexpr int kUnroll = 4;                    // triangles whose spheres are tested together
+constexpr int kTileFloat4 = 7 * kChunk;       // the ring: two tiles of geometry, one of spheres
+constexpr float kShrink = 1.0f - 0x1p-18f;
+
+// One ray of a thread: origin, direction, d.d and d.d (1 - 2^-18) for
+// the sphere test, and its best hit so far.
+struct Ray {
+  V3 o, d;
+  float dd, ddp;
+  Hit h;
+};
+
+__device__ __forceinline__ Ray make_ray(V3 o, V3 d) {
+  Ray r;
+  r.o = o;
+  r.d = d;
+  r.dd = dot(d, d);
+  r.ddp = r.dd * kShrink;
+  r.h = {kBig, 0.0f, 0.0f, -1};
+  return r;
+}
+
+__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+__device__ __forceinline__ V3 axpy(float s, V3 a, V3 b) {
+  return {s * a.x + b.x, s * a.y + b.y, s * a.z + b.z};
+}
+
+// What the widened bounding sphere of one triangle needs from its
+// geometry rows g_k = [m_k | -m_a_k]: center, rho (the radius of the
+// exact sphere), E = 2^-16 kappa, |c|, n_inv = |m^-1|_F, |m_a|, and
+// whether the triangle is well-conditioned (kappa < 2^16).
+//
+// The rows map a point p to (beta, gamma, z') = m p - m_a, so the
+// vertices are A = m^-1 m_a, B = A + m^-1 e_x and C = A + m^-1 e_y; the
+// columns of m^-1 are the cross products of the rows over det m. The
+// slack: the exact test accepts a pair only if its (beta, gamma) lie in
+// the unit triangle, and its f32 values of o', d', t, beta, gamma differ
+// from the real ones by at most ~10 u kappa (2|o| + |X| + |m^-1| |m_a|) in
+// world units, X the hit point and kappa = |m|_F |m^-1|_F; the sphere
+// computed here in f32 is off by ~10 u kappa |m^-1| (|m_a| + 1) (u =
+// 2^-24). With E = 2^-16 kappa the radius rho + E (2|o| + |c| + rho +
+// |m^-1| (|m_a| + 1)) covers both with a factor of 8 and more; it is
+// raised by 2^-16 more against its own rounding and that of the test. A
+// triangle with kappa >= 2^16, a zero determinant or any non-finite value
+// gets an infinite radius: every ray tests it exactly.
+struct SphereParts {
+  V3 ctr;
+  float rho, E, cn, n_inv, an;
+  bool ok;
+};
+
+__device__ __forceinline__ SphereParts sphere_parts(float4 g0, float4 g1, float4 g2) {
+  const V3 r0 = {g0.x, g0.y, g0.z}, r1 = {g1.x, g1.y, g1.z}, r2 = {g2.x, g2.y, g2.z};
+  const V3 a = {-g0.w, -g1.w, -g2.w};
+  const V3 c0 = cross3(r1, r2), c1 = cross3(r2, r0), c2 = cross3(r0, r1);
+  const float inv = 1.0f / dot(r0, c0);
+  const V3 ex = {c0.x * inv, c0.y * inv, c0.z * inv};
+  const V3 ey = {c1.x * inv, c1.y * inv, c1.z * inv};
+  const V3 va = axpy(a.z, c2, axpy(a.y, c1, V3{a.x * c0.x, a.x * c0.y, a.x * c0.z}));
+  const V3 A = {va.x * inv, va.y * inv, va.z * inv};
+  const V3 mid = {(ex.x + ey.x) / 3.0f, (ex.y + ey.y) / 3.0f, (ex.z + ey.z) / 3.0f};
+  SphereParts p;
+  p.ctr = {A.x + mid.x, A.y + mid.y, A.z + mid.z};
+  const V3 db = {ex.x - mid.x, ex.y - mid.y, ex.z - mid.z};
+  const V3 dc = {ey.x - mid.x, ey.y - mid.y, ey.z - mid.z};
+  p.rho = sqrtf(fmaxf(dot(mid, mid), fmaxf(dot(db, db), dot(dc, dc))));
+  const float n_m = sqrtf(dot(r0, r0) + dot(r1, r1) + dot(r2, r2));
+  p.n_inv = sqrtf(dot(c0, c0) + dot(c1, c1) + dot(c2, c2)) * fabsf(inv);
+  const float kappa = n_m * p.n_inv;
+  p.E = kappa * 0x1p-16f;
+  p.cn = sqrtf(dot(p.ctr, p.ctr));
+  p.an = sqrtf(dot(a, a));
+  p.ok = kappa < 0x1p16f;
+  return p;
+}
+
+// The widened sphere of one triangle for rays whose origins have
+// |o| <= omax: its center and the square of its radius (+inf when the
+// triangle is ill-conditioned or not finite).
+__device__ void triangle_sphere(float4 g0, float4 g1, float4 g2, float omax, float4& s) {
+  const SphereParts p = sphere_parts(g0, g1, g2);
+  const float K = (p.rho + p.E * (2.0f * omax + p.cn + p.rho + p.n_inv * (p.an + 1.0f))) *
+                  (1.0f + 0x1p-16f);
+  if (p.ok && K < 0x1p60f) {
+    s = make_float4(p.ctr.x, p.ctr.y, p.ctr.z, K * K);
+  } else {
+    s = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));  // +inf
+  }
+}
+
+// The same sphere split for a table computed once for all rays: center
+// and K0 = the radius at |o| = 0 (s.w, +inf when the triangle gets an
+// infinite radius), and e = the radius' growth per unit of |o|, so that a
+// ray with |o| = on takes the radius fmaf(e, on, K0) (e = 0 with an
+// infinite K0). slack = K0 - rho: how far beyond the triangle the exact
+// test can accept a hit for |o| = 0 (+inf with an infinite K0).
+__device__ void triangle_sphere_split(float4 g0, float4 g1, float4 g2, float4& s, float& e,
+                                      float& slack) {
+  const SphereParts p = sphere_parts(g0, g1, g2);
+  const float K0 = (p.rho + p.E * (p.cn + p.rho + p.n_inv * (p.an + 1.0f))) * (1.0f + 0x1p-16f);
+  if (p.ok && K0 < 0x1p60f) {
+    s = make_float4(p.ctr.x, p.ctr.y, p.ctr.z, K0);
+    e = 2.0f * p.E * (1.0f + 0x1p-16f);
+    slack = K0 - p.rho;
+  } else {
+    s = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));  // +inf
+    e = 0.0f;
+    slack = s.w;
+  }
+}
+
+// False only if the ray's line misses the widened sphere of center c and
+// squared radius w: then no point of the triangle is near enough to the
+// ray for the exact test to accept it. With v = c - o, b = v.d: the
+// squared distance of c from the line times d.d is v.v d.d - b^2,
+// computed here within 14 u v.v d.d; the factor (1 - 2^-18) on d.d covers
+// that, and the 2^-16 on the radius the rounding of r^2 d.d. NaN fails.
+// No branch: the tests of both rays of a thread and of kUnroll triangles
+// interleave.
+__device__ __forceinline__ bool sphere_hit(float cx, float cy, float cz, float w,
+                                           const Ray& r) {
+  const float vx = cx - r.o.x, vy = cy - r.o.y, vz = cz - r.o.z;
+  const float b = vx * r.d.x + vy * r.d.y + vz * r.d.z;
+  const float vv = vx * vx + vy * vy + vz * vz;
+  return fmaf(-b, b, vv * r.ddp) <= w * r.dd;
+}
+
+// The sphere s (center, r^2) of `triangle_sphere`.
+__device__ __forceinline__ bool sphere_pass(float4 s, const Ray& r) {
+  return sphere_hit(s.x, s.y, s.z, s.w, r);
+}
+
+// The exact pair test, that of nearest_common.cuh's `test_tile`
+// (ascending order): the same `pair_test`.
+template <bool kDzTest>
+__device__ __forceinline__ void exact_test(const float4* g, int i, Ray& r) {
+  const Pair p = pair_test(g[0], g[1], g[2], r.o, r.d);
+  if (p.inside && (!kDzTest || fabsf(p.w) > 1e-12f) && p.t < r.h.t)
+    r.h = {p.t, p.beta, p.gamma, i};
+}
+
+// Test both rays (where ta, tb) against the n staged triangles base ..
+// base + n - 1 in ascending order: the sphere tests of kUnroll triangles
+// first, then the exact tests of the pairs that passed, triangle by
+// triangle (each ray's exact tests stay in ascending order).
+template <bool kDzTest>
+__device__ __forceinline__ void test_range(const float4* geom, const float4* sph, int n,
+                                           int base, Ray& ra, bool ta, Ray& rb, bool tb) {
+  const unsigned all = (1u << kUnroll) - 1u;
+  const unsigned live_a = ta ? all : 0u, live_b = tb ? all : 0u;
+  int k = 0;
+  for (; k + kUnroll <= n; k += kUnroll) {
+    float4 s[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) s[j] = sph[k + j];
+    unsigned ma = 0, mb = 0;
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      ma |= static_cast<unsigned>(sphere_pass(s[j], ra)) << j;
+      mb |= static_cast<unsigned>(sphere_pass(s[j], rb)) << j;
+    }
+    ma &= live_a;
+    mb &= live_b;
+    if (ma | mb) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (ma & (1u << j)) exact_test<kDzTest>(geom + 3 * (k + j), base + k + j, ra);
+        if (mb & (1u << j)) exact_test<kDzTest>(geom + 3 * (k + j), base + k + j, rb);
+      }
+    }
+  }
+  for (; k < n; ++k) {
+    const float4 s = sph[k];
+    if (ta && sphere_pass(s, ra)) exact_test<kDzTest>(geom + 3 * k, base + k, ra);
+    if (tb && sphere_pass(s, rb)) exact_test<kDzTest>(geom + 3 * k, base + k, rb);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Start the copy of the geometry of triangles [base, base + n) of a
+// [T, 48] row table into geom.
+__device__ __forceinline__ void stage_async(float4* geom, const float* __restrict__ rows, int base,
+                                            int n) {
+  for (int q = threadIdx.x; q < 3 * n; q += kSelThreads)
+    cp_async16(geom + q, rows + static_cast<size_t>(base + q / 3) * 48 + 4 * (q % 3));
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void make_spheres(const float4* geom, float4* sph, int n, float omax) {
+  for (int k = threadIdx.x; k < n; k += kSelThreads)
+    triangle_sphere(geom[3 * k], geom[3 * k + 1], geom[3 * k + 2], omax, sph[k]);
+}
+
+// Bytes of dynamic shared memory a block of `select_two` takes for a
+// T-triangle table.
+__host__ __device__ constexpr int select_smem_bytes(int T) {
+  return (T <= kWholeMax ? 4 * T : kTileFloat4) * static_cast<int>(sizeof(float4));
+}
+
+// The nearest accepted triangle of both rays of every thread of a block
+// of kSelThreads threads, over the T triangles of the [T, 48] table
+// `rows` (see the notes at the top). act_a / act_b: the ray is live; a
+// ray that is not tests nothing and keeps t = kBig. tested_a / tested_b:
+// the chunks each group of 128 rays tested. Every thread of the block
+// must call this: it holds the block's barriers.
+template <bool kCull, bool kDzTest>
+__device__ __forceinline__ void select_two(const float* __restrict__ rows, int T, Ray& ra,
+                                           bool act_a, Ray& rb, bool act_b,
+                                           const float* __restrict__ clo,
+                                           const float* __restrict__ chi, int& tested_a,
+                                           int& tested_b) {
+  extern __shared__ float4 smem[];
+  __shared__ int omax_bits;  // the block's largest finite |o| of a live ray, as bits
+  tested_a = tested_b = 0;
+  if (threadIdx.x == 0) omax_bits = 0;
+  const bool any_a = __syncthreads_or(act_a), any_b = __syncthreads_or(act_b);
+  if (!any_a && !any_b) return;
+  const float on_a = sqrtf(dot(ra.o, ra.o)), on_b = sqrtf(dot(rb.o, rb.o));
+  // Non-negative floats order as their bits; an infinite or NaN origin
+  // never passes the exact test, so it needs no room in the spheres.
+  if (act_a && on_a < kBig) atomicMax(&omax_bits, __float_as_int(on_a));
+  if (act_b && on_b < kBig) atomicMax(&omax_bits, __float_as_int(on_b));
+  const int nc = (T + kChunk - 1) / kChunk;
+  if (!kCull) {
+    tested_a = any_a ? nc : 0;
+    tested_b = any_b ? nc : 0;
+  }
+  const Slab sa = make_slab(ra.o, ra.d), sb = make_slab(rb.o, rb.d);  // dead without kCull
+  const bool whole = T <= kWholeMax;
+  float4* geom = smem;
+  float4* sph = smem + (whole ? 3 * T : 6 * kChunk);
+  if (whole) {
+    stage_async(geom, rows, 0, T);
+    cp_async_wait<0>();
+    __syncthreads();
+    make_spheres(geom, sph, T, __int_as_float(omax_bits));
+    __syncthreads();
+  } else {
+    stage_async(geom, rows, 0, min(kChunk, T));
+  }
+  for (int j = 0; j < nc; ++j) {
+    const int base = j * kChunk, n = min(kChunk, T - base);
+    bool ta = act_a, tb = act_b;
+    if constexpr (kCull) {
+      ta = act_a && slab_reach(sa, clo, chi, j, ra.h.t);
+      tb = act_b && slab_reach(sb, clo, chi, j, rb.h.t);
+    }
+    if (whole) {
+      if constexpr (kCull) {
+        const bool va = __syncthreads_or(ta), vb = __syncthreads_or(tb);
+        tested_a += va;
+        tested_b += vb;
+        if (!va && !vb) continue;
+      }
+      test_range<kDzTest>(geom + 3 * base, sph + base, n, base, ra, ta, rb, tb);
+      continue;
+    }
+    // The ring: tile j + 1 loads while tile j is tested.
+    float4* tile = geom + (j & 1) * 3 * kChunk;
+    if (j + 1 < nc) {
+      stage_async(geom + ((j + 1) & 1) * 3 * kChunk, rows, base + kChunk,
+                  min(kChunk, T - base - kChunk));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kCull) {
+      const bool va = __syncthreads_or(ta), vb = __syncthreads_or(tb);
+      tested_a += va;
+      tested_b += vb;
+      if (!va && !vb) continue;
+    }
+    make_spheres(tile, sph, n, __int_as_float(omax_bits));
+    __syncthreads();
+    test_range<kDzTest>(tile, sph, n, base, ra, ta, rb, tb);
+    __syncthreads();  // before the ring refills this tile and the spheres
+  }
+}
+
+// Writes the per-group `tested` counts of one block of select_two (groups
+// of 128 rays: 2 blockIdx.x and 2 blockIdx.x + 1) when tested_out is not
+// null.
+__device__ __forceinline__ void store_tested(int* __restrict__ tested_out, int R, int tested_a,
+                                             int tested_b) {
+  if (tested_out != nullptr && threadIdx.x == 0) {
+    const int groups = (R + kSelThreads - 1) / kSelThreads;
+    if (2 * blockIdx.x < groups) tested_out[2 * blockIdx.x] = tested_a;
+    if (2 * blockIdx.x + 1 < groups) tested_out[2 * blockIdx.x + 1] = tested_b;
+  }
+}
+
+}  // namespace seg

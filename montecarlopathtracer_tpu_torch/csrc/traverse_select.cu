@@ -1,129 +1,349 @@
-// Nearest-hit selection by a front-to-back walk over Morton chunks of
-// triangles, one ray tile per block, one ray per thread.
+// Nearest-hit selection for large scenes by a per-ray walk of a binary
+// tree over runs of Morton-ordered triangles.
 //
 // Replaces the TPU kernel `_traverse_kernel`
 // (montecarlopathtracer_tpu/ops/traverse_pallas.py, entry
-// `traverse_select`). The plain PyTorch version is `traverse_select_ref`
-// in ops/traverse_walk.py: brute f32 selection over the same
-// Morton-permuted table.
+// `traverse_select`), B5, whose tiles of rays walked per-tile lists of
+// chunks (`tile_chunk_order`). The plain PyTorch version is
+// `traverse_select_ref` in ops/traverse_walk.py: brute f32 selection over
+// the same Morton-permuted table.
 //
-// The triangle axis is in Morton order, so chunk j (triangles
-// 128 j .. 128 j + 127) is spatially tight and has an AABB
-// [clo[j], chi[j]]. `tile_chunk_order` (ops/traverse_walk.py, torch
-// ops) gives each tile of 128 rays its list of reachable chunks sorted
-// by tmin, a lower bound on the hit distance of any of the tile's rays
-// in that chunk. The block walks that list:
+// The triangle axis is in Morton order, so leaf j (triangles leaf j ..
+// leaf j + leaf - 1; 32 on the render path, the 128-triangle chunks when
+// the wrapper builds the tables itself) is spatially tight and has a box
+// [lo[j], hi[j]] (ops/traverse_walk.py's `walk_boxes` leaves the large
+// triangles out of it and lists them apart). `traverse_tables_launch`
+// builds, once per table, in two launches:
+// - each triangle's 64-byte record: its widened bounding sphere
+//   (sphere_select.cuh's `triangle_sphere_split`: center and radius K0 at
+//   |o| = 0), then its three geometry rows;
+// - an implicit binary tree over the leaf boxes: node 1 is the root, node
+//   n has children 2n and 2n + 1, leaf j is node P + j (P the least power
+//   of two >= the leaf count), so node n covers a contiguous run of
+//   triangles. A leaf holds its box, `ext` = the largest slack K0 - rho of
+//   its triangles' spheres (how far beyond a triangle the exact test can
+//   accept a hit, for |o| = 0) and `grow` = the largest growth of their
+//   radii per unit of |o|; a node holds the min/max box and the largest
+//   ext and grow of its children. Padding nodes are empty (lo > hi).
 //
-// - per lane, a slab test of the ray segment [0, best t] against the
-//   chunk's box, widened by a small margin (the TPU kernel's
-//   `_slab_reach` has none, so a hit that grazes a box face could be
-//   skipped); `__syncthreads_or` skips the chunk when no lane reaches it
-//   (the slab test, the staging and the pair test are those of
-//   nearest_common.cuh, shared with the culling B1c and B4c);
-// - a reached chunk's 12 geometry floats per triangle (rows[:, 0:12])
-//   are staged in shared memory as three float4 each, and every reaching
-//   lane tests all of them with B1's accept test (IEEE division,
-//   explicit comparisons so that NaN never wins);
-// - the winner is the least (t, index) pair: a tie at equal t in a chunk
-//   visited later still goes to the smaller index, as brute selection's
-//   does (the TPU kernel let such ties differ per tile);
-// - the walk stops when the next chunk's tmin exceeds
-//   max(best t over live lanes) * (1 + 1e-6) + 1e-6 (the TPU kernel's
-//   early exit, whose slack absorbs the ~1e-7 length error of a bounce
-//   direction), and at once for a tile with no live lane.
+// `traverse_kernel` walks the tree per ray, one lane per ray at a time, in
+// persistent blocks: a lane whose walk ends takes the next ray from a
+// counter. A ray first tests the large triangles (their hits bound the
+// walk from the start), then walks with a stack of 24 entries in shared
+// memory: at an interior node it slab-tests both children's boxes, widened
+// by nearest_common.cuh's `box_margin` and by ext + grow |o| (`slab_box`),
+// against the segment [0, best t], goes to the nearer child (by entry
+// distance) and pushes the other with its entry distance; a popped node
+// whose entry distance exceeds the best t by then is dropped (tn <= best t
+// reaches, so an equal-t tie still reaches its leaf). The widening is the
+// sphere's own slack: the exact test accepts a pair only at a point within
+// that slack of the triangle (see `triangle_sphere`), so neither the tree
+// nor the sphere test drops a pair that it accepts, even for a sliver
+// whose accepted hits lie outside its vertices' box, and the f32 rounding
+// of tn, which grows with |o|, stays inside the growth term. At a leaf the
+// ray tests the sphere of eight triangles at a time (radius K0 + grow |o|,
+// 19 operations, no division), then nearest_common.cuh's exact
+// `pair_test` on the pairs inside a sphere; leaves come out of index
+// order, so a hit wins on a strict `<` in t or an equal t and a smaller
+// index: the least (t, index) pair, brute selection's rule. So the winners
+// are B4's (nearest_shade.cu, every triangle) bit for bit. The lanes of a
+// warp step through interior nodes together, then test their leaves
+// together (the while-while loop of Aila and Laine); there is no barrier
+// and no vote. Records and nodes come from global memory through the
+// read-only path (the bunny's 81,932 records, 5.2 MB, and its tree stay in
+// the 50 MB L2); the rays are Morton-sorted on this path, so neighbouring
+// lanes share leaves and L1 lines.
 //
-// Every thread reaches each barrier: lanes that are not live take part
-// in the block votes and do no other work.
+// What bounds it on an H100: the f32 arithmetic of the pairs that the
+// rays' reach needs (the sphere test on every triangle of every leaf
+// reached, the exact test on the pairs inside a sphere) is a small part
+// of its time; the longest walks' chains of dependent loads (a few hundred
+// nodes and a hundred leaves for the rays that graze the bunny) set it.
 //
-// What bounds it on an H100: the pair tests of the chunks that are
-// visited (~15 FMAs and one division each, as in B1) and, on incoherent
-// bounce tiles, the per-position slab tests and barriers. A chunk's
-// geometry is read from global memory once per block that visits it.
-//
-// Contract: rows f32[T, 48] (Morton order); clo/chi f32[nc, 3] with
-// nc = ceil(T / 128); pos/dir f32[3, R]; live bool[R]; order i32[nt, nc],
-// tmin f32[nt, nc], n_reach i32[nt] with nt = ceil(R / 128). Output
-// idx i32[R]: the winner's index in the Morton order, -1 for a miss and
-// for a lane that is not live. With `visits` non-null, visits[tile] is
-// the number of list positions walked and visits[nt + tile] the number
-// of chunks whose triangles were tested.
+// Contract: tree f32[2P, 8] (node n: lo xyz, ext, hi xyz, grow); tri
+// f32[T, 16]; big i32[nbig]; pos/dir f32[3, R]; live bool[R]; next_ray
+// an int set to 0. Output idx i32[R]: the winner's index in the Morton
+// order, -1 for a miss and for a lane that is not live. With `visits`
+// non-null, visits[r] is the number of interior nodes ray r expanded and
+// visits[R + r] the number of leaves it tested (0 for a lane that is not
+// live).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-#include <climits>
 
 #include "nearest_common.cuh"
 #include "segment_common.cuh"
+#include "sphere_select.cuh"
 
 namespace {
 
 using namespace seg;
+namespace cg = cooperative_groups;
 
-constexpr int kThreads = 128;  // rays per block = rays per tile
+constexpr int kThreads = 128;  // lanes per block of the walk
+constexpr int kTableThreads = 256;  // triangle records per block
+constexpr int kTreeThreads = 1024;  // the tree's one block
+constexpr int kStack = 24;     // stack entries per lane: a tree of up to 2^24 leaves
+constexpr int kLeafBatch = 8;  // leaf triangles whose spheres are tested at once
 
-__global__ void __launch_bounds__(kThreads)
-traverse_kernel(const float* __restrict__ rows, int T, const float* __restrict__ clo,
-                const float* __restrict__ chi, int nc, const float* __restrict__ pos,
-                const float* __restrict__ dir, const bool* __restrict__ live, int R,
-                const int* __restrict__ order, const float* __restrict__ tmin,
-                const int* __restrict__ n_reach, int* __restrict__ idx_out,
-                int* __restrict__ visits) {
-  __shared__ float4 geom[kChunk * 3];
+// One triangle per thread: its record in `tri` (sphere center and K0,
+// then its three geometry rows), its radius growth e and its slack.
+__global__ void __launch_bounds__(kTableThreads)
+triangle_records_kernel(const float* __restrict__ rows, int T, float4* __restrict__ tri4,
+                        float* __restrict__ e_out, float* __restrict__ slack_out) {
+  const int i = blockIdx.x * kTableThreads + threadIdx.x;
+  if (i >= T) return;
+  const float4* g = reinterpret_cast<const float4*>(rows + static_cast<size_t>(i) * 48);
+  const float4 g0 = g[0], g1 = g[1], g2 = g[2];
+  float4 s;
+  triangle_sphere_split(g0, g1, g2, s, e_out[i], slack_out[i]);
+  float4* rec = tri4 + 4 * static_cast<size_t>(i);
+  rec[0] = s;
+  rec[1] = g0;
+  rec[2] = g1;
+  rec[3] = g2;
+}
 
-  const int tile = blockIdx.x;
-  const int r = tile * kThreads + threadIdx.x;
-  const bool act = r < R && live[r];
-  V3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 1.0f};
-  if (r < R) {
-    o = load3(pos, R, r);
-    d = load3(dir, R, r);
-  }
-  const Slab slab = make_slab(o, d);
+__device__ __forceinline__ void store_node(float4* tree4, int n, float4 lo, float4 hi) {
+  tree4[2 * n] = lo;
+  tree4[2 * n + 1] = hi;
+}
 
-  Hit best = {kBig, 0.0f, 0.0f, INT_MAX};
-  const int n = n_reach[tile];
-  const int* ord = order + static_cast<size_t>(tile) * nc;
-  const float* tm = tmin + static_cast<size_t>(tile) * nc;
-  int walked = 0, tested = 0;
-  for (int p = 0; p < n; ++p) {
-    const int j = ord[p];
-    const bool reach = act && slab_reach(slab, clo, chi, j, best.t);
-    ++walked;
-    if (__syncthreads_or(reach)) {
-      ++tested;
-      const int base = j * kChunk;
-      const int cnt = min(kChunk, T - base);
-      stage_geometry(geom, rows, 48, base, cnt);
-      __syncthreads();
-      if (reach) test_tile<false, false>(geom, cnt, base, o, d, best);
-      __syncthreads();
+// One block: the leaves (box j; ext = the largest slack and grow = the
+// largest e of its triangles, a warp per leaf), then the levels, each
+// node the min/max box and the largest ext and grow of its children.
+__global__ void __launch_bounds__(kTreeThreads)
+tree_kernel(const float* __restrict__ clo, const float* __restrict__ chi, int T, int leaf,
+            int nc, int P, const float* __restrict__ e, const float* __restrict__ slack,
+            float4* __restrict__ tree4) {
+  const float4 elo = make_float4(kBig, kBig, kBig, 0.0f);
+  const float4 ehi = make_float4(-kBig, -kBig, -kBig, 0.0f);
+  if (threadIdx.x == 0) store_node(tree4, 0, elo, ehi);  // node 0 is not used
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int j = warp; j < P; j += kTreeThreads / 32) {
+    float ext = 0.0f, grow = 0.0f;
+    for (int i = j * leaf + lane; i < min(T, (j + 1) * leaf); i += 32) {
+      ext = fmaxf(ext, slack[i]);
+      grow = fmaxf(grow, e[i]);
     }
-    // Early exit: tmin is sorted ascending and lower-bounds every hit
-    // in the chunks after p, so once it passes every live lane's best t
-    // (with slack) nothing later can win.
-    const bool more = p + 1 < n && act && tm[p + 1] <= best.t * (1.0f + 1e-6f) + 1e-6f;
-    if (!__syncthreads_or(more)) break;
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      ext = fmaxf(ext, __shfl_xor_sync(0xffffffffu, ext, off));
+      grow = fmaxf(grow, __shfl_xor_sync(0xffffffffu, grow, off));
+    }
+    if (lane == 0) {
+      if (j < nc) {
+        store_node(tree4, P + j, make_float4(clo[3 * j], clo[3 * j + 1], clo[3 * j + 2], ext),
+                   make_float4(chi[3 * j], chi[3 * j + 1], chi[3 * j + 2], grow));
+      } else {
+        store_node(tree4, P + j, elo, ehi);
+      }
+    }
   }
-  if (visits != nullptr && threadIdx.x == 0) {
-    visits[tile] = walked;
-    visits[gridDim.x + tile] = tested;
+  __syncthreads();
+  for (int len = P / 2; len >= 1; len /= 2) {
+    for (int k = threadIdx.x; k < len; k += kTreeThreads) {
+      const int n = len + k;
+      const float4 la = tree4[4 * n], ha = tree4[4 * n + 1];
+      const float4 lb = tree4[4 * n + 2], hb = tree4[4 * n + 3];
+      store_node(tree4, n,
+                 make_float4(fminf(la.x, lb.x), fminf(la.y, lb.y), fminf(la.z, lb.z),
+                             fmaxf(la.w, lb.w)),
+                 make_float4(fmaxf(ha.x, hb.x), fmaxf(ha.y, hb.y), fmaxf(ha.z, hb.z),
+                             fmaxf(ha.w, hb.w)));
+    }
+    __syncthreads();
   }
-  if (r < R) idx_out[r] = best.t < kBig ? best.i : -1;
+}
+
+// Whether the ray's segment [0, tmax] reaches the box of node n widened
+// for a ray with |o| = on, and its entry distance tn.
+__device__ __forceinline__ bool node_reach(const float4* __restrict__ tree4, int n,
+                                           const Slab& s, float on, float tmax, float& tn) {
+  const float4 lo = __ldg(tree4 + 2 * n), hi = __ldg(tree4 + 2 * n + 1);
+  if (lo.x > hi.x) return false;  // a padding node
+  const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};
+  return slab_box(s, l, h, fmaf(hi.w, on, lo.w), tmax, tn);
+}
+
+// The sphere test of record i, with the radius K0 + grow |o| (grow >= the
+// triangle's own e).
+__device__ __forceinline__ bool record_sphere(const float4* __restrict__ tri4, int i,
+                                              float grow, float on, const Ray& r) {
+  const float4 s = __ldg(tri4 + 4 * static_cast<size_t>(i));
+  const float K = fmaf(grow, on, s.w);
+  return sphere_hit(s.x, s.y, s.z, K * K, r);
+}
+
+// The exact test of record i; the least (t, index) pair wins.
+__device__ __forceinline__ void record_exact(const float4* __restrict__ tri4, int i, Ray& r) {
+  const float4* g = tri4 + 4 * static_cast<size_t>(i) + 1;
+  const Pair p = pair_test(__ldg(g), __ldg(g + 1), __ldg(g + 2), r.o, r.d);
+  if (p.inside && (p.t < r.h.t || (p.t == r.h.t && i < r.h.i)))
+    r.h = {p.t, p.beta, p.gamma, i};
+}
+
+// Test the ray against the n triangles base .. base + n - 1 of one leaf:
+// the sphere tests of kLeafBatch triangles at once, then the exact tests
+// of those inside their spheres.
+__device__ __forceinline__ void test_leaf(const float4* __restrict__ tri4, int base, int n,
+                                          float grow, float on, Ray& r) {
+  for (int k = 0; k < n; k += kLeafBatch) {
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < kLeafBatch; ++j)
+      if (k + j < n) m |= static_cast<unsigned>(record_sphere(tri4, base + k + j, grow, on, r)) << j;
+    while (m) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1;
+      record_exact(tri4, base + k + j, r);
+    }
+  }
+}
+
+// One lane's walk: its ray, and where the walk stands.
+struct Walk {
+  Ray ray;
+  Slab slab;
+  float on;     // |o|, for the spheres and the boxes' growth
+  int node;     // the node to visit next
+  int sp;       // entries on the lane's stack
+  bool go;      // the walk has a node to visit
+  int nodes, leaves;
+};
+
+// The next node on the lane's stack that the best t does not prune; the
+// walk ends when there is none.
+__device__ __forceinline__ void pop(Walk& w, int (*stack_n)[kThreads],
+                                    float (*stack_t)[kThreads], int me) {
+  w.go = false;
+  while (w.sp > 0) {
+    --w.sp;
+    if (stack_t[w.sp][me] <= w.ray.h.t) {
+      w.node = stack_n[w.sp][me];
+      w.go = true;
+      return;
+    }
+  }
+}
+
+// Persistent blocks: each lane takes the next ray from `next_ray` when its
+// walk ends, so a long walk holds up no other lane and no block. Between
+// fetches the lanes of a warp step through interior nodes together until
+// each has a leaf to test (or its walk has ended), then test their leaves
+// together (the while-while loop of Aila and Laine).
+__global__ void __launch_bounds__(kThreads)
+traverse_kernel(int T, int leaf, const float4* __restrict__ tree4, int P,
+                const int* __restrict__ big, int nbig, const float4* __restrict__ tri4,
+                const float* __restrict__ pos, const float* __restrict__ dir,
+                const bool* __restrict__ live, int R, int* __restrict__ next_ray,
+                int* __restrict__ idx_out, int* __restrict__ visits) {
+  // The stacks, entry-major so that the lanes of a warp hit distinct banks.
+  __shared__ int stack_n[kStack][kThreads];
+  __shared__ float stack_t[kStack][kThreads];
+  const int me = threadIdx.x;
+  const float grow_all = __ldg(tree4 + 3).w;  // the root's: the largest e of all triangles
+  int r = -1;
+  Walk w;
+  w.go = false;
+  while (true) {
+    if (!w.go) {
+      if (r >= 0) {  // the lane's walk has ended
+        idx_out[r] = w.ray.h.t < kBig ? w.ray.h.i : -1;
+        if (visits != nullptr) {
+          visits[r] = w.nodes;
+          visits[R + r] = w.leaves;
+        }
+      }
+      cg::coalesced_group g = cg::coalesced_threads();
+      int base = 0;
+      if (g.thread_rank() == 0) base = atomicAdd(next_ray, static_cast<int>(g.size()));
+      r = g.shfl(base, 0) + static_cast<int>(g.thread_rank());
+      if (r >= R) break;
+      w.ray = make_ray(load3(pos, R, r), load3(dir, R, r));
+      w.nodes = w.leaves = 0;
+      if (!live[r]) continue;
+      w.slab = make_slab(w.ray.o, w.ray.d);
+      // |o| for the spheres; a NaN or overflowing |o| widens them to the
+      // largest finite radius or more (the exact test decides).
+      w.on = fminf(sqrtf(dot(w.ray.o, w.ray.o)), kBig);
+      // The large triangles, which the tree's boxes leave out, first: their
+      // hits bound the walk from the start.
+      for (int k = 0; k < nbig; ++k) {
+        const int i = __ldg(big + k);
+        if (record_sphere(tri4, i, grow_all, w.on, w.ray)) record_exact(tri4, i, w.ray);
+      }
+      float tn;
+      w.node = 1;
+      w.sp = 0;
+      w.go = node_reach(tree4, 1, w.slab, w.on, kBig, tn);
+      continue;
+    }
+    while (w.go && w.node < P) {  // interior nodes: their children's boxes
+      ++w.nodes;
+      const int c = 2 * w.node;
+      float t0, t1;
+      const bool h0 = node_reach(tree4, c, w.slab, w.on, w.ray.h.t, t0);
+      const bool h1 = node_reach(tree4, c + 1, w.slab, w.on, w.ray.h.t, t1);
+      if (h0 && h1) {  // the nearer child now, the other on the stack
+        const bool first0 = t0 <= t1;
+        stack_n[w.sp][me] = first0 ? c + 1 : c;
+        stack_t[w.sp][me] = first0 ? t1 : t0;
+        ++w.sp;
+        w.node = first0 ? c : c + 1;
+      } else if (h0 || h1) {
+        w.node = h0 ? c : c + 1;
+      } else {
+        pop(w, stack_n, stack_t, me);
+      }
+    }
+    if (w.go) {  // a leaf: its triangles
+      ++w.leaves;
+      const int base = (w.node - P) * leaf;
+      test_leaf(tri4, base, min(leaf, T - base), __ldg(tree4 + 2 * w.node + 1).w, w.on, w.ray);
+      pop(w, stack_n, stack_t, me);
+    }
+  }
 }
 
 }  // namespace
 
-// Launches the walk on `stream`, one block per tile of 128 rays;
-// returns cudaGetLastError() so the caller can raise on a refused launch.
-extern "C" int traverse_select_launch(const float* rows, int T, const float* clo,
-                                      const float* chi, int nc, const float* pos,
-                                      const float* dir, const bool* live, int R,
-                                      const int* order, const float* tmin, const int* n_reach,
+// Builds the triangle records tri f32[T, 16] and the tree f32[2P, 8] of a
+// table on `stream` (two launches; scratch f32[2, T]); returns
+// cudaGetLastError().
+extern "C" int traverse_tables_launch(const float* rows, int T, int leaf, const float* clo,
+                                      const float* chi, int nc, int P, float* tree, float* tri,
+                                      float* scratch, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* e = scratch;
+  float* slack = scratch + T;
+  triangle_records_kernel<<<(T + kTableThreads - 1) / kTableThreads, kTableThreads, 0, st>>>(
+      rows, T, reinterpret_cast<float4*>(tri), e, slack);
+  tree_kernel<<<1, kTreeThreads, 0, st>>>(clo, chi, T, leaf, nc, P, e, slack,
+                                           reinterpret_cast<float4*>(tree));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the walk on `stream` (next_ray: an int set to 0, the rays'
+// counter); returns cudaGetLastError() so the caller can raise on a
+// refused launch.
+extern "C" int traverse_select_launch(int T, int leaf, const float* tree, int P, const int* big,
+                                      int nbig, const float* tri, const float* pos,
+                                      const float* dir, const bool* live, int R, int* next_ray,
                                       int* idx, int* visits, void* stream) {
+  static int resident = 0;  // blocks that fit on the card at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, traverse_kernel, kThreads, 0);
+    resident = max(1, sms * per_sm);
+  }
   if (R > 0) {
-    const int blocks = (R + kThreads - 1) / kThreads;
+    const int blocks = min(resident, (R + kThreads - 1) / kThreads);
     traverse_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        rows, T, clo, chi, nc, pos, dir, live, R, order, tmin, n_reach, idx, visits);
+        T, leaf, reinterpret_cast<const float4*>(tree), P, big, nbig,
+        reinterpret_cast<const float4*>(tri), pos, dir, live, R, next_ray, idx, visits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,11 @@ masked; the steps are a Python loop. Intersectors
   128-triangle chunks that no ray of a block can reach (B1c);
 - ``"traverse"``, for large scenes: the triangle table is in Morton
   order, and each step is :func:`..ops.traverse_walk.traverse_select`
-  (kernel B5: a per-tile walk over reachable chunks, front to back, with
-  early exit) followed by :func:`..ops.segment_fused.rows_segment`
-  (kernel B6: the segment from the known winners);
+  (kernel B5: each ray walks a binary tree over the boxes of runs of
+  ``TW.LEAF`` triangles, nearer child first, pruned by its best t; the
+  tree and the triangles' spheres are built once per table) followed by
+  :func:`..ops.segment_fused.rows_segment` (kernel B6: the segment from
+  the known winners);
 - ``"brute"``: :func:`..ops.intersect.intersect_brute`, plain torch on
   any device (the JAX package's lax oracle), on the split path;
 - ``"fused"``: :func:`..ops.nearest_shade.intersect_fused` (kernel B7's
@@ -201,6 +203,7 @@ class SceneTables:
     perm: Optional[torch.Tensor] = None  # i64[T] the Morton order
     clo: Optional[torch.Tensor] = None  # f32[nc, 3] chunk boxes
     chi: Optional[torch.Tensor] = None
+    walk: Optional[TW.WalkTables] = None  # B5's tree and spheres ("traverse")
     lo: Optional[torch.Tensor] = None  # f32[3] scene box (ray_sort)
     hi: Optional[torch.Tensor] = None
     m: Optional[torch.Tensor] = None  # f32[T, 3, 3] transforms ("brute", "fused", "kdtree")
@@ -253,6 +256,11 @@ def scene_tables(scene: ScenePack, config: TraceConfig,
     rows = F.pack_rows_full(scene)
     if "perm" in extra:
         rows = rows[extra["perm"]]
+    if config.intersector == "traverse":
+        with torch.no_grad():
+            lo, hi, big = TW.walk_boxes(*scene.triangle_vertices(), scene.tri_valid,
+                                        extra["perm"])
+            extra["walk"] = TW.walk_tables(rows.detach(), lo, hi, leaf=TW.LEAF, big=big)
     return SceneTables(rows=rows, **extra)
 
 
@@ -266,7 +274,7 @@ def segment_step(tables: SceneTables, config: TraceConfig, pos, dir_, tput, res,
     grad = torch.is_grad_enabled()
     if config.intersector == "traverse":
         idx = TW.traverse_select(tables.rows.detach(), tables.clo, tables.chi,
-                                 pos.detach(), dir_.detach(), live)
+                                 pos.detach(), dir_.detach(), live, tables=tables.walk)
         segment = F.whole_segment_rows if grad else F.rows_segment
         return segment(tables.rows, idx, pos, dir_, tput, res, live, u1, u2, urr,
                        flags, **kw)
@@ -305,7 +313,8 @@ def make_intersect_shade(scene: ScenePack, config: TraceConfig,
                 live = torch.ones(pos3.shape[1], dtype=torch.bool, device=pos3.device)
             if config.intersector == "traverse":
                 idx = TW.traverse_select(tables.rows.detach(), tables.clo, tables.chi,
-                                         pos3.detach(), dir3.detach(), live)
+                                         pos3.detach(), dir3.detach(), live,
+                                         tables=tables.walk)
                 tbg, shade = NS.recompute_winner(tables.rows, idx, pos3, dir3)
             else:
                 _, tbg, shade = NS.nearest_shade_full_diff(tables.rows, pos3, dir3, live,

@@ -15,7 +15,9 @@ the split path's intersector outputs.
 :func:`compare_scatter` the row scatter's table, and
 :func:`compare_param_grads` the parameter gradients of a whole render.
 :func:`plain_kernels` routes every kernel wrapper to its plain version,
-so that a path can run plain on the card.
+so that a path can run plain on the card. :func:`tie_soup` builds a
+table whose winners tie at equal t across chunks, in the order that the
+traversal walk visits them.
 """
 
 from __future__ import annotations
@@ -301,8 +303,8 @@ def compare_param_grads(want, got, tol) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Route every kernel wrapper of the port (segment forward with or
-    without culling, segment from known winners, traversal walk, segment
-    backward, row scatter, the split path's nearest hit, which the
+    without culling, segment from known winners, traversal walk and its
+    tables, segment backward, row scatter, the split path's nearest hit, which the
     superseded selection entries call too, the fused intersector's index,
     the selection microkernels) to its plain-torch version, on any
     device, for the duration of the block."""
@@ -320,6 +322,7 @@ def plain_kernels():
               (F, "segment_backward", F.segment_backward_ref),
               (F, "scatter_rows", S.scatter_rows_ref),
               (TW, "traverse_select", TW.traverse_select_ref),
+              (TW, "walk_tables", TW.walk_tables_ref),
               (NS, "nearest_shade_full", NS.nearest_shade_full_ref),
               (NS, "nearest_triangle", NS.nearest_triangle_ref),
               (NS, "scatter_rows", S.scatter_rows_ref)]
@@ -331,3 +334,52 @@ def plain_kernels():
     finally:
         for (mod, name, _), fn in zip(routes, saved):
             setattr(mod, name, fn)
+
+
+def tie_soup(device="cpu", R=512, seed=0):
+    """A seeded soup of 384 triangles in three 128-triangle chunks (not in
+    Morton order) and R rays, on which every ray's nearest hit ties at
+    equal t: triangles 0..63 tile the unit square near z = 0 and
+    triangles 256..319 are exact copies of them. The rest of chunk 0 and
+    chunk 1 lie behind the square; the rest of chunk 2 lies off to the
+    side towards the rays, so the walk enters chunk 2's box before chunk
+    0's and meets the copy first. Rays start at z = 5 above the square
+    and point down. Returns the vertices a, b, c f32[T, 3], the row table
+    f32[T, 48] (geometry only), its chunk boxes clo, chi f32[3, 3] and
+    pos, dir f32[3, R]; the winner of every ray is the original (index
+    < 64), whose t equals its copy's."""
+    import torch
+
+    from .ops.intersect import triangle_transforms
+    from .ops.morton import chunk_aabbs
+
+    rng = np.random.default_rng(seed)
+    a, b, c = (np.zeros((384, 3)) for _ in range(3))
+    k = np.arange(64)
+    cell = k // 2
+    x0, y0 = (cell % 8) / 8.0, (cell // 8) / 4.0
+    z = rng.uniform(0.0, 0.1, (32, 3))[cell]
+    lower = k % 2 == 0  # two triangles per cell of 1/8 x 1/4
+    a[:64] = np.stack([x0, y0, z[:, 0]], 1)
+    b[:64] = np.stack([x0 + 0.125, np.where(lower, y0, y0 + 0.25), z[:, 1]], 1)
+    c[:64] = np.stack([np.where(lower, x0 + 0.125, x0), y0 + 0.25, z[:, 2]], 1)
+    for lo, hi, zlo, zhi in ((64, 256, -3.0, -1.0), (320, 384, 1.0, 1.2)):
+        n = hi - lo
+        base = np.stack([rng.uniform(0.0, 1.0, n), rng.uniform(0.0, 1.0, n),
+                         rng.uniform(zlo, zhi, n)], 1)
+        if lo == 320:  # off to the side, towards the rays
+            base[:, :2] += 3.0
+        a[lo:hi], b[lo:hi], c[lo:hi] = (base + rng.normal(size=(n, 3)) * 0.1 for _ in range(3))
+    a[256:320], b[256:320], c[256:320] = a[:64], b[:64], c[:64]
+    verts = [torch.tensor(v, dtype=torch.float32, device=device) for v in (a, b, c)]
+    m, m_a = triangle_transforms(*verts)
+    geom = torch.cat([m, -m_a[:, :, None]], dim=2).reshape(-1, 12)
+    rows = torch.cat([geom, torch.zeros(384, 36, device=device)], dim=1).contiguous()
+    valid = torch.ones(384, dtype=torch.bool, device=device)
+    clo, chi = chunk_aabbs(*verts, valid, torch.arange(384, device=device), 128)
+    o = np.stack([rng.uniform(0.02, 0.98, R), rng.uniform(0.02, 0.98, R), np.full(R, 5.0)])
+    d = np.stack([rng.normal(0.0, 0.01, R), rng.normal(0.0, 0.01, R), -np.ones(R)])
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    pos, dir_ = (torch.tensor(x, dtype=torch.float32, device=device).contiguous()
+                 for x in (o, d))
+    return verts, rows, clo, chi, pos, dir_

@@ -26,7 +26,11 @@ from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
 from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 from montecarlopathtracer_tpu_torch.ops.intersect import triangle_transforms
-from montecarlopathtracer_tpu_torch.ops.morton import chunk_aabbs, chunk_aabbs_padded
+from montecarlopathtracer_tpu_torch.ops.morton import (
+    chunk_aabbs,
+    chunk_aabbs_padded,
+    morton_order,
+)
 from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
 from montecarlopathtracer_tpu_torch.render.integrator import (
     TraceConfig,
@@ -43,6 +47,7 @@ from montecarlopathtracer_tpu_torch.testing import (
     compare_shade,
     compare_winners,
     plain_kernels,
+    tie_soup,
 )
 
 pytestmark = pytest.mark.cuda
@@ -288,19 +293,61 @@ def _waves(camera, rows):
 
 def test_traverse_kernel_matches_plain_on_card(bunny_card):
     _, camera, tables = bunny_card
+    nleaf, P = -(-tables.rows.shape[0] // tables.walk.leaf), tables.walk.leaves
     for pos, dir_, _, _, live in _waves(camera, tables.rows):
-        nt = -(-pos.shape[1] // TW.RAY_TILE)
-        visits = torch.zeros(2, nt, dtype=torch.int32, device="cuda")
+        visits = torch.full((2, pos.shape[1]), -1, dtype=torch.int32, device="cuda")
         before = TW.traverse_select.launches
         got = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
-                                 visits=visits)
+                                 tables=tables.walk, visits=visits)
         torch.cuda.synchronize()
         assert TW.traverse_select.launches == before + 1
         want = TW.traverse_select_ref(tables.rows, tables.clo, tables.chi, pos, dir_, live)
         rep = compare_winners(got, want, live=live, rows=tables.rows, pos=pos, dir_=dir_)
         assert rep["ok"], rep
-        v = visits.cpu().numpy()
-        assert (v[1] <= v[0]).all() and v[0].max() <= tables.clo.shape[0]
+        split = NS.nearest_shade_full(tables.rows, pos, dir_, live)[0]
+        assert torch.equal(got, split)
+        v = visits.cpu()
+        assert (v[:, ~live.cpu()] == 0).all() and (v >= 0).all()
+        assert v[0].max() < P and v[1].max() <= nleaf and (v[1][live.cpu()] >= 1).any()
+
+
+def test_walk_tables_kernel_matches_plain_on_card(bunny_card):
+    """B5's tables: the tree's boxes and the records' geometry bit-equal to
+    the plain version; the spheres, ext and grow within 1e-5 of their
+    scale (the kernel contracts FMAs), infinite exactly where the plain
+    version's are."""
+    _, _, tables = bunny_card
+    before = TW.walk_tables.launches
+    got = TW.walk_tables(tables.rows.detach(), tables.clo, tables.chi)
+    torch.cuda.synchronize()
+    assert TW.walk_tables.launches == before + 1
+    want = TW.walk_tables_ref(tables.rows.detach(), tables.clo, tables.chi)
+    box = [0, 1, 2, 4, 5, 6]
+    assert torch.equal(got.tree[:, box], want.tree[:, box])
+    assert torch.equal(got.tri[:, 4:], want.tri[:, 4:])  # the geometry rows, copied
+    fin = torch.isfinite(want.tri[:, 3])
+    assert torch.equal(fin, torch.isfinite(got.tri[:, 3])) and fin.float().mean() > 0.99
+    # Centers and radii to 1e-5 of |c| + K0; grow to 1e-5 of itself; ext (a
+    # slack K0 - rho, computed by cancellation) to 1e-5 of the largest K0.
+    x, y = got.tri[fin, :4], want.tri[fin, :4]
+    scale = y[:, :3].norm(dim=1, keepdim=True) + y[:, 3:]
+    assert ((x - y).abs() <= 1e-5 * scale).all(), float(((x - y).abs() / scale).max())
+    assert ((got.tree[:, 3] - want.tree[:, 3]).abs() <= 1e-5 * y[:, 3].max()).all()
+    assert torch.allclose(got.tree[:, 7], want.tree[:, 7], rtol=1e-5, atol=0.0)
+
+
+def test_traverse_kernel_breaks_equal_t_ties_by_index(card):
+    """On ``testing.tie_soup`` every winner has an exact copy at a larger
+    index in a chunk that the walk enters first: B5 keeps the smaller
+    index, as B4 and the plain version do."""
+    _, rows, clo, chi, pos, dir_ = tie_soup("cuda", R=4096)
+    live = torch.ones(pos.shape[1], dtype=torch.bool, device="cuda")
+    got = TW.traverse_select(rows, clo, chi, pos, dir_, live)
+    want = TW.traverse_select_ref(rows, clo, chi, pos, dir_, live)
+    split = NS.nearest_shade_full(rows, pos, dir_, live)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, split)
+    assert ((got >= 0) & (got < 64)).float().mean() > 0.9
 
 
 @pytest.mark.parametrize("lane", [False, True], ids=["B6", "B6l"])
@@ -377,6 +424,13 @@ def test_traverse_wrappers_refuse_bad_inputs_on_card(bunny_card):
         TW.traverse_select(tables.rows, tables.clo[:-1], tables.chi[:-1], pos, dir_, live)
     with pytest.raises(ValueError, match="on"):
         TW.traverse_select(tables.rows.cpu(), tables.clo, tables.chi, pos, dir_, live)
+    with pytest.raises(ValueError, match="visits"):  # per ray now, not per tile
+        TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
+                           visits=torch.zeros(2, -(-pos.shape[1] // 128), dtype=torch.int32,
+                                              device="cuda"))
+    with pytest.raises(ValueError, match="walk tables"):
+        TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
+                           tables=tables.walk._replace(tri=tables.walk.tri[:-1]))
     idx = torch.zeros(pos.shape[1], dtype=torch.int64, device="cuda")
     u = torch.zeros(pos.shape[1], device="cuda")
     with pytest.raises(ValueError, match="int32"):
@@ -519,7 +573,9 @@ def test_whole_segment_winners_equal_split_kernel_on_hard_soups(card, case, T):
     """B1 and B1c pick B4's and B4c's winners bit for bit (and B1c tests
     B4c's chunks) on soups made to find a pair that the sphere rejection
     drops wrongly, through both the whole-table path (T <= 760) and the
-    tile ring."""
+    tile ring; B4 with the |d'_z| test picks B7's (the one-ray-per-thread
+    loop without a rejection); and on the soup in Morton order with its
+    chunk boxes, the walk B5 picks B4's."""
     R = 16384
     verts, rows, pos, dir_ = _hard_soup(case, T, R, seed=T, device="cuda")
     ones = torch.ones(3, R, device="cuda")
@@ -542,6 +598,17 @@ def test_whole_segment_winners_equal_split_kernel_on_hard_soups(card, case, T):
         assert torch.equal(got[0], want[0]), int((got[0] != want[0]).sum())
         if boxes:
             assert torch.equal(tested, want_tested)
+    geom = rows[:, :12].contiguous()
+    dz = NS.nearest_shade_full(rows, pos, dir_, live, dz_test=True)[0]
+    assert torch.equal(dz, NS.nearest_triangle(geom, pos, dir_))
+    valid = torch.ones(T, dtype=torch.bool, device="cuda")
+    mperm = morton_order(*verts, valid)
+    mrows = rows[mperm].contiguous()
+    mclo, mchi = chunk_aabbs_padded(*verts, valid, mperm, 128)
+    walk = TW.traverse_select(mrows, mclo, mchi, pos, dir_, live)
+    split = NS.nearest_shade_full(mrows, pos, dir_, live)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(walk, split), int((walk != split).sum())
     if case == "slivers":  # winners on both sides of the kappa = 2^16 cut
         m = rows[want[0][hits].long(), :12].double().reshape(-1, 3, 4)[:, :, :3]
         kappa = m.flatten(1).norm(dim=1) * torch.linalg.inv(m).flatten(1).norm(dim=1)

@@ -8,6 +8,15 @@
 - ``tile_chunk_order``: equal to JAX's (no lane groups), and
   conservative: every chunk that holds a live ray's nearest hit is in its
   tile's list, with tmin at most the hit distance + 1e-4.
+- The walk's tree (``walk_tables``): parents hold their children, the
+  leaves are the chunk boxes, padding nodes are empty, and every node on
+  the path to the leaf of a ray's brute winner passes the widened slab
+  test at the winner's t; a pure-torch emulation of the kernel's per-ray
+  walk (nearer child first, a stack, the sphere rejection, the least
+  (t, index) rule) gives the plain version's winners, on the bunny and on
+  a soup of built equal-t ties met in reverse index order. The
+  precomputed spheres (``sphere_split_ref``) hold every vertex of the
+  Cornell and bunny tables.
 - The walk's plain version (``traverse_select_ref``, brute f32 over the
   permuted table) against JAX ``traverse_select`` in interpret mode,
   with dead lanes: winners agree on at least 99.9% of live lanes and
@@ -62,6 +71,7 @@ from montecarlopathtracer_tpu_torch.testing import (
     compare_param_grads,
     compare_segment,
     compare_winners,
+    tie_soup,
 )
 from montecarlopathtracer_tpu_torch.utils.image import load_png
 
@@ -175,6 +185,268 @@ def test_tile_chunk_order_is_conservative(bunnies):
             assert float(tmin[i, pos_of[c]]) <= float(th) + 1e-4
             hits += 1
     assert hits > 500
+
+
+def _tree_nodes_empty(tree, nc):
+    """bool[2P]: the nodes that cover only padding leaves (and node 0)."""
+    P = tree.shape[0] // 2
+    first = torch.zeros(2 * P, dtype=torch.int64)
+    for n in range(1, 2 * P):
+        level = n.bit_length() - 1
+        first[n] = (n - (1 << level)) << (P.bit_length() - 1 - level)
+    first[0] = P
+    return first >= nc
+
+
+@pytest.mark.parametrize("nc", [1, 2, 5, 641, "bunny", "bunny_chunks"])
+def test_walk_tree_structure(bunnies, nc):
+    """The implicit tree over the leaf boxes: leaves P + j are box j (on
+    the bunny, of its runs of TW.LEAF triangles as the render path builds
+    it, or its 128-triangle chunks) with its ext and grow, padding leaves, the unused node 0 and
+    every node over padding only are empty (lo > hi, ext = grow = 0),
+    every other node is the min/max of its children's boxes with their
+    largest ext and grow, and holds them."""
+    if nc in ("bunny", "bunny_chunks"):  # the render path's leaves, and 128-triangle ones
+        ts = bunnies[1]
+        t = scene_tables(ts, TRAVERSE)
+        if nc == "bunny":
+            clo, chi, big = TW.walk_boxes(*ts.triangle_vertices(), ts.tri_valid, t.perm)
+            tree = t.walk.tree
+            assert torch.equal(big, t.walk.big) and 0 < big.shape[0] <= 12
+        else:
+            clo, chi, tree = t.clo, t.chi, TW.walk_tables(t.rows.detach(), t.clo, t.chi).tree
+        P = TW.tree_leaves(clo.shape[0])
+        assert tree.shape[0] == 2 * P == (128 if nc == "bunny" else 32)
+        ext, grow = tree[P:P + clo.shape[0], 3], tree[P:P + clo.shape[0], 7]
+        assert (ext > 0).all() and torch.isfinite(ext).all() and (grow > 0).all()
+    else:
+        rs = np.random.RandomState(nc)
+        clo = torch.from_numpy(rs.uniform(-5, 5, (nc, 3)).astype(np.float32))
+        chi = clo + torch.from_numpy(rs.uniform(0, 2, (nc, 3)).astype(np.float32))
+        ext, grow = (torch.from_numpy(rs.uniform(0, 1, nc).astype(np.float32)) for _ in "eg")
+        tree = TW.tree_ref(clo, chi, ext, grow)
+    nc = clo.shape[0]
+    P = tree.shape[0] // 2
+    assert P >= nc > P // 2 and tree.dtype == torch.float32
+    lo, hi = tree[:, 0:3], tree[:, 4:7]
+    assert torch.equal(lo[P:P + nc], clo) and torch.equal(hi[P:P + nc], chi)
+    assert torch.equal(tree[P:P + nc, 3], ext) and torch.equal(tree[P:P + nc, 7], grow)
+    empty = _tree_nodes_empty(tree, nc)
+    assert (lo[empty] > hi[empty]).all() and (lo[~empty] <= hi[~empty]).all()
+    assert (tree[empty][:, [3, 7]] == 0).all()
+    for n in range(1, P):
+        kids = [2 * n, 2 * n + 1]
+        assert torch.equal(lo[n], lo[kids].amin(0)) and torch.equal(hi[n], hi[kids].amax(0))
+        assert torch.equal(tree[n, [3, 7]], tree[kids][:, [3, 7]].amax(0))
+        for k in kids:
+            if not empty[k]:
+                assert (lo[n] <= lo[k]).all() and (hi[n] >= hi[k]).all()
+
+
+def test_walk_boxes_leave_out_the_large_triangles(bunnies):
+    """``walk_boxes`` on the subdiv-3 bunny: the large triangles are the
+    room's ten wall triangles (12 wide, against a median of 0.30; the 3-wide
+    lamp stays in), listed by Morton position in ascending order, and the
+    leaf boxes are those of the other triangles; past BIG_MAX large
+    triangles, the widest are listed."""
+    _, ts = bunnies
+    t = scene_tables(ts, TRAVERSE)
+    a, b, c = ts.triangle_vertices()
+    lo, hi, big = TW.walk_boxes(a, b, c, ts.tri_valid, t.perm)
+    assert big.dtype == torch.int32 and torch.equal(big, big.sort().values)
+    assert sorted(t.perm[big.long()].tolist()) == list(range(10))
+    keep = torch.ones_like(ts.tri_valid)
+    keep[:10] = False
+    want = M.chunk_aabbs_padded(a, b, c, keep, t.perm, TW.LEAF)
+    assert torch.equal(lo, want[0]) and torch.equal(hi, want[1])
+    rs = np.random.RandomState(9)
+    v = [torch.from_numpy(rs.uniform(0, 1, (600, 3)).astype(np.float32)) for _ in "abc"]
+    for x in v[1:]:
+        x[:] = v[0] + (x - v[0]) * 0.01  # small triangles
+    v[1][:40] += torch.arange(40.0)[:, None] + 5.0  # 40 large ones, widths 5.0 .. 44.0
+    valid = torch.ones(600, dtype=torch.bool)
+    perm = torch.arange(600)
+    assert TW.walk_boxes(*v, valid, perm)[2].shape[0] == 40
+    old = TW.BIG_MAX
+    try:
+        TW.BIG_MAX = 8
+        assert TW.walk_boxes(*v, valid, perm)[2].tolist() == list(range(32, 40))
+    finally:
+        TW.BIG_MAX = old
+
+
+_F32 = np.float32
+_BIG = _F32(3.0e38)
+
+
+def _slab_box(o, d, lo, hi, ext, tmax):
+    """nearest_common.cuh's ``slab_box`` in numpy f32: (reach, tn)."""
+    tn, tf = -_BIG, _BIG
+    for k in range(3):
+        m = _F32(1e-5) * (_F32(1.0) + max(abs(lo[k]), abs(hi[k]))) + ext
+        lk, hk = lo[k] - m, hi[k] + m
+        if abs(d[k]) < _F32(1e-12):
+            if o[k] < lk or o[k] > hk:
+                tn, tf = _BIG, -_BIG
+        else:
+            inv = _F32(1.0) / d[k]
+            t0, t1 = (lk - o[k]) * inv, (hk - o[k]) * inv
+            tn, tf = max(tn, min(t0, t1)), min(tf, max(t0, t1))
+    return bool(tn <= tf and tf >= 0 and tn <= tmax), tn
+
+
+def _node_reach(tree, n, o, d, on, tmax):
+    """The kernel's ``node_reach``: node n's box widened by ext + grow·|o|."""
+    lo, hi = tree[n, 0:3], tree[n, 4:7]
+    if lo[0] > hi[0]:
+        return False, _BIG
+    return _slab_box(o, d, lo, hi, tree[n, 3] + tree[n, 7] * on, tmax)
+
+
+def _emulated_walk(rows, walk, pos, dirs, live):
+    """csrc/traverse_select.cu's per-ray walk in torch and numpy: the
+    same tree, order, prune and tie rule; the large triangles first; each
+    reached leaf's triangles behind the sphere rejection (radius K0 + the
+    leaf's grow · |o|, in float64 on the f32 table), then the
+    plain f32 pair test (``F._select_ref`` on the leaf's rows). Returns
+    (idx i64[R], leaf order per ray)."""
+    tree = walk.tree.numpy()
+    sph = walk.tri[:, :4].double()
+    assert torch.equal(walk.tri[:, 4:], rows[:, :12])
+    P, T, leaf = walk.leaves, rows.shape[0], walk.leaf
+    out, orders = [], []
+
+    def test(tri, r, o64, d64, on, grow, best):
+        v = sph[tri, :3] - o64
+        b = v @ d64
+        K = sph[tri, 3] + float(grow) * on
+        near = (v * v).sum(1) * (d64 @ d64) - b * b <= K * K * (d64 @ d64)
+        if near.any():
+            t, i, _, _ = F._select_ref(rows[tri[near]], pos[:, r:r + 1], dirs[:, r:r + 1])
+            t, i = _F32(t[0]), int(tri[near][i[0]])
+            if t < best[0] or (t == best[0] and i < best[1]):
+                return t, i
+        return best
+
+    for r in range(pos.shape[1]):
+        order = []
+        orders.append(order)
+        if not live[r]:
+            out.append(-1)
+            continue
+        o, d = pos[:, r].numpy(), dirs[:, r].numpy()
+        o64, d64 = torch.from_numpy(o).double(), torch.from_numpy(d).double()
+        on = _F32(o64.norm())
+        best_t, best_i = test(walk.big.long(), r, o64, d64, on, tree[1, 7], (_BIG, -1))
+        stack = []
+        go, _ = _node_reach(tree, 1, o, d, on, _BIG)
+        node = 1
+        while go:
+            if node >= P:
+                base = (node - P) * leaf
+                order.append(node - P)
+                best_t, best_i = test(torch.arange(base, min(base + leaf, T)), r, o64, d64,
+                                      on, tree[node, 7], (best_t, best_i))
+            else:
+                (h0, t0), (h1, t1) = (_node_reach(tree, c, o, d, on, best_t)
+                                      for c in (2 * node, 2 * node + 1))
+                if h0 and h1:
+                    near_first = t0 <= t1
+                    stack.append((2 * node + near_first, t1 if near_first else t0))
+                    node = 2 * node + (not near_first)
+                    continue
+                if h0 or h1:
+                    node = 2 * node + (not h0)
+                    continue
+            go = False
+            while stack:
+                node, tn = stack.pop()
+                if tn <= best_t:
+                    go = True
+                    break
+        out.append(best_i if best_t < _BIG else -1)
+    return torch.tensor(out), orders
+
+
+@pytest.mark.parametrize("widen", [True, False], ids=["widened", "chunk_boxes"])
+def test_walk_tree_is_conservative(bunnies, widen):
+    """For every live ray whose brute winner is not one of the large
+    triangles (which every ray tests before the walk), each node on the
+    path from the root to the leaf that holds the winner passes the slab
+    test against the winner's t: the walk cannot prune it. On the bunny's
+    well-shaped triangles this holds with the walk's widening and also
+    with the bare leaf boxes (ext = grow = 0, only the box margin)."""
+    _, ts = bunnies
+    t_ = scene_tables(ts, TRAVERSE)
+    rows, tree, P, leaf = t_.rows, t_.walk.tree.numpy().copy(), t_.walk.leaves, t_.walk.leaf
+    if not widen:
+        tree[:, [3, 7]] = 0.0
+    pos, dirs, live = _rays(7, 1024)
+    t, tri, _, _ = F._select_ref(rows, torch.from_numpy(pos), torch.from_numpy(dirs))
+    checked, big = 0, set(t_.walk.big.tolist())
+    for r in np.flatnonzero(live):
+        if t[r] >= 3e38 or int(tri[r]) in big:
+            continue
+        n = P + int(tri[r]) // leaf
+        on = _F32(np.linalg.norm(pos[:, r].astype(np.float64)))
+        while n >= 1:
+            assert _node_reach(tree, n, pos[:, r], dirs[:, r], on, _F32(t[r]))[0], (r, n)
+            n //= 2
+        checked += 1
+    assert checked > 300
+
+
+@pytest.mark.parametrize("case", ["bunny", "ties"])
+def test_emulated_walk_matches_plain(bunnies, case):
+    """The emulated per-ray walk gives ``traverse_select_ref``'s winners
+    exactly: on 64 seeded rays over the bunny, and on ``tie_soup``, where
+    the walk meets each winner's exact copy (a larger index in a chunk it
+    enters first) before the winner and must keep the smaller index."""
+    if case == "bunny":
+        t_ = scene_tables(bunnies[1], TRAVERSE)
+        rows, clo, chi, walk = t_.rows, t_.clo, t_.chi, t_.walk
+        pos, dirs, live = (torch.from_numpy(x) for x in _rays(8, 64))
+    else:
+        _, rows, clo, chi, pos, dirs = tie_soup(R=64)
+        live = torch.ones(64, dtype=torch.bool)
+        walk = TW.walk_tables(rows, clo, chi)
+    got, orders = _emulated_walk(rows, walk, pos, dirs, live)
+    want = TW.traverse_select_ref(rows, clo, chi, pos, dirs, live, tables=walk)
+    assert torch.equal(got, want.long())
+    if case == "ties":
+        ties = [o.index(2) < o.index(0) for o, i in zip(orders, want) if 0 <= i < 64]
+        assert len(ties) > 48 and all(ties)
+    else:
+        assert (want[live] >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("scene", ["cornell", "bunny"])
+def test_precomputed_spheres_hold_every_vertex(scene):
+    """``sphere_split_ref`` (the walk's spheres, as ``triangle_sphere_split``
+    computes them): every vertex of every triangle with a finite radius
+    lies inside its sphere at |o| = 0, computed in float64 from the
+    table's f32 vertices; the radius grows with |o| (sph_e >= 0), is at
+    most twice the farthest vertex's distance plus 1e-3, and its slack
+    (the widening of the walk's boxes) is positive and below it."""
+    if scene == "cornell":
+        ts, _ = cornell.cornell_box(with_mirror_sphere=True, with_glass_sphere=True,
+                                    width=32, height=24)
+        rows = F.pack_rows_full(ts)
+        a, b, c = ts.triangle_vertices()
+    else:
+        ts, _ = bunny.bunny_scene(subdiv=3, width=32, height=24)
+        t_ = scene_tables(ts, TRAVERSE)
+        rows = t_.rows
+        a, b, c = (v[t_.perm] for v in ts.triangle_vertices())
+    sph, sph_e, slack = TW.sphere_split_ref(rows)
+    finite = torch.isfinite(sph[:, 3])
+    assert finite.float().mean() > 0.99 and (sph_e >= 0).all()
+    assert (sph_e[~finite] == 0).all() and torch.equal(torch.isfinite(slack), finite)
+    assert (slack[finite] > 0).all() and (slack[finite] < sph[finite, 3]).all()
+    ctr, K0 = sph[finite, :3].double(), sph[finite, 3].double()
+    far = torch.stack([(v[finite].double() - ctr).norm(dim=1) for v in (a, b, c)]).amax(0)
+    assert (far <= K0).all(), float((far - K0).max())
+    assert (K0 <= 2.0 * far + 1e-3).all()
 
 
 def test_traverse_select_plain_matches_jax(bunnies):
