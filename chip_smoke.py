@@ -18,7 +18,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and B1's winners (idx, and t recomputed from them) bit-equal to those
    of B4 (nearest_shade.cu, the same selection loop without the
    epilogue) on the same rays, and B4's with the |d'_z| test to those of
-   B7 (nearest_triangle.cu, the one-ray-per-thread loop without the
+   the control (nearest_triangle.cu's one-ray-per-thread loop without the
    sphere rejection);
 4. one 800x600 segment timed, kernel and plain (median of CUDA events),
    and the kernel's device time per launch beside the previous design's;
@@ -93,23 +93,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
 22. a 64x48 bunny gradient render (subdiv 3), kernel path against plain
     path;
 23. the split path's kernels (nearest_shade.cu: B4 and its cull instance
-    B4c; nearest_triangle.cu: B7) and B1c (segment_fused.cu's cull
-    instance): ptxas reports;
+    B4c; nearest_triangle.cu: B7, on the same selection loop, and its
+    control) and B1c (segment_fused.cu's cull instance): ptxas reports;
 24. B1c against its plain version (brute selection on the Morton-ordered
     table) on the glossy stage's 800x600 camera wavefront and its sorted
     first bounce with dead lanes, fixed and RR, scalar and per-lane
     flags (the segment gate), and against B1 on the same table (the same
     outputs); B1c's winners and chunks tested per group of 128 rays equal
-    to B4c's, B1's winners to B4's;
+    to B4c's, B1's winners to B4's; the chunk boxes are widened by their
+    slack (ops/cull.py, ROADMAP C15);
 25. B4, B4c and B7 against their plain versions on phase 3's Cornell
     800x600 first bounce and the glossy wavefronts: winners with the
     near-tie allowance, shading rows equal, t, beta, gamma to 1e-5 or
-    within 16 x eps32 x their rounding scale of the float64 values; B4's
-    with the |d'_z| test bit-equal to B7's;
-26. B1c, B4, B4c and B7 timed (median of 10 CUDA events, and device
-    times) beside their plain versions, B1 on the same wavefront and the
-    earlier run's figures; B4's and B4c's bounds count their sphere and
-    exact tests as B1's do;
+    within 16 x eps32 x their rounding scale of the float64 values; B7's
+    and B4's with the |d'_z| test bit-equal to the control loop's;
+26. B1c, B4, B4c, B7 and the control timed (median of 10 CUDA events, and
+    device times) beside their plain versions, B1 on the same wavefront
+    and the earlier run's figures; B4's, B4c's and B7's bounds count their
+    sphere and exact tests as B1's do; B1c's and B4c's chunks tested per
+    group of 128 rays beside the earlier run's (before the chunk slack);
 27. the cull main path: Renderer on the glossy stage, 800x600, fixed
     depth 7 + gather, 4 spp/pass, chunk_cull + ray_sort, one warm-up and
     two timed passes, B1c launches; one sample against the render
@@ -127,7 +129,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
     difference of the same-key loss (0.35 x max(|fd|, 0.05)), time per
     step;
 31. the selection microkernels (selection_micro.cu: B12, B13, B14): their
-    ptxas report; the g++ build of the native host library
+    ptxas report, and B12's tensor-core instructions (HMMA), global
+    stores and local-memory traffic counted in cuobjdump's SASS; the g++
+    build of the native host library
     (native/mcpt_native.cpp) and the Cornell box's KD tree, native build
     bit-equal to the Python one;
 32. the superseded selection entries B8-B11 (thin entries over B4 and
@@ -144,9 +148,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
     9.06 GB), with their launch counts; then each tool's own outputs
     against the plain versions on the same inputs: B8-B10 on 16,384 of
     kernel_bench's rays per scene (compare_shade), B12-B14 on all
-    491,520 rays (bit for bit), the plain versions timed at that size,
-    and cuBLAS's bf16 product (torch.matmul, in slices of rays) with a
-    column min beside B12's matmul_only;
+    491,520 rays (B12 by testing.compare_micro's rounding rule, with its
+    near-tie and boundary counts; B13 and B14 bit for bit), the plain
+    versions timed at that size, and cuBLAS's bf16 product (torch.mm, in
+    slices of rays, f32 out and bf16 out) with a column min beside B12's
+    matmul_only and matmul_bf16;
 35. the KD-tree main path: one walk of the Cornell 800x600 first bounce
     timed, then Renderer at 800x600, fixed depth 7 + gather, 1 spp per
     pass, intersector="kdtree": one warm-up and one timed pass, the film
@@ -157,13 +163,11 @@ back-to-back calls queued behind a torch.cuda._sleep, so that the card,
 not the host, sets their pace (median of three such spans, over 20); the
 event pair around one call, which includes the wrapper's host work, is
 kept beside it, and beside both the figures of this script's earlier run
-on the same phase (before B4/B4c and B5 were redesigned). Every kernel line carries its bound: the least time for its bytes (each
+on the same phase. Every kernel line carries its bound: the least time for its bytes (each
 input read once, each output written once, 3.35 TB/s) and its
 operations at the rate of their type, the H100 SXM's published rates:
 f32 (67 TFLOP/s), and for B12's contraction of bf16 inputs the bf16
-tensor cores (989 TFLOP/s). B12's entries also carry the contraction's
-time on the f32 CUDA cores, where the kernel runs it
-(bound_f32_cuda_cores_ms).
+tensor cores (989 TFLOP/s), where the kernel runs it.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -344,8 +348,8 @@ def kernel_vs_plain(torch, scene, rows):
     print(f"first-bounce wavefront: {int(bounce[4].sum())} of {W * H} live")
     worst, identical = 0.0, True
     for wname, wave in (("64x48 camera", small), ("800x600 bounce", bounce)):
-        check(versus_b7(torch, rows, wave[0], wave[1], wave[4]),
-              f"B4 with the d'z test differs from B7 on {wname}")
+        check(all(versus_control(torch, rows, wave[0], wave[1], wave[4])),
+              f"B7 or B4 with the d'z test differs from the control loop on {wname}")
         for cname, (mode, flags) in CASES.items():
             args = seg_args(torch, rows, *wave, make_key(5), flags)
             got = F.mega_segment(*args, mode=mode)
@@ -368,8 +372,9 @@ def kernel_vs_plain(torch, scene, rows):
     print("tolerance: rtol = atol = 1e-5 on agreeing lanes, at most 0.1% of them "
           f"within 1e-2 instead; worst |err| {worst:.3e}")
     print(f"B1's idx and the t recomputed from its winners bit-equal to B4's (nearest_shade.cu, "
-          f"the same selection loop) on every case: {identical}; B4's with the d'z test "
-          "bit-equal to B7's (the one-ray-per-thread loop) on both wavefronts: True")
+          f"the same selection loop) on every case: {identical}; B7's and B4's with the d'z "
+          "test bit-equal to the control's (the one-ray-per-thread loop) on both wavefronts: "
+          "True")
     return bounce, worst
 
 
@@ -734,18 +739,22 @@ def record_device(torch, label, fn):
 
 # This script's earlier run on an NVIDIA H100 80GB HBM3 at 700.00 W, on
 # the same phases' inputs and by the same methods: (device ms per launch,
-# event pair ms). B4/B4c and B5 were redesigned after it (B4/B4c on B1's
-# selection loop, B5 a per-ray tree walk), and B8-B11 ride B4/B4c.
+# event pair ms). B12 and B7 were redesigned after it (B12 on the tensor
+# cores, B7 on the shared selection loop), and B1c/B4c (with B10c/B11
+# over B4c) cull with the chunk slack since.
 EARLIER_MS = {
-    "B1": (0.3498, 0.5604), "B1c": (0.3166, 0.5390), "B1l": (0.3545, 0.5603),
-    "B2": (0.0985, 0.3109), "B3 T652": (0.1415, 0.1919), "B3 T81932": (0.0986, 0.1705),
-    "B4": (0.5868, 0.7597), "B4c": (0.3950, 0.6540), "B5": (8.1439, 9.0728),
-    "B6": (0.0514, 0.1943), "B6l": (0.0517, 0.1832), "B7": (0.5903, 0.7455),
-    "B8": (0.7546, 1.1444), "B9": (0.7531, 1.2032), "B10": (0.7576, 1.2166),
-    "B10c": (0.4396, 1.1210), "B11": (0.4290, 1.0494), "B12 full": (13.2872, 13.5116),
-    "B12 matmul_only": (12.0840, 12.3012), "B12 matmul_bf16": (12.1649, 12.3733),
-    "B13": (3.0448, 3.1231), "B14": (1.1904, 1.2350),
+    "B1": (0.3503, 0.5311), "B1c": (0.3154, 0.5523), "B1l": (0.3555, 0.5928),
+    "B2": (0.0979, 0.2938), "B3 T652": (0.1413, 0.1693), "B3 T81932": (0.0982, 0.1371),
+    "B4": (0.3161, 0.4750), "B4c": (0.3109, 0.5933), "B5": (1.5639, 1.8433),
+    "B5t": (0.0923, 0.1793), "B6": (0.0513, 0.2022), "B6l": (0.0517, 0.1968),
+    "B7": (0.5847, 0.7125), "B8": (0.5638, 0.9407), "B9": (0.5645, 0.9357),
+    "B10": (0.5714, 0.9812), "B10c": (0.3908, 1.0768), "B11": (0.3888, 1.0797),
+    "B12 full": (13.3760, 13.3824), "B12 matmul_only": (12.1599, 12.2254),
+    "B12 matmul_bf16": (12.2400, 12.3701), "B13": (3.0430, 3.0776), "B14": (1.1849, 1.2511),
 }
+# The earlier run's chunks tested per group of 128 rays by B1c on the
+# glossy wavefronts (phase 24, before the chunk slack).
+EARLIER_TESTED = {"camera": 1.39, "sorted bounce": 3.70}
 
 
 def device_line(label, event_pair, bound, library=None):
@@ -1652,7 +1661,7 @@ def segment_bound(T, R, pairs, lane=False, nc=0):
     from ``pairs`` = sphere_pairs(...): SPHERE_OPS for every pair its
     selection must test, PAIR_OPS more for each that passes the sphere
     test."""
-    nbytes = T * 192 + R * STATE_BYTES + (12 * R if lane else 12) + nc * 24 + R * SEG_OUT_BYTES
+    nbytes = T * 192 + R * STATE_BYTES + (12 * R if lane else 12) + nc * 32 + R * SEG_OUT_BYTES
     return bound_of(nbytes, pairs[0] * SPHERE_OPS + pairs[1] * PAIR_OPS)
 
 
@@ -1660,28 +1669,20 @@ def chunk_reach(torch, clo, chi, o, d, t_best, live, widen=None):
     """bool[s, nc]: the segment [0, t_best] of each of the rays o, d
     f32[s, 3] reaches the box of chunk j (widened as the kernels widen it:
     the box margin, and with ``widen`` = (ext, grow) f32[nc] also ext +
-    grow |o|, as B5's tree does), for the live rays."""
-    m = 1e-5 * (1.0 + torch.maximum(clo.abs(), chi.abs()))
-    lo, hi = (clo - m)[None], (chi + m)[None]  # [1, nc, 3]
-    if widen is not None:
-        w = (widen[0][None, :] + widen[1][None, :] * o.norm(dim=1)[:, None])[..., None]
-        lo, hi = lo - w, hi + w  # [s, nc, 3]
-    o, d = o[:, None, :], d[:, None, :]
-    flat = d.abs() < 1e-12
-    inv = 1.0 / torch.where(flat, 1.0, d)
-    t0, t1 = (lo - o) * inv, (hi - o) * inv
-    inside = (o >= lo) & (o <= hi)
-    tn = torch.where(flat, torch.where(inside, -3e38, 3e38), torch.minimum(t0, t1))
-    tf = torch.where(flat, torch.where(inside, 3e38, -3e38), torch.maximum(t0, t1))
-    tn, tf = tn.amax(dim=2), tf.amin(dim=2)
-    return (tn <= tf) & (tf >= 0.0) & (tn <= t_best[:, None]) & live[:, None]
+    grow |o|, as B1c's and B4c's chunk slack and B5's tree do), for the
+    live rays: ops.cull.chunk_reach."""
+    from montecarlopathtracer_tpu_torch.ops.cull import chunk_reach as reach
+
+    slack = None if widen is None else torch.stack(widen, dim=1)
+    return reach(clo, chi, o, d, t_best, slack) & live[:, None]
 
 
-def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14, box=128):
+def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14, box=128,
+                  widen=None):
     """Ray-triangle pairs that culling must test on these rays: for each
     live ray, the triangles of every chunk (of ``box`` triangles) whose
-    box (widened as the kernels widen it) its segment [0, t_best]
-    reaches. The minimum work of a culling selection on this data (B4c;
+    box (widened as the kernels widen it, ``widen`` as chunk_reach takes
+    it) its segment [0, t_best] reaches. The minimum work of a culling selection on this data (B4c;
     B5's old count)."""
     nc = clo.shape[0]
     sizes = torch.full((nc,), float(box), device=clo.device, dtype=torch.float64)
@@ -1689,7 +1690,7 @@ def reached_pairs(torch, clo, chi, T, pos, dir_, live, t_best, step=1 << 14, box
     total = 0.0
     for s in range(0, pos.shape[1], step):
         reach = chunk_reach(torch, clo, chi, pos[:, s:s + step].T, dir_[:, s:s + step].T,
-                            t_best[s:s + step], live[s:s + step])
+                            t_best[s:s + step], live[s:s + step], widen)
         total += float((reach.double() @ sizes).sum())
     return total
 
@@ -1776,15 +1777,20 @@ def versus_split(torch, rows, idx, pos, dir_, live, boxes=None, tested=None):
     return same, t_same, None if tested is None else bool(torch.equal(tested, want_tested))
 
 
-def versus_b7(torch, rows, pos, dir_, live):
-    """B4 with the |d'_z| test against B7 (the one-ray-per-thread loop
-    without the sphere rejection) launched on the same table's geometry
-    columns: idx bit-equal on every live lane, -1 on the others."""
+def versus_control(torch, rows, pos, dir_, live):
+    """B7 (on the shared selection loop) and B4 with the |d'_z| test against
+    the control (nearest_triangle.cu's one-ray-per-thread loop without the
+    sphere rejection) on the same table's geometry columns: (B7's idx
+    bit-equal on every lane, B4's on every live lane and -1 on the
+    others)."""
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 
+    geom = rows[:, :12].contiguous()
+    control = NS.nearest_triangle_control(geom, pos, dir_)
+    b7 = NS.nearest_triangle(geom, pos, dir_)
     b4 = NS.nearest_shade_full(rows, pos, dir_, live, dz_test=True)[0]
-    b7 = NS.nearest_triangle(rows[:, :12].contiguous(), pos, dir_)
-    return bool(torch.equal(b4, torch.where(live, b7, -1)))
+    return (bool(torch.equal(b7, control)),
+            bool(torch.equal(b4, torch.where(live, control, -1))))
 
 
 def library_index_add(torch, idx, dvals, T):
@@ -1938,12 +1944,13 @@ def shade_vs_plain(torch, rows, ctables, cornell_bounce, gtables, gwaves):
         every = torch.ones_like(live)
         rep = compare_winners(got, want, live=every, rows=table, pos=pos, dir_=dir_)
         worst["B7"] = max(worst["B7"], rep["max_t_gap"])
-        same = versus_b7(torch, table, pos, dir_, live)
+        same = versus_control(torch, table, pos, dir_, live)
         print(f"{wname:21s} B7 : idx agree {rep['idx_agree']:.6f} ({rep['n_idx_mismatch']} "
               f"near-tie mismatches of {rep['n_live']} rays, max t gap {rep['max_t_gap']:.2e}); "
-              f"B4 with the d'z test bit-equal to it on the live lanes: {same}")
+              f"bit-equal to the control loop: {same[0]}; B4 with the d'z test bit-equal to "
+              f"the control on the live lanes: {same[1]}")
         check(rep["ok"], f"B7 disagrees with plain on {wname}: {rep}")
-        check(same, f"B4 with the d'z test differs from B7 on {wname}")
+        check(all(same), f"B7 or B4 with the d'z test differs from the control on {wname}")
     print("gate: winners as phase 17's; on agreeing lanes the shading rows equal and t, beta, "
           "gamma within rtol = atol = 1e-5, or within 16 x eps32 x their rounding scale of the "
           "float64 values")
@@ -1951,8 +1958,9 @@ def shade_vs_plain(torch, rows, ctables, cornell_bounce, gtables, gwaves):
 
 
 def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
-    phase("26. B4 and B7 on the Cornell first bounce, B1c and B4c on the glossy sorted "
-          "bounce: kernel, plain, and B1 on the same wavefront (median of 10 CUDA events)")
+    phase("26. B4, B7 and its control loop on the Cornell first bounce, B1c and B4c on the "
+          "glossy sorted bounce: kernel, plain, and B1 on the same wavefront (median of 10 "
+          "CUDA events)")
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops.rng import make_key
@@ -1972,10 +1980,18 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
     geom = rows[:, :12].contiguous()
     ms = time_pair(torch, lambda: NS.nearest_triangle(geom, pos, dir_),
                    lambda: NS.nearest_triangle_ref(geom, pos, dir_), label="B7")
-    out["B7"] = (*ms, bound_of(T * 48 + R * 24 + R * 4, R * T * PAIR_OPS))
+    # B7 has no live mask: every ray is tested, as B4 counts its live ones.
+    every = torch.ones_like(live)
+    b7_pairs = sphere_pairs(torch, rows, pos, dir_, every)
+    out["B7"] = (*ms, bound_of(T * 48 + R * 24 + R * 4,
+                               b7_pairs[0] * SPHERE_OPS + b7_pairs[1] * PAIR_OPS))
+    control = time_one(torch, lambda: NS.nearest_triangle_control(geom, pos, dir_),
+                       label="B7 control")
     print(f"Cornell first bounce ({n_live} live of {R} rays, {T} triangles): B1 {b1:.4f} ms; "
           f"B4 {out['B4'][0]:.4f} ms (plain {out['B4'][1]:.4f}); B7 {out['B7'][0]:.4f} ms "
-          f"(plain {out['B7'][1]:.4f}, every ray tested)")
+          f"(plain {out['B7'][1]:.4f}, every ray tested; {b7_pairs[0]} pairs, "
+          f"{b7_pairs[1]} inside a sphere); the control loop {control:.4f} ms, device "
+          f"{DEVICE_MS['B7 control'][0]:.4f} ms")
 
     pos, dir_, _, _, live = gbounce
     gr, boxes = gtables.rows, gtables.cull_boxes
@@ -1984,21 +2000,36 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
     b1 = time_one(torch, lambda: F.mega_segment(*args))
     ms = time_pair(torch, lambda: F.mega_segment(*args, **boxes),
                    lambda: F.mega_segment_ref(*args), label="B1c")
-    idx = F.mega_segment(*args, **boxes)[0]
+    tested = {k: torch.zeros(-(-R // 128), dtype=torch.int32, device="cuda")
+              for k in ("B1c", "B4c")}
+    idx = F.mega_segment(*args, **boxes, tested=tested["B1c"])[0]
+    NS.nearest_shade_full(gr, pos, dir_, live, **boxes, tested=tested["B4c"])
     t_best = winner_t(torch, gr, idx, pos, dir_)
-    pairs = reached_pairs(torch, gtables.clo, gtables.chi, T, pos, dir_, live, t_best)
-    spairs = sphere_pairs(torch, gr, pos, dir_, live, boxes=boxes, t_best=t_best)
+    widen = tuple(gtables.cslack.T)
+    pairs = reached_pairs(torch, gtables.clo, gtables.chi, T, pos, dir_, live, t_best,
+                          widen=widen)
+    spairs = sphere_pairs(torch, gr, pos, dir_, live, boxes=boxes, t_best=t_best, widen=widen)
     check(spairs[0] == pairs, f"reached pairs {pairs} but {spairs[0]} counted for B1c")
     out["B1c"] = (*ms, segment_bound(T, R, spairs, nc=nc))
     ms = time_pair(torch, lambda: NS.nearest_shade_full(gr, pos, dir_, live, **boxes),
                    lambda: NS.nearest_shade_full_ref(gr, pos, dir_, live), label="B4c")
-    out["B4c"] = (*ms, bound_of(T * 192 + nc * 24 + R * 25 + R * 148,
+    out["B4c"] = (*ms, bound_of(T * 192 + nc * 32 + R * 25 + R * 148,
                                 spairs[0] * SPHERE_OPS + spairs[1] * PAIR_OPS))
     print(f"glossy sorted bounce ({n_live} live of {R} rays, {T} triangles, {pairs:.4g} of "
           f"{n_live * T} live pairs reachable, {spairs[1]} of them inside B1c's spheres): "
           f"B1 {b1:.4f} ms; B1c {out['B1c'][0]:.4f} ms "
           f"(plain {out['B1c'][1]:.4f}); B4c {out['B4c'][0]:.4f} ms (plain "
           f"{out['B4c'][1]:.4f})")
+    groups = tested["B1c"].float()
+    live_groups = torch.nn.functional.pad(live, (0, -R % 128)).reshape(-1, 128).any(1)
+    print(f"chunks tested per group of 128 rays with the chunk slack: B1c mean "
+          f"{float(groups.mean()):.3f} (over groups with a live ray "
+          f"{float(groups[live_groups].mean()):.3f}), max "
+          f"{int(groups.max())} of {nc}; B4c's equal to B1c's: "
+          f"{bool(torch.equal(tested['B1c'], tested['B4c']))} (the earlier run's phase 24, "
+          f"before the slack: camera {EARLIER_TESTED['camera']}, sorted bounce "
+          f"{EARLIER_TESTED['sorted bounce']})")
+    check(torch.equal(tested["B1c"], tested["B4c"]), "B1c and B4c tested other chunks")
     for name, (k, p, (bms, by)) in out.items():
         print(f"  {name:3s} bound {bms:.4f} ms ({by}): kernel at {bms / k:.3f} of it")
     for name, (k, p, bound) in out.items():
@@ -2253,6 +2284,7 @@ def selection_builds(libs):
     print(f"built {libs['selection_micro'].relative_to(HERE)} from {MICRO_SOURCE} (sm_90a)")
     ptxas_report(libs["selection_micro"])
     cuda_build.load("selection_micro")
+    micro_sass(libs["selection_micro"])
     t0 = time.perf_counter()
     lib = native.build()
     check(native.available(), f"native library: {native.build_error()}")
@@ -2274,10 +2306,40 @@ def selection_builds(libs):
     check(same, "the native KD tree differs from the Python build's")
 
 
+def micro_sass(lib):
+    """B12's instructions in cuobjdump's SASS of ``lib``, per B12 kernel:
+    its tensor-core products (HMMA), ldmatrix loads (LDSM), global stores
+    (STG: the source stores out i32[R] only) and local-memory traffic
+    (STL/LDL: nothing may spill to device memory)."""
+    from montecarlopathtracer_tpu_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    sass = run_tool([cuobjdump, "-sass", str(lib)])
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(("HMMA", "LDSM", "STG", "STL", "LDL"), 0)
+        elif fn is not None:
+            words = line.replace(";", " ").split()
+            for name in counts[fn]:
+                if any(w.split(".")[0] == name for w in words):
+                    counts[fn][name] += 1
+    b12 = {k: v for k, v in counts.items() if "contract_select_kernel" in k}
+    for name, c in b12.items():
+        print(f"  SASS of {name[-30:]}: {c}")
+    check(len(b12) == 3 and all(c["HMMA"] > 0 and c["STL"] == c["LDL"] == 0
+                                for c in b12.values()),
+          f"B12's kernels lack tensor-core instructions or touch local memory: {b12}")
+    print("B12 issues bf16 tensor-core instructions (HMMA) in all three variants; its global "
+          "stores (STG) are those of out i32[R], and no register spills to local memory")
+
+
 def variant_setup(torch, scene):
     """The packings of B8-B11 for ``scene`` padded to a multiple of 128
     triangles (as the JAX scenes are): a dict of tensors on the card."""
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+    from montecarlopathtracer_tpu_torch.ops.cull import chunk_slack
     from montecarlopathtracer_tpu_torch.ops.intersect import triangle_transforms
     from montecarlopathtracer_tpu_torch.ops.morton import chunk_aabbs, chunk_aabbs_padded
     from montecarlopathtracer_tpu_torch.ops.morton import morton_order
@@ -2293,6 +2355,7 @@ def variant_setup(torch, scene):
     tc = NV.divisor_chunk(T, NV.T_CHUNK)
     wp = NV.pack_transforms(m[perm], m_a[perm], valid[perm])
     box = 256 if T % 256 == 0 else 128  # JAX nearest_shade_culled's chunk, min(256, T)
+    rows_p = NV._rows(NV._geometry(wp), table[perm])
     return dict(
         T=T, perm=perm, table=table, w=w, geom=NV._geometry(w).contiguous(), tc=tc,
         wf=NV.pack_transforms_fused(m, m_a, valid, tc),
@@ -2301,7 +2364,8 @@ def variant_setup(torch, scene):
         ws_c=NV.pack_transforms_stream(m[perm], m_a[perm], valid[perm], 128),
         boxes_c=chunk_aabbs_padded(a, b, c, valid, perm, 128),
         box=box, boxes_11=chunk_aabbs(a, b, c, valid, perm, box),
-        rows=NV._rows(NV._geometry(w), table), rows_p=NV._rows(NV._geometry(wp), table[perm]),
+        rows=NV._rows(NV._geometry(w), table), rows_p=rows_p,
+        cslack_p=chunk_slack(rows_p),  # B4c's tiles' slack, once per table
     )
 
 
@@ -2317,10 +2381,11 @@ def variant_calls(torch, v, pos, dir_, live):
         "B10": (lambda: NV.nearest_shade_streamed(v["ws"], v["geom"], v["table"], pos, dir_,
                                                   live, t_chunk=256), v["rows"], True),
         "B10c": (lambda: NV.nearest_shade_streamed(v["ws_c"], v["gp"], v["tp"], pos, dir_, live,
-                                                   *v["boxes_c"], t_chunk=128, cull=True),
+                                                   *v["boxes_c"], t_chunk=128, cull=True,
+                                                   cslack=v["cslack_p"]),
                  v["rows_p"], True),
         "B11": (lambda: NV.nearest_shade_culled(v["wp"], v["tp"], *v["boxes_11"], pos, dir_,
-                                                live), v["rows_p"], True),
+                                                live, v["cslack_p"]), v["rows_p"], True),
     }
 
 
@@ -2482,6 +2547,7 @@ def tool_twins(torch):
           f"inputs (B8-B10 on {BENCH_SUBSET:,} of the rays per scene, B12-B14 on all of them) "
           "and the plain B12-B14 timed at the tool's size")
     from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
+    from montecarlopathtracer_tpu_torch.testing import MICRO_ADDEND_ULPS, compare_micro
     from montecarlopathtracer_tpu_torch.tools import kernel_bench, kernel_micro
 
     reset_counts()
@@ -2539,7 +2605,6 @@ def tool_twins(torch):
         "B13": bound_of(6 * T * R * 4 + 4 * R, chain),
         "B14": bound_of(p_blk.numel() * 4 + 4 * R, chain),
     }
-    f32_cores = bound_of(io, contract)  # the contraction where this kernel runs it
     kernels = {  # the kernels on the same inputs, for their device time
         "full": lambda: SM.selection_micro(ws, x, tc, "full"),
         "matmul_only": lambda: SM.selection_micro(ws, x, tc, "matmul_only"),
@@ -2547,7 +2612,7 @@ def tool_twins(torch):
         "B13": lambda: SM.epilogue_only(p_all, tc),
         "B14": lambda: SM.epilogue_shared(p_blk, T, R),
     }
-    out = {}
+    out, gates = {}, {}
     for name, (row, plain) in cases.items():
         got = micro["out"][row]
         want = plain()
@@ -2557,36 +2622,58 @@ def tool_twins(torch):
         plain_ms = time_one(torch, plain)
         out[name] = (tool_ms[row], plain_ms, bounds[name], err)
         (bms, by) = bounds[name]
-        print(f"{name:12s}: the tool's output equal to plain on all {R} rays: {err == 0} (max "
-              f"|diff| {err}" + (f", {hits:.4f} hit" if hits is not None else "") + f"); "
+        if name in ("B13", "B14"):
+            gate = f"equal to plain on all {R} rays: {err == 0}"
+            check(err == 0, f"{name} disagrees with its plain version")
+        else:  # the tensor cores sum in their own order: the rounding rule
+            rep = compare_micro(ws, x, tc, name, got, want)
+            gates[name] = rep
+            gate = (f"compare_micro on all {R} rays: {rep['ok']} ("
+                    + (f"{rep['n_idx_mismatch']} winners differ from plain: "
+                       f"{rep['n_near_tie']} near-ties, {rep['n_boundary']} at the accept "
+                       f"chain's boundary, {rep['n_bad']} beyond the rule"
+                       if name == "full" else
+                       f"{rep['n_differ_from_plain']} differ from plain, "
+                       f"{rep['n_out_of_bound']} beyond min p +- E, E <= "
+                       f"{rep['max_slack']:.3g}") + ")")
+            check(rep["ok"], f"B12 {name} breaks the rounding rule: {rep}")
+        print(f"{name:12s}: the tool's output {gate}, max |diff| {err}"
+              + (f", {hits:.4f} hit" if hits is not None else "") + f"; "
               f"{tool_ms[row]:.4f} ms, plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by}), "
               f"kernel at {bms / tool_ms[row]:.3f} of it")
-        check(err == 0, f"{name} disagrees with its plain version")
         label = name if name in ("B13", "B14") else f"B12 {name}"
         record_device(torch, label, kernels[name])
         device_line(label, tool_ms[row], bounds[name])
     print(f"B12's bound is its contraction on the bf16 tensor cores ({BF16_OPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s); the same contraction on the f32 CUDA cores, where this kernel runs it: "
-          f"{f32_cores[0]:.4f} ms. B13's p_all: {p_all.numel() * 4 / 1e9:.2f} GB")
-    lib = cublas_min(torch, ws, x, micro["out"]["matmul_only_f32out"])
+          f"TFLOP/s), where it runs. B12's gate (testing.compare_micro): p recomputed in "
+          f"float64 from the bf16 operands; matmul forms within trunc(min p +- E), E = 48 x "
+          f"{MICRO_ADDEND_ULPS} x 2^-23 x the ray's largest sum of |products| (+ a bf16 ulp for "
+          f"matmul_bf16); full: winners equal on >= 99.9% of rays, each other one a near-tie "
+          f"or at the accept chain's boundary within that rounding. B13's p_all: "
+          f"{p_all.numel() * 4 / 1e9:.2f} GB")
+    lib = {v: cublas_min(torch, ws, x, micro["out"][row], v)
+           for v, row in (("matmul_only", "matmul_only_f32out"),
+                          ("matmul_bf16", "matmul_only_bf16out"))}
     del micro, p_all
-    return bench_rows, bench_counts, bench_err, micro_counts, out, f32_cores[0], lib
+    return bench_rows, bench_counts, bench_err, micro_counts, out, gates, lib
 
 
-def cublas_min(torch, ws, x, b12):
-    """The library yardstick of B12's matmul_only (never called by the
-    port): cuBLAS's product of the same bf16 operands (torch.matmul, f32
-    out where torch.mm takes out_dtype, else bf16), in slices of rays so
-    that each f32 product stays under 1 GB, then the column min. Returns
-    its median event ms; its device time goes into DEVICE_MS as
-    "cuBLAS B12"."""
+def cublas_min(torch, ws, x, b12, variant):
+    """The library yardstick of B12's matmul forms (never called by the
+    port): cuBLAS's product of the same bf16 operands (torch.mm, f32 out
+    for matmul_only where torch.mm takes out_dtype, bf16 out for
+    matmul_bf16), in slices of rays so that each f32 product stays under
+    1 GB, then the column min. Returns its median event ms; its device
+    time goes into DEVICE_MS as "cuBLAS <variant>"."""
     a = ws.T.contiguous()  # bf16[6T, 48]
     step = (1 << 30) // (4 * a.shape[0])  # rays per slice
-    try:
-        torch.mm(a, x[:, :8], out_dtype=torch.float32)
-        out = "f32"
-    except (TypeError, RuntimeError):
-        out = "bf16"
+    out = "bf16"
+    if variant == "matmul_only":
+        try:
+            torch.mm(a, x[:, :8], out_dtype=torch.float32)
+            out = "f32"
+        except (TypeError, RuntimeError):
+            pass
 
     def call():
         low = []
@@ -2594,17 +2681,19 @@ def cublas_min(torch, ws, x, b12):
             if out == "f32":
                 p = torch.mm(a, x[:, s:s + step], out_dtype=torch.float32)
             else:
-                p = torch.matmul(a, x[:, s:s + step])
+                p = torch.mm(a, x[:, s:s + step])
             low.append(p.amin(0))
         return torch.cat(low)
 
     got = call().float().to(torch.int32)
     agree = float((got == b12).float().mean())
-    ms = time_one(torch, call, label="cuBLAS B12")
-    print(f"cuBLAS yardstick of B12 matmul_only: torch.mm of the bf16 operands ({out} out, "
+    label = f"cuBLAS {variant}"
+    ms = time_one(torch, call, label=label)
+    print(f"cuBLAS yardstick of B12 {variant}: torch.mm of the bf16 operands ({out} out, "
           f"{-(-x.shape[1] // step)} slices of {step} rays) then amin: {ms:.4f} ms (event "
-          f"pair), device {DEVICE_MS['cuBLAS B12'][0]:.4f} ms; int32 of its min equals B12's on "
-          f"{agree:.4f} of the rays (another summation order)")
+          f"pair), device {DEVICE_MS[label][0]:.4f} ms against B12's "
+          f"{DEVICE_MS[f'B12 {variant}'][0]:.4f}; int32 of its min equals B12's on {agree:.4f} "
+          f"of the rays (another summation order)")
     return ms
 
 
@@ -2729,7 +2818,7 @@ def main():
         var_ms, var_err = variants_vs_plain(torch, scene, bounce, gscene, gbounce)
         del gbounce
         gate_counts, gate_gap = intersector_gate(torch, scene)
-        bench_rows, bench_counts, bench_err, micro_counts, micro, f32_cores, cublas_ms = \
+        bench_rows, bench_counts, bench_err, micro_counts, micro, micro_gates, cublas_ms = \
             tool_twins(torch)
         walk_ms, kd_pass = kdtree_main_path(torch, scene, camera, bounce)
     except SmokeFailure as e:
@@ -2791,7 +2880,8 @@ def main():
               cull_split_counts["B4c"], shade_err["B4c"], split_ms["B4c"], "B4c"),
         entry("nearest_triangle (B7)", TRIANGLE_SOURCE, TRIANGLE_REPLACES,
               fused_counts["B7"], shade_err["B7"], split_ms["B7"], "B7",
-              max_t_gap_on_near_ties=shade_err["B7"]),
+              max_t_gap_on_near_ties=shade_err["B7"],
+              control_device_ms=DEVICE_MS["B7 control"][0]),
         *(entry(label, SHADE_SOURCE, VARIANT_REPLACES[k], n,
                 max(var_err[k], bench_err.get(k, 0.0)), var_ms[k], k)
           for k, label, n in (
@@ -2803,10 +2893,10 @@ def main():
               ("B11", "nearest_shade_culled (B11, entry over B4c with the d'z test)",
                gate_counts["B11"]))),
         *(entry(label, MICRO_SOURCE, MICRO_REPLACES[k], micro_counts[n], micro[k][3],
-                (*micro[k][:3], *((cublas_ms,) if k == "matmul_only" else ())),
+                (*micro[k][:3], *((cublas_ms[k],) if k in cublas_ms else ())),
                 k if k in ("B13", "B14") else f"B12 {k}",
-                "cuBLAS B12" if k == "matmul_only" else None, rays=491_520,
-                **({"bound_f32_cuda_cores_ms": f32_cores} if k not in ("B13", "B14") else {}))
+                f"cuBLAS {k}" if k in cublas_ms else None, rays=491_520,
+                **({"gate": micro_gates[k]} if k in micro_gates else {}))
           for k, label, n in (
               ("full", "selection_micro full (B12, body_v3)", "B12 full"),
               ("matmul_only", "selection_micro matmul_only (B12)", "B12 matmul_only"),

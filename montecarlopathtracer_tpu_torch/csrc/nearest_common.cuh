@@ -1,29 +1,32 @@
 // Nearest-hit pieces shared by the selection kernels: the exact
 // ray-triangle pair test that decides every winner (`pair_test`), the
 // slab test of chunk culling and of the traversal walk's tree
-// (`slab_box`), and the one-ray-per-thread loop `nearest_in_block` of the
-// fused intersector's index kernel B7 (nearest_triangle.cu).
+// (`slab_box`), and the one-ray-per-thread loop `nearest_in_block`, the
+// control of the sphere rejection (nearest_triangle.cu).
 //
 // The pair test is the reference's accept test in plain f32 with an IEEE
 // division: beta > 0, gamma > 0, t > 0, 1 - (beta + gamma) > 0, written
 // as explicit comparisons so that a NaN (zero geometry, a parallel ray)
-// never wins. Every selection calls this one function (B1/B1l/B1c and
-// B4/B4c through sphere_select.cuh's `select_two`, B5's leaves in
-// traverse_select.cu, B7 here), so their winners agree bit for bit.
+// never wins. Every selection calls this one function (B1/B1l/B1c,
+// B4/B4c and B7 through sphere_select.cuh's `select_two`, B5's leaves in
+// traverse_select.cu, the control loop here), so their winners agree bit
+// for bit.
 //
 // `nearest_in_block`: one thread per ray; a block stages the 12 geometry
 // floats of kChunk triangles at a time in shared memory (three float4
 // each: [m_k0 m_k1 m_k2 -m_a_k] for k = 0..2), so each triangle is read
 // from global memory once per block and broadcast to its threads. What
 // bounds it on an H100 is the ~40 f32 operations of every ray x triangle
-// pair; B4 runs the same selection in about half its time behind
-// sphere_select.cuh's division-free rejection. B7 keeps this loop as the
-// bit-for-bit control of that rejection.
+// pair; `select_two` runs the same selection in about half its time
+// behind sphere_select.cuh's division-free rejection, and this loop stays
+// as the bit-for-bit control of that rejection.
 //
 // Chunk culling (B1c, B4c) slab-tests each lane's segment [0, best t]
-// against a chunk's box widened by a small margin; the walk's tree (B5)
-// widens its boxes further by its triangles' sphere slack (`slab_box`'s
-// ext).
+// against a chunk's box widened by a small margin and by its triangles'
+// sphere slack for the lane's |o| (`slab_reach`), as the walk's tree (B5)
+// widens its nodes (`slab_box`'s ext): the exact test accepts hits up to
+// that slack outside an ill-conditioned triangle, so a box without it can
+// lose a winner.
 
 #pragma once
 
@@ -90,12 +93,18 @@ __device__ __forceinline__ bool slab_box(const Slab& s, const float lo_[3], cons
   return tn <= tf && tf >= 0.0f && tn <= tmax;
 }
 
-// True when the ray's segment [0, tmax] can enter the widened box of
-// chunk j (clo/chi f32[nc, 3]).
+// True when the segment [0, tmax] of a ray with |o| = on can enter the
+// box of chunk j (clo/chi f32[nc, 3]) widened by the chunk's slack
+// (cslack f32[nc, 2]: ext, the largest sphere slack K0 - rho of its
+// triangles, and grow, their largest growth per unit of |o|; see
+// sphere_select.cuh's `triangle_sphere_split`).
 __device__ __forceinline__ bool slab_reach(const Slab& s, const float* __restrict__ clo,
-                                           const float* __restrict__ chi, int j, float tmax) {
+                                           const float* __restrict__ chi,
+                                           const float* __restrict__ cslack, int j, float on,
+                                           float tmax) {
   float tn;
-  return slab_box(s, clo + 3 * j, chi + 3 * j, 0.0f, tmax, tn);
+  return slab_box(s, clo + 3 * j, chi + 3 * j, fmaf(cslack[2 * j + 1], on, cslack[2 * j]), tmax,
+                  tn);
 }
 
 // Stage the geometry of triangles [base, base + n) of a table with

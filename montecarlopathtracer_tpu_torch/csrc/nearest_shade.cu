@@ -39,8 +39,9 @@
 // its split-bf16 contraction are TPU-only and not ported.
 //
 // Contract (that of nearest_shade_full): rows f32[T, 48]; pos/dir
-// f32[3, R]; live bool[R]; with cull, the table in Morton order and
-// clo/chi f32[nc, 3], nc = ceil(T / 128). Outputs idx i32[R] (-1 =
+// f32[3, R]; live bool[R]; with cull, the table in Morton order,
+// clo/chi f32[nc, 3] and cslack f32[nc, 2] (the chunks' boxes and slack),
+// nc = ceil(T / 128). Outputs idx i32[R] (-1 =
 // miss), tbg f32[4, R] = (t or 3e38, beta * hit, gamma * hit, hit) and
 // shade f32[32, R] = rows[idx, 12:44] (0 on a miss); with `tested`
 // non-null, tested[g] = the chunks that the group of rays
@@ -85,8 +86,9 @@ __global__ void __launch_bounds__(kSelThreads)
 nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restrict__ pos,
                      const float* __restrict__ dir, const bool* __restrict__ live, int R,
                      const float* __restrict__ clo, const float* __restrict__ chi,
-                     int* __restrict__ idx_out, float* __restrict__ tbg,
-                     float* __restrict__ shade, int* __restrict__ tested_out) {
+                     const float* __restrict__ cslack, int* __restrict__ idx_out,
+                     float* __restrict__ tbg, float* __restrict__ shade,
+                     int* __restrict__ tested_out) {
   const int ra_i = blockIdx.x * kSelRays + threadIdx.x, rb_i = ra_i + kSelThreads;
   const bool in_a = ra_i < R, in_b = rb_i < R;
   const bool act_a = in_a && live[ra_i], act_b = in_b && live[rb_i];
@@ -96,7 +98,8 @@ nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restr
 
   // Every thread reaches every barrier: no return before the selection ends.
   int tested_a, tested_b;
-  select_two<kCull, kDzTest>(rows, T, ra, act_a, rb, act_b, clo, chi, tested_a, tested_b);
+  select_two<kCull, kDzTest>(rows, T, ra, act_a, rb, act_b, clo, chi, cslack, tested_a,
+                             tested_b);
   store_tested(tested_out, R, tested_a, tested_b);
   if (in_a) store_hit(rows, ra_i, R, ra.h, idx_out, tbg, shade);
   if (in_b) store_hit(rows, rb_i, R, rb.h, idx_out, tbg, shade);
@@ -109,8 +112,9 @@ nearest_shade_kernel(const float* __restrict__ rows, int T, const float* __restr
 // cudaGetLastError() so the caller can raise on a refused launch.
 extern "C" int nearest_shade_launch(const float* rows, int T, const float* pos,
                                     const float* dir, const bool* live, int R, const float* clo,
-                                    const float* chi, int cull, int dz_test, int* idx,
-                                    float* tbg, float* shade, int* tested, void* stream) {
+                                    const float* chi, const float* cslack, int cull,
+                                    int dz_test, int* idx, float* tbg, float* shade,
+                                    int* tested, void* stream) {
   if (R > 0) {
     const int blocks = (R + seg::kSelRays - 1) / seg::kSelRays;
     auto kernel = cull ? (dz_test ? nearest_shade_kernel<true, true>
@@ -119,7 +123,7 @@ extern "C" int nearest_shade_launch(const float* rows, int T, const float* pos,
                                   : nearest_shade_kernel<false, false>);
     kernel<<<blocks, seg::kSelThreads, seg::select_smem_bytes(T),
              static_cast<cudaStream_t>(stream)>>>(
-        rows, T, pos, dir, live, R, clo, chi, idx, tbg, shade, tested);
+        rows, T, pos, dir, live, R, clo, chi, cslack, idx, tbg, shade, tested);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,10 +34,11 @@
 // Contract (that of mega_segment_fwd): rows f32[T, 48] = geometry 12 |
 // shading 32 | pad 4; pos/dir/tput/res f32[3, R]; live bool[R];
 // u1/u2/urr f32[R]; flags f32[3, 1] or, with lane_flags, f32[3, R] =
-// [final_gather, do_rr, hard_kill]; with cull, clo/chi f32[nc, 3],
-// nc = ceil(T / 128). Outputs idx i32[R] (-1 = miss), npos/ndir/ntput/
-// nres f32[3, R], still f32[R]; with `tested` non-null, tested[g] = the
-// 128-triangle chunks that the group of rays [128 g, 128 g + 128) tested.
+// [final_gather, do_rr, hard_kill]; with cull, clo/chi f32[nc, 3] and
+// cslack f32[nc, 2] (the chunks' boxes and slack), nc = ceil(T / 128).
+// Outputs idx i32[R] (-1 = miss), npos/ndir/ntput/nres f32[3, R], still
+// f32[R]; with `tested` non-null, tested[g] = the 128-triangle chunks
+// that the group of rays [128 g, 128 g + 128) tested.
 // Lanes that are not live pass their state through with idx = -1.
 
 #include <cuda_runtime.h>
@@ -110,8 +111,8 @@ mega_segment_kernel(const float* __restrict__ rows, int T,
                     const float* __restrict__ u2, const float* __restrict__ urr,
                     const float* __restrict__ flags, int lane_flags, int R, SegOptions opt,
                     const float* __restrict__ clo, const float* __restrict__ chi,
-                    int* __restrict__ idx_out, float* __restrict__ npos,
-                    float* __restrict__ ndir, float* __restrict__ ntput,
+                    const float* __restrict__ cslack, int* __restrict__ idx_out,
+                    float* __restrict__ npos, float* __restrict__ ndir, float* __restrict__ ntput,
                     float* __restrict__ nres, float* __restrict__ still_out,
                     int* __restrict__ tested_out) {
   const int ra_i = blockIdx.x * kRays + threadIdx.x, rb_i = ra_i + kThreads;
@@ -123,7 +124,8 @@ mega_segment_kernel(const float* __restrict__ rows, int T,
 
   // Every thread reaches every barrier: no return before the selection ends.
   int tested_a, tested_b;
-  select_two<kCull, false>(rows, T, ra, act_a, rb, act_b, clo, chi, tested_a, tested_b);
+  select_two<kCull, false>(rows, T, ra, act_a, rb, act_b, clo, chi, cslack, tested_a,
+                           tested_b);
   store_tested(tested_out, R, tested_a, tested_b);
   if (in_a)
     finish_ray(rows, ra_i, R, act_a, ra, tput, res, u1, u2, urr, flags, lane_flags, opt, idx_out,
@@ -144,15 +146,16 @@ extern "C" int mega_segment_launch(const float* rows, int T, const float* pos,
                                    const float* urr, const float* flags, int lane_flags, int R,
                                    int mode_rr, float illum, float eps_offset, int refract_kd,
                                    int phong_reflect, const float* clo, const float* chi,
-                                   int cull, int* idx, float* npos, float* ndir, float* ntput,
-                                   float* nres, float* still, int* tested, void* stream) {
+                                   const float* cslack, int cull, int* idx, float* npos,
+                                   float* ndir, float* ntput, float* nres, float* still,
+                                   int* tested, void* stream) {
   if (R > 0) {
     const int blocks = (R + kRays - 1) / kRays;
     const SegOptions opt = {mode_rr, illum, eps_offset, refract_kd, phong_reflect};
     auto kernel = cull ? mega_segment_kernel<true> : mega_segment_kernel<false>;
     kernel<<<blocks, kThreads, seg::select_smem_bytes(T), static_cast<cudaStream_t>(stream)>>>(
         rows, T, pos, dir, tput, res, live, u1, u2, urr, flags, lane_flags, R, opt, clo, chi,
-        idx, npos, ndir, ntput, nres, still, tested);
+        cslack, idx, npos, ndir, ntput, nres, still, tested);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-// The selection loop of the whole segment B1/B1l/B1c (segment_fused.cu)
-// and the split path's intersector B4/B4c (nearest_shade.cu): the nearest
-// accepted triangle of two rays per thread over a whole row table, behind
-// a division-free rejection by each triangle's widened bounding sphere.
+// The selection loop of the whole segment B1/B1l/B1c (segment_fused.cu),
+// the split path's intersector B4/B4c (nearest_shade.cu) and the fused
+// intersector's index B7 (nearest_triangle.cu): the nearest accepted
+// triangle of two rays per thread over a whole row table, behind a
+// division-free rejection by each triangle's widened bounding sphere.
 // The traversal walk B5 (traverse_select.cu) tests its leaves with the
 // same sphere, precomputed once per table (`triangle_sphere_split`).
 //
@@ -22,7 +23,7 @@
 //   few warps pass it. Only a pair that passes runs the exact test,
 //   unchanged, so the winners, t, beta and gamma are the bits of the one-
 //   ray-per-thread loop `nearest_in_block` over the same `pair_test`
-//   (B7, nearest_triangle.cu, is that control);
+//   (nearest_triangle.cu keeps it as the control of this rejection);
 // - the table staged once per block when it fits in 48 KB of dynamic
 //   shared memory (T <= 760, 64 bytes a triangle: geometry and sphere;
 //   the Cornell box's 652 take 41.7 KB, so five blocks fit on an SM): one
@@ -33,14 +34,16 @@
 //   spheres of four triangles at a time, so each sphere read from shared
 //   memory serves two rays and eight independent tests interleave.
 // Culling (kCull) takes the triangles in Morton order with one box per
-// 128-triangle chunk: each lane slab-tests the chunk's box against its
-// segment [0, best t], and each group of 128 rays (the rays r of the
+// 128-triangle chunk, widened by the chunk's sphere slack for the lane's
+// |o| (nearest_common.cuh's `slab_reach`): each lane slab-tests it against
+// its segment [0, best t], and each group of 128 rays (the rays r of the
 // block, and the rays r + 128) votes; a chunk that neither group reaches
 // is skipped, and `tested` counts, per group of 128 rays, the chunks it
-// voted for. kDzTest adds the explicit |d'_z| > 1e-12 test of the TPU
-// kernels `_nearest_kernel` and `_nearest_shade_culled_kernel`. Selection
-// runs in plain f32: no tensor cores (TF32 or bf16 picks wrong winners
-// near edges) and IEEE division (compile without --use_fast_math).
+// voted for. B7 runs the loop on its [T, 12] geometry table (kStride =
+// 12). kDzTest adds the explicit |d'_z| > 1e-12 test of the TPU kernels
+// `_nearest_kernel` and `_nearest_shade_culled_kernel`. Selection runs in
+// plain f32: no tensor cores (TF32 or bf16 picks wrong winners near
+// edges) and IEEE division (compile without --use_fast_math).
 
 #pragma once
 
@@ -246,11 +249,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start the copy of the geometry of triangles [base, base + n) of a
-// [T, 48] row table into geom.
+// table of kStride floats per row (its first 12 the geometry) into geom.
+template <int kStride>
 __device__ __forceinline__ void stage_async(float4* geom, const float* __restrict__ rows, int base,
                                             int n) {
   for (int q = threadIdx.x; q < 3 * n; q += kSelThreads)
-    cp_async16(geom + q, rows + static_cast<size_t>(base + q / 3) * 48 + 4 * (q % 3));
+    cp_async16(geom + q, rows + static_cast<size_t>(base + q / 3) * kStride + 4 * (q % 3));
   cp_async_commit();
 }
 
@@ -266,16 +270,19 @@ __host__ __device__ constexpr int select_smem_bytes(int T) {
 }
 
 // The nearest accepted triangle of both rays of every thread of a block
-// of kSelThreads threads, over the T triangles of the [T, 48] table
-// `rows` (see the notes at the top). act_a / act_b: the ray is live; a
-// ray that is not tests nothing and keeps t = kBig. tested_a / tested_b:
-// the chunks each group of 128 rays tested. Every thread of the block
-// must call this: it holds the block's barriers.
-template <bool kCull, bool kDzTest>
+// of kSelThreads threads, over the T triangles of the [T, kStride] table
+// `rows` (see the notes at the top; rows 16-byte aligned). act_a / act_b:
+// the ray is live; a ray that is not tests nothing and keeps t = kBig.
+// With kCull, clo/chi f32[nc, 3] and cslack f32[nc, 2] are the chunks'
+// boxes and slack. tested_a / tested_b: the chunks each group of 128 rays
+// tested. Every thread of the block must call this: it holds the block's
+// barriers.
+template <bool kCull, bool kDzTest, int kStride = 48>
 __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T, Ray& ra,
                                            bool act_a, Ray& rb, bool act_b,
                                            const float* __restrict__ clo,
-                                           const float* __restrict__ chi, int& tested_a,
+                                           const float* __restrict__ chi,
+                                           const float* __restrict__ cslack, int& tested_a,
                                            int& tested_b) {
   extern __shared__ float4 smem[];
   __shared__ int omax_bits;  // the block's largest finite |o| of a live ray, as bits
@@ -298,20 +305,20 @@ __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T
   float4* geom = smem;
   float4* sph = smem + (whole ? 3 * T : 6 * kChunk);
   if (whole) {
-    stage_async(geom, rows, 0, T);
+    stage_async<kStride>(geom, rows, 0, T);
     cp_async_wait<0>();
     __syncthreads();
     make_spheres(geom, sph, T, __int_as_float(omax_bits));
     __syncthreads();
   } else {
-    stage_async(geom, rows, 0, min(kChunk, T));
+    stage_async<kStride>(geom, rows, 0, min(kChunk, T));
   }
   for (int j = 0; j < nc; ++j) {
     const int base = j * kChunk, n = min(kChunk, T - base);
     bool ta = act_a, tb = act_b;
     if constexpr (kCull) {
-      ta = act_a && slab_reach(sa, clo, chi, j, ra.h.t);
-      tb = act_b && slab_reach(sb, clo, chi, j, rb.h.t);
+      ta = act_a && slab_reach(sa, clo, chi, cslack, j, on_a, ra.h.t);
+      tb = act_b && slab_reach(sb, clo, chi, cslack, j, on_b, rb.h.t);
     }
     if (whole) {
       if constexpr (kCull) {
@@ -326,8 +333,8 @@ __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T
     // The ring: tile j + 1 loads while tile j is tested.
     float4* tile = geom + (j & 1) * 3 * kChunk;
     if (j + 1 < nc) {
-      stage_async(geom + ((j + 1) & 1) * 3 * kChunk, rows, base + kChunk,
-                  min(kChunk, T - base - kChunk));
+      stage_async<kStride>(geom + ((j + 1) & 1) * 3 * kChunk, rows, base + kChunk,
+                           min(kChunk, T - base - kChunk));
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();

@@ -9,7 +9,8 @@ Nearest hit with the winner's values and shading row (JAX
 
 - :func:`nearest_shade_full` is the entry point. For CUDA tensors it
   launches ``csrc/nearest_shade.cu`` (B4; given the chunk boxes ``clo``,
-  ``chi`` of a Morton-ordered table, the culling instance B4c); for CPU
+  ``chi`` of a Morton-ordered table and their slack ``cslack``
+  (:func:`.cull.chunk_slack`), the culling instance B4c); for CPU
   tensors it runs :func:`nearest_shade_full_ref`. It never falls back
   from one to the other.
 - :func:`nearest_shade_full_ref` is the plain version: brute f32
@@ -26,9 +27,14 @@ Nearest hit with the winner's values and shading row (JAX
 Nearest index only (JAX ``nearest_triangle``, Pallas kernel
 ``_nearest_kernel``), the fused intersector:
 
-- :func:`nearest_triangle` launches ``csrc/nearest_triangle.cu`` (B7)
-  for CUDA tensors and runs :func:`nearest_triangle_ref` for CPU ones,
-  over the geometry table of :func:`pack_geom_rows`;
+- :func:`nearest_triangle` launches ``csrc/nearest_triangle.cu`` (B7,
+  on B4's selection loop) for CUDA tensors and runs
+  :func:`nearest_triangle_ref` for CPU ones, over the geometry table of
+  :func:`pack_geom_rows`;
+- :func:`nearest_triangle_control` launches the same file's control, the
+  one-ray-per-thread loop without the sphere rejection, which B7 and B4
+  with ``dz_test`` must equal bit for bit; tests and ``chip_smoke.py``
+  call it, no path does;
 - :func:`intersect_fused` is B7's index, detached, then
   :func:`refine_hit`, the differentiable recompute of (t, β, γ, point)
   from the winner's transform, returning a :class:`.intersect.Hit`.
@@ -63,12 +69,12 @@ _P = ctypes.c_void_p
 _DET_EPS = 1e-12
 
 
-def nearest_shade_full_ref(rows, pos3, dir3, live, clo=None, chi=None, *, tested=None,
-                           dz_test=False):
+def nearest_shade_full_ref(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, *,
+                           tested=None, dz_test=False):
     """Plain version of :func:`nearest_shade_full`: brute f32 selection
     over ``rows`` f32[T, 48] and a gather of the winner's shading row.
-    ``clo``, ``chi`` are accepted and not needed: culling never changes
-    the winners."""
+    ``clo``, ``chi``, ``cslack`` are accepted and not needed: culling
+    never changes the winners."""
     if tested is not None:
         raise ValueError("chunk counts come from the kernel; the plain version "
                          "tests every triangle")
@@ -88,7 +94,7 @@ def _shade_lib() -> ctypes.CDLL:
     fn.argtypes = [
         _P, ctypes.c_int,  # rows, T
         _P, _P, _P, ctypes.c_int,  # pos, dir, live, R
-        _P, _P, ctypes.c_int, ctypes.c_int,  # clo, chi, cull, dz_test
+        _P, _P, _P, ctypes.c_int, ctypes.c_int,  # clo, chi, cslack, cull, dz_test
         _P, _P, _P, _P, _P,  # idx, tbg, shade, tested, stream
     ]
     return lib
@@ -122,14 +128,14 @@ def _check_table(table, dev, width) -> None:
         raise ValueError("the triangle table must be 16-byte aligned for float4 loads")
 
 
-def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested, dz_test):
+def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, tested, dz_test):
     dev = pos3.device
     R = pos3.shape[1]
     _check_rays(dev, R, pos3, dir3, live)
     _check_table(rows, dev, 48)
     cull = clo is not None
     if cull:
-        check_chunk_boxes(rows, clo, chi)
+        check_chunk_boxes(rows, clo, chi, cslack)
     if tested is not None:
         check_tested(tested, R, dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
@@ -140,8 +146,9 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested, dz_test):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nearest_shade_launch(
             rows.data_ptr(), rows.shape[0], pos3.data_ptr(), dir3.data_ptr(),
-            live.data_ptr(), R, clo.data_ptr() if cull else None,
-            chi.data_ptr() if cull else None, int(cull), int(bool(dz_test)), idx.data_ptr(),
+            live.data_ptr(), R,
+            *((clo.data_ptr(), chi.data_ptr(), cslack.data_ptr()) if cull else (None,) * 3),
+            int(cull), int(bool(dz_test)), idx.data_ptr(),
             tbg.data_ptr(), shade.data_ptr(), None if tested is None else tested.data_ptr(),
             stream,
         )
@@ -152,13 +159,13 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested, dz_test):
     return idx, tbg, shade
 
 
-def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, *, tested=None,
-                       dz_test=False):
+def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, *,
+                       tested=None, dz_test=False):
     """Nearest hit per ray of ``pos3``, ``dir3`` f32[3, R] (``live``
     bool[R]) over ``rows`` f32[T, 48]: (idx, tbg, shade) as the module
     docstring says. CUDA tensors launch B4, or B4c given the chunk boxes
-    ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered table,
-    and add one to
+    ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered table and
+    their slack ``cslack`` f32[ceil(T / 128), 2], and add one to
     ``nearest_shade_full.launches`` (and to ``.cull_launches`` for B4c);
     CPU tensors run :func:`nearest_shade_full_ref`. ``dz_test`` adds the
     explicit |d'_z| > 1e-12 test (JAX ``nearest_shade_culled``).
@@ -167,9 +174,10 @@ def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, *, tested=Non
     kernel fills with the 128-triangle chunks each block of 128 rays
     tested."""
     if pos3.device.type == "cuda":
-        return _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, tested, dz_test)
+        return _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, tested,
+                                        dz_test)
     if pos3.device.type == "cpu":
-        return nearest_shade_full_ref(rows, pos3, dir3, live, clo, chi, tested=tested,
+        return nearest_shade_full_ref(rows, pos3, dir3, live, clo, chi, cslack, tested=tested,
                                       dz_test=dz_test)
     raise ValueError(f"no nearest_shade kernel for device {pos3.device}")
 
@@ -233,8 +241,8 @@ class NearestShadeFull(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, rows, pos3, dir3, live, clo, chi):
-        idx, tbg, shade = nearest_shade_full(rows, pos3, dir3, live, clo, chi)
+    def forward(ctx, rows, pos3, dir3, live, clo, chi, cslack):
+        idx, tbg, shade = nearest_shade_full(rows, pos3, dir3, live, clo, chi, cslack)
         ctx.save_for_backward(idx, rows, pos3, dir3)
         ctx.mark_non_differentiable(idx)
         return idx, tbg, shade
@@ -242,13 +250,13 @@ class NearestShadeFull(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _idx, ct_tbg, ct_shade):
         d_rows, d_pos, d_dir = _winner_vjp(ctx, ct_tbg, ct_shade)
-        return d_rows, d_pos, d_dir, None, None, None
+        return d_rows, d_pos, d_dir, None, None, None, None
 
 
-def nearest_shade_full_diff(rows, pos3, dir3, live, clo=None, chi=None):
+def nearest_shade_full_diff(rows, pos3, dir3, live, clo=None, chi=None, cslack=None):
     """:func:`nearest_shade_full` with gradients to ``rows`` and the rays
     through :class:`NearestShadeFull`."""
-    return NearestShadeFull.apply(rows, pos3, dir3, live, clo, chi)
+    return NearestShadeFull.apply(rows, pos3, dir3, live, clo, chi, cslack)
 
 
 def pack_geom_rows(m, m_a, tri_valid) -> torch.Tensor:
@@ -289,27 +297,27 @@ def nearest_triangle_ref(geom, pos3, dir3):
 @functools.cache
 def _triangle_lib() -> ctypes.CDLL:
     lib = cuda_build.load("nearest_triangle")
-    fn = lib.nearest_triangle_launch
-    fn.restype = ctypes.c_int
-    # geom, T, pos, dir, R, idx, stream
-    fn.argtypes = [_P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P]
+    for fn in (lib.nearest_triangle_launch, lib.nearest_triangle_control_launch):
+        fn.restype = ctypes.c_int
+        # geom, T, pos, dir, R, idx, stream
+        fn.argtypes = [_P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P]
     return lib
 
 
-def _nearest_triangle_cuda(geom, pos3, dir3):
+def _nearest_triangle_cuda(geom, pos3, dir3, control=False):
     dev = pos3.device
     R = pos3.shape[1]
     _check_rays(dev, R, pos3, dir3)
     _check_table(geom, dev, 12)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
     lib = _triangle_lib()
+    launch = lib.nearest_triangle_control_launch if control else lib.nearest_triangle_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nearest_triangle_launch(geom.data_ptr(), geom.shape[0], pos3.data_ptr(),
-                                          dir3.data_ptr(), R, idx.data_ptr(), stream)
+        err = launch(geom.data_ptr(), geom.shape[0], pos3.data_ptr(), dir3.data_ptr(), R,
+                     idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nearest_triangle kernel launch failed: cudaError {err}")
-    nearest_triangle.launches += 1
     return idx
 
 
@@ -320,7 +328,21 @@ def nearest_triangle(geom, pos3, dir3):
     ``nearest_triangle.launches``; CPU tensors run
     :func:`nearest_triangle_ref`."""
     if pos3.device.type == "cuda":
-        return _nearest_triangle_cuda(geom, pos3, dir3)
+        idx = _nearest_triangle_cuda(geom, pos3, dir3)
+        nearest_triangle.launches += 1
+        return idx
+    if pos3.device.type == "cpu":
+        return nearest_triangle_ref(geom, pos3, dir3)
+    raise ValueError(f"no nearest_triangle kernel for device {pos3.device}")
+
+
+def nearest_triangle_control(geom, pos3, dir3):
+    """:func:`nearest_triangle` through the control loop: for CUDA tensors
+    ``csrc/nearest_triangle.cu``'s one-ray-per-thread loop without the
+    sphere rejection (no launch count: no path runs it), for CPU tensors
+    :func:`nearest_triangle_ref`."""
+    if pos3.device.type == "cuda":
+        return _nearest_triangle_cuda(geom, pos3, dir3, control=True)
     if pos3.device.type == "cpu":
         return nearest_triangle_ref(geom, pos3, dir3)
     raise ValueError(f"no nearest_triangle kernel for device {pos3.device}")

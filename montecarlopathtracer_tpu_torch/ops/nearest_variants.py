@@ -46,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from . import nearest_shade as NS
+from .cull import chunk_slack
 
 _BIG = 3.0e38
 _TILE = 128  # B4c's triangles per tile, one chunk box each
@@ -242,15 +243,16 @@ def nearest_shade2(wf, geom, table, pos3, dir3, *, t_chunk: int = T_CHUNK):
 
 
 def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi=None, *,
-                           t_chunk: int = 256, cull: bool = False):
+                           t_chunk: int = 256, cull: bool = False, cslack=None):
     """As :func:`nearest_shade` over the streamed packing ``ws f32[8, 6
     T_pad]`` of :func:`pack_transforms_stream` with chunk ``t_chunk``
     (JAX ``nearest_shade_streamed``, TPU kernel ``_nearest_idx_kernel_v3``,
     B10), for the lanes of ``live`` bool[R] (None: all). With ``cull``,
     the triangle axis is in Morton order and ``clo``, ``chi`` f32[T_pad /
     t_chunk, 3] are the boxes of its chunks (JAX ``chunk_aabbs_padded``):
-    B4c on those boxes regridded to its tiles; else B4. ``geom`` as in
-    :func:`nearest_shade2`."""
+    B4c on those boxes regridded to its tiles, with their slack ``cslack``
+    (:func:`.cull.chunk_slack` of the unpacked rows, computed here when not
+    given); else B4. ``geom`` as in :func:`nearest_shade2`."""
     _check_geom(geom, table)
     w = _unstream(ws, t_chunk)
     rows = _rows(_geometry(w), table)
@@ -261,7 +263,8 @@ def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi
         if clo is None or chi is None or clo.shape[0] != nc or chi.shape[0] != nc:
             raise ValueError(f"cull needs chunk boxes clo, chi [{nc}, 3]")
         # The boxes past the table cover padding only.
-        boxes = dict(zip(("clo", "chi"), tile_boxes(clo, chi, t_chunk, rows.shape[0])))
+        boxes = dict(zip(("clo", "chi"), tile_boxes(clo, chi, t_chunk, rows.shape[0])),
+                     cslack=chunk_slack(rows) if cslack is None else cslack)
     before = nearest_shade_streamed.launches
     out = _select(nearest_shade_streamed, rows, pos3, dir3, live, **boxes)
     if cull:
@@ -269,19 +272,22 @@ def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi
     return out
 
 
-def nearest_shade_culled(w, table, clo, chi, pos3, dir3, live):
+def nearest_shade_culled(w, table, clo, chi, pos3, dir3, live, cslack=None):
     """As :func:`nearest_shade` over ``w f32[6, 8, T]`` in Morton order
     with its chunk boxes ``clo``, ``chi`` f32[nc, 3], one per T / nc
     consecutive triangles, for the lanes of ``live`` (JAX
     ``nearest_shade_culled``, TPU kernel ``_nearest_shade_culled_kernel``,
-    B11): B4c, on those boxes regridded to its tiles, with the explicit
+    B11): B4c, on those boxes regridded to its tiles and widened by
+    ``cslack`` (as in :func:`nearest_shade_streamed`), with the explicit
     |d'_z| > 1e-12 test of that kernel."""
     T, nc = w.shape[2], clo.shape[0]
     if nc == 0 or T % nc or chi.shape[0] != nc:
         raise ValueError(f"{T} triangles do not divide into {nc} chunk boxes")
     clo, chi = tile_boxes(clo, chi, T // nc, T)
-    return _select(nearest_shade_culled, _rows(_geometry(w), table), pos3, dir3,
-                   live.to(torch.bool).contiguous(), clo=clo, chi=chi, dz_test=True)
+    rows = _rows(_geometry(w), table)
+    return _select(nearest_shade_culled, rows, pos3, dir3, live.to(torch.bool).contiguous(),
+                   clo=clo, chi=chi, cslack=chunk_slack(rows) if cslack is None else cslack,
+                   dz_test=True)
 
 
 def _check_geom(geom, table) -> None:

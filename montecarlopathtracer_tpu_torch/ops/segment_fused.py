@@ -17,10 +17,11 @@ Forward (JAX ``mega_segment_fwd``, Pallas kernel ``_mega_segment_kernel``):
   per segment f32[3, 1] (B1) or per lane f32[3, R] (B1l, JAX
   ``lane_flags=True``, for the regenerating wavefront). Given the chunk
   boxes ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered
-  table, the kernel skips the 128-triangle chunks that no live ray of a
-  group of 128 rays can reach with its current best t (B1c, JAX
-  ``cull=True``); the winners are those of brute selection over the same
-  table. In front of the exact pair test the kernel rejects a pair whose
+  table and their slack ``cslack`` f32[ceil(T / 128), 2]
+  (:func:`.cull.chunk_slack`), the kernel skips the 128-triangle chunks
+  that no live ray of a group of 128 rays can reach with its current best
+  t (B1c, JAX ``cull=True``); the winners are those of brute selection
+  over the same table. In front of the exact pair test the kernel rejects a pair whose
   ray misses the triangle's widened bounding sphere, which changes no
   winner: B1, B1l and B1c pick the winners of ``nearest_shade_full``
   (B4, B4c) bit for bit.
@@ -247,11 +248,12 @@ def mega_segment_ref(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
     refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
-    tested=None,
+    cslack=None, tested=None,
 ):
     """Plain-torch whole segment (see the module docstring for the
-    contract): brute selection, then :func:`_epilogue`. ``clo``, ``chi``
-    are accepted and not needed: culling never changes the winners."""
+    contract): brute selection, then :func:`_epilogue`. ``clo``, ``chi``,
+    ``cslack`` are accepted and not needed: culling never changes the
+    winners."""
     _check_options(mode, phong_model)
     if tested is not None:
         raise ValueError("chunk counts come from the kernel; the plain version "
@@ -375,7 +377,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,  # lane_flags, R
         ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
         ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
-        _P, _P, ctypes.c_int,  # clo, chi, cull
+        _P, _P, _P, ctypes.c_int,  # clo, chi, cslack, cull
         _P, _P, _P, _P, _P, _P,  # idx, npos, ndir, ntput, nres, still
         _P, _P,  # tested, stream
     ]
@@ -463,16 +465,20 @@ def _check_cuda_inputs(rows, vec3, vec1, live, flags) -> None:
         raise ValueError("R and T must fit in int32")
 
 
-def check_chunk_boxes(rows, clo, chi, chunk=128) -> None:
-    """Chunk boxes f32[ceil(T / chunk), 3] on the table's device, for the
+def check_chunk_boxes(rows, clo, chi, cslack, chunk=128) -> None:
+    """Chunk boxes f32[ceil(T / chunk), 3] and their slack f32[ceil(T /
+    chunk), 2] (:func:`.cull.chunk_slack`) on the table's device, for the
     culling kernels (B1c, B4c)."""
     nc = -(-rows.shape[0] // chunk)
-    for x in (clo, chi):
+    if cslack is None:
+        raise ValueError("chunk boxes need their slack cslack (ops.cull.chunk_slack)")
+    for x, w in ((clo, 3), (chi, 3), (cslack, 2)):
         if x.device != rows.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"chunk boxes must be contiguous float32 on {rows.device}")
-        if tuple(x.shape) != (nc, 3):
-            raise ValueError(f"chunk boxes must be [{nc}, 3] for {rows.shape[0]} triangles, "
-                             f"got {tuple(x.shape)}")
+            raise ValueError(f"chunk boxes and slack must be contiguous float32 on "
+                             f"{rows.device}")
+        if tuple(x.shape) != (nc, w):
+            raise ValueError(f"chunk boxes and slack must be [{nc}, 3] and [{nc}, 2] for "
+                             f"{rows.shape[0]} triangles, got {tuple(x.shape)}")
 
 
 def check_tested(tested, R, dev, block=128) -> None:
@@ -485,7 +491,7 @@ def check_tested(tested, R, dev, block=128) -> None:
 
 def _mega_segment_cuda(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
-    mode, illum, eps_offset, refract_kd, phong_model, clo, chi, tested,
+    mode, illum, eps_offset, refract_kd, phong_model, clo, chi, cslack, tested,
 ):
     _check_options(mode, phong_model)
     _check_cuda_inputs(rows, (pos3, dir3, tput, res), (u1, u2, urr), live, flags)
@@ -493,7 +499,7 @@ def _mega_segment_cuda(
     dev = pos3.device
     cull = clo is not None
     if cull:
-        check_chunk_boxes(rows, clo, chi)
+        check_chunk_boxes(rows, clo, chi, cslack)
     if tested is not None:
         check_tested(tested, R, dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
@@ -509,8 +515,8 @@ def _mega_segment_cuda(
             flags.data_ptr(), int(flags.shape[1] != 1), R,
             int(mode == "rr"), float(illum), float(eps_offset),
             int(bool(refract_kd)), int(phong_model == "phong"),
-            clo.data_ptr() if cull else None, chi.data_ptr() if cull else None, int(cull),
-            idx.data_ptr(), npos.data_ptr(), ndir.data_ptr(),
+            *((clo.data_ptr(), chi.data_ptr(), cslack.data_ptr()) if cull else (None,) * 3),
+            int(cull), idx.data_ptr(), npos.data_ptr(), ndir.data_ptr(),
             ntput.data_ptr(), nres.data_ptr(), still.data_ptr(),
             None if tested is None else tested.data_ptr(), stream,
         )
@@ -526,7 +532,7 @@ def mega_segment(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
     refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
-    tested=None,
+    cslack=None, tested=None,
 ):
     """Whole-segment forward (see the module docstring). CUDA tensors
     launch the kernel and add one to ``mega_segment.launches`` (and to
@@ -539,7 +545,7 @@ def mega_segment(
     (rays ``128 g`` to ``128 g + 127``) tested."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
               refract_kd=refract_kd, phong_model=phong_model, clo=clo, chi=chi,
-              tested=tested)
+              cslack=cslack, tested=tested)
     args = (rows, pos3, dir3, tput, res, live, u1, u2, urr, flags)
     if pos3.device.type == "cuda":
         return _mega_segment_cuda(*args, **kw)
@@ -685,9 +691,10 @@ class WholeSegment(torch.autograd.Function):
     is piecewise constant in the geometry)."""
 
     @staticmethod
-    def forward(ctx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, clo, chi, kw):
+    def forward(ctx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, clo, chi, cslack,
+                kw):
         out = mega_segment(rows, pos3, dir3, tput, res, live, u1, u2, urr, flags,
-                           clo=clo, chi=chi, **kw)
+                           clo=clo, chi=chi, cslack=cslack, **kw)
         ctx.save_for_backward(out[0], rows, pos3, dir3, tput, res, live, u1, u2,
                               urr, flags)
         ctx.kw = kw
@@ -697,7 +704,7 @@ class WholeSegment(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _idx, ct_npos, ct_ndir, ct_ntput, ct_nres, _still):
         d_rows, d_state = _segment_vjp(ctx, (ct_npos, ct_ndir, ct_ntput, ct_nres))
-        return (d_rows, *d_state, None, None, None, None, None, None, None, None)
+        return (d_rows, *d_state, *(None,) * 9)
 
 
 def _segment_vjp(ctx, cts):
@@ -718,17 +725,17 @@ def _segment_vjp(ctx, cts):
 def whole_segment_megakernel(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
-    refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
+    refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None, cslack=None,
 ):
     """Differentiable whole segment (JAX ``whole_segment_megakernel``):
     the outputs of :func:`mega_segment`, with gradients to ``rows`` and
     the ray state through :class:`WholeSegment`; chunk boxes ``clo``,
-    ``chi`` select the culling kernel B1c."""
+    ``chi`` and their slack ``cslack`` select the culling kernel B1c."""
     _check_options(mode, phong_model)
     kw = dict(mode=mode, illum=float(illum), eps_offset=float(eps_offset),
               refract_kd=bool(refract_kd), phong_model=phong_model)
     return WholeSegment.apply(rows, pos3, dir3, tput, res, live, u1, u2, urr,
-                              flags, clo, chi, kw)
+                              flags, clo, chi, cslack, kw)
 
 
 class WholeSegmentRows(torch.autograd.Function):

@@ -27,8 +27,11 @@ contraction and are not the renderer's selection, which runs in f32.
 For CUDA tensors each launches ``csrc/selection_micro.cu`` and adds one
 to its launch count (``selection_micro.launches[variant]``,
 ``epilogue_only.launches``, ``epilogue_shared.launches``); for CPU
-tensors it runs the plain version, which rounds as the kernel does, so
-the two agree bit for bit.
+tensors it runs the plain version. B13's and B14's plain versions round
+as their kernel does, so the two agree bit for bit. B12's kernel sums p
+on the bf16 tensor cores, in their order and rounding, where the plain
+version sums the 48 rows in order: the two are held together by
+``testing.compare_micro``'s rounding rule.
 """
 
 from __future__ import annotations
@@ -154,6 +157,9 @@ def selection_micro(ws, rays, t_chunk: int = 256, variant: str = "full"):
     _check_card(dev, ws, rays)
     if 6 * T * K >= 2**31 or R * K >= 2**31:
         raise ValueError("ws and rays must hold fewer than 2^31 values")
+    if t_chunk % 8 or ws.data_ptr() % 16:
+        raise ValueError("the kernel stages ws in 16-byte pieces: t_chunk must be a multiple "
+                         "of 8 and ws 16-byte aligned")
     out = torch.empty(R, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

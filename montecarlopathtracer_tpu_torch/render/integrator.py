@@ -42,7 +42,8 @@ body: its Russian roulette takes ``tput.amax`` (whose adjoint splits a
 three-way tie in thirds), where the whole segment nests pairwise maxima.
 
 The scene-side tables (the row table, for ``"traverse"`` and
-``chunk_cull`` the Morton permutation and the chunk boxes, for
+``chunk_cull`` the Morton permutation and the chunk boxes (with
+``chunk_cull`` also their slack, :func:`..ops.cull.chunk_slack`), for
 ``"brute"``, ``"fused"`` and ``"kdtree"`` the triangle transforms, for
 ``"kdtree"`` the tree) are built once per scene and device by
 :func:`scene_tables`; pass them to reuse them across calls.
@@ -94,6 +95,7 @@ import torch
 from ..ops import nearest_shade as NS
 from ..ops import segment_fused as F
 from ..ops import traverse_walk as TW
+from ..ops.cull import chunk_slack
 from ..ops.intersect import intersect_brute, triangle_transforms
 from ..ops.morton import DEAD_KEY, chunk_aabbs_padded, morton_order, ray_sort_keys
 from ..ops.rng import Key, fold_in, stream_uniform
@@ -203,6 +205,7 @@ class SceneTables:
     perm: Optional[torch.Tensor] = None  # i64[T] the Morton order
     clo: Optional[torch.Tensor] = None  # f32[nc, 3] chunk boxes
     chi: Optional[torch.Tensor] = None
+    cslack: Optional[torch.Tensor] = None  # f32[nc, 2] their slack (chunk_cull)
     walk: Optional[TW.WalkTables] = None  # B5's tree and spheres ("traverse")
     lo: Optional[torch.Tensor] = None  # f32[3] scene box (ray_sort)
     hi: Optional[torch.Tensor] = None
@@ -213,8 +216,9 @@ class SceneTables:
 
     @property
     def cull_boxes(self) -> dict:
-        """The chunk boxes as the culling kernels' keyword arguments."""
-        return dict(clo=self.clo, chi=self.chi)
+        """The chunk boxes and their slack as the culling kernels' keyword
+        arguments."""
+        return dict(clo=self.clo, chi=self.chi, cslack=self.cslack)
 
 
 def kd_tree(scene: ScenePack) -> KDArrays:
@@ -232,8 +236,8 @@ def scene_tables(scene: ScenePack, config: TraceConfig,
                  accel: Optional[KDArrays] = None) -> SceneTables:
     """Build the scene's :class:`SceneTables` for ``config``. The row
     table and the transforms carry gradients to the scene's fields; the
-    permutation, the boxes, B7's table and the KD tree, which only choose
-    which triangles win, do not. ``accel`` is a prebuilt KD tree for
+    permutation, the boxes and their slack, B7's table and the KD tree,
+    which only choose which triangles win, do not. ``accel`` is a prebuilt KD tree for
     ``"kdtree"`` (JAX's ``accel`` argument); without it the tree is
     built here (:func:`kd_tree`)."""
     extra = {}
@@ -256,6 +260,9 @@ def scene_tables(scene: ScenePack, config: TraceConfig,
     rows = F.pack_rows_full(scene)
     if "perm" in extra:
         rows = rows[extra["perm"]]
+    if config.chunk_cull:
+        with torch.no_grad():
+            extra["cslack"] = chunk_slack(rows)
     if config.intersector == "traverse":
         with torch.no_grad():
             lo, hi, big = TW.walk_boxes(*scene.triangle_vertices(), scene.tri_valid,

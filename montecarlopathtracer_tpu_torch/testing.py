@@ -13,11 +13,13 @@ the split path's intersector outputs.
 :func:`compare_images` holds whole frames to a pixel share.
 :func:`compare_grads` holds the cotangents of one segment's vjp,
 :func:`compare_scatter` the row scatter's table, and
-:func:`compare_param_grads` the parameter gradients of a whole render.
-:func:`plain_kernels` routes every kernel wrapper to its plain version,
-so that a path can run plain on the card. :func:`tie_soup` builds a
-table whose winners tie at equal t across chunks, in the order that the
-traversal walk visits them.
+:func:`compare_param_grads` the parameter gradients of a whole render,
+and :func:`compare_micro` the selection microkernel B12's tensor-core
+results by a rounding rule. :func:`plain_kernels` routes every kernel
+wrapper to its plain version, so that a path can run plain on the card.
+:func:`tie_soup` builds a table whose winners tie at equal t across
+chunks, in the order that the traversal walk visits them, and
+:func:`hard_soup` seeded soups whose rays aim at triangle edges.
 """
 
 from __future__ import annotations
@@ -44,6 +46,10 @@ SCATTER_ULPS = 16
 # within SHADE_ULPS * eps32 * (their rounding scale) of the float64 value
 # (compare_shade).
 SHADE_ULPS = 16
+# Selection microkernel B12 (compare_micro): its tensor-core sums of 48
+# products may each be off by MICRO_ADDEND_ULPS f32 ulps (2^-23) per
+# addend of the largest sum of |products| of the ray.
+MICRO_ADDEND_ULPS = 2
 EPS32 = float(np.finfo(np.float32).eps)
 # Near-tie bounds, in float64 on the f32 rows: accept margins this close
 # to 0 flip under f32 rounding, and so do distances this close together.
@@ -208,6 +214,92 @@ def compare_shade(got, want, *, live, rows, pos, dir_, tol=(1e-5, 1e-5)) -> dict
     rep["shade_equal"] = bool(np.array_equal(got[2][:, agree], want[2][:, agree]))
     rep["ok"] = bool(rep["ok"] and rep["shade_equal"] and (got[0][lanes] >= 0).all()
                      and (ulps <= SHADE_ULPS).all())
+    return rep
+
+
+def _micro_products(ws, x):
+    """(p, E) for the rays x bf16[48, r]: p = wsᵀ·x f64[6T, r] (each bf16
+    product exact, summed in float64) and E f64[r], the rounding bound of
+    B12's sums, 48 · MICRO_ADDEND_ULPS · 2^-23 times the ray's largest
+    Σ|ws_k·x_k| over the 6T columns."""
+    w, x = ws.double().T, x.double()
+    return w @ x, 48 * MICRO_ADDEND_ULPS * 2.0 ** -23 * (w.abs() @ x.abs()).amax(0)
+
+
+def compare_micro(ws, rays, t_chunk, variant, got, want, *, step=None) -> dict:
+    """The selection microkernel B12's output ``got`` i32[R] for ``ws``
+    bf16[48, 6T], ``rays`` bf16[48, R], chunk ``t_chunk`` and ``variant``,
+    against the plain version's ``want`` (``ops.selection_micro``), by a
+    rounding rule in place of bit equality: the kernel sums p on the
+    tensor cores, in another order and rounding than the plain version's
+    row-order f32 sums. p is recomputed in float64 from the same bf16
+    operands (exact products), and E, per ray, is :func:`_micro_products`'.
+
+    - ``matmul_only``: ``got`` must lie in {trunc(v) : v ∈ [min p − E,
+      min p + E]} on every ray; ``matmul_bf16`` the same with E widened by
+      one bf16 ulp (2^-8) of |min p| + E.
+    - ``full``: winners equal on at least MIN_IDX_AGREEMENT of the rays.
+      Where they differ, either both triangles are accepted in float64 and
+      their t lie within their rounding slack of each other (a near-tie),
+      or one of them lies within its rounding slack of the accept chain's
+      boundary (β, γ, 1 − β − γ or t near 0, or |d'_z| within E of 0).
+      Each p is within E of the float64 value, so the slack of t = q / w
+      is E·(1 + |t|) / (|w| − E), that of β is E·(1 + |t|) + (|d'_x| +
+      E)·(that of t), of γ likewise, of 1 − β − γ their sum; E also
+      covers the f32 rounding of the accept chain itself.
+
+    ``step``: rays per float64 product (default: 2^27 / 6T values)."""
+    import torch
+
+    R, T6 = rays.shape[1], ws.shape[1]
+    tc = t_chunk
+    got = got.to(rays.device).long()
+    want = want.to(rays.device).long()
+    rep = {"variant": variant, "n_rays": R, "n_differ_from_plain": int((got != want).sum())}
+    if variant != "full":
+        step = step or max(1, (1 << 27) // T6)
+        bad, worst_e = 0, 0.0
+        for s in range(0, R, step):
+            p, e = _micro_products(ws, rays[:, s:s + step])
+            low = p.amin(0)
+            if variant == "matmul_bf16":
+                e = e + 2.0 ** -8 * (low.abs() + e)
+            g = got[s:s + step].double()
+            bad += int(((g < torch.trunc(low - e)) | (g > torch.trunc(low + e))).sum())
+            worst_e = max(worst_e, float(e.max()))
+        rep.update(n_out_of_bound=bad, max_slack=worst_e)
+        rep["ok"] = bad == 0
+        return rep
+    diff = torch.nonzero(got != want)[:, 0]
+    x = rays[:, diff]
+    e = _micro_products(ws, x)[1]
+    accepted, t, dt, edge = [], [], [], []
+    for j in (got[diff], want[diff]):
+        jj = j.clamp_min(0)
+        c = jj // tc
+        col = (c * 6 * tc + jj % tc)[None, :] + (torch.arange(6, device=j.device) * tc)[:, None]
+        w = ws.double()[:, col]  # [48, 6, n]
+        opx, opy, q, dpx, dpy, dz = (w * x.double()[:, None, :]).sum(0)
+        tj = q / dz
+        beta, gamma = opx + tj * dpx, opy + tj * dpy
+        rest = 1.0 - (beta + gamma)
+        grow = e * (1.0 + tj.abs())
+        dtj = torch.where(dz.abs() > e, grow / (dz.abs() - e), torch.inf)
+        db, dg = grow + (dpx.abs() + e) * dtj, grow + (dpy.abs() + e) * dtj
+        near = ((beta.abs() <= db) | (gamma.abs() <= dg) | (rest.abs() <= db + dg)
+                | (tj.abs() <= dtj) | ~tj.isfinite())
+        ok = (beta > 0) & (gamma > 0) & (rest > 0) & (tj > 0)
+        accepted.append(ok & (j >= 0))
+        t.append(tj)
+        dt.append(dtj)
+        edge.append(near & (j >= 0))
+    tie = accepted[0] & accepted[1] & ((t[0] - t[1]).abs() <= dt[0] + dt[1])
+    boundary = ~tie & (edge[0] | edge[1])
+    n_bad = int((~tie & ~boundary).sum())
+    agree = 1.0 - diff.shape[0] / max(R, 1)
+    rep.update(idx_agree=agree, n_idx_mismatch=int(diff.shape[0]), n_near_tie=int(tie.sum()),
+               n_boundary=int(boundary.sum()), n_bad=n_bad)
+    rep["ok"] = bool(agree >= MIN_IDX_AGREEMENT and n_bad == 0)
     return rep
 
 
@@ -383,3 +475,68 @@ def tie_soup(device="cpu", R=512, seed=0):
     pos, dir_ = (torch.tensor(x, dtype=torch.float32, device=device).contiguous()
                  for x in (o, d))
     return verts, rows, clo, chi, pos, dir_
+
+
+HARD_SOUPS = ("random", "grazing", "slivers", "far", "large", "degenerate")
+
+
+def hard_soup(case, T, R, seed, device="cpu"):
+    """A seeded soup of T triangles and R rays aimed at points of them just
+    inside or outside an edge (barycentrics within 1e-7..0.1 of it), where
+    the segment kernel's sphere rejection has the least slack: "grazing"
+    rays (|cos| to the plane 1e-7..1e-2), "slivers" (widths down to where
+    kappa passes 2^16), "far" origins (1e3-3e4 away), "large" coordinates
+    (the scene scaled by 1e3 and moved to 3e4), "degenerate" (zero-area
+    triangles, and rows holding NaN, +-inf or zeros). Returns the vertices
+    a, b, c f32[T, 3], the rows f32[T, 48] (geometry only) and pos, dir
+    f32[3, R], rays sorted by the triangle they aim at."""
+    import torch
+
+    from .ops.intersect import triangle_transforms
+
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (T, 3))
+    e1, e2 = rng.normal(size=(T, 3)) * 0.3, rng.normal(size=(T, 3)) * 0.3
+    if case == "slivers":
+        perp = np.cross(e1, rng.normal(size=(T, 3)))
+        perp *= np.linalg.norm(e1, axis=1, keepdims=True) / np.linalg.norm(perp, axis=1,
+                                                                           keepdims=True)
+        e2 = e1 * rng.uniform(0.1, 0.9, (T, 1)) + perp * 10.0 ** rng.uniform(-5.5, -2.0, (T, 1))
+    scale = 1e3 if case == "large" else 1.0
+    a = a * scale + (3e4 if case == "large" else 0.0)
+    e1, e2 = e1 * scale, e2 * scale
+    j = np.sort(rng.integers(0, T, R))
+    near = 10.0 ** rng.uniform(-7.0, -1.0, R) * rng.choice([-1.0, 1.0], R)
+    free = rng.uniform(0.0, 1.0, R) * (1.0 - np.abs(near))
+    edge = rng.integers(0, 3, R)  # beta, gamma or 1 - beta - gamma near 0
+    beta = np.where(edge == 0, near, free)
+    gamma = np.where(edge == 1, near, np.where(edge == 0, free, 1.0 - near - free))
+    p = a[j] + beta[:, None] * e1[j] + gamma[:, None] * e2[j]
+    n = np.cross(e1, e2)[j]
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    d = rng.normal(size=(R, 3))
+    if case == "grazing":
+        u = np.cross(n, d)
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        d = u + n * (10.0 ** rng.uniform(-7.0, -2.0, (R, 1)) * rng.choice([-1.0, 1.0], (R, 1)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lo, hi = (3.0, 4.5) if case == "far" else (-1.0, 0.5)
+    o = p - 10.0 ** rng.uniform(lo, hi, (R, 1)) * scale * d
+    b, c = a + e1, a + e2
+    if case == "degenerate":
+        k = rng.permutation(T)[:T // 4]
+        c[k[0::2]] = a[k[0::2]] + 0.5 * e1[k[0::2]]  # collinear
+        b[k[1::2]] = c[k[1::2]] = a[k[1::2]]  # one point
+    verts = [torch.tensor(x, dtype=torch.float32, device=device) for x in (a, b, c)]
+    m, m_a = triangle_transforms(*verts)
+    geom = torch.cat([m, -m_a[:, :, None]], dim=2).reshape(-1, 12)
+    if case == "degenerate":
+        bad = torch.tensor(rng.permutation(T)[:T // 8], device=device)
+        geom[bad[0::4], 3] = float("nan")
+        geom[bad[1::4], 8] = float("inf")
+        geom[bad[2::4], 1] = -float("inf")
+        geom[bad[3::4]] = 0.0
+    rows = torch.cat([geom, torch.zeros(T, 36, device=device)], dim=1).contiguous()
+    pos, dir_ = (torch.tensor(x.T, dtype=torch.float32, device=device).contiguous()
+                 for x in (o, d))
+    return verts, rows, pos, dir_

@@ -42,6 +42,7 @@ import torch
 
 from ..models import bunny, cornell
 from ..ops import nearest_variants as NV
+from ..ops.cull import chunk_slack
 from ..ops.intersect import triangle_transforms
 from ..ops.morton import chunk_aabbs_padded, morton_order
 from ..scene.scene import ScenePack
@@ -130,11 +131,12 @@ def variants(scene):
     ws_cull = NV.pack_transforms_stream(m[perm], m_a[perm], valid[perm], 128)
     geom_cull, table_cull = geom[perm].contiguous(), table[perm].contiguous()
     clo, chi = chunk_aabbs_padded(a, b, c, valid, perm, 128)
+    cslack = chunk_slack(geom_cull)  # once per table, as scene_tables builds it
 
     def cull(pos3, dir3):
         live = torch.ones(pos3.shape[1], dtype=torch.bool, device=pos3.device)
         return NV.nearest_shade_streamed(ws_cull, geom_cull, table_cull, pos3, dir3, live,
-                                         clo, chi, t_chunk=128, cull=True)
+                                         clo, chi, t_chunk=128, cull=True, cslack=cslack)
 
     return {
         "v1": lambda pos3, dir3: NV.nearest_shade(w, table, pos3, dir3),

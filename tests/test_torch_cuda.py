@@ -13,12 +13,12 @@ repository root, without the JAX-pinning conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
-import numpy as np
 import pytest
 import torch
 
 from montecarlopathtracer_tpu_torch.diff import grad as G
 from montecarlopathtracer_tpu_torch.models import bunny, cornell, glossy
+from montecarlopathtracer_tpu_torch.ops import cull as CU
 from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
 from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
@@ -39,13 +39,16 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
 )
 from montecarlopathtracer_tpu_torch.render.regen import render_regen_batch
 from montecarlopathtracer_tpu_torch.testing import (
+    HARD_SOUPS,
     compare_grads,
     compare_images,
+    compare_micro,
     compare_param_grads,
     compare_scatter,
     compare_segment,
     compare_shade,
     compare_winners,
+    hard_soup,
     plain_kernels,
     tie_soup,
 )
@@ -508,76 +511,18 @@ def test_whole_segment_winners_equal_split_kernel_on_card(card, glossy_card, cas
             assert torch.equal(tested, want_tested)
 
 
-def _hard_soup(case, T, R, seed, device):
-    """A seeded soup of T triangles and R rays aimed at points of them just
-    inside or outside an edge (barycentrics within 1e-7..0.1 of it), where
-    the segment kernel's sphere rejection has the least slack: "grazing"
-    rays (|cos| to the plane 1e-7..1e-2), "slivers" (widths down to where
-    kappa passes 2^16), "far" origins (1e3-3e4 away), "large" coordinates
-    (the scene scaled by 1e3 and moved to 3e4), "degenerate" (zero-area
-    triangles, and rows holding NaN, +-inf or zeros). Returns the vertices
-    a, b, c f32[T, 3], the rows f32[T, 48] (geometry only) and pos, dir
-    f32[3, R], rays sorted by the triangle they aim at."""
-    rng = np.random.default_rng(seed)
-    a = rng.uniform(-1.0, 1.0, (T, 3))
-    e1, e2 = rng.normal(size=(T, 3)) * 0.3, rng.normal(size=(T, 3)) * 0.3
-    if case == "slivers":
-        perp = np.cross(e1, rng.normal(size=(T, 3)))
-        perp *= np.linalg.norm(e1, axis=1, keepdims=True) / np.linalg.norm(perp, axis=1,
-                                                                           keepdims=True)
-        e2 = e1 * rng.uniform(0.1, 0.9, (T, 1)) + perp * 10.0 ** rng.uniform(-5.5, -2.0, (T, 1))
-    scale = 1e3 if case == "large" else 1.0
-    a = a * scale + (3e4 if case == "large" else 0.0)
-    e1, e2 = e1 * scale, e2 * scale
-    j = np.sort(rng.integers(0, T, R))
-    near = 10.0 ** rng.uniform(-7.0, -1.0, R) * rng.choice([-1.0, 1.0], R)
-    free = rng.uniform(0.0, 1.0, R) * (1.0 - np.abs(near))
-    edge = rng.integers(0, 3, R)  # beta, gamma or 1 - beta - gamma near 0
-    beta = np.where(edge == 0, near, free)
-    gamma = np.where(edge == 1, near, np.where(edge == 0, free, 1.0 - near - free))
-    p = a[j] + beta[:, None] * e1[j] + gamma[:, None] * e2[j]
-    n = np.cross(e1, e2)[j]
-    n /= np.linalg.norm(n, axis=1, keepdims=True)
-    d = rng.normal(size=(R, 3))
-    if case == "grazing":
-        u = np.cross(n, d)
-        u /= np.linalg.norm(u, axis=1, keepdims=True)
-        d = u + n * (10.0 ** rng.uniform(-7.0, -2.0, (R, 1)) * rng.choice([-1.0, 1.0], (R, 1)))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    lo, hi = (3.0, 4.5) if case == "far" else (-1.0, 0.5)
-    o = p - 10.0 ** rng.uniform(lo, hi, (R, 1)) * scale * d
-    b, c = a + e1, a + e2
-    if case == "degenerate":
-        k = rng.permutation(T)[:T // 4]
-        c[k[0::2]] = a[k[0::2]] + 0.5 * e1[k[0::2]]  # collinear
-        b[k[1::2]] = c[k[1::2]] = a[k[1::2]]  # one point
-    verts = [torch.tensor(x, dtype=torch.float32, device=device) for x in (a, b, c)]
-    m, m_a = triangle_transforms(*verts)
-    geom = torch.cat([m, -m_a[:, :, None]], dim=2).reshape(-1, 12)
-    if case == "degenerate":
-        bad = torch.tensor(rng.permutation(T)[:T // 8], device=device)
-        geom[bad[0::4], 3] = float("nan")
-        geom[bad[1::4], 8] = float("inf")
-        geom[bad[2::4], 1] = -float("inf")
-        geom[bad[3::4]] = 0.0
-    rows = torch.cat([geom, torch.zeros(T, 36, device=device)], dim=1).contiguous()
-    pos, dir_ = (torch.tensor(x.T, dtype=torch.float32, device=device).contiguous()
-                 for x in (o, d))
-    return verts, rows, pos, dir_
-
-
 @pytest.mark.parametrize("T", [700, 1500], ids=["whole_table", "tile_ring"])
-@pytest.mark.parametrize("case", ["random", "grazing", "slivers", "far", "large",
-                                  "degenerate"])
+@pytest.mark.parametrize("case", HARD_SOUPS)
 def test_whole_segment_winners_equal_split_kernel_on_hard_soups(card, case, T):
     """B1 and B1c pick B4's and B4c's winners bit for bit (and B1c tests
     B4c's chunks) on soups made to find a pair that the sphere rejection
     drops wrongly, through both the whole-table path (T <= 760) and the
-    tile ring; B4 with the |d'_z| test picks B7's (the one-ray-per-thread
-    loop without a rejection); and on the soup in Morton order with its
-    chunk boxes, the walk B5 picks B4's."""
+    tile ring; B4 with the |d'_z| test and B7 pick the control's (the
+    one-ray-per-thread loop without a rejection); and on the soup in
+    Morton order with its chunk boxes and their slack, B4c and B1c pick
+    B4's (ROADMAP C15) and the walk B5 picks B4's."""
     R = 16384
-    verts, rows, pos, dir_ = _hard_soup(case, T, R, seed=T, device="cuda")
+    verts, rows, pos, dir_ = hard_soup(case, T, R, seed=T, device="cuda")
     ones = torch.ones(3, R, device="cuda")
     live = torch.ones(R, dtype=torch.bool, device="cuda")
     u = torch.full((R,), 0.5, device="cuda")
@@ -585,7 +530,7 @@ def test_whole_segment_winners_equal_split_kernel_on_hard_soups(card, case, T):
     perm = torch.arange(T, device="cuda")
     clo, chi = chunk_aabbs_padded(*verts, torch.ones(T, dtype=torch.bool, device="cuda"), perm,
                                   128)
-    for boxes in ({}, dict(clo=clo, chi=chi)):
+    for boxes in ({}, dict(clo=clo, chi=chi, cslack=CU.chunk_slack(rows))):
         nb = -(-R // 128)
         tested = torch.full((nb,), -1, dtype=torch.int32, device="cuda") if boxes else None
         want_tested = torch.full((nb,), -2, dtype=torch.int32, device="cuda") if boxes else None
@@ -599,16 +544,24 @@ def test_whole_segment_winners_equal_split_kernel_on_hard_soups(card, case, T):
         if boxes:
             assert torch.equal(tested, want_tested)
     geom = rows[:, :12].contiguous()
+    control = NS.nearest_triangle_control(geom, pos, dir_)
     dz = NS.nearest_shade_full(rows, pos, dir_, live, dz_test=True)[0]
-    assert torch.equal(dz, NS.nearest_triangle(geom, pos, dir_))
+    assert torch.equal(dz, control), int((dz != control).sum())
+    b7 = NS.nearest_triangle(geom, pos, dir_)
+    assert torch.equal(b7, control), int((b7 != control).sum())
     valid = torch.ones(T, dtype=torch.bool, device="cuda")
     mperm = morton_order(*verts, valid)
     mrows = rows[mperm].contiguous()
     mclo, mchi = chunk_aabbs_padded(*verts, valid, mperm, 128)
+    mboxes = dict(clo=mclo, chi=mchi, cslack=CU.chunk_slack(mrows))
     walk = TW.traverse_select(mrows, mclo, mchi, pos, dir_, live)
     split = NS.nearest_shade_full(mrows, pos, dir_, live)[0]
+    b4c = NS.nearest_shade_full(mrows, pos, dir_, live, **mboxes)[0]
+    b1c = F.mega_segment(mrows, pos, dir_, ones, ones, live, u, u, u, flags, **mboxes)[0]
     torch.cuda.synchronize()
     assert torch.equal(walk, split), int((walk != split).sum())
+    assert torch.equal(b4c, split), int((b4c != split).sum())
+    assert torch.equal(b1c, split), int((b1c != split).sum())
     if case == "slivers":  # winners on both sides of the kappa = 2^16 cut
         m = rows[want[0][hits].long(), :12].double().reshape(-1, 3, 4)[:, :, :3]
         kappa = m.flatten(1).norm(dim=1) * torch.linalg.inv(m).flatten(1).norm(dim=1)
@@ -647,6 +600,43 @@ def test_nearest_triangle_kernel_matches_plain_on_card(card, glossy_card):
             rep = compare_winners(got, want, live=torch.ones_like(got, dtype=torch.bool),
                                   rows=rows, pos=pos, dir_=dir_)
             assert rep["ok"], rep
+
+
+def _b7_waves(card, glossy_card, which):
+    """(geom f32[T, 12], row table, [(pos, dir, live)]) of one wavefront
+    set: the Cornell or glossy camera wavefront and its first bounce, or
+    the twelve hard soups."""
+    if which in ("cornell", "glossy"):
+        scene, camera = (card if which == "cornell" else glossy_card)[:2]
+        rows = F.pack_rows_full(scene)
+        return [(rows, [(w[0], w[1], w[4]) for w in _waves(camera, rows)])]
+    out = []
+    for case in HARD_SOUPS:
+        for T in (700, 1500):
+            _, rows, pos, dir_ = hard_soup(case, T, 16384, seed=T, device="cuda")
+            out.append((rows, [(pos, dir_, torch.ones(16384, dtype=torch.bool,
+                                                      device="cuda"))]))
+    return out
+
+
+@pytest.mark.parametrize("which", ["cornell", "glossy", "hard_soups"])
+def test_fused_index_equals_control_loop_on_card(card, glossy_card, which):
+    """B7 (on the shared selection loop) and B4 with the |d'_z| test pick
+    the winners of the control, the one-ray-per-thread loop without the
+    sphere rejection, bit for bit; B7 counts its launches, the control
+    none."""
+    for rows, waves in _b7_waves(card, glossy_card, which):
+        geom = rows[:, :12].contiguous()
+        for pos, dir_, live in waves:
+            before = NS.nearest_triangle.launches
+            control = NS.nearest_triangle_control(geom, pos, dir_)
+            b7 = NS.nearest_triangle(geom, pos, dir_)
+            dz = NS.nearest_shade_full(rows, pos, dir_, live, dz_test=True)[0]
+            torch.cuda.synchronize()
+            assert NS.nearest_triangle.launches == before + 1
+            assert torch.equal(b7, control), int((b7 != control).sum())
+            assert torch.equal(dz, torch.where(live, control, -1))
+            assert (control >= 0).float().mean() > 0.1
 
 
 @pytest.mark.parametrize("kw", [dict(whole_segment=False), dict(intersector="fused"),
@@ -695,11 +685,14 @@ def test_split_wrappers_refuse_bad_inputs_on_card(glossy_card):
     with pytest.raises(TypeError, match="live"):
         NS.nearest_shade_full(tables.rows, pos, dir_, live.float())
     with pytest.raises(ValueError, match="chunk boxes"):
-        NS.nearest_shade_full(tables.rows, pos, dir_, live, tables.clo[:-1], tables.chi[:-1])
+        NS.nearest_shade_full(tables.rows, pos, dir_, live, tables.clo[:-1], tables.chi[:-1],
+                              tables.cslack)
     with pytest.raises(ValueError, match="chunk boxes"):
         F.mega_segment(tables.rows, pos, dir_, pos, pos, live, live.float(), live.float(),
                        live.float(), torch.zeros(3, 1, device="cuda"), clo=tables.clo.cpu(),
-                       chi=tables.chi)
+                       chi=tables.chi, cslack=tables.cslack)
+    with pytest.raises(ValueError, match="slack"):
+        NS.nearest_shade_full(tables.rows, pos, dir_, live, tables.clo, tables.chi)
     with pytest.raises(ValueError, match=r"\[T, 12\]"):
         NS.nearest_triangle(tables.rows, pos, dir_)
     with pytest.raises(ValueError, match="contiguous"):
@@ -769,18 +762,27 @@ def test_selection_entries_match_plain_on_card(glossy_card, name):
         assert rep["ok"], rep
 
 
+@pytest.mark.parametrize("R", [5000, 1037], ids=["R5000", "R1037"])
 @pytest.mark.parametrize("variant", SM.VARIANTS)
-def test_selection_micro_matches_plain_on_card(card, variant):
+def test_selection_micro_matches_plain_on_card(card, variant, R):
+    """B12 on the tensor cores against the plain version by
+    ``testing.compare_micro``'s rounding rule, at R = 5000 and 1037 rays
+    (neither a multiple of the kernel's 256-ray tile), T = 768 in chunks
+    of 256."""
     g = torch.Generator(device="cuda").manual_seed(3)
     ws = torch.randn(SM.K, 6 * 768, device="cuda", generator=g).to(torch.bfloat16)
-    rays = torch.randn(SM.K, 5000, device="cuda", generator=g).to(torch.bfloat16)
+    rays = torch.randn(SM.K, R, device="cuda", generator=g).to(torch.bfloat16)
     before = SM.selection_micro.launches[variant]
     got = SM.selection_micro(ws, rays, 256, variant)
     torch.cuda.synchronize()
     assert SM.selection_micro.launches[variant] == before + 1
-    assert torch.equal(got, SM.selection_micro_ref(ws, rays, 256, variant))
+    rep = compare_micro(ws, rays, 256, variant, got, SM.selection_micro_ref(ws, rays, 256,
+                                                                            variant))
+    assert rep["ok"], rep
     with pytest.raises(ValueError, match="contiguous"):
         SM.selection_micro(ws, rays[:, ::2], 256, variant)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        SM.selection_micro(ws, rays, 12, variant)
     assert SM.selection_micro.launches[variant] == before + 1
 
 

@@ -15,6 +15,12 @@ reciprocal. With those, port and transcription agree bit for bit, which
 is what the tests assert. Inputs: seeded N(0, 1) values rounded to bf16,
 some triangles' columns zeroed (w = 0: t is ±inf or NaN and must never
 win).
+
+``testing.compare_micro``, the rounding rule that holds B12's tensor-core
+kernel to this plain version on the card, is tested here on synthetic
+results: p summed in another order, or moved by up to its bound E,
+passes; a winner replaced, a miss for a clear hit, or a min moved by one,
+fails.
 """
 
 import json
@@ -25,6 +31,7 @@ import pytest
 import torch
 
 from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
+from montecarlopathtracer_tpu_torch.testing import compare_micro
 from montecarlopathtracer_tpu_torch.tools import kernel_micro
 
 BIG = np.float32(3.0e38)
@@ -175,3 +182,58 @@ def test_kernel_micro_keeps_its_inputs_and_outputs_on_cpu():
                                                                           "matmul_bf16"))
     assert torch.equal(out["epilogue_resident"], SM.epilogue_only_ref(p_all, tc))
     assert torch.equal(out["epilogue_only"], SM.epilogue_shared_ref(p_blk, 256, 256))
+
+
+@pytest.fixture(scope="module")
+def perturbed():
+    """ws, rays (4,000 rays, 128 triangles in chunks of 64), float64 p
+    [6T, R] and the rule's bound E per ray."""
+    rng = np.random.default_rng(9)
+    ws = _as_bf16(rng.normal(size=(SM.K, 6 * 128)).astype(np.float32))
+    rays = _as_bf16(rng.normal(size=(SM.K, 4000)).astype(np.float32))
+    p = ws.double().T @ rays.double()
+    e = 48 * 2 * 2.0 ** -23 * (ws.double().abs().T @ rays.double().abs()).amax(0)
+    return ws, rays, p, e
+
+
+def _reordered_min(ws, rays, bf16_out):
+    """int32(min p) with p summed in f32 over the rows in reverse order."""
+    wf, xf = ws.float(), rays.float()
+    p = wf[SM.K - 1][:, None] * xf[SM.K - 1][None, :]
+    for k in range(SM.K - 2, -1, -1):
+        p = p + wf[k][:, None] * xf[k][None, :]
+    if bf16_out:
+        p = p.to(torch.bfloat16).float()
+    return p.amin(0).to(torch.int32)
+
+
+@pytest.mark.parametrize("variant", ["matmul_only", "matmul_bf16"])
+def test_compare_micro_running_min(perturbed, variant):
+    ws, rays, p, e = perturbed
+    want = SM.selection_micro_ref(ws, rays, 64, variant)
+    assert compare_micro(ws, rays, 64, variant, want, want)["ok"]
+    reordered = _reordered_min(ws, rays, variant == "matmul_bf16")
+    assert compare_micro(ws, rays, 64, variant, reordered, want, step=1000)["ok"]
+    low = p.amin(0)
+    moved = (low + 0.5 * e * torch.where(low.frac().abs() < 0.5, 1.0, -1.0)).trunc()
+    assert compare_micro(ws, rays, 64, variant, moved.to(torch.int32), want)["ok"]
+    rep = compare_micro(ws, rays, 64, variant, want + 1, want)
+    assert not rep["ok"] and rep["n_out_of_bound"] > 3000, rep  # bf16: E holds an ulp
+
+
+def test_compare_micro_full(perturbed):
+    ws, rays, p, e = perturbed
+    want = SM.selection_micro_ref(ws, rays, 64, "full")
+    assert compare_micro(ws, rays, 64, "full", want, want)["ok"]
+    g = torch.Generator().manual_seed(8)
+    noise = (torch.rand(p.shape, generator=g, dtype=torch.float64) * 2 - 1) * e  # within E
+    moved = SM.epilogue_only_ref((p + noise).float(), 64)
+    rep = compare_micro(ws, rays, 64, "full", moved, want)
+    assert rep["ok"] and rep["n_idx_mismatch"] > 0, rep
+    hits = torch.nonzero(want >= 0)[:, 0]
+    assert hits.shape[0] > 100
+    for wrong in (-1, "other"):
+        got = want.clone()
+        got[hits[:3]] = -1 if wrong == -1 else (want[hits[:3]] + 37) % 128
+        rep = compare_micro(ws, rays, 64, "full", got, want)
+        assert not rep["ok"] and rep["n_bad"] >= 2, (wrong, rep)
