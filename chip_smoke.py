@@ -111,7 +111,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
     device times) beside their plain versions, B1 on the same wavefront
     and the earlier run's figures; B4's, B4c's and B7's bounds count their
     sphere and exact tests as B1's do; B1c's and B4c's chunks tested per
-    group of 128 rays beside the earlier run's (before the chunk slack);
+    group of 128 rays beside the earlier run's;
 27. the cull main path: Renderer on the glossy stage, 800x600, fixed
     depth 7 + gather, 4 spp/pass, chunk_cull + ray_sort, one warm-up and
     two timed passes, B1c launches; one sample against the render
@@ -134,11 +134,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
     build of the native host library
     (native/mcpt_native.cpp) and the Cornell box's KD tree, native build
     bit-equal to the Python one;
-32. the superseded selection entries B8-B11 (thin entries over B4 and
-    B4c) against their plain versions on phase 3's Cornell 800x600 first
-    bounce and, for the culling forms, the glossy sorted bounce with dead
-    lanes (the phase 25 gate); timed beside their plain versions, with
-    their device times beside the earlier run's;
+32. B4 on phase 3's Cornell 800x600 first bounce over the table padded
+    with the JAX package's all-zero rows (652 + 116 = 768, which the tile
+    ring takes), over as many of its rows as the loop stages whole
+    (nearest_shade_whole_max) and unpadded: bit-equal outputs, device times side by side, and the
+    exact tests on the padding rows under the earlier rule and now (none:
+    they fail the sphere test); then the superseded selection entries
+    B8-B11 (thin entries over B4 and B4c) against their plain versions on
+    that bounce and, for the culling forms, the glossy sorted bounce with
+    dead lanes (the phase 25 gate); timed beside their plain versions,
+    with their device times beside the earlier run's and the device time
+    of B8-B10's own torch ops (their layouts unpacked into B4's table);
 33. the intersector gate of tools/tpu_check.py: B8, B10, B10 with cull,
     B11, the fused index and the KD walk against the brute oracle on its
     4,096 camera and 4,096 random rays (compare_winners, t within 1e-4);
@@ -150,7 +156,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
     kernel_bench's rays per scene (compare_shade), B12-B14 on all
     491,520 rays (B12 by testing.compare_micro's rounding rule, with its
     near-tie and boundary counts; B13 and B14 bit for bit), the plain
-    versions timed at that size, and cuBLAS's bf16 product (torch.mm, in
+    versions timed at that size; B14's floor in shared memory (24 B a
+    pair at 128 B/clk/SM) beside its 12-operation bound and the L2 rate
+    of the earlier run's loop; and cuBLAS's bf16 product (torch.mm, in
     slices of rays, f32 out and bf16 out) with a column min beside B12's
     matmul_only and matmul_bf16;
 35. the KD-tree main path: one walk of the Cornell 800x600 first bounce
@@ -739,22 +747,22 @@ def record_device(torch, label, fn):
 
 # This script's earlier run on an NVIDIA H100 80GB HBM3 at 700.00 W, on
 # the same phases' inputs and by the same methods: (device ms per launch,
-# event pair ms). B12 and B7 were redesigned after it (B12 on the tensor
-# cores, B7 on the shared selection loop), and B1c/B4c (with B10c/B11
-# over B4c) cull with the chunk slack since.
+# event pair ms). B14 got its own kernel after it (staged through shared
+# memory), and the selection loop under B1/B1l/B1c, B4/B4c, B7 and the
+# entries B8-B11 no longer tests all-zero (padding) rows exactly.
 EARLIER_MS = {
-    "B1": (0.3503, 0.5311), "B1c": (0.3154, 0.5523), "B1l": (0.3555, 0.5928),
-    "B2": (0.0979, 0.2938), "B3 T652": (0.1413, 0.1693), "B3 T81932": (0.0982, 0.1371),
-    "B4": (0.3161, 0.4750), "B4c": (0.3109, 0.5933), "B5": (1.5639, 1.8433),
-    "B5t": (0.0923, 0.1793), "B6": (0.0513, 0.2022), "B6l": (0.0517, 0.1968),
-    "B7": (0.5847, 0.7125), "B8": (0.5638, 0.9407), "B9": (0.5645, 0.9357),
-    "B10": (0.5714, 0.9812), "B10c": (0.3908, 1.0768), "B11": (0.3888, 1.0797),
-    "B12 full": (13.3760, 13.3824), "B12 matmul_only": (12.1599, 12.2254),
-    "B12 matmul_bf16": (12.2400, 12.3701), "B13": (3.0430, 3.0776), "B14": (1.1849, 1.2511),
+    "B1": (0.3495, 0.5449), "B1c": (0.3215, 0.5561), "B1l": (0.3564, 0.5487),
+    "B2": (0.0982, 0.3031), "B3 T652": (0.1421, 0.1872), "B3 T81932": (0.0991, 0.1473),
+    "B4": (0.3171, 0.4525), "B4c": (0.3154, 0.5918), "B5": (1.5616, 1.7915),
+    "B5t": (0.0922, 0.2108), "B6": (0.0515, 0.1854), "B6l": (0.0519, 0.1821),
+    "B7": (0.3276, 0.4406), "B8": (0.5638, 0.9357), "B9": (0.5651, 0.9611),
+    "B10": (0.5721, 1.0490), "B10c": (0.3934, 1.1964), "B11": (0.3884, 0.9825),
+    "B12 full": (0.9645, 1.0035), "B12 matmul_only": (0.6403, 0.6843),
+    "B12 matmul_bf16": (0.6428, 0.6861), "B13": (3.0470, 3.1326), "B14": (1.1936, 1.2303),
 }
 # The earlier run's chunks tested per group of 128 rays by B1c on the
-# glossy wavefronts (phase 24, before the chunk slack).
-EARLIER_TESTED = {"camera": 1.39, "sorted bounce": 3.70}
+# glossy wavefronts (phase 24, boxes widened by the chunk slack).
+EARLIER_TESTED = {"camera": 1.44, "sorted bounce": 3.72}
 
 
 def device_line(label, event_pair, bound, library=None):
@@ -2026,8 +2034,8 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
           f"{float(groups.mean()):.3f} (over groups with a live ray "
           f"{float(groups[live_groups].mean()):.3f}), max "
           f"{int(groups.max())} of {nc}; B4c's equal to B1c's: "
-          f"{bool(torch.equal(tested['B1c'], tested['B4c']))} (the earlier run's phase 24, "
-          f"before the slack: camera {EARLIER_TESTED['camera']}, sorted bounce "
+          f"{bool(torch.equal(tested['B1c'], tested['B4c']))} (the earlier run's phase 24: "
+          f"camera {EARLIER_TESTED['camera']}, sorted bounce "
           f"{EARLIER_TESTED['sorted bounce']})")
     check(torch.equal(tested["B1c"], tested["B4c"]), "B1c and B4c tested other chunks")
     for name, (k, p, (bms, by)) in out.items():
@@ -2268,6 +2276,8 @@ BENCH_KERNELS = {"v1": "B8", "v2": "B9", "v3": "B10", "v3_cull_tc128": "B10c"}
 CHAIN_OPS = 12  # f32 operations of one accept chain: reciprocal, t, beta, gamma,
 # 1 - (beta + gamma), four comparisons and the select
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+SMEM_BYTES_PER_CLK = 128  # shared memory per SM and clock (32 banks of 4 bytes)
+SM_CLOCK_HZ = 1.98e9  # H100 SXM's highest SM clock (NVIDIA data sheet)
 KD_SPP = 1
 
 
@@ -2389,6 +2399,15 @@ def variant_calls(torch, v, pos, dir_, live):
     }
 
 
+# The torch ops of B8-B10 ahead of their B4 launch: the unpacking that each
+# entry of ops/nearest_variants.py calls, on the inputs of variant_calls.
+ENTRY_OPS = {
+    "B8": lambda NV, v: NV.rows_from_w(v["w"], v["table"]),
+    "B9": lambda NV, v: NV.rows_from_fused(v["wf"], v["table"], v["tc"]),
+    "B10": lambda NV, v: NV.rows_from_streamed(v["ws"], v["table"], 256),
+}
+
+
 def variant_bound(v, name, R, spairs):
     """Bound of one entry: its packed inputs, the rays (and mask) and its
     outputs (idx, tbg, the shading row) once; B4's work on the rays it
@@ -2402,15 +2421,60 @@ def variant_bound(v, name, R, spairs):
     return bound_of(nbytes, spairs[0] * SPHERE_OPS + spairs[1] * PAIR_OPS)
 
 
+def padded_b4(torch, rows, bounce):
+    """B4 on the Cornell bounce over the table padded as the JAX package
+    pads it (652 rows + 116 all-zero rows = 768, the table that B8-B10
+    run on), over its first rows up to the largest table the loop stages
+    whole (nearest_shade.cu's nearest_shade_whole_max) and unpadded:
+    winners, t, beta, gamma and shading rows bit-equal, device times side
+    by side. The exact tests that the padding rows cost: under the earlier
+    rule (an infinite sphere: every live ray with a direction tests each
+    of them) and now (sphere_pairs on the padding rows: the NaN center
+    that triangle_sphere gives them)."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+
+    pos, dir_, _, _, live = bounce
+    T = rows.shape[0]
+    padded = torch.cat([rows, torch.zeros(-T % 128, 48, device="cuda")]).contiguous()
+    whole_max = NS._shade_lib().nearest_shade_whole_max()
+    check(T <= whole_max < padded.shape[0],
+          f"the whole-table limit {whole_max} no longer lies between {T} and {padded.shape[0]}")
+    names = (f"{T} rows", f"{whole_max} rows (whole)", f"{padded.shape[0]} rows (ring)")
+    tables = dict(zip(names, (rows, padded[:whole_max].contiguous(), padded)))
+    want = NS.nearest_shade_full(rows, pos, dir_, live)
+    aimed = int((live & ((dir_ * dir_).sum(0) > 0)).sum())
+    before = aimed * (padded.shape[0] - T)
+    after = sphere_pairs(torch, padded[T:], pos, dir_, live)[1]
+    times = {}
+    for name, table in tables.items():
+        got = NS.nearest_shade_full(table, pos, dir_, live)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"B4 over the {name} table differs from B4 over the unpadded one")
+        times[name] = device_ms(torch, lambda table=table: NS.nearest_shade_full(
+            table, pos, dir_, live))[0]
+    print(f"B4 on the Cornell bounce over the padded table: idx, tbg and shade bit-equal to "
+          f"the unpadded table's; device " + ", ".join(f"{k} {v:.4f} ms"
+                                                      for k, v in times.items()))
+    unpadded, whole, ring = (times[k] for k in names)
+    print(f"  exact tests on the {padded.shape[0] - T} padding rows: {before} under the earlier "
+          f"rule (an infinite sphere), {after} now (a NaN center); the ring at "
+          f"{padded.shape[0]} rows over the unpadded table: {ring / unpadded:.3f}, over the "
+          f"whole table at {whole_max}: {ring / whole:.3f}")
+    check(after == 0, f"{after} exact tests counted on all-zero rows")
+
+
 def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
     phase(f"32. the selection entries B8-B11 (thin over B4 / B4c) vs their plain versions: "
           f"Cornell {W}x{H} first bounce (768 triangles with the JAX padding) and the glossy "
           "sorted bounce (1,408) for the culling forms; timed (median of 10 CUDA events), "
           "B8-B10 on the Cornell bounce, the culling forms on the glossy one")
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+    from montecarlopathtracer_tpu_torch.ops.segment_fused import pack_rows_full
     from montecarlopathtracer_tpu_torch.testing import compare_shade, plain_kernels
 
     out, worst = {}, {}
+    padded_b4(torch, pack_rows_full(cscene), cornell_bounce)
     cv = variant_setup(torch, cscene)
     gv = variant_setup(torch, gscene)
     cases = [("Cornell bounce", cv, cornell_bounce, ("B8", "B9", "B10", "B10c", "B11")),
@@ -2452,6 +2516,11 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
                   f"{out[name][2][0]:.4f} ms ({out[name][2][1]}; {spairs[0]} pairs tested, "
                   f"{spairs[1]} inside their spheres)")
             device_line(name, ms[0], out[name][2])
+            if name in ENTRY_OPS:  # the entry's torch ops around B4: its layout unpacked
+                unpack = device_ms(torch, lambda v=v, name=name: ENTRY_OPS[name](NV, v))[0]
+                print(f"{'':14s} {name:4s}: its own torch ops (the layout unpacked into B4's "
+                      f"row table) {unpack:.4f} ms of device time, "
+                      f"{unpack / DEVICE_MS[name][0]:.3f} of the entry's")
     print("gate: testing.compare_shade, as phase 25 (B8 and B9 take no live mask: every lane)")
     return out, worst
 
@@ -2651,11 +2720,28 @@ def tool_twins(torch):
           f"matmul_bf16); full: winners equal on >= 99.9% of rays, each other one a near-tie "
           f"or at the accept chain's boundary within that rounding. B13's p_all: "
           f"{p_all.numel() * 4 / 1e9:.2f} GB")
+    b14_floor(torch, T, R, bounds["B14"])
     lib = {v: cublas_min(torch, ws, x, micro["out"][row], v)
            for v, row in (("matmul_only", "matmul_only_f32out"),
                           ("matmul_bf16", "matmul_only_bf16out"))}
     del micro, p_all
     return bench_rows, bench_counts, bench_err, micro_counts, out, gates, lib
+
+
+def b14_floor(torch, T, R, bound):
+    """B14's floor in shared memory (its kernel stages every pair's six
+    values there: 24 B a pair at 128 B/clk/SM) beside its bound."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pair_bytes = R * T * 24
+    floor = pair_bytes / (SMEM_BYTES_PER_CLK * sms * SM_CLOCK_HZ) * 1e3
+    print(f"B14's floor in shared memory: {pair_bytes / 1e9:.2f} GB (24 B a pair) at "
+          f"{SMEM_BYTES_PER_CLK} B/clk/SM on {sms} SMs at {SM_CLOCK_HZ / 1e9:.2f} GHz: "
+          f"{floor:.4f} ms, beside its bound {bound[0]:.4f} ms ({bound[1]}: {CHAIN_OPS} f32 "
+          f"operations a pair at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s); device "
+          f"{DEVICE_MS['B14'][0]:.4f} ms, at {floor / DEVICE_MS['B14'][0]:.3f} of that floor "
+          f"(the earlier run's loop from L2: {EARLIER_MS['B14'][0]:.4f} ms, its "
+          f"{pair_bytes / 1e9:.2f} GB of loads at "
+          f"{pair_bytes / EARLIER_MS['B14'][0] / 1e9:.2f} TB/s)")
 
 
 def cublas_min(torch, ws, x, b12, variant):

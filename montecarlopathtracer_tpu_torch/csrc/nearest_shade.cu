@@ -127,3 +127,7 @@ extern "C" int nearest_shade_launch(const float* rows, int T, const float* pos,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The largest table (rows) that the selection loop stages whole; larger
+// ones take the tile ring (sphere_select.cuh).
+extern "C" int nearest_shade_whole_max() { return seg::kWholeMax; }

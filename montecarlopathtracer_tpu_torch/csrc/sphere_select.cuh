@@ -104,7 +104,8 @@ __device__ __forceinline__ V3 axpy(float s, V3 a, V3 b) {
 // |m^-1| (|m_a| + 1)) covers both with a factor of 8 and more; it is
 // raised by 2^-16 more against its own rounding and that of the test. A
 // triangle with kappa >= 2^16, a zero determinant or any non-finite value
-// gets an infinite radius: every ray tests it exactly.
+// gets an infinite radius: every ray tests it exactly (`triangle_sphere`
+// makes one exception, the all-zero row).
 struct SphereParts {
   V3 ctr;
   float rho, E, cn, n_inv, an;
@@ -136,9 +137,29 @@ __device__ __forceinline__ SphereParts sphere_parts(float4 g0, float4 g1, float4
   return p;
 }
 
+// Whether all 12 geometry floats of a row are zero (+0 or -0): the
+// padding rows of a table padded to a multiple of 128 (and the rows of a
+// zero-area triangle, whose transform is zero).
+__device__ __forceinline__ bool zero_geometry(float4 g0, float4 g1, float4 g2) {
+  const unsigned bits = __float_as_uint(g0.x) | __float_as_uint(g0.y) | __float_as_uint(g0.z) |
+                        __float_as_uint(g0.w) | __float_as_uint(g1.x) | __float_as_uint(g1.y) |
+                        __float_as_uint(g1.z) | __float_as_uint(g1.w) | __float_as_uint(g2.x) |
+                        __float_as_uint(g2.y) | __float_as_uint(g2.z) | __float_as_uint(g2.w);
+  return (bits & 0x7fffffffu) == 0u;
+}
+
 // The widened sphere of one triangle for rays whose origins have
 // |o| <= omax: its center and the square of its radius (+inf when the
-// triangle is ill-conditioned or not finite).
+// triangle is ill-conditioned or not finite). A row whose geometry is
+// all zero gets a NaN center (its x), which `sphere_hit` fails for every
+// ray (v = c - o and so b and v.v are NaN, and NaN compares false), so
+// no ray tests it exactly. That drops no winner: `pair_test` can never
+// accept such a row. Each of o'_z = gz.o + gz.w and w = d'_z = gz.d is a
+// sum of products with a zero factor, so it is +-0 where o (for o'_z) or
+// d (for w) is finite and NaN where it is not (0 x inf); t = -o'_z / w is
+// then +-0 / +-0 or has a NaN operand, so t is NaN and `t > 0` fails, for
+// every ray and with or without kDzTest. (The culling boxes' slack,
+// ops/cull.py::chunk_slack, skips such rows by the same rule.)
 __device__ void triangle_sphere(float4 g0, float4 g1, float4 g2, float omax, float4& s) {
   const SphereParts p = sphere_parts(g0, g1, g2);
   const float K = (p.rho + p.E * (2.0f * omax + p.cn + p.rho + p.n_inv * (p.an + 1.0f))) *
@@ -148,6 +169,9 @@ __device__ void triangle_sphere(float4 g0, float4 g1, float4 g2, float omax, flo
   } else {
     s = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));  // +inf
   }
+  // Set after that choice, not as a branch before it: the branch slowed
+  // the compiled selection loop of B7 (nearest_triangle.cu).
+  if (zero_geometry(g0, g1, g2)) s.x = __int_as_float(0x7fc00000);  // NaN
 }
 
 // The same sphere split for a table computed once for all rays: center

@@ -163,6 +163,22 @@ def _rows(geom, table) -> torch.Tensor:
     return torch.cat([geom[:T], table, pad], dim=1).contiguous()
 
 
+def rows_from_w(w, table) -> torch.Tensor:
+    """B4's row table f32[T, 48] of ``w f32[6, 8, T]`` and ``table``:
+    what B8 and B11 unpack before their B4 launch."""
+    return _rows(_geometry(w), table)
+
+
+def rows_from_fused(wf, table, t_chunk: int = T_CHUNK) -> torch.Tensor:
+    """As :func:`rows_from_w` for B9's packing ``wf f32[6 T_pad, 8]``."""
+    return rows_from_w(_unfuse(wf, t_chunk), table)
+
+
+def rows_from_streamed(ws, table, t_chunk: int = 256) -> torch.Tensor:
+    """As :func:`rows_from_w` for B10's packing ``ws f32[8, 6 T_pad]``."""
+    return rows_from_w(_unstream(ws, t_chunk), table)
+
+
 def tile_boxes(clo, chi, box: int, T: int):
     """The chunk boxes (f32[ceil(T / 128), 3] each) of B4c's 128-triangle
     tiles, from boxes ``clo``, ``chi`` of ``box`` consecutive triangles
@@ -226,7 +242,7 @@ def nearest_shade(w, table, pos3, dir3):
     ``nearest_shade``, TPU kernel ``_nearest_idx_kernel``, B8) over
     ``w f32[6, 8, T]`` (:func:`pack_transforms`) and ``table f32[T, 32]``
     for rays ``pos3``, ``dir3`` f32[3, R]: B4 on the unpacked rows."""
-    return _select(nearest_shade, _rows(_geometry(w), table), pos3, dir3, _all_live(pos3))
+    return _select(nearest_shade, rows_from_w(w, table), pos3, dir3, _all_live(pos3))
 
 
 def nearest_shade2(wf, geom, table, pos3, dir3, *, t_chunk: int = T_CHUNK):
@@ -238,8 +254,8 @@ def nearest_shade2(wf, geom, table, pos3, dir3, *, t_chunk: int = T_CHUNK):
     valid triangles; its shape is checked, and the rows come from ``wf``,
     which the selection reads."""
     _check_geom(geom, table)
-    w = _unfuse(wf, t_chunk)
-    return _select(nearest_shade2, _rows(_geometry(w), table), pos3, dir3, _all_live(pos3))
+    return _select(nearest_shade2, rows_from_fused(wf, table, t_chunk), pos3, dir3,
+                   _all_live(pos3))
 
 
 def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi=None, *,
@@ -254,12 +270,11 @@ def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi
     (:func:`.cull.chunk_slack` of the unpacked rows, computed here when not
     given); else B4. ``geom`` as in :func:`nearest_shade2`."""
     _check_geom(geom, table)
-    w = _unstream(ws, t_chunk)
-    rows = _rows(_geometry(w), table)
+    rows = rows_from_streamed(ws, table, t_chunk)
     live = _all_live(pos3) if live is None else live.to(torch.bool).contiguous()
     boxes = {}
     if cull:
-        nc = w.shape[2] // t_chunk
+        nc = ws.shape[1] // (6 * t_chunk)
         if clo is None or chi is None or clo.shape[0] != nc or chi.shape[0] != nc:
             raise ValueError(f"cull needs chunk boxes clo, chi [{nc}, 3]")
         # The boxes past the table cover padding only.
@@ -284,7 +299,7 @@ def nearest_shade_culled(w, table, clo, chi, pos3, dir3, live, cslack=None):
     if nc == 0 or T % nc or chi.shape[0] != nc:
         raise ValueError(f"{T} triangles do not divide into {nc} chunk boxes")
     clo, chi = tile_boxes(clo, chi, T // nc, T)
-    rows = _rows(_geometry(w), table)
+    rows = rows_from_w(w, table)
     return _select(nearest_shade_culled, rows, pos3, dir3, live.to(torch.bool).contiguous(),
                    clo=clo, chi=chi, cslack=chunk_slack(rows) if cslack is None else cslack,
                    dz_test=True)

@@ -20,7 +20,9 @@ package's ``tools/kernel_micro.py``), each with its plain version.
 - :func:`epilogue_shared` (B14, ``make_epilogue_shared``): the accept
   chain on one block ``p_blk`` f32[6·tc, Rt] that every (ray tile,
   chunk) step reuses: triangle j of ray r reads row ``k·tc + j % tc``,
-  column ``r % Rt``.
+  column ``r % Rt``. Its kernel stages a slice of the block's columns
+  at a time through shared memory, chunk by chunk; it still runs the
+  chain on every one of the R × T pairs.
 
 They stay in bf16, as the TPU kernels do: they measure a bf16-input
 contraction and are not the renderer's selection, which runs in f32.
@@ -133,9 +135,13 @@ def _lib() -> ctypes.CDLL:
     lib.selection_micro_launch.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, _P, _P]
     lib.selection_epilogue_launch.restype = ctypes.c_int
-    # p, T, tc, R, shared_block, ld, out, stream
+    # p, T, tc, R, out, stream
     lib.selection_epilogue_launch.argtypes = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_int, _P, _P]
+                                              _P, _P]
+    lib.selection_epilogue_shared_launch.restype = ctypes.c_int
+    # p, T, tc, R, ld, out, stream
+    lib.selection_epilogue_shared_launch.argtypes = [_P, ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_int, ctypes.c_int, _P, _P]
     return lib
 
 
@@ -185,6 +191,8 @@ def _epilogue_ref(p, T, tc, R, shared):
 
 
 def _epilogue(p, T, tc, R, shared, entry):
+    """The kernel (or, for a CPU tensor, the plain version) of B13, or of
+    B14 with ``shared``; adds one to ``entry.launches`` per launch."""
     if p.dtype != torch.float32 or p.dim() != 2:
         raise ValueError(f"p must be a float32 matrix, got {p.dtype} {tuple(p.shape)}")
     if p.device.type == "cpu":
@@ -192,11 +200,19 @@ def _epilogue(p, T, tc, R, shared, entry):
     if p.device.type != "cuda":
         raise ValueError(f"no selection epilogue kernel for device {p.device}")
     _check_card(p.device, p)
+    ld = p.shape[1]
+    if shared and (ld % 4 or p.data_ptr() % 16 or ld >= 1 << 21):
+        raise ValueError("the kernel stages p_blk in 16-byte pieces: its width must be a "
+                         "multiple of 4 below 2^21 and p_blk 16-byte aligned")
     out = torch.empty(R, dtype=torch.int32, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = _lib().selection_epilogue_launch(p.data_ptr(), T, tc, R, int(shared), p.shape[1],
-                                               out.data_ptr(), stream)
+        if shared:
+            err = _lib().selection_epilogue_shared_launch(p.data_ptr(), T, tc, R, ld,
+                                                          out.data_ptr(), stream)
+        else:
+            err = _lib().selection_epilogue_launch(p.data_ptr(), T, tc, R, out.data_ptr(),
+                                                   stream)
     if err != 0:
         raise RuntimeError(f"selection epilogue kernel launch failed: cudaError {err}")
     entry.launches += 1
@@ -218,9 +234,11 @@ def epilogue_only_ref(p_all, t_chunk: int = 256):
 
 def epilogue_shared(p_blk, T: int, R: int):
     """B14: the accept chain on the one block ``p_blk`` f32[6·tc, Rt]
-    for R rays over T triangles (T a multiple of tc); i32[R]."""
+    for R rays over T triangles (T a multiple of tc); i32[R]. The kernel
+    stages ``p_blk`` through shared memory in 16-byte pieces, so on the
+    card Rt must be a multiple of 4 and ``p_blk`` 16-byte aligned."""
     tc = p_blk.shape[0] // 6
-    if p_blk.shape[0] % 6 or T % tc:
+    if p_blk.shape[0] % 6 or tc == 0 or T % tc:
         raise ValueError(f"p_blk {tuple(p_blk.shape)} and T {T} do not make chunks")
     return _epilogue(p_blk, T, tc, R, True, epilogue_shared)
 

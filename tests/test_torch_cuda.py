@@ -701,6 +701,58 @@ def test_split_wrappers_refuse_bad_inputs_on_card(glossy_card):
             F.mega_segment.launches) == before
 
 
+@pytest.mark.parametrize("which", ["cornell", "glossy"], ids=["652+116", "1332+76"])
+def test_padding_rows_change_no_winner_on_card(card, glossy_card, which):
+    """All-zero geometry rows fail the sphere test (``sphere_select.cuh::
+    triangle_sphere``), and the exact test can never accept them: B4, B4c,
+    B1 and B7 on the Morton-ordered table padded to a multiple of 128 with
+    such rows (652 + 116 = 768 rows: the tile ring since the table no
+    longer fits whole, as the entries B8-B10 run it; 1,332 + 76: the ring)
+    pick the unpadded table's winners bit for bit, and B7 and B4 with the
+    |d'_z| test the control loop's; with one zero row after every fourth
+    row (no culling), the same winners at their new indices."""
+    scene, camera = (card if which == "cornell" else glossy_card)[:2]
+    tables = scene_tables(scene, TraceConfig(chunk_cull=True))
+    rows, boxes = tables.rows, tables.cull_boxes
+    T = rows.shape[0]
+    pad = -T % 128
+    padded = torch.cat([rows, torch.zeros(pad, 48, device="cuda")]).contiguous()
+    where = torch.zeros(T + T // 4, dtype=torch.bool, device="cuda")
+    where[5 * torch.arange(T // 4, device="cuda") + 4] = True
+    spread = torch.zeros(T + T // 4, 48, device="cuda")
+    spread[~where] = rows
+    new = torch.nonzero(~where)[:, 0].int()
+    boxes_p = dict(boxes, cslack=CU.chunk_slack(padded))
+    assert torch.equal(boxes_p["cslack"], boxes["cslack"])
+    for pos, dir_, tput, res, live in _waves(camera, rows):
+        R = pos.shape[1]
+        want = NS.nearest_shade_full(rows, pos, dir_, live)
+        got = NS.nearest_shade_full(padded, pos, dir_, live)
+        b4c = NS.nearest_shade_full(padded, pos, dir_, live, **boxes_p)
+        u = torch.full((R,), 0.5, device="cuda")
+        b1 = F.mega_segment(padded, pos, dir_, tput, res, live, u, u, u,
+                            torch.zeros(3, 1, device="cuda"))[0]
+        control = NS.nearest_triangle_control(rows[:, :12].contiguous(), pos, dir_)
+        geom_p = padded[:, :12].contiguous()
+        b7 = NS.nearest_triangle(geom_p, pos, dir_)
+        dz = NS.nearest_shade_full(padded, pos, dir_, live, dz_test=True)[0]
+        torch.cuda.synchronize()
+        assert (want[0] >= 0).float().mean() > 0.1  # the glossy stage is open: many misses
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert torch.equal(b4c[0], want[0]) and torch.equal(b1, want[0])
+        assert torch.equal(NS.nearest_triangle_control(geom_p, pos, dir_), control)
+        assert torch.equal(b7, control) and torch.equal(dz, torch.where(live, control, -1))
+        hit = want[0] >= 0
+        moved = torch.where(hit, new[want[0].clamp_min(0).long()], -1)
+        spread_idx = NS.nearest_shade_full(spread, pos, dir_, live)[0]
+        spread_b7 = NS.nearest_triangle(spread[:, :12].contiguous(), pos, dir_)
+        torch.cuda.synchronize()
+        assert torch.equal(spread_idx, moved)
+        assert torch.equal(spread_b7, torch.where(control >= 0,
+                                                  new[control.clamp_min(0).long()], -1))
+
+
 def _variant_calls(scene, perm, pos, dir_, live):
     """``{name: (entry, its row table)}`` of B8-B11 on one scene padded to
     a multiple of 128 triangles (``perm`` its Morton order)."""
@@ -800,6 +852,37 @@ def test_selection_epilogues_match_plain_on_card(card):
     torch.cuda.synchronize()
     assert SM.epilogue_shared.launches == before + 1
     assert torch.equal(got, SM.epilogue_shared_ref(p_blk, 768, 3000))
+
+
+@pytest.mark.parametrize("R,Rt,tc,T", [(3000, 512, 256, 768), (3000, 128, 256, 256),
+                                       (1037, 128, 256, 768), (5000, 512, 256, 256),
+                                       (1000, 100, 40, 120)])
+def test_epilogue_shared_kernel_is_bit_equal_to_plain(card, R, Rt, tc, T):
+    """B14's shared-memory kernel equals ``epilogue_shared_ref`` bit for
+    bit: R not a multiple of Rt, Rt of 128 and 512 (and 100: a partial
+    group of columns), T one and three chunks (tc = 40: a stage of 16
+    triangles cut short); then with w (rows 5 tc ..) holding zeros,
+    subnormals, huge and non-finite values in some columns, which take
+    the kernel's exact reciprocal."""
+    g = torch.Generator(device="cuda").manual_seed(R + Rt + T)
+    p_blk = torch.randn(6 * tc, Rt, device="cuda", generator=g)
+    special = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 2.0 ** -126, 2.0 ** 126, 3e38,
+                            float("inf"), -float("inf"), float("nan")], device="cuda")
+    odd = p_blk.clone()
+    pick = torch.randint(0, special.numel(), (tc, -(-Rt // 3)), device="cuda", generator=g)
+    odd[5 * tc:, ::3] = special[pick]
+    before = SM.epilogue_shared.launches
+    for blk in (p_blk, odd):
+        want = SM.epilogue_shared_ref(blk, T, R)
+        assert (want >= 0).float().mean() > 0.3
+        got = SM.epilogue_shared(blk, T, R)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert SM.epilogue_shared.launches == before + 2
+    with pytest.raises(ValueError, match="multiple of 4"):
+        SM.epilogue_shared(torch.randn(6 * tc, 130, device="cuda"), T, R)
+    with pytest.raises(ValueError, match="do not make chunks"):
+        SM.epilogue_shared(p_blk, T + 1, R)
 
 
 def test_kdtree_render_on_card_matches_cpu(card):
