@@ -101,7 +101,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
     flags (the segment gate), and against B1 on the same table (the same
     outputs); B1c's winners and chunks tested per group of 128 rays equal
     to B4c's, B1's winners to B4's; the chunk boxes are widened by their
-    slack (ops/cull.py, ROADMAP C15);
+    slack (ops/cull.py, ROADMAP C15); B1c and B4c run the culled loop
+    (`sphere_select.cuh::select_culled`: a vote per warp, nearest chunk
+    first, the records of B4r, leaf boxes of 16 triangles);
 25. B4, B4c and B7 against their plain versions on phase 3's Cornell
     800x600 first bounce and the glossy wavefronts: winners with the
     near-tie allowance, shading rows equal, t, beta, gamma to 1e-5 or
@@ -112,9 +114,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
     and the earlier run's figures; B4's, B4c's and B7's bounds count their
     sphere and exact tests as B1's do; B1c's and B4c's chunks tested per
     group of 128 rays beside the earlier run's;
+    26b: the culled loop's records (B4r) against their plain version
+    (geometry equal, NaN and inf where plain has them, the rest within
+    1e-4 x (1 + |plain|)), timed;
+    26c: the culled loop's visits (ops.cull.cull_visits, each leaf's
+    winners from B4): chunks tested per live ray under seven rules, from
+    a vote per block of 256 rays to each lane alone and the floor, and
+    the leaves tested under the kernels' rule, on the glossy camera and
+    sorted bounce over the 1,332-row table and the entries' 1,408-row
+    one, with B4c's tested counts equal to the emulation of its rule;
+    B4c and B1c bit-equal to B4 (and B4c's tested and the emulation's
+    winners to the emulation's and B4's) on the twelve hard soups in
+    Morton order at T = 700 and 1500 and on the tie soup;
 27. the cull main path: Renderer on the glossy stage, 800x600, fixed
     depth 7 + gather, 4 spp/pass, chunk_cull + ray_sort, one warm-up and
-    two timed passes, B1c launches; one sample against the render
+    two timed passes, B1c launches (and one records build B4r), a profile
+    of one pass (device-busy share); one sample against the render
     without culling; then one pass of the same path split (B4c);
 28. the split path: Renderer on the Cornell box, 800x600,
     whole_segment=False, 4 spp/pass, B4 launches, its film against the
@@ -142,9 +157,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
     they fail the sphere test); then the superseded selection entries
     B8-B11 (thin entries over B4 and B4c) against their plain versions on
     that bounce and, for the culling forms, the glossy sorted bounce with
-    dead lanes (the phase 25 gate); timed beside their plain versions,
+    dead lanes (the phase 25 gate), and B10c and B11 bit-equal to B4 (B11
+    with the |d'_z| test) over the same rows; timed beside their plain versions,
     with their device times beside the earlier run's and the device time
     of B8-B10's own torch ops (their layouts unpacked into B4's table);
+    B8-B10's device times once more, three interleaved rounds;
 33. the intersector gate of tools/tpu_check.py: B8, B10, B10 with cull,
     B11, the fused index and the KD walk against the brute oracle on its
     4,096 camera and 4,096 random rays (compare_winners, t within 1e-4);
@@ -202,6 +219,9 @@ TRAVERSE_SOURCE = f"{PKG}/csrc/traverse_select.cu"
 TRAVERSE_REPLACES = "montecarlopathtracer_tpu/ops/traverse_pallas.py:199"
 # B5's tables take the place of the TPU walk's per-tile chunk lists.
 TABLES_REPLACES = "montecarlopathtracer_tpu/ops/traverse_pallas.py:87"
+# B4r, the culled loop's triangle records, take the place of the TPU culled
+# kernels' per-table streamed packing (pack_transforms_stream).
+RECORDS_REPLACES = "montecarlopathtracer_tpu/ops/intersect_pallas.py:673"
 ROWS_SOURCE = f"{PKG}/csrc/rows_segment.cu"
 ROWS_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:911"
 ROWS_LANE_REPLACES = "montecarlopathtracer_tpu/ops/segment_fused.py:991"
@@ -531,6 +551,7 @@ def whole_frame(torch, scene):
 
 
 def reset_counts():
+    from montecarlopathtracer_tpu_torch.ops import cull as CU
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
@@ -538,6 +559,7 @@ def reset_counts():
     from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 
+    CU.cull_records.launches = 0
     F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
     F.mega_segment.lane_launches = F.mega_segment.cull_launches = 0
     F.rows_segment.launches = F.rows_segment.lane_launches = 0
@@ -563,7 +585,8 @@ def read_all_counts():
     from B4c, B5's tables (B5t, one count per build) apart from B5, B6
     apart from B6l; the entries B8-B11 (each also counted under B4 or
     B4c, which it launches), B10 apart from B10c; B12 per variant, B13,
-    B14."""
+    B14; the culled loop's records (B4r, one count per build)."""
+    from montecarlopathtracer_tpu_torch.ops import cull as CU
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
@@ -583,7 +606,7 @@ def read_all_counts():
         "B1l": B1.lane_launches, "B1c": B1.cull_launches,
         "B2": F.segment_backward.launches, "B3": S.scatter_rows.launches,
         "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
-        "B4c": NS.nearest_shade_full.cull_launches,
+        "B4c": NS.nearest_shade_full.cull_launches, "B4r": CU.cull_records.launches,
         "B5": TW.traverse_select.launches, "B5t": TW.walk_tables.launches,
         "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
         "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches,
@@ -746,19 +769,20 @@ def record_device(torch, label, fn):
 
 
 # This script's earlier run on an NVIDIA H100 80GB HBM3 at 700.00 W, on
-# the same phases' inputs and by the same methods: (device ms per launch,
-# event pair ms). B14 got its own kernel after it (staged through shared
-# memory), and the selection loop under B1/B1l/B1c, B4/B4c, B7 and the
-# entries B8-B11 no longer tests all-zero (padding) rows exactly.
+# the same phases' inputs and by the same methods (the run on the final
+# tree before the culled loop made the warp its unit): (device ms per
+# launch, event pair ms). Since then B1c and B4c (and the entries B10c and
+# B11 over B4c) run `select_culled`: per-warp votes, nearest chunk first,
+# records built once per table (B4r), leaf boxes of 16 triangles.
 EARLIER_MS = {
-    "B1": (0.3495, 0.5449), "B1c": (0.3215, 0.5561), "B1l": (0.3564, 0.5487),
-    "B2": (0.0982, 0.3031), "B3 T652": (0.1421, 0.1872), "B3 T81932": (0.0991, 0.1473),
-    "B4": (0.3171, 0.4525), "B4c": (0.3154, 0.5918), "B5": (1.5616, 1.7915),
-    "B5t": (0.0922, 0.2108), "B6": (0.0515, 0.1854), "B6l": (0.0519, 0.1821),
-    "B7": (0.3276, 0.4406), "B8": (0.5638, 0.9357), "B9": (0.5651, 0.9611),
-    "B10": (0.5721, 1.0490), "B10c": (0.3934, 1.1964), "B11": (0.3884, 0.9825),
-    "B12 full": (0.9645, 1.0035), "B12 matmul_only": (0.6403, 0.6843),
-    "B12 matmul_bf16": (0.6428, 0.6861), "B13": (3.0470, 3.1326), "B14": (1.1936, 1.2303),
+    "B1": (0.3424, 0.5661), "B1c": (0.3196, 0.6185), "B1l": (0.3470, 0.5393),
+    "B2": (0.0992, 0.2931), "B3 T652": (0.1419, 0.1864), "B3 T81932": (0.0999, 0.1618),
+    "B4": (0.3146, 0.4692), "B4c": (0.3218, 0.6011), "B5": (1.5650, 1.8375),
+    "B5t": (0.0927, 0.2501), "B6": (0.0521, 0.2948), "B6l": (0.0527, 0.3102),
+    "B7": (0.3329, 0.4519), "B8": (0.3696, 0.7785), "B9": (0.3699, 0.7470),
+    "B10": (0.3778, 0.7955), "B10c": (0.3514, 1.1284), "B11": (0.3426, 0.9677),
+    "B12 full": (0.9628, 1.0422), "B12 matmul_only": (0.6399, 0.6926),
+    "B12 matmul_bf16": (0.6417, 0.6797), "B13": (3.1355, 3.1947), "B14": (0.4348, 0.4660),
 }
 # The earlier run's chunks tested per group of 128 rays by B1c on the
 # glossy wavefronts (phase 24, boxes widened by the chunk slack).
@@ -2045,6 +2069,138 @@ def time_split_kernels(torch, rows, cornell_bounce, gtables, gbounce):
     return out
 
 
+# Operations per record of B4r: the sphere of triangle_sphere_split (three
+# cross products, an inverse, the vertex offsets, four norms: ~160), K0, the
+# zero test and its share of the leaf box's reduction.
+RECORD_OPS = 190
+
+
+def records_vs_plain(torch, gtables):
+    phase("26b. the culled loop's records (B4r, nearest_shade.cu's cull_records_kernel) vs "
+          "plain on the glossy table (1,332 rows), timed")
+    from montecarlopathtracer_tpu_torch.ops import cull as CU
+
+    rows = gtables.rows.detach()
+    T = rows.shape[0]
+    got = CU.cull_records(rows)
+    torch.cuda.synchronize()
+    want = CU.cull_records_ref(rows)
+    finite = want.isfinite()
+    pattern = bool(torch.equal(got.isnan(), want.isnan()) and
+                   torch.equal(got.isinf(), want.isinf()) and
+                   torch.equal(got[got.isinf()], want[want.isinf()]))
+    geometry = bool(torch.equal(got[:T, 4:], rows[:, :12]))
+    err = (got - want)[finite].abs()
+    worst = float((err / (want[finite].abs() + 1.0)).max())
+    print(f"records {tuple(got.shape)}: geometry rows equal {geometry}; NaN and inf where "
+          f"plain has them {pattern}; max |err| {float(err.max()):.3e}, at most "
+          f"{worst:.3e} x (1 + |plain|) (tolerance 1e-4: the kernel contracts to FMAs)")
+    check(pattern and geometry and worst <= 1e-4, "B4r's records disagree with plain")
+    ms = time_pair(torch, lambda: CU.cull_records(rows), lambda: CU.cull_records_ref(rows),
+                   label="B4r")
+    bound = bound_of(T * 48 + got.numel() * 4, T * RECORD_OPS)
+    print(f"B4r {ms[0]:.4f} ms (plain {ms[1]:.4f})")
+    device_line("B4r", ms[0], bound)
+    return float(err.max()), (*ms, bound)
+
+
+def _b4_chunk(torch):
+    """Each chunk's own winners for ops.cull.chunk_winners, from B4 on the
+    card: the bits of the culled kernels' exact tests."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+
+    def select(rows, pos, dir_):
+        every = torch.ones(pos.shape[1], dtype=torch.bool, device=pos.device)
+        idx, tbg, _ = NS.nearest_shade_full(rows, pos, dir_, every)
+        return tbg[0], idx
+
+    return select
+
+
+def visits_check(torch, rows, boxes, pos, dir_, live):
+    """ops.cull.cull_visits on these rays (each leaf's winners from B4), and
+    B4c's tested counts against the emulation of its rule: (the
+    emulation's result, equal)."""
+    from montecarlopathtracer_tpu_torch.ops import cull as CU
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+
+    out = CU.cull_visits(rows, boxes["clo"], boxes["chi"], boxes["cslack"], pos, dir_, live,
+                         winners=CU.chunk_winners(rows, pos, dir_, select=_b4_chunk(torch),
+                                                  chunk=CU.LEAF))
+    tested = torch.full((-(-pos.shape[1] // 128),), -1, dtype=torch.int32, device="cuda")
+    NS.nearest_shade_full(rows, pos, dir_, live, tested=tested, **boxes)
+    torch.cuda.synchronize()
+    return out, bool(torch.equal(tested.long(), out["tested"]))
+
+
+def cull_visits_phase(torch, gscene, gtables, gwaves):
+    phase("26c. the culled loop's visits (ops.cull.cull_visits): chunks tested per live ray "
+          "under each rule, glossy camera and sorted bounce over the 1,332-row table and "
+          "B10c's and B11's 1,408-row one; B4c's tested counts against the emulation of its "
+          "rule; B4c and B1c against B4 on the twelve hard soups in Morton order (T = 700 "
+          "and 1500) and the tie soup")
+    from montecarlopathtracer_tpu_torch.ops import cull as CU
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops.morton import chunk_aabbs_padded, morton_order
+    from montecarlopathtracer_tpu_torch.testing import HARD_SOUPS, hard_soup, tie_soup
+
+    for k, rule in CU.RULES.items():
+        print(f"  ({k}) {rule}")
+    v = variant_setup(torch, gscene)
+    rows_p = v["rows_p"]
+    boxes_p = dict(clo=v["boxes_c"][0], chi=v["boxes_c"][1], cslack=v["cslack_p"],
+                   crec=CU.cull_records(rows_p))
+    counts = {}
+    for tname, rows, boxes in (("1,332 rows", gtables.rows, gtables.cull_boxes),
+                               ("1,408 rows", rows_p, boxes_p)):
+        for wname, wave in zip(("camera", "sorted bounce"), gwaves):
+            pos, dir_, _, _, live = wave
+            visits, same = visits_check(torch, rows, boxes, pos, dir_, live)
+            mean = counts[(tname, wname)] = visits["mean"]
+            print(f"glossy {wname:13s} {tname}: chunks per live ray " +
+                  " ".join(f"({k}) {x:.4f}" for k, x in mean.items()) +
+                  f"; leaves of {CU.LEAF} per live ray under (d) {visits['leaves']:.4f}; B4c's "
+                  f"tested equal to the emulation of (d): {same}")
+            check(same, f"B4c's tested counts differ from the emulation ({wname}, {tname})")
+    R = 16384
+    soups = [(f"{case} T={T}", *hard_soup(case, T, R, seed=T, device="cuda"))
+             for case in HARD_SOUPS for T in (700, 1500)]
+    tverts, trows, tclo, tchi, tpos, tdir = tie_soup(device="cuda", R=R, seed=3)
+    n_soups = 0
+    for name, verts, rows, pos, dir_ in soups + [("tie soup", tverts, trows, tpos, tdir)]:
+        T = rows.shape[0]
+        live = torch.ones(pos.shape[1], dtype=torch.bool, device="cuda")
+        if name == "tie soup":
+            clo, chi = tclo, tchi  # its chunks as they are: the copies lie in chunk 2
+        else:
+            valid = torch.ones(T, dtype=torch.bool, device="cuda")
+            perm = morton_order(*verts, valid)
+            rows = rows[perm].contiguous()
+            clo, chi = chunk_aabbs_padded(*verts, valid, perm, 128)
+        boxes = dict(clo=clo, chi=chi, cslack=CU.chunk_slack(rows), crec=CU.cull_records(rows))
+        want = NS.nearest_shade_full(rows, pos, dir_, live)
+        got = NS.nearest_shade_full(rows, pos, dir_, live, **boxes)
+        ones = torch.ones(3, pos.shape[1], device="cuda")
+        u = torch.full((pos.shape[1],), 0.5, device="cuda")
+        b1c = F.mega_segment(rows, pos, dir_, ones, ones, live, u, u, u,
+                             torch.zeros(3, 1, device="cuda"), **boxes)[0]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(b1c, want[0])
+        visits, tested_same = visits_check(torch, rows, boxes, pos, dir_, live)
+        mean = visits["mean"]
+        kept = torch.equal(visits["idx"], want[0].long())
+        check(same and tested_same and kept, f"B4c or B1c differ from B4, or tested or the "
+              f"winners from the emulation, on {name}")
+        n_soups += 1
+        if name in ("random T=1500", "tie soup"):
+            print(f"{name}: B4c and B1c bit-equal to B4; chunks per live ray " +
+                  " ".join(f"({k}) {x:.4f}" for k, x in mean.items()))
+    print(f"{n_soups} soups: B4c's idx, tbg and shade and B1c's idx bit-equal to B4's, B4c's "
+          f"tested and the winners equal to the emulation of its rule (leaf boxes included)")
+    return counts
+
+
 def cull_main_path(torch, scene, camera, config):
     phase(f"27. cull main path: Renderer glossy {GW}x{GH}, fixed depth {DEPTH} + gather, "
           f"{CULL_SPP} spp/pass, chunk_cull + ray_sort")
@@ -2057,10 +2213,10 @@ def cull_main_path(torch, scene, camera, config):
     from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
     from montecarlopathtracer_tpu_torch.testing import compare_images
 
+    reset_counts()  # from the Renderer's tables on: B4r builds the records once
     r = Renderer(scene, camera, config,
                  RenderSettings(width=GW, height=GH, spp_per_pass=CULL_SPP, seed=0),
                  device="cuda")
-    reset_counts()
     t0 = time.perf_counter()
     r.render(1)
     torch.cuda.synchronize()
@@ -2074,8 +2230,12 @@ def cull_main_path(torch, scene, camera, config):
     want = config.num_segments * CULL_SPP * (1 + CULL_TIMED)
     print(f"warm-up pass {warm:.3f} s; {CULL_TIMED} timed passes {dt:.3f} s = "
           f"{dt / CULL_TIMED:.4f} s/pass, glossy cull forward {msps:.4f} Msamples/s")
-    print(f"launches: {counts} (expected {want} of B1c and no other segment kernel)")
-    check(counts["B1c"] == want and counts["B1"] == counts["B1l"] == 0, f"launches {counts}")
+    print(f"launches: {counts} (expected {want} of B1c and no other segment kernel, one "
+          f"records build B4r)")
+    check(counts["B1c"] == want and counts["B1"] == counts["B1l"] == 0 and counts["B4r"] == 1,
+          f"launches {counts}")
+    profile_device(torch, "glossy cull pass", lambda: r.render(1),
+                   {"B1c mega_segment": "mega_segment_kernel"}, dt / CULL_TIMED * 1e3)
     img = r.film.color.cpu().numpy()
     check(np.isfinite(img).all() and img.mean() > 0.0, "glossy film is black or not finite")
     png = os.path.join(HERE, "build", "chip_smoke_glossy_cull.png")
@@ -2469,6 +2629,7 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
           f"Cornell {W}x{H} first bounce (768 triangles with the JAX padding) and the glossy "
           "sorted bounce (1,408) for the culling forms; timed (median of 10 CUDA events), "
           "B8-B10 on the Cornell bounce, the culling forms on the glossy one")
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
     from montecarlopathtracer_tpu_torch.ops.segment_fused import pack_rows_full
     from montecarlopathtracer_tpu_torch.testing import compare_shade, plain_kernels
@@ -2483,6 +2644,8 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
         pos, dir_, _, _, live = wave
         R, n_live = pos.shape[1], int(live.sum())
         calls = variant_calls(torch, v, pos, dir_, live)
+        if wname == "Cornell bounce":
+            cornell_calls = calls
         for name in names:
             call, rows, masked = calls[name]
             got = call()
@@ -2497,6 +2660,13 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
                   f"max |err| {rep['tbg_max_abs_err']:.2e} ({rep['tbg_n_beyond_tol']} beyond "
                   f"1e-5); shade equal {rep['shade_equal']}")
             check(rep["ok"], f"{name} disagrees with plain on {wname}: {rep}")
+            if name in ("B10c", "B11"):  # B4c's bits: B4's over the same rows
+                b4 = NS.nearest_shade_full(rows, pos, dir_, live, dz_test=name == "B11")
+                same = all(torch.equal(a, b) for a, b in zip(got, b4))
+                print(f"{'':14s} {name:4s}: idx, tbg and shade bit-equal to B4's over the same "
+                      f"{rows.shape[0]} rows{' (with the dz test)' if name == 'B11' else ''} on "
+                      f"every lane: {same}")
+                check(same, f"{name} differs from B4 on {wname}")
             if (name in ("B10c", "B11")) != (wname == "glossy bounce"):
                 continue  # the culling forms are timed where culling has work to skip
             def plain_call(call=call):
@@ -2521,6 +2691,14 @@ def variants_vs_plain(torch, cscene, cornell_bounce, gscene, gbounce):
                 print(f"{'':14s} {name:4s}: its own torch ops (the layout unpacked into B4's "
                       f"row table) {unpack:.4f} ms of device time, "
                       f"{unpack / DEVICE_MS[name][0]:.3f} of the entry's")
+    # B8-B10 once more, interleaved, three rounds: the spread of this run's
+    # device times for the same work.
+    again = {n: [] for n in ("B8", "B9", "B10")}
+    for _ in range(3):
+        for n in again:
+            again[n].append(device_ms(torch, cornell_calls[n][0])[0])
+    print("B8-B10 device ms again on the Cornell bounce, three interleaved rounds: "
+          + "; ".join(f"{n} " + ", ".join(f"{x:.4f}" for x in xs) for n, xs in again.items()))
     print("gate: testing.compare_shade, as phase 25 (B8 and B9 take no live mask: every lane)")
     return out, worst
 
@@ -2892,6 +3070,8 @@ def main():
         ctables = scene_tables(scene, TraceConfig(chunk_cull=True))
         shade_err = shade_vs_plain(torch, rows, ctables, bounce, gtables, gwaves)
         split_ms = time_split_kernels(torch, rows, bounce, gtables, gwaves[1])
+        rec_err, rec_ms = records_vs_plain(torch, gtables)
+        cull_visits_phase(torch, gscene, gtables, gwaves)
         gbounce = gwaves[1]
         del gwaves, ctables
         cull_counts, cull_split_counts, cull_per_pass, cull_msps = cull_main_path(
@@ -2964,6 +3144,8 @@ def main():
               shade_err["B4"], split_ms["B4"], "B4"),
         entry("nearest_shade_full (chunk cull, B4c)", SHADE_SOURCE, SHADE_CULL_REPLACES,
               cull_split_counts["B4c"], shade_err["B4c"], split_ms["B4c"], "B4c"),
+        entry("cull records (B4r: the culled loop's triangle records and leaf boxes)",
+              SHADE_SOURCE, RECORDS_REPLACES, cull_counts["B4r"], rec_err, rec_ms, "B4r"),
         entry("nearest_triangle (B7)", TRIANGLE_SOURCE, TRIANGLE_REPLACES,
               fused_counts["B7"], shade_err["B7"], split_ms["B7"], "B7",
               max_t_gap_on_near_ties=shade_err["B7"],

@@ -23,7 +23,7 @@
 //
 // Chunk culling (B1c, B4c) slab-tests each lane's segment [0, best t]
 // against a chunk's box widened by a small margin and by its triangles'
-// sphere slack for the lane's |o| (`slab_reach`), as the walk's tree (B5)
+// sphere slack for the lane's |o| (`chunk_entry`), as the walk's tree (B5)
 // widens its nodes (`slab_box`'s ext): the exact test accepts hits up to
 // that slack outside an ill-conditioned triangle, so a box without it can
 // lose a winner.
@@ -93,18 +93,45 @@ __device__ __forceinline__ bool slab_box(const Slab& s, const float lo_[3], cons
   return tn <= tf && tf >= 0.0f && tn <= tmax;
 }
 
-// True when the segment [0, tmax] of a ray with |o| = on can enter the
-// box of chunk j (clo/chi f32[nc, 3]) widened by the chunk's slack
+// |o| in f32 with each operation rounded as written (no FMA), as
+// ops/cull.py's emulation of the culled loop computes it.
+__device__ __forceinline__ float norm_rn(V3 o) {
+  return __fsqrt_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(o.x, o.x), __fmul_rn(o.y, o.y)), __fmul_rn(o.z, o.z)));
+}
+
+// The entry distance tn of a ray with |o| = on into the box of chunk j
+// (clo/chi f32[nc, 3]) widened by box_margin and by the chunk's slack
 // (cslack f32[nc, 2]: ext, the largest sphere slack K0 - rho of its
 // triangles, and grow, their largest growth per unit of |o|; see
-// sphere_select.cuh's `triangle_sphere_split`).
-__device__ __forceinline__ bool slab_reach(const Slab& s, const float* __restrict__ clo,
-                                           const float* __restrict__ chi,
-                                           const float* __restrict__ cslack, int j, float on,
-                                           float tmax) {
-  float tn;
-  return slab_box(s, clo + 3 * j, chi + 3 * j, fmaf(cslack[2 * j + 1], on, cslack[2 * j]), tmax,
-                  tn);
+// sphere_select.cuh's `triangle_sphere_split`), and whether its segment
+// [0, tmax] reaches that box. `slab_box`'s test with every operation
+// rounded as written (no FMA), so that ops/cull.py's plain emulation of the
+// culled loop (`chunk_entry`, `cull_visits`) orders and counts the chunks
+// bit for bit as the kernels do.
+__device__ __forceinline__ bool chunk_entry(const Slab& s, const float* __restrict__ clo,
+                                            const float* __restrict__ chi,
+                                            const float* __restrict__ cslack, int j, float on,
+                                            float tmax, float& tn_out) {
+  const float ext = __fadd_rn(__fmul_rn(__ldg(cslack + 2 * j + 1), on), __ldg(cslack + 2 * j));
+  float tn = -kBig, tf = kBig;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float lo_ = __ldg(clo + 3 * j + k), hi_ = __ldg(chi + 3 * j + k);
+    const float m =
+        __fadd_rn(__fmul_rn(1e-5f, __fadd_rn(1.0f, fmaxf(fabsf(lo_), fabsf(hi_)))), ext);
+    const float lo = __fsub_rn(lo_, m), hi = __fadd_rn(hi_, m);
+    if (s.flat[k]) {
+      if (s.o[k] < lo || s.o[k] > hi) tn = kBig, tf = -kBig;
+    } else {
+      const float t0 = __fmul_rn(__fsub_rn(lo, s.o[k]), s.inv[k]);
+      const float t1 = __fmul_rn(__fsub_rn(hi, s.o[k]), s.inv[k]);
+      tn = fmaxf(tn, fminf(t0, t1));
+      tf = fminf(tf, fmaxf(t0, t1));
+    }
+  }
+  tn_out = tn;
+  return tn <= tf && tf >= 0.0f && tn <= tmax;
 }
 
 // Stage the geometry of triangles [base, base + n) of a table with

@@ -57,8 +57,7 @@ nearest_triangle_kernel(const float* __restrict__ geom_table, int T,
 
   // Every thread reaches every barrier: no return before the selection ends.
   int tested_a, tested_b;
-  select_two<false, true, 12>(geom_table, T, ra, in_a, rb, in_b, nullptr, nullptr, nullptr,
-                              tested_a, tested_b);
+  select_two<true, 12>(geom_table, T, ra, in_a, rb, in_b, tested_a, tested_b);
   if (in_a) idx_out[ra_i] = ra.h.t < kBig ? ra.h.i : -1;
   if (in_b) idx_out[rb_i] = rb.h.t < kBig ? rb.h.i : -1;
 }

@@ -16,16 +16,19 @@
 // test of 17 operations, with the exact test (~40 operations) only on the
 // pairs that pass it; the epilogue and the 108 bytes of ray state moved
 // per ray are small beside them. With culling, the pairs of the chunks
-// each group of 128 rays tests.
+// each warp tests.
 //
 // What the design does about it: the selection is sphere_select.cuh's
-// `select_two`, shared with the split path's intersector B4/B4c
+// `select_two`, shared with the split path's intersector B4
 // (nearest_shade.cu): a division-free rejection by each triangle's
 // widened bounding sphere in front of nearest_common.cuh's unchanged
 // `pair_test`, the table staged once per block (a cp.async ring of two
-// tiles above 760 triangles), two rays per thread; culling is a template
-// instance chosen by the launch argument `cull`. The winner's shading row
-// is read from global memory once per ray, and the epilogue
+// tiles above 760 triangles), two rays per thread; culling is its
+// `select_culled`, shared with B4c, a template instance chosen by the
+// launch argument `cull`: each warp visits the chunks its rays reach,
+// nearest first, over the records of nearest_shade.cu's
+// `cull_records_launch`. The winner's shading row is read from global
+// memory once per ray, and the epilogue
 // (segment_common.cuh, shared with rows_segment.cu) runs in registers, in
 // plain f32 with the precise powf/sinf/cosf (compile without
 // --use_fast_math: Ns = 1000 lobes and grazing Fresnel need them).
@@ -35,7 +38,8 @@
 // shading 32 | pad 4; pos/dir/tput/res f32[3, R]; live bool[R];
 // u1/u2/urr f32[R]; flags f32[3, 1] or, with lane_flags, f32[3, R] =
 // [final_gather, do_rr, hard_kill]; with cull, clo/chi f32[nc, 3] and
-// cslack f32[nc, 2] (the chunks' boxes and slack), nc = ceil(T / 128).
+// cslack f32[nc, 2] (the chunks' boxes and slack), nc = ceil(T / 128),
+// and rec f32[T + ceil(T / 16), 16] the table's records.
 // Outputs idx i32[R] (-1 = miss), npos/ndir/ntput/nres f32[3, R], still
 // f32[R]; with `tested` non-null, tested[g] = the 128-triangle chunks
 // that the group of rays [128 g, 128 g + 128) tested.
@@ -51,7 +55,6 @@ namespace {
 using namespace seg;
 
 constexpr int kThreads = kSelThreads;  // threads per block; each takes two rays
-constexpr int kRays = kSelRays;        // rays per block: r and r + kThreads
 
 // The epilogue of one ray after the selection (see the contract).
 __device__ __forceinline__ void finish_ray(
@@ -111,11 +114,13 @@ mega_segment_kernel(const float* __restrict__ rows, int T,
                     const float* __restrict__ u2, const float* __restrict__ urr,
                     const float* __restrict__ flags, int lane_flags, int R, SegOptions opt,
                     const float* __restrict__ clo, const float* __restrict__ chi,
-                    const float* __restrict__ cslack, int* __restrict__ idx_out,
-                    float* __restrict__ npos, float* __restrict__ ndir, float* __restrict__ ntput,
+                    const float* __restrict__ cslack, const float4* __restrict__ rec,
+                    int* __restrict__ idx_out, float* __restrict__ npos,
+                    float* __restrict__ ndir, float* __restrict__ ntput,
                     float* __restrict__ nres, float* __restrict__ still_out,
                     int* __restrict__ tested_out) {
-  const int ra_i = blockIdx.x * kRays + threadIdx.x, rb_i = ra_i + kThreads;
+  int ra_i, rb_i;
+  ray_slots<kCull>(ra_i, rb_i);
   const bool in_a = ra_i < R, in_b = rb_i < R;
   const bool act_a = in_a && live[ra_i], act_b = in_b && live[rb_i];
   const V3 o0 = {0.0f, 0.0f, 0.0f}, d0 = {0.0f, 0.0f, 1.0f};
@@ -123,10 +128,15 @@ mega_segment_kernel(const float* __restrict__ rows, int T,
   Ray rb = make_ray(in_b ? load3(pos, R, rb_i) : o0, in_b ? load3(dir, R, rb_i) : d0);
 
   // Every thread reaches every barrier: no return before the selection ends.
-  int tested_a, tested_b;
-  select_two<kCull, false>(rows, T, ra, act_a, rb, act_b, clo, chi, cslack, tested_a,
-                           tested_b);
-  store_tested(tested_out, R, tested_a, tested_b);
+  if constexpr (kCull) {
+    int tested;
+    select_culled<false>(rec, T, ra, act_a, rb, act_b, clo, chi, cslack, tested);
+    store_tested_culled(tested_out, tested);
+  } else {
+    int tested_a, tested_b;
+    select_two<false>(rows, T, ra, act_a, rb, act_b, tested_a, tested_b);
+    store_tested(tested_out, R, tested_a, tested_b);
+  }
   if (in_a)
     finish_ray(rows, ra_i, R, act_a, ra, tput, res, u1, u2, urr, flags, lane_flags, opt, idx_out,
                npos, ndir, ntput, nres, still_out);
@@ -138,24 +148,27 @@ mega_segment_kernel(const float* __restrict__ rows, int T,
 }  // namespace
 
 // Launches one segment on `stream` (the cull instance when `cull` is
-// set); returns cudaGetLastError() so the caller can raise on a refused
-// launch.
+// set, over the records `rec` of nearest_shade.cu's `cull_records_launch`);
+// returns cudaGetLastError() so the caller can raise on a refused launch.
 extern "C" int mega_segment_launch(const float* rows, int T, const float* pos,
                                    const float* dir, const float* tput, const float* res,
                                    const bool* live, const float* u1, const float* u2,
                                    const float* urr, const float* flags, int lane_flags, int R,
                                    int mode_rr, float illum, float eps_offset, int refract_kd,
                                    int phong_reflect, const float* clo, const float* chi,
-                                   const float* cslack, int cull, int* idx, float* npos,
-                                   float* ndir, float* ntput, float* nres, float* still,
-                                   int* tested, void* stream) {
+                                   const float* cslack, const float* rec, int cull, int* idx,
+                                   float* npos, float* ndir, float* ntput, float* nres,
+                                   float* still, int* tested, void* stream) {
   if (R > 0) {
-    const int blocks = (R + kRays - 1) / kRays;
     const SegOptions opt = {mode_rr, illum, eps_offset, refract_kd, phong_reflect};
     auto kernel = cull ? mega_segment_kernel<true> : mega_segment_kernel<false>;
-    kernel<<<blocks, kThreads, seg::select_smem_bytes(T), static_cast<cudaStream_t>(stream)>>>(
+    const int bytes = cull ? seg::cull_smem_bytes(T) : seg::select_smem_bytes(T);
+    const int threads = cull ? seg::kCullThreads : kThreads;
+    kernel<<<(R + 2 * threads - 1) / (2 * threads), threads, bytes,
+             static_cast<cudaStream_t>(stream)>>>(
         rows, T, pos, dir, tput, res, live, u1, u2, urr, flags, lane_flags, R, opt, clo, chi,
-        cslack, idx, npos, ndir, ntput, nres, still, tested);
+        cslack, reinterpret_cast<const float4*>(rec), idx, npos, ndir, ntput, nres, still,
+        tested);
   }
   return static_cast<int>(cudaGetLastError());
 }

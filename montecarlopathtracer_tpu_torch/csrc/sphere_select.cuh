@@ -33,17 +33,38 @@
 // - two rays per thread (rays r and r + 128 of a 256-ray block) and the
 //   spheres of four triangles at a time, so each sphere read from shared
 //   memory serves two rays and eight independent tests interleave.
-// Culling (kCull) takes the triangles in Morton order with one box per
-// 128-triangle chunk, widened by the chunk's sphere slack for the lane's
-// |o| (nearest_common.cuh's `slab_reach`): each lane slab-tests it against
-// its segment [0, best t], and each group of 128 rays (the rays r of the
-// block, and the rays r + 128) votes; a chunk that neither group reaches
-// is skipped, and `tested` counts, per group of 128 rays, the chunks it
-// voted for. B7 runs the loop on its [T, 12] geometry table (kStride =
-// 12). kDzTest adds the explicit |d'_z| > 1e-12 test of the TPU kernels
+// B7 runs the loop on its [T, 12] geometry table (kStride = 12). kDzTest
+// adds the explicit |d'_z| > 1e-12 test of the TPU kernels
 // `_nearest_kernel` and `_nearest_shade_culled_kernel`. Selection runs in
 // plain f32: no tensor cores (TF32 or bf16 picks wrong winners near
 // edges) and IEEE division (compile without --use_fast_math).
+//
+// The culled loop (`select_culled`, B1c and B4c, and the entries B10c and
+// B11 over B4c) takes the triangles in Morton order with one box per
+// 128-triangle chunk, widened by the chunk's sphere slack for the lane's
+// |o| (nearest_common.cuh's `chunk_entry`). Its unit is the warp, and no
+// barrier stands inside its chunk loop:
+// - a block of two warps takes one group of 128 rays, each warp 64
+//   consecutive rays (lane l: rays 64 w + l and 64 w + 32 + l); the warps
+//   vote apart, and a warp none of whose rays reaches a chunk skips it
+//   (`__any_sync` over the lanes' own slab tests against [0, best t]); a
+//   block frees its slot on the SM as soon as its two warps are done;
+// - nearest chunk first: for each window of 32 chunks the warp takes, per
+//   chunk, the least entry distance tn of the rays that reach it (one
+//   `__reduce_min_sync` per chunk, a lane per chunk), sorts the 32 keys
+//   across the lanes (a bitonic network of shuffles) and visits the chunks
+//   in that order, each lane testing its slab again with its best t by
+//   then; out of index order a hit wins on the least (t, index) pair,
+//   brute selection's rule, so the winners are B4's bit for bit;
+// - the triangles come from a table of 64-byte records built once per
+//   table (`triangle_record`: the sphere's center and K0, then the three
+//   geometry rows), with the radius K0 + grow |o| of the ray's own |o| and
+//   the chunk's grow (B5's 19-operation test), so no block rebuilds a
+//   sphere, read through the read-only path (on an H100 twice as fast at
+//   1,332 rows as staging them whole in shared memory);
+// - `tested` counts, per group of 128 rays, the chunks that either of its
+//   warps tested: each warp ORs its votes of a window into the group's
+//   bits in shared memory, counted after the loop.
 
 #pragma once
 
@@ -297,16 +318,12 @@ __host__ __device__ constexpr int select_smem_bytes(int T) {
 // of kSelThreads threads, over the T triangles of the [T, kStride] table
 // `rows` (see the notes at the top; rows 16-byte aligned). act_a / act_b:
 // the ray is live; a ray that is not tests nothing and keeps t = kBig.
-// With kCull, clo/chi f32[nc, 3] and cslack f32[nc, 2] are the chunks'
-// boxes and slack. tested_a / tested_b: the chunks each group of 128 rays
-// tested. Every thread of the block must call this: it holds the block's
-// barriers.
-template <bool kCull, bool kDzTest, int kStride = 48>
+// tested_a / tested_b: the chunks each group of 128 rays tested (all of
+// them when the group has a live ray). Every thread of the block must
+// call this: it holds the block's barriers.
+template <bool kDzTest, int kStride = 48>
 __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T, Ray& ra,
-                                           bool act_a, Ray& rb, bool act_b,
-                                           const float* __restrict__ clo,
-                                           const float* __restrict__ chi,
-                                           const float* __restrict__ cslack, int& tested_a,
+                                           bool act_a, Ray& rb, bool act_b, int& tested_a,
                                            int& tested_b) {
   extern __shared__ float4 smem[];
   __shared__ int omax_bits;  // the block's largest finite |o| of a live ray, as bits
@@ -320,11 +337,8 @@ __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T
   if (act_a && on_a < kBig) atomicMax(&omax_bits, __float_as_int(on_a));
   if (act_b && on_b < kBig) atomicMax(&omax_bits, __float_as_int(on_b));
   const int nc = (T + kChunk - 1) / kChunk;
-  if (!kCull) {
-    tested_a = any_a ? nc : 0;
-    tested_b = any_b ? nc : 0;
-  }
-  const Slab sa = make_slab(ra.o, ra.d), sb = make_slab(rb.o, rb.d);  // dead without kCull
+  tested_a = any_a ? nc : 0;
+  tested_b = any_b ? nc : 0;
   const bool whole = T <= kWholeMax;
   float4* geom = smem;
   float4* sph = smem + (whole ? 3 * T : 6 * kChunk);
@@ -339,19 +353,8 @@ __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T
   }
   for (int j = 0; j < nc; ++j) {
     const int base = j * kChunk, n = min(kChunk, T - base);
-    bool ta = act_a, tb = act_b;
-    if constexpr (kCull) {
-      ta = act_a && slab_reach(sa, clo, chi, cslack, j, on_a, ra.h.t);
-      tb = act_b && slab_reach(sb, clo, chi, cslack, j, on_b, rb.h.t);
-    }
     if (whole) {
-      if constexpr (kCull) {
-        const bool va = __syncthreads_or(ta), vb = __syncthreads_or(tb);
-        tested_a += va;
-        tested_b += vb;
-        if (!va && !vb) continue;
-      }
-      test_range<kDzTest>(geom + 3 * base, sph + base, n, base, ra, ta, rb, tb);
+      test_range<kDzTest>(geom + 3 * base, sph + base, n, base, ra, act_a, rb, act_b);
       continue;
     }
     // The ring: tile j + 1 loads while tile j is tested.
@@ -364,22 +367,246 @@ __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kCull) {
-      const bool va = __syncthreads_or(ta), vb = __syncthreads_or(tb);
-      tested_a += va;
-      tested_b += vb;
-      if (!va && !vb) continue;
-    }
     make_spheres(tile, sph, n, __int_as_float(omax_bits));
     __syncthreads();
-    test_range<kDzTest>(tile, sph, n, base, ra, ta, rb, tb);
+    test_range<kDzTest>(tile, sph, n, base, ra, act_a, rb, act_b);
     __syncthreads();  // before the ring refills this tile and the spheres
   }
 }
 
+// ---- The culled loop (B1c, B4c) ----
+
+constexpr int kCullThreads = 64;  // threads per block of the culled loop: 128 rays
+constexpr int kWindow = 32;  // chunks a warp orders at once: one key per lane
+constexpr int kLeaf = 16;    // triangles per leaf box inside a chunk
+constexpr int kCullUnroll = 8;  // records whose spheres are tested together
+constexpr unsigned kAll = 0xffffffffu;
+
+// The rays of thread threadIdx.x: r and r + 128 of the block's 256 for
+// the full loop; for the culled loop, whose blocks of two warps take one
+// group of 128 rays, 64 consecutive rays per warp (lane l of warp w:
+// 64 w + l and 64 w + 32 + l).
+template <bool kCull>
+__device__ __forceinline__ void ray_slots(int& ra_i, int& rb_i) {
+  if constexpr (kCull) {
+    ra_i = blockIdx.x * 2 * kCullThreads + 64 * (threadIdx.x / 32) + threadIdx.x % 32;
+    rb_i = ra_i + 32;
+  } else {
+    ra_i = blockIdx.x * kSelRays + threadIdx.x;
+    rb_i = ra_i + kSelThreads;
+  }
+}
+
+// The 64-byte record of one triangle (four float4): its widened sphere
+// split for per-ray radii (`triangle_sphere_split`: center and K0, +inf
+// when the triangle is ill-conditioned or not finite), with a NaN center
+// for an all-zero row as `triangle_sphere` gives it (no ray tests such a
+// row exactly), then its three geometry rows. Returns the sphere.
+__device__ __forceinline__ float4 triangle_record(float4 g0, float4 g1, float4 g2, float4* rec) {
+  float4 s;
+  float e, slack;
+  triangle_sphere_split(g0, g1, g2, s, e, slack);
+  if (zero_geometry(g0, g1, g2)) s.x = __int_as_float(0x7fc00000);  // NaN
+  rec[0] = s;
+  rec[1] = g0;
+  rec[2] = g1;
+  rec[3] = g2;
+  return s;
+}
+
+// A chunk's sort key from the entry distance tn: the floats' order as
+// unsigned ints (-0 taken as +0). The caller puts the chunk's place in its
+// window into the low five bits, so the keys of a window are distinct.
+__device__ __forceinline__ unsigned entry_key(float tn) {
+  const unsigned u = __float_as_uint(__fadd_rn(tn, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The 32 keys of a warp, one per lane, sorted ascending across the lanes
+// (a bitonic network: 15 compare-exchanges by shuffle).
+__device__ __forceinline__ unsigned warp_sort(unsigned key, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned other = __shfl_xor_sync(kAll, key, j);
+      const bool keep_min = ((lane & k) == 0) == ((lane & j) == 0);
+      key = keep_min ? min(key, other) : max(key, other);
+    }
+  }
+  return key;
+}
+
+// False only if the ray misses the record's sphere with the radius
+// K0 + grow |o| (grow >= the triangle's own growth).
+__device__ __forceinline__ bool record_pass(float4 s, float grow, float on, const Ray& r) {
+  const float K = fmaf(grow, on, s.w);
+  return sphere_hit(s.x, s.y, s.z, K * K, r);
+}
+
+// One leaf's n <= kLeaf records (triangles base .. base + n - 1) for
+// both rays (where ta, tb): the sphere tests of all its pairs first, kCullUnroll
+// records at a time, into one mask per lane (bit k: ray a and record k,
+// bit kLeaf + k: ray b); then each lane runs the exact tests of its own
+// mask, one pair per step, so that a step of the warp serves a pair of
+// every lane that has one left (lanes needing other records do not wait
+// for each other's). Chunks and pairs come out of index order, so the
+// least (t, index) pair wins (in index order the same bits as
+// `exact_test`'s strict <).
+template <bool kDzTest>
+__device__ __forceinline__ void test_records(const float4* __restrict__ rec, int n, int base,
+                                             float grow, Ray& ra, float on_a, bool ta, Ray& rb,
+                                             float on_b, bool tb) {
+  static_assert(2 * kLeaf <= 32, "a leaf's pairs fill one mask");
+  unsigned m = 0u;
+#pragma unroll
+  for (int k = 0; k < kLeaf; k += kCullUnroll) {
+    float4 s[kCullUnroll];
+#pragma unroll
+    for (int j = 0; j < kCullUnroll; ++j)
+      if (k + j < n) s[j] = __ldg(rec + 4 * (k + j));
+#pragma unroll
+    for (int j = 0; j < kCullUnroll; ++j) {
+      if (k + j < n) {
+        m |= static_cast<unsigned>(record_pass(s[j], grow, on_a, ra)) << (k + j);
+        m |= static_cast<unsigned>(record_pass(s[j], grow, on_b, rb)) << (kLeaf + k + j);
+      }
+    }
+  }
+  constexpr unsigned kLow = (1u << kLeaf) - 1u;
+  m &= (ta ? kLow : 0u) | (tb ? kLow << kLeaf : 0u);
+  while (m != 0u) {
+    const int bit = __ffs(m) - 1;
+    m &= m - 1u;
+    const bool second = bit >= kLeaf;
+    const int k = bit - (second ? kLeaf : 0), i = base + k;
+    const float4* g = rec + 4 * k + 1;
+    Hit h = second ? rb.h : ra.h;
+    const Pair p = pair_test(__ldg(g), __ldg(g + 1), __ldg(g + 2), second ? rb.o : ra.o,
+                             second ? rb.d : ra.d);
+    if (p.inside && (!kDzTest || fabsf(p.w) > 1e-12f) && (p.t < h.t || (p.t == h.t && i < h.i)))
+      h = {p.t, p.beta, p.gamma, i};
+    if (second) {
+      rb.h = h;
+    } else {
+      ra.h = h;
+    }
+  }
+}
+
+// Whether the segment [0, tmax] of a ray (slab s, sphere radii grown
+// by ext = grow |o|) reaches leaf box l: lo = leaves[4 l], hi = leaves[4 l
+// + 1] (a 64-byte row of `cull_records_launch`: the box of the leaf's
+// spheres at |o| = 0, empty when every row of the leaf is all zero).
+__device__ __forceinline__ bool leaf_reach(const float4* __restrict__ leaves, int l,
+                                           const Slab& s, float ext, float tmax) {
+  const float4 lo = __ldg(leaves + 4 * l), hi = __ldg(leaves + 4 * l + 1);
+  if (!(lo.x <= hi.x)) return false;  // an empty leaf
+  const float l3[3] = {lo.x, lo.y, lo.z}, h3[3] = {hi.x, hi.y, hi.z};
+  float tn;
+  return slab_box(s, l3, h3, ext, tmax, tn);
+}
+
+// One chunk's n records (triangles base .. base + n - 1, base a multiple
+// of kLeaf) for both rays (where ta, tb), a leaf of kLeaf triangles at a
+// time: a leaf whose box no ray of the warp reaches with its best t by
+// then is skipped, and a lane tests a leaf only if its own ray reaches it.
+template <bool kDzTest>
+__device__ __forceinline__ void test_chunk(const float4* __restrict__ rec,
+                                           const float4* __restrict__ leaves, int n, int base,
+                                           float grow, Ray& ra, const Slab& sa, float on_a,
+                                           bool ta, Ray& rb, const Slab& sb, float on_b,
+                                           bool tb) {
+  const float ext_a = grow * on_a, ext_b = grow * on_b;
+  for (int k = 0; k < n; k += kLeaf) {
+    const int l = (base + k) / kLeaf;
+    const bool la = ta && leaf_reach(leaves, l, sa, ext_a, ra.h.t);
+    const bool lb = tb && leaf_reach(leaves, l, sb, ext_b, rb.h.t);
+    if (!__any_sync(kAll, la || lb)) continue;
+    test_records<kDzTest>(rec + 4 * k, min(kLeaf, n - k), base + k, grow, ra, on_a, la, rb,
+                          on_b, lb);
+  }
+}
+
+// float4s of the culled loop's vote bits: one bit per chunk for the
+// block's group of 128 rays.
+__host__ __device__ constexpr int cull_vote_float4s(int T) {
+  return (((T + kChunk - 1) / kChunk + kWindow - 1) / kWindow + 3) / 4;
+}
+
+// Bytes of dynamic shared memory a block of `select_culled` takes for a
+// T-triangle table: the vote bits.
+__host__ __device__ constexpr int cull_smem_bytes(int T) {
+  return cull_vote_float4s(T) * static_cast<int>(sizeof(float4));
+}
+
+// The nearest accepted triangle of both rays of every thread (slots of
+// `ray_slots<true>`: a block of kCullThreads threads is one group of 128
+// rays) over the records `rec` f32[T + ceil(T / 16), 16] of a
+// Morton-ordered table (`triangle_record`, then the leaf boxes of
+// `cull_records_launch`), culled by the chunks' boxes clo/chi f32[nc, 3]
+// and slack cslack f32[nc, 2] (see the notes at the top), read through
+// the read-only path. tested: the chunks that either warp of the block
+// tested. Every thread of the block must call this: it holds the block's
+// barriers (before and after the chunk loop, none inside it).
+template <bool kDzTest>
+__device__ __forceinline__ void select_culled(const float4* __restrict__ rec, int T, Ray& ra,
+                                              bool act_a, Ray& rb, bool act_b,
+                                              const float* __restrict__ clo,
+                                              const float* __restrict__ chi,
+                                              const float* __restrict__ cslack, int& tested) {
+  extern __shared__ float4 smem[];
+  const int nc = (T + kChunk - 1) / kChunk, nwords = (nc + kWindow - 1) / kWindow;
+  unsigned* votes = reinterpret_cast<unsigned*>(smem);  // [nwords]
+  tested = 0;
+  for (int q = threadIdx.x; q < nwords; q += kCullThreads) votes[q] = 0u;
+  if (!__syncthreads_or(act_a || act_b)) return;
+  const int lane = threadIdx.x % 32;
+  const float on_a = norm_rn(ra.o), on_b = norm_rn(rb.o);
+  // A NaN or overflowing |o| widens the spheres to the largest finite
+  // radius or more (the exact test decides).
+  const float son_a = fminf(on_a, kBig), son_b = fminf(on_b, kBig);
+  const Slab sa = make_slab(ra.o, ra.d), sb = make_slab(rb.o, rb.d);
+  for (int w0 = 0; w0 < nc; w0 += kWindow) {
+    const int nw = min(kWindow, nc - w0);
+    // Lane q: the least tn of the warp's rays that reach chunk w0 + q.
+    unsigned key = ~0u;
+    for (int q = 0; q < nw; ++q) {
+      float tn;
+      unsigned k = ~0u;
+      if (act_a && chunk_entry(sa, clo, chi, cslack, w0 + q, on_a, ra.h.t, tn))
+        k = entry_key(tn);
+      if (act_b && chunk_entry(sb, clo, chi, cslack, w0 + q, on_b, rb.h.t, tn))
+        k = min(k, entry_key(tn));
+      k = __reduce_min_sync(kAll, k);
+      if (lane == q) key = k;
+    }
+    if (key != ~0u) key = (key & ~31u) | static_cast<unsigned>(lane);
+    key = warp_sort(key, lane);
+    unsigned voted = 0u;
+    for (int p = 0; p < nw; ++p) {
+      const unsigned kp = __shfl_sync(kAll, key, p);
+      if (kp == ~0u) break;  // no ray of the warp reached the rest
+      const int q = static_cast<int>(kp & 31u), j = w0 + q;
+      float tn;
+      const bool ta = act_a && chunk_entry(sa, clo, chi, cslack, j, on_a, ra.h.t, tn);
+      const bool tb = act_b && chunk_entry(sb, clo, chi, cslack, j, on_b, rb.h.t, tn);
+      if (!__any_sync(kAll, ta || tb)) continue;
+      voted |= 1u << q;
+      const int base = j * kChunk;
+      test_chunk<kDzTest>(rec + 4 * base, rec + 4 * T, min(kChunk, T - base), base,
+                          __ldg(cslack + 2 * j + 1), ra, sa, son_a, ta, rb, sb, son_b, tb);
+    }
+    if (lane == 0 && voted != 0u) atomicOr(votes + w0 / kWindow, voted);
+  }
+  __syncthreads();
+  for (int q = 0; q < nwords; ++q) tested += __popc(votes[q]);
+}
+
 // Writes the per-group `tested` counts of one block of select_two (groups
 // of 128 rays: 2 blockIdx.x and 2 blockIdx.x + 1) when tested_out is not
-// null.
+// null; a block of select_culled writes its group's, blockIdx.x
+// (`store_tested_culled`).
 __device__ __forceinline__ void store_tested(int* __restrict__ tested_out, int R, int tested_a,
                                              int tested_b) {
   if (tested_out != nullptr && threadIdx.x == 0) {
@@ -387,6 +614,10 @@ __device__ __forceinline__ void store_tested(int* __restrict__ tested_out, int R
     if (2 * blockIdx.x < groups) tested_out[2 * blockIdx.x] = tested_a;
     if (2 * blockIdx.x + 1 < groups) tested_out[2 * blockIdx.x + 1] = tested_b;
   }
+}
+
+__device__ __forceinline__ void store_tested_culled(int* __restrict__ tested_out, int tested) {
+  if (tested_out != nullptr && threadIdx.x == 0) tested_out[blockIdx.x] = tested;
 }
 
 }  // namespace seg

@@ -9,8 +9,10 @@ Nearest hit with the winner's values and shading row (JAX
 
 - :func:`nearest_shade_full` is the entry point. For CUDA tensors it
   launches ``csrc/nearest_shade.cu`` (B4; given the chunk boxes ``clo``,
-  ``chi`` of a Morton-ordered table and their slack ``cslack``
-  (:func:`.cull.chunk_slack`), the culling instance B4c); for CPU
+  ``chi`` of a Morton-ordered table, their slack ``cslack``
+  (:func:`.cull.chunk_slack`) and the table's records ``crec``
+  (:func:`.cull.cull_records`, built here when not given), the culling
+  instance B4c); for CPU
   tensors it runs :func:`nearest_shade_full_ref`. It never falls back
   from one to the other.
 - :func:`nearest_shade_full_ref` is the plain version: brute f32
@@ -54,6 +56,7 @@ import functools
 import torch
 
 from . import cuda_build
+from . import cull as CU
 from .intersect import Hit
 from .scatter_rows import scatter_rows
 from .segment_fused import (
@@ -69,12 +72,12 @@ _P = ctypes.c_void_p
 _DET_EPS = 1e-12
 
 
-def nearest_shade_full_ref(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, *,
-                           tested=None, dz_test=False):
+def nearest_shade_full_ref(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, crec=None,
+                           *, tested=None, dz_test=False):
     """Plain version of :func:`nearest_shade_full`: brute f32 selection
     over ``rows`` f32[T, 48] and a gather of the winner's shading row.
-    ``clo``, ``chi``, ``cslack`` are accepted and not needed: culling
-    never changes the winners."""
+    ``clo``, ``chi``, ``cslack``, ``crec`` are accepted and not needed:
+    culling never changes the winners."""
     if tested is not None:
         raise ValueError("chunk counts come from the kernel; the plain version "
                          "tests every triangle")
@@ -94,7 +97,8 @@ def _shade_lib() -> ctypes.CDLL:
     fn.argtypes = [
         _P, ctypes.c_int,  # rows, T
         _P, _P, _P, ctypes.c_int,  # pos, dir, live, R
-        _P, _P, _P, ctypes.c_int, ctypes.c_int,  # clo, chi, cslack, cull, dz_test
+        _P, _P, _P, _P,  # clo, chi, cslack, rec
+        ctypes.c_int, ctypes.c_int,  # cull, dz_test
         _P, _P, _P, _P, _P,  # idx, tbg, shade, tested, stream
     ]
     return lib
@@ -128,7 +132,7 @@ def _check_table(table, dev, width) -> None:
         raise ValueError("the triangle table must be 16-byte aligned for float4 loads")
 
 
-def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, tested, dz_test):
+def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, crec, tested, dz_test):
     dev = pos3.device
     R = pos3.shape[1]
     _check_rays(dev, R, pos3, dir3, live)
@@ -136,6 +140,9 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, tested, d
     cull = clo is not None
     if cull:
         check_chunk_boxes(rows, clo, chi, cslack)
+        if crec is None:
+            crec = CU.cull_records(rows)
+        CU.check_records(crec, rows)
     if tested is not None:
         check_tested(tested, R, dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
@@ -147,7 +154,8 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, tested, d
         err = lib.nearest_shade_launch(
             rows.data_ptr(), rows.shape[0], pos3.data_ptr(), dir3.data_ptr(),
             live.data_ptr(), R,
-            *((clo.data_ptr(), chi.data_ptr(), cslack.data_ptr()) if cull else (None,) * 3),
+            *((clo.data_ptr(), chi.data_ptr(), cslack.data_ptr(), crec.data_ptr()) if cull
+              else (None,) * 4),
             int(cull), int(bool(dz_test)), idx.data_ptr(),
             tbg.data_ptr(), shade.data_ptr(), None if tested is None else tested.data_ptr(),
             stream,
@@ -159,13 +167,15 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, tested, d
     return idx, tbg, shade
 
 
-def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, *,
+def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, crec=None, *,
                        tested=None, dz_test=False):
     """Nearest hit per ray of ``pos3``, ``dir3`` f32[3, R] (``live``
     bool[R]) over ``rows`` f32[T, 48]: (idx, tbg, shade) as the module
     docstring says. CUDA tensors launch B4, or B4c given the chunk boxes
-    ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered table and
-    their slack ``cslack`` f32[ceil(T / 128), 2], and add one to
+    ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered table,
+    their slack ``cslack`` f32[ceil(T / 128), 2] and the table's records
+    ``crec`` f32[T, 16] (:func:`.cull.cull_records`, built here when
+    None), and add one to
     ``nearest_shade_full.launches`` (and to ``.cull_launches`` for B4c);
     CPU tensors run :func:`nearest_shade_full_ref`. ``dz_test`` adds the
     explicit |d'_z| > 1e-12 test (JAX ``nearest_shade_culled``).
@@ -174,11 +184,11 @@ def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, 
     kernel fills with the 128-triangle chunks each block of 128 rays
     tested."""
     if pos3.device.type == "cuda":
-        return _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, tested,
+        return _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, crec, tested,
                                         dz_test)
     if pos3.device.type == "cpu":
-        return nearest_shade_full_ref(rows, pos3, dir3, live, clo, chi, cslack, tested=tested,
-                                      dz_test=dz_test)
+        return nearest_shade_full_ref(rows, pos3, dir3, live, clo, chi, cslack, crec,
+                                      tested=tested, dz_test=dz_test)
     raise ValueError(f"no nearest_shade kernel for device {pos3.device}")
 
 
@@ -241,8 +251,8 @@ class NearestShadeFull(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, rows, pos3, dir3, live, clo, chi, cslack):
-        idx, tbg, shade = nearest_shade_full(rows, pos3, dir3, live, clo, chi, cslack)
+    def forward(ctx, rows, pos3, dir3, live, clo, chi, cslack, crec):
+        idx, tbg, shade = nearest_shade_full(rows, pos3, dir3, live, clo, chi, cslack, crec)
         ctx.save_for_backward(idx, rows, pos3, dir3)
         ctx.mark_non_differentiable(idx)
         return idx, tbg, shade
@@ -250,13 +260,13 @@ class NearestShadeFull(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _idx, ct_tbg, ct_shade):
         d_rows, d_pos, d_dir = _winner_vjp(ctx, ct_tbg, ct_shade)
-        return d_rows, d_pos, d_dir, None, None, None, None
+        return d_rows, d_pos, d_dir, None, None, None, None, None
 
 
-def nearest_shade_full_diff(rows, pos3, dir3, live, clo=None, chi=None, cslack=None):
+def nearest_shade_full_diff(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, crec=None):
     """:func:`nearest_shade_full` with gradients to ``rows`` and the rays
     through :class:`NearestShadeFull`."""
-    return NearestShadeFull.apply(rows, pos3, dir3, live, clo, chi, cslack)
+    return NearestShadeFull.apply(rows, pos3, dir3, live, clo, chi, cslack, crec)
 
 
 def pack_geom_rows(m, m_a, tri_valid) -> torch.Tensor:

@@ -19,7 +19,8 @@ So each entry here unpacks its layout into the 48-float row table of
 :func:`.segment_fused.pack_rows_full` (geometry 12 | shading 32 | pad 4)
 and calls :func:`.nearest_shade.nearest_shade_full`: for CUDA tensors
 the hand-written kernel ``csrc/nearest_shade.cu`` (B4; B4c for the
-culling entries, with the explicit |d'_z| > 1e-12 test of
+culling entries, over the triangle records that they build with their
+unpacking, with the explicit |d'_z| > 1e-12 test of
 ``_nearest_shade_culled_kernel`` for :func:`nearest_shade_culled`, and
 their chunk boxes regridded to B4c's 128-triangle tiles by
 :func:`tile_boxes`), for CPU tensors its plain version. Each entry adds
@@ -46,7 +47,7 @@ from __future__ import annotations
 import torch
 
 from . import nearest_shade as NS
-from .cull import chunk_slack
+from .cull import chunk_slack, cull_records
 
 _BIG = 3.0e38
 _TILE = 128  # B4c's triangles per tile, one chunk box each
@@ -268,7 +269,9 @@ def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi
     t_chunk, 3] are the boxes of its chunks (JAX ``chunk_aabbs_padded``):
     B4c on those boxes regridded to its tiles, with their slack ``cslack``
     (:func:`.cull.chunk_slack` of the unpacked rows, computed here when not
-    given); else B4. ``geom`` as in :func:`nearest_shade2`."""
+    given) and the unpacked rows' records (:func:`.cull.cull_records`,
+    built here with the unpacking); else B4. ``geom`` as in
+    :func:`nearest_shade2`."""
     _check_geom(geom, table)
     rows = rows_from_streamed(ws, table, t_chunk)
     live = _all_live(pos3) if live is None else live.to(torch.bool).contiguous()
@@ -279,7 +282,8 @@ def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi
             raise ValueError(f"cull needs chunk boxes clo, chi [{nc}, 3]")
         # The boxes past the table cover padding only.
         boxes = dict(zip(("clo", "chi"), tile_boxes(clo, chi, t_chunk, rows.shape[0])),
-                     cslack=chunk_slack(rows) if cslack is None else cslack)
+                     cslack=chunk_slack(rows) if cslack is None else cslack,
+                     crec=cull_records(rows))
     before = nearest_shade_streamed.launches
     out = _select(nearest_shade_streamed, rows, pos3, dir3, live, **boxes)
     if cull:
@@ -293,8 +297,9 @@ def nearest_shade_culled(w, table, clo, chi, pos3, dir3, live, cslack=None):
     consecutive triangles, for the lanes of ``live`` (JAX
     ``nearest_shade_culled``, TPU kernel ``_nearest_shade_culled_kernel``,
     B11): B4c, on those boxes regridded to its tiles and widened by
-    ``cslack`` (as in :func:`nearest_shade_streamed`), with the explicit
-    |d'_z| > 1e-12 test of that kernel."""
+    ``cslack``, over the records built with the unpacking (as in
+    :func:`nearest_shade_streamed`), with the explicit |d'_z| > 1e-12 test
+    of that kernel."""
     T, nc = w.shape[2], clo.shape[0]
     if nc == 0 or T % nc or chi.shape[0] != nc:
         raise ValueError(f"{T} triangles do not divide into {nc} chunk boxes")
@@ -302,7 +307,7 @@ def nearest_shade_culled(w, table, clo, chi, pos3, dir3, live, cslack=None):
     rows = rows_from_w(w, table)
     return _select(nearest_shade_culled, rows, pos3, dir3, live.to(torch.bool).contiguous(),
                    clo=clo, chi=chi, cslack=chunk_slack(rows) if cslack is None else cslack,
-                   dz_test=True)
+                   crec=cull_records(rows), dz_test=True)
 
 
 def _check_geom(geom, table) -> None:

@@ -17,11 +17,13 @@ Forward (JAX ``mega_segment_fwd``, Pallas kernel ``_mega_segment_kernel``):
   per segment f32[3, 1] (B1) or per lane f32[3, R] (B1l, JAX
   ``lane_flags=True``, for the regenerating wavefront). Given the chunk
   boxes ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered
-  table and their slack ``cslack`` f32[ceil(T / 128), 2]
-  (:func:`.cull.chunk_slack`), the kernel skips the 128-triangle chunks
-  that no live ray of a group of 128 rays can reach with its current best
-  t (B1c, JAX ``cull=True``); the winners are those of brute selection
-  over the same table. In front of the exact pair test the kernel rejects a pair whose
+  table, their slack ``cslack`` f32[ceil(T / 128), 2]
+  (:func:`.cull.chunk_slack`) and the table's records ``crec`` f32[T,
+  16] (:func:`.cull.cull_records`, built per call when not given), the
+  kernel skips the 128-triangle chunks that no live ray of a warp (64
+  rays) can reach with its current best t, and visits the others nearest
+  first (B1c, JAX ``cull=True``); the winners are those of brute
+  selection over the same table. In front of the exact pair test the kernel rejects a pair whose
   ray misses the triangle's widened bounding sphere, which changes no
   winner: B1, B1l and B1c pick the winners of ``nearest_shade_full``
   (B4, B4c) bit for bit.
@@ -248,12 +250,12 @@ def mega_segment_ref(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
     refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
-    cslack=None, tested=None,
+    cslack=None, crec=None, tested=None,
 ):
     """Plain-torch whole segment (see the module docstring for the
     contract): brute selection, then :func:`_epilogue`. ``clo``, ``chi``,
-    ``cslack`` are accepted and not needed: culling never changes the
-    winners."""
+    ``cslack``, ``crec`` are accepted and not needed: culling never
+    changes the winners."""
     _check_options(mode, phong_model)
     if tested is not None:
         raise ValueError("chunk counts come from the kernel; the plain version "
@@ -377,7 +379,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,  # lane_flags, R
         ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
         ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
-        _P, _P, _P, ctypes.c_int,  # clo, chi, cslack, cull
+        _P, _P, _P, _P, ctypes.c_int,  # clo, chi, cslack, rec, cull
         _P, _P, _P, _P, _P, _P,  # idx, npos, ndir, ntput, nres, still
         _P, _P,  # tested, stream
     ]
@@ -491,8 +493,10 @@ def check_tested(tested, R, dev, block=128) -> None:
 
 def _mega_segment_cuda(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
-    mode, illum, eps_offset, refract_kd, phong_model, clo, chi, cslack, tested,
+    mode, illum, eps_offset, refract_kd, phong_model, clo, chi, cslack, crec, tested,
 ):
+    from . import cull as CU
+
     _check_options(mode, phong_model)
     _check_cuda_inputs(rows, (pos3, dir3, tput, res), (u1, u2, urr), live, flags)
     R = pos3.shape[1]
@@ -500,6 +504,9 @@ def _mega_segment_cuda(
     cull = clo is not None
     if cull:
         check_chunk_boxes(rows, clo, chi, cslack)
+        if crec is None:
+            crec = CU.cull_records(rows)
+        CU.check_records(crec, rows)
     if tested is not None:
         check_tested(tested, R, dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
@@ -515,7 +522,8 @@ def _mega_segment_cuda(
             flags.data_ptr(), int(flags.shape[1] != 1), R,
             int(mode == "rr"), float(illum), float(eps_offset),
             int(bool(refract_kd)), int(phong_model == "phong"),
-            *((clo.data_ptr(), chi.data_ptr(), cslack.data_ptr()) if cull else (None,) * 3),
+            *((clo.data_ptr(), chi.data_ptr(), cslack.data_ptr(), crec.data_ptr()) if cull
+              else (None,) * 4),
             int(cull), idx.data_ptr(), npos.data_ptr(), ndir.data_ptr(),
             ntput.data_ptr(), nres.data_ptr(), still.data_ptr(),
             None if tested is None else tested.data_ptr(), stream,
@@ -532,7 +540,7 @@ def mega_segment(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
     refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None,
-    cslack=None, tested=None,
+    cslack=None, crec=None, tested=None,
 ):
     """Whole-segment forward (see the module docstring). CUDA tensors
     launch the kernel and add one to ``mega_segment.launches`` (and to
@@ -545,7 +553,7 @@ def mega_segment(
     (rays ``128 g`` to ``128 g + 127``) tested."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
               refract_kd=refract_kd, phong_model=phong_model, clo=clo, chi=chi,
-              cslack=cslack, tested=tested)
+              cslack=cslack, crec=crec, tested=tested)
     args = (rows, pos3, dir3, tput, res, live, u1, u2, urr, flags)
     if pos3.device.type == "cuda":
         return _mega_segment_cuda(*args, **kw)
@@ -692,9 +700,9 @@ class WholeSegment(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, clo, chi, cslack,
-                kw):
+                crec, kw):
         out = mega_segment(rows, pos3, dir3, tput, res, live, u1, u2, urr, flags,
-                           clo=clo, chi=chi, cslack=cslack, **kw)
+                           clo=clo, chi=chi, cslack=cslack, crec=crec, **kw)
         ctx.save_for_backward(out[0], rows, pos3, dir3, tput, res, live, u1, u2,
                               urr, flags)
         ctx.kw = kw
@@ -704,7 +712,7 @@ class WholeSegment(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _idx, ct_npos, ct_ndir, ct_ntput, ct_nres, _still):
         d_rows, d_state = _segment_vjp(ctx, (ct_npos, ct_ndir, ct_ntput, ct_nres))
-        return (d_rows, *d_state, *(None,) * 9)
+        return (d_rows, *d_state, *(None,) * 10)
 
 
 def _segment_vjp(ctx, cts):
@@ -726,16 +734,18 @@ def whole_segment_megakernel(
     rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, *,
     mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
     refract_kd: bool = True, phong_model: str = "blinn", clo=None, chi=None, cslack=None,
+    crec=None,
 ):
     """Differentiable whole segment (JAX ``whole_segment_megakernel``):
     the outputs of :func:`mega_segment`, with gradients to ``rows`` and
     the ray state through :class:`WholeSegment`; chunk boxes ``clo``,
-    ``chi`` and their slack ``cslack`` select the culling kernel B1c."""
+    ``chi``, their slack ``cslack`` and the records ``crec`` select the
+    culling kernel B1c."""
     _check_options(mode, phong_model)
     kw = dict(mode=mode, illum=float(illum), eps_offset=float(eps_offset),
               refract_kd=bool(refract_kd), phong_model=phong_model)
     return WholeSegment.apply(rows, pos3, dir3, tput, res, live, u1, u2, urr,
-                              flags, clo, chi, cslack, kw)
+                              flags, clo, chi, cslack, crec, kw)
 
 
 class WholeSegmentRows(torch.autograd.Function):

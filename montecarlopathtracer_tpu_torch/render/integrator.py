@@ -43,7 +43,8 @@ three-way tie in thirds), where the whole segment nests pairwise maxima.
 
 The scene-side tables (the row table, for ``"traverse"`` and
 ``chunk_cull`` the Morton permutation and the chunk boxes (with
-``chunk_cull`` also their slack, :func:`..ops.cull.chunk_slack`), for
+``chunk_cull`` also their slack, :func:`..ops.cull.chunk_slack`, and the
+culled loop's triangle records, :func:`..ops.cull.cull_records`), for
 ``"brute"``, ``"fused"`` and ``"kdtree"`` the triangle transforms, for
 ``"kdtree"`` the tree) are built once per scene and device by
 :func:`scene_tables`; pass them to reuse them across calls.
@@ -95,7 +96,7 @@ import torch
 from ..ops import nearest_shade as NS
 from ..ops import segment_fused as F
 from ..ops import traverse_walk as TW
-from ..ops.cull import chunk_slack
+from ..ops.cull import chunk_slack, cull_records
 from ..ops.intersect import intersect_brute, triangle_transforms
 from ..ops.morton import DEAD_KEY, chunk_aabbs_padded, morton_order, ray_sort_keys
 from ..ops.rng import Key, fold_in, stream_uniform
@@ -206,6 +207,7 @@ class SceneTables:
     clo: Optional[torch.Tensor] = None  # f32[nc, 3] chunk boxes
     chi: Optional[torch.Tensor] = None
     cslack: Optional[torch.Tensor] = None  # f32[nc, 2] their slack (chunk_cull)
+    crec: Optional[torch.Tensor] = None  # f32[T, 16] the culled loop's records (chunk_cull)
     walk: Optional[TW.WalkTables] = None  # B5's tree and spheres ("traverse")
     lo: Optional[torch.Tensor] = None  # f32[3] scene box (ray_sort)
     hi: Optional[torch.Tensor] = None
@@ -216,9 +218,9 @@ class SceneTables:
 
     @property
     def cull_boxes(self) -> dict:
-        """The chunk boxes and their slack as the culling kernels' keyword
-        arguments."""
-        return dict(clo=self.clo, chi=self.chi, cslack=self.cslack)
+        """The chunk boxes, their slack and the table's records as the
+        culling kernels' keyword arguments."""
+        return dict(clo=self.clo, chi=self.chi, cslack=self.cslack, crec=self.crec)
 
 
 def kd_tree(scene: ScenePack) -> KDArrays:
@@ -236,7 +238,7 @@ def scene_tables(scene: ScenePack, config: TraceConfig,
                  accel: Optional[KDArrays] = None) -> SceneTables:
     """Build the scene's :class:`SceneTables` for ``config``. The row
     table and the transforms carry gradients to the scene's fields; the
-    permutation, the boxes and their slack, B7's table and the KD tree,
+    permutation, the boxes, their slack and records, B7's table and the KD tree,
     which only choose which triangles win, do not. ``accel`` is a prebuilt KD tree for
     ``"kdtree"`` (JAX's ``accel`` argument); without it the tree is
     built here (:func:`kd_tree`)."""
@@ -263,6 +265,7 @@ def scene_tables(scene: ScenePack, config: TraceConfig,
     if config.chunk_cull:
         with torch.no_grad():
             extra["cslack"] = chunk_slack(rows)
+            extra["crec"] = cull_records(rows.detach())
     if config.intersector == "traverse":
         with torch.no_grad():
             lo, hi, big = TW.walk_boxes(*scene.triangle_vertices(), scene.tri_valid,

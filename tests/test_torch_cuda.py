@@ -568,6 +568,152 @@ def test_whole_segment_winners_equal_split_kernel_on_hard_soups(card, case, T):
         assert ((kappa >= 2.0 ** 15) & (kappa < 2.0 ** 16)).any() and (kappa >= 2.0 ** 16).any()
 
 
+def _culled_vs_b4(rows, boxes, pos, dir_, live):
+    """B4c and B1c against B4 on one Morton-ordered table: (B4c's outputs
+    and B1c's idx bit-equal to B4's, B4c's tested counts equal to the
+    emulation of its rule (``ops.cull.cull_visits``, each chunk's winners
+    from B4))."""
+    R = pos.shape[1]
+
+    def b4_chunk(r, p, d):
+        idx, tbg, _ = NS.nearest_shade_full(r, p, d, torch.ones(R, dtype=torch.bool,
+                                                                 device="cuda"))
+        return tbg[0], idx
+
+    tested = torch.full((-(-R // 128),), -1, dtype=torch.int32, device="cuda")
+    want = NS.nearest_shade_full(rows, pos, dir_, live)
+    got = NS.nearest_shade_full(rows, pos, dir_, live, tested=tested, **boxes)
+    ones = torch.ones(3, R, device="cuda")
+    u = torch.full((R,), 0.5, device="cuda")
+    b1c = F.mega_segment(rows, pos, dir_, ones, ones, live, u, u, u,
+                         torch.zeros(3, 1, device="cuda"), **boxes)[0]
+    visits = CU.cull_visits(rows, boxes["clo"], boxes["chi"], boxes["cslack"], pos, dir_, live,
+                            winners=CU.chunk_winners(rows, pos, dir_, select=b4_chunk,
+                                                     chunk=CU.LEAF))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(b1c, want[0])
+    return same, bool(torch.equal(tested.long(), visits["tested"]))
+
+
+def _entries_vs_b4(verts, pos, dir_, live, seed):
+    """B10c and B11 on the soup padded to a multiple of 128 with all-zero
+    rows (the JAX packings, Morton order, a seeded shading table) against
+    B4 over the same rows (B11 with the |d'_z| test): bit-equal."""
+    T = verts[0].shape[0]
+    pad = -T % 128
+    a, b, c = (torch.cat([x, torch.zeros(pad, 3, device="cuda")]) for x in verts)
+    valid = torch.cat([torch.ones(T, dtype=torch.bool, device="cuda"),
+                       torch.zeros(pad, dtype=torch.bool, device="cuda")])
+    perm = morton_order(a, b, c, valid)
+    m, m_a = triangle_transforms(a, b, c)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tp = torch.rand(T + pad, 32, device="cuda", generator=g)
+    wp = NV.pack_transforms(m[perm], m_a[perm], valid[perm])
+    rows_p = NV._rows(NV._geometry(wp), tp)
+    assert (rows_p[T:, :12] == 0).all()
+    ws_c = NV.pack_transforms_stream(m[perm], m_a[perm], valid[perm], 128)
+    clo, chi = chunk_aabbs_padded(a, b, c, valid, perm, 128)
+    before = (NV.nearest_shade_streamed.cull_launches, NV.nearest_shade_culled.launches,
+              CU.cull_records.launches)
+    b10c = NV.nearest_shade_streamed(ws_c, NV._geometry(wp).contiguous(), tp, pos, dir_, live,
+                                     clo, chi, t_chunk=128, cull=True)
+    b11 = NV.nearest_shade_culled(wp, tp, *chunk_aabbs(a, b, c, valid, perm, 128), pos, dir_,
+                                  live)
+    want = NS.nearest_shade_full(rows_p, pos, dir_, live)
+    want_dz = NS.nearest_shade_full(rows_p, pos, dir_, live, dz_test=True)
+    torch.cuda.synchronize()
+    # Each entry builds its records with its unpacking: one B4r launch each.
+    assert (NV.nearest_shade_streamed.cull_launches, NV.nearest_shade_culled.launches,
+            CU.cull_records.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+    return (all(torch.equal(x, y) for x, y in zip(b10c, want)),
+            all(torch.equal(x, y) for x, y in zip(b11, want_dz)))
+
+
+@pytest.mark.parametrize("T", [700, 1500])
+@pytest.mark.parametrize("case", HARD_SOUPS)
+def test_culled_kernels_equal_b4_on_morton_soups(card, case, T):
+    """The culled loop (a vote per warp, nearest chunk first, the least
+    (t, index) pair winning) under B4c, B1c, B10c and B11 picks B4's bits
+    on every lane of the seeded hard soups in Morton order, some lanes
+    dead; B4c's tested counts equal the emulation of its rule; the entries
+    run on the soup padded with all-zero rows."""
+    R = 16384
+    verts, rows, pos, dir_ = hard_soup(case, T, R, seed=T, device="cuda")
+    live = torch.ones(R, dtype=torch.bool, device="cuda")
+    live[::7] = False
+    valid = torch.ones(T, dtype=torch.bool, device="cuda")
+    perm = morton_order(*verts, valid)
+    mrows = rows[perm].contiguous()
+    clo, chi = chunk_aabbs_padded(*verts, valid, perm, 128)
+    boxes = dict(clo=clo, chi=chi, cslack=CU.chunk_slack(mrows), crec=CU.cull_records(mrows))
+    same, tested = _culled_vs_b4(mrows, boxes, pos, dir_, live)
+    assert same and tested, (same, tested)
+    assert _entries_vs_b4(verts, pos, dir_, live, seed=T) == (True, True)
+
+
+def test_culled_kernels_break_equal_t_ties_by_index_on_card(card):
+    """On ``testing.tie_soup`` the warps meet each winner's exact copy (a
+    larger index, in chunk 2, whose box they enter first) before the
+    winner: B4c, B1c, B10c and B11 keep the smaller index, B4's."""
+    verts, rows, clo, chi, pos, dir_ = tie_soup(device="cuda", R=4096, seed=5)
+    live = torch.ones(pos.shape[1], dtype=torch.bool, device="cuda")
+    boxes = dict(clo=clo, chi=chi, cslack=CU.chunk_slack(rows), crec=CU.cull_records(rows))
+    tn, ok = CU.chunk_entry(clo, chi, pos.T, dir_.T, boxes["cslack"])
+    assert ok[:, [0, 2]].all() and (tn[:, 2] < tn[:, 0]).all()
+    same, tested = _culled_vs_b4(rows, boxes, pos, dir_, live)
+    assert same and tested, (same, tested)
+    idx = NS.nearest_shade_full(rows, pos, dir_, live, **boxes)[0]
+    assert ((idx >= 0) & (idx < 64)).float().mean() > 0.9
+    # The entries take the soup in Morton order, whose chunks are others.
+    assert _entries_vs_b4(verts, pos, dir_, live, seed=5) == (True, True)
+
+
+def test_culled_tested_equals_the_emulation_on_card(glossy_card):
+    """B4c's and B1c's tested counts per group of 128 rays are the OR of
+    its two warps' votes: those of ``ops.cull.cull_visits``' rule (d) on
+    the glossy camera wavefront and its first bounce."""
+    _, camera, tables = glossy_card
+    for pos, dir_, _, _, live in _waves(camera, tables.rows):
+        same, tested = _culled_vs_b4(tables.rows, tables.cull_boxes, pos, dir_, live)
+        assert same and tested, (same, tested)
+
+
+def test_culled_wrappers_refuse_bad_records_on_card(glossy_card):
+    _, camera, tables = glossy_card
+    pos, dir_, _, _, live = _waves(camera, tables.rows)[0]
+    boxes = tables.cull_boxes
+    before = (NS.nearest_shade_full.launches, F.mega_segment.launches, CU.cull_records.launches)
+    for bad in (boxes["crec"][:-1], boxes["crec"].cpu(), boxes["crec"][:, :12]):
+        with pytest.raises(ValueError, match="records"):
+            NS.nearest_shade_full(tables.rows, pos, dir_, live, **dict(boxes, crec=bad))
+        with pytest.raises(ValueError, match="records"):
+            F.mega_segment(tables.rows, pos, dir_, pos, pos, live, live.float(), live.float(),
+                           live.float(), torch.zeros(3, 1, device="cuda"),
+                           **dict(boxes, crec=bad))
+    with pytest.raises(ValueError, match="records"):
+        CU.cull_records(tables.rows[:, :12])
+    assert (NS.nearest_shade_full.launches, F.mega_segment.launches,
+            CU.cull_records.launches) == before
+    # Records built by the wrapper when none are given: one B4r launch.
+    got = NS.nearest_shade_full(tables.rows, pos, dir_, live, **dict(boxes, crec=None))
+    torch.cuda.synchronize()
+    assert CU.cull_records.launches == before[2] + 1
+    want = NS.nearest_shade_full(tables.rows, pos, dir_, live, **boxes)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_cull_records_kernel_matches_plain_on_card(glossy_card):
+    _, _, tables = glossy_card
+    rows = tables.rows.detach()
+    got = CU.cull_records(rows)
+    want = CU.cull_records_ref(rows)
+    assert torch.equal(got, tables.crec) and got.shape == CU.records_shape(rows.shape[0])
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[:rows.shape[0], 4:], rows[:, :12])
+    fin = want.isfinite()
+    assert ((got - want)[fin].abs() <= 1e-4 * (1.0 + want[fin].abs())).all()
+
+
 @pytest.mark.parametrize("cull", [False, True], ids=["B4", "B4c"])
 def test_nearest_shade_kernel_matches_plain_on_card(card, glossy_card, cull):
     cases = [(card[1], card[2], {}),
@@ -722,7 +868,7 @@ def test_padding_rows_change_no_winner_on_card(card, glossy_card, which):
     spread = torch.zeros(T + T // 4, 48, device="cuda")
     spread[~where] = rows
     new = torch.nonzero(~where)[:, 0].int()
-    boxes_p = dict(boxes, cslack=CU.chunk_slack(padded))
+    boxes_p = dict(boxes, cslack=CU.chunk_slack(padded), crec=CU.cull_records(padded))
     assert torch.equal(boxes_p["cslack"], boxes["cslack"])
     for pos, dir_, tput, res, live in _waves(camera, rows):
         R = pos.shape[1]
