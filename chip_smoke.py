@@ -9,8 +9,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. environment: torch/CUDA versions, the GPU (compute capability 9.0
    required), nvcc, and nvidia-smi's name and power limit;
-2. build: compile every csrc/*.cu of the port (eight sources) with nvcc
+2. build: compile every csrc/*.cu of the port (nine sources) with nvcc
    for sm_90a, one nvcc process each, all started together;
+2b. the uniform draws (rng.cu, threefry-2x32, one launch per draw of 1-4
+   streams) against their plain version (torch ops) bit for bit at
+   R = 480,000 and 1,048,576 for 1-3 streams, and against the CPU's plain
+   draws; timed, with its bound (bytes, and its integer operations at
+   the H100's INT32 rate);
 3. the segment kernel against its plain-torch version on the card, on
    64x48 camera rays and a full 800x600 wavefront of first-bounce rays,
    in fixed mode (final gather off and on) and RR mode (roulette, hard
@@ -25,8 +30,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    its bound counts the sphere test on every live pair and the exact
    test on the pairs inside the spheres (counted on the same inputs);
 5. the main path: Renderer at 800x600, fixed depth 7, 4 spp/pass, one
-   warm-up and three timed passes, with the kernel's launch count and
-   checks on the film; then a per-segment time breakdown of one sample;
+   warm-up and three timed passes, with the launch counts of B1 and of
+   the RNG (one per sample's jitter pair, one per segment's u1, u2) and
+   checks on the film, a profile of one pass; then a per-segment time
+   breakdown of one sample (B1 against its one RNG launch);
 6. a 160x120 frame at 1 spp, kernel against plain path, same key;
 7. the gradient path's kernels (segment_backward.cu, scatter_rows.cu):
    their builds and ptxas reports;
@@ -55,12 +62,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
     B1l timed against plain, with its device time;
 16. the regen main path: Renderer on the Cornell box, RR (rr_depth 5,
     illum 1), 800x600, 32 spp per pass, regen; one warm-up and two timed
-    passes, steps and B1l launches per pass, and the film mean held
-    against a 32-spp scan render within 5 standard errors;
+    passes, steps and B1l launches per pass (and two RNG launches per
+    step), the film mean held against a 32-spp scan render within 5
+    standard errors, a profile; then regen against the scan's time at 16
+    and 32 spp/pass;
 17. the traversal walk (B5) on the 81,932-triangle bunny: its tables
     (tree and triangle records, built by traverse_select.cu's
-    traverse_tables_launch) against their plain version, and their build
-    time; then a 1024x1024 camera wavefront and its sorted bounce
+    traverse_tables_launch in one launch of a warp per leaf, B5t) against
+    their plain version, bit-equal to the earlier two-kernel build (and on
+    the hard soups at T = 1, 20, 70, 1500) with the tree equal to tree_ref
+    over its own leaves, and their build time beside the earlier build's
+    two kernels timed apart; then a 1024x1024 camera wavefront and its sorted bounce
     wavefront with dead lanes: B5's winners (idx, and t recomputed)
     bit-equal to B4's (every triangle) on every lane, and against the
     plain brute selection on a seeded subset of 65,536 rays (winners on
@@ -246,7 +258,11 @@ MICRO_REPLACES = {
     "B14": "tools/kernel_micro.py:281",
 }
 KERNEL_NAMES = ("segment_fused", "segment_backward", "scatter_rows", "traverse_select",
-                "rows_segment", "nearest_shade", "nearest_triangle", "selection_micro")
+                "rows_segment", "nearest_shade", "nearest_triangle", "selection_micro", "rng")
+RNG_SOURCE = f"{PKG}/csrc/rng.cu"
+# Not a TPU kernel: the counterpart of the JAX package's draws,
+# jax.random.uniform(jax.random.fold_in(key, stream), shape).
+RNG_REPLACES = "montecarlopathtracer_tpu/ops/rng.py:24"
 W, H = 800, 600
 SPP, DEPTH = 4, 7
 WARMUP_PASSES, TIMED_PASSES = 1, 3
@@ -324,25 +340,66 @@ def build():
     return libs
 
 
+# Integer operations of one threefry-2x32 draw (rng.cu, per lane and
+# stream): 20 rounds of add, rotate, xor (60), the key schedule and five
+# injections (~10), the xor of the two words, shift, or and the subtract
+# that make the float (~6).
+RNG_OPS = 76
+
+
+def rng_vs_plain(torch):
+    phase("2b. uniform draws (rng.cu) vs plain: bits at R = 480,000 and 1,048,576, "
+          "k = 1-3 streams, one launch a call")
+    from montecarlopathtracer_tpu_torch.ops import rng as RNG
+
+    key = RNG.fold_in(RNG.fold_in(RNG.make_key(0), 0), 0)
+    ids = (4, 5, 7, (1 << 30) + 673)
+    for R in (W * H, BW * BH):
+        for k in (1, 2, 3):
+            before = RNG.stream_uniforms.launches
+            got = RNG.stream_uniforms(key, ids[:k], R, "cuda")
+            torch.cuda.synchronize()
+            n = RNG.stream_uniforms.launches - before
+            want = RNG.stream_uniforms_ref(key, ids[:k], R, "cuda")
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            print(f"R {R:9d} k {k}: bit-equal to plain {same}, launches {n}, rows "
+                  f"contiguous {all(row.is_contiguous() for row in got)}")
+            check(same and n == 1 and tuple(got.shape) == (k, R),
+                  f"rng.cu at R {R}, k {k}: equal {same}, {n} launches")
+    cpu = RNG.stream_uniforms_ref(key, ids, 1000, "cpu")
+    check(torch.equal(RNG.stream_uniforms(key, ids, 1000, "cuda").cpu().view(torch.int32),
+                      cpu.view(torch.int32)), "rng.cu differs from the CPU's plain draws")
+    print("k 4, n 1000: bit-equal to the CPU's plain draws")
+    sids = (0, 1, 3)
+    ms = time_pair(torch, lambda: RNG.stream_uniforms(key, sids, W * H, "cuda"),
+                   lambda: RNG.stream_uniforms_ref(key, sids, W * H, "cuda"), label="RNG")
+    bound = bound_of(4 * 3 * W * H, RNG_OPS * 3 * W * H, INT32_OPS_PER_S)
+    big = record_device(torch, "RNG 1M", lambda: RNG.stream_uniforms(key, sids[:2], BW * BH,
+                                                                      "cuda"))[0]
+    print(f"u1, u2, urr of an {W}x{H} segment: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms "
+          f"(event pairs, median of 10); u1, u2 of a {BW}x{BH} segment: device {big:.4f} ms")
+    device_line("RNG", ms[0], bound)
+    return (*ms, bound)
+
+
 def seg_args(torch, rows, pos, dir_, tput, res, live, key, flags):
-    from montecarlopathtracer_tpu_torch.ops.rng import stream_uniform
+    from montecarlopathtracer_tpu_torch.ops.rng import stream_uniforms
 
     R = pos.shape[1]
     dev = pos.device
-    u1, u2, urr = (stream_uniform(key, s, R, dev) for s in (0, 1, 3))
+    u1, u2, urr = stream_uniforms(key, (0, 1, 3), R, dev)
     fl = torch.tensor(flags, dtype=torch.float32, device=dev).reshape(3, 1)
     return (rows, pos.contiguous(), dir_.contiguous(), tput.contiguous(),
             res.contiguous(), live.contiguous(), u1, u2, urr, fl)
 
 
 def camera_wavefront(torch, camera, width, height, key):
-    from montecarlopathtracer_tpu_torch.ops.rng import stream_uniform
+    from montecarlopathtracer_tpu_torch.ops.rng import stream_uniforms
 
     dev = camera.device
     R = width * height
     pix = torch.arange(R, device=dev)
-    jx = stream_uniform(key, 1 << 30, R, dev) * 2.0 - 1.0
-    jy = stream_uniform(key, (1 << 30) + 1, R, dev) * 2.0 - 1.0
+    jx, jy = stream_uniforms(key, (1 << 30, (1 << 30) + 1), R, dev) * 2.0 - 1.0
     pos, dir_ = camera.generate_rays_soa(pix % width, pix // width, jx, jy,
                                          width, height)
     return (pos.contiguous(), dir_, torch.ones(3, R, device=dev),
@@ -468,8 +525,12 @@ def main_path(torch, scene, camera):
     print(f"warm-up pass {warm:.3f} s; {TIMED_PASSES} timed passes {dt:.3f} s = "
           f"{per_pass:.4f} s/pass, forward {msps:.4f} Msamples/s")
     want = config.num_segments * SPP * (WARMUP_PASSES + TIMED_PASSES)
-    print(f"mega_segment launches in the main path: {launches} (expected {want})")
+    want_rng = (1 + config.num_segments) * SPP * (WARMUP_PASSES + TIMED_PASSES)
+    print(f"launches in the main path: mega_segment {launches} (expected {want}), rng.cu "
+          f"{counts['RNG']} (expected {want_rng}: the jitter pair and each segment's u1, u2, "
+          "one launch each)")
     check(launches == want and counts["B1l"] == 0, f"launches {counts}, expected {want} B1")
+    check(counts["RNG"] == want_rng, f"launches {counts}, expected {want_rng} RNG")
 
     img = r.film.color.cpu().numpy()
     weight = float(r.film.weight)
@@ -488,14 +549,18 @@ def main_path(torch, scene, camera):
     png = os.path.join(HERE, "build", "chip_smoke_800x600.png")
     r.save_png(png)
     print(f"wrote {os.path.relpath(png, HERE)}")
-    return launches, per_pass, msps
+    profile_device(torch, "forward pass", lambda: r.render(1),
+                   {"B1 mega_segment": "mega_segment_kernel", "RNG uniform": "uniform_kernel"},
+                   per_pass * 1e3)
+    return counts, per_pass, msps
 
 
 def breakdown(torch, scene, camera, per_pass):
     """Device time of one main-path sample, split by segment: the
-    kernel launch against the random draws around it."""
+    kernel launch against the segment's random draws (one launch of
+    rng.cu), each span between CUDA events around the one call."""
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
-    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key, stream_uniform
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key, stream_uniforms
     from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
 
     config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
@@ -508,8 +573,7 @@ def breakdown(torch, scene, camera, per_pass):
     rng_ms, kern_ms = [], []
     for seg in range(config.num_segments):
         ev[0].record()
-        u1 = stream_uniform(key, 4 * seg, W * H, "cuda")
-        u2 = stream_uniform(key, 4 * seg + 1, W * H, "cuda")
+        u1, u2 = stream_uniforms(key, (4 * seg, 4 * seg + 1), W * H, "cuda")
         ev[1].record()
         _, pos, dir_, tput, res, still = F.mega_segment(
             rows, pos, dir_, tput, res, live, u1, u2, urr, flags[seg])
@@ -520,7 +584,9 @@ def breakdown(torch, scene, camera, per_pass):
         kern_ms.append(ev[1].elapsed_time(ev[2]))
     k, g = sum(kern_ms), sum(rng_ms)
     print("per-segment kernel ms: " + " ".join(f"{x:.3f}" for x in kern_ms))
-    print("per-segment rng ms:    " + " ".join(f"{x:.3f}" for x in rng_ms))
+    print("per-segment rng ms:    " + " ".join(f"{x:.3f}" for x in rng_ms)
+          + f" (the event span around one rng.cu launch; its device time for three streams "
+          f"{DEVICE_MS['RNG'][0]:.4f} ms, phase 2b)")
     print(f"one sample: kernel {k:.3f} ms + rng {g:.3f} ms; x{SPP} spp = kernel "
           f"{k * SPP:.2f} ms, rng {g * SPP:.2f} ms of a {per_pass * 1e3:.2f} ms pass "
           f"(kernel share {k * SPP / (per_pass * 1e3):.3f})")
@@ -554,12 +620,13 @@ def reset_counts():
     from montecarlopathtracer_tpu_torch.ops import cull as CU
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+    from montecarlopathtracer_tpu_torch.ops import rng as RNG
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
 
-    CU.cull_records.launches = 0
+    CU.cull_records.launches = RNG.stream_uniforms.launches = 0
     F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
     F.mega_segment.lane_launches = F.mega_segment.cull_launches = 0
     F.rows_segment.launches = F.rows_segment.lane_launches = 0
@@ -585,10 +652,12 @@ def read_all_counts():
     from B4c, B5's tables (B5t, one count per build) apart from B5, B6
     apart from B6l; the entries B8-B11 (each also counted under B4 or
     B4c, which it launches), B10 apart from B10c; B12 per variant, B13,
-    B14; the culled loop's records (B4r, one count per build)."""
+    B14; the culled loop's records (B4r, one count per build); the
+    uniform draws (RNG, rng.cu, one count per draw of 1-4 streams)."""
     from montecarlopathtracer_tpu_torch.ops import cull as CU
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
     from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+    from montecarlopathtracer_tpu_torch.ops import rng as RNG
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
@@ -610,6 +679,7 @@ def read_all_counts():
         "B5": TW.traverse_select.launches, "B5t": TW.walk_tables.launches,
         "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
         "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches,
+        "RNG": RNG.stream_uniforms.launches,
     })
 
 
@@ -874,7 +944,8 @@ def grad_main_path(torch, scene, camera):
         loss, grads = G.value_and_grad(loss_fn, params, make_key(8 + i))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: v for k, v in read_all_counts().items() if k in ("B1", "B2", "B3")}
+    all_counts = read_all_counts()
+    counts = {k: v for k, v in all_counts.items() if k in ("B1", "B2", "B3")}
     msps = W * H * GRAD_SPP * GRAD_ITERS / dt / 1e6
     print(f"warm-up iteration {warm:.3f} s; {GRAD_ITERS} timed iterations {dt:.3f} s = "
           f"{dt / GRAD_ITERS:.4f} s/iteration, fwd+bwd {msps:.4f} Msamples/s "
@@ -883,6 +954,10 @@ def grad_main_path(torch, scene, camera):
     print(f"launches in the gradient path: {counts} (expected {want} each)")
     for name, n in counts.items():
         check(n == want, f"{name} launched {n} times, expected {want}")
+    want_rng = (1 + config.num_segments) * GRAD_SPP * (1 + GRAD_ITERS)
+    print(f"rng.cu launches: {all_counts['RNG']} (expected {want_rng})")
+    check(all_counts["RNG"] == want_rng, f"RNG launched {all_counts['RNG']} times")
+    counts["RNG"] = all_counts["RNG"]
     for name, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"gradient of {name} is not finite")
         print(f"grad {name}: shape {tuple(g.shape)} max |g| {float(g.abs().max()):.6e}")
@@ -926,8 +1001,8 @@ def profile_device(torch, what, fn, kernels, unprofiled_ms):
           f"device busy {busy:.2f} ms (share {busy / wall:.3f})")
     for name, us in groups.items():
         print(f"  {name:22s} {us / 1e3:9.3f} ms  ({us / 1e3 / wall:.3f} of wall)")
-    print(f"  ({n_other} other kernel launches: threefry draws, sorts, gathers, "
-          f"elementwise and reductions)")
+    print(f"  ({n_other} other kernel launches: sorts, gathers, elementwise and "
+          f"reductions)")
     return {name: us / 1e3 for name, us in groups.items()}
 
 
@@ -935,24 +1010,23 @@ def grad_profile(torch, loss_fn, params, per_iter):
     """Device time of one gradient iteration by kernel; then the
     iteration's uniform draws alone on the host clock."""
     from montecarlopathtracer_tpu_torch.diff import grad as G
-    from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniforms
 
     profile_device(torch, "iteration", lambda: G.value_and_grad(loss_fn, params, make_key(20)),
                    {"B1 mega_segment": "mega_segment_kernel",
                     "B2 segment_backward": "segment_backward_kernel",
-                    "B3 scatter_rows": "scatter_rows"}, per_iter * 1e3)
-    # The iteration's uniform draws alone (jitter and u1, u2 per segment,
-    # per sample) on the host clock: the threefry is launch-bound, so its
-    # wall time, not its device time, is what it costs the iteration.
-    sids = (1 << 30, (1 << 30) + 1,
-            *(4 * seg + k for seg in range(DEPTH + 1) for k in (0, 1)))
+                    "B3 scatter_rows": "scatter_rows", "RNG uniform": "uniform_kernel"},
+                   per_iter * 1e3)
+    # The iteration's uniform draws alone (the jitter pair and u1, u2 per
+    # segment, per sample: one rng.cu launch each) on the host clock.
+    sids = ((1 << 30, (1 << 30) + 1), *((4 * seg, 4 * seg + 1) for seg in range(DEPTH + 1)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(GRAD_SPP):
-        for sid in sids:
-            stream_uniform(make_key(21), sid, W * H, "cuda")
+        for pair in sids:
+            stream_uniforms(make_key(21), pair, W * H, "cuda")
     torch.cuda.synchronize()
-    print(f"  the iteration's {GRAD_SPP * len(sids)} uniform draws alone: "
+    print(f"  the iteration's {GRAD_SPP * len(sids)} draws (rng.cu launches) alone: "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
 
 
@@ -1064,6 +1138,8 @@ def lane_vs_plain(torch, rows, bounce):
 def regen_main_path(torch, scene, camera):
     phase(f"16. regen main path: Renderer {W}x{H}, RR, {REGEN_SPP} spp/pass, "
           "regenerating wavefront")
+    import dataclasses
+
     import numpy as np
 
     from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
@@ -1095,9 +1171,13 @@ def regen_main_path(torch, scene, camera):
     msps = W * H * REGEN_SPP * REGEN_TIMED / dt / 1e6
     print(f"warm-up pass {warm:.3f} s; {REGEN_TIMED} timed passes {dt:.3f} s = "
           f"{dt / REGEN_TIMED:.4f} s/pass, RR regen {msps:.4f} Msamples/s")
-    print(f"steps (B1l launches) per pass {steps}; B1 {counts['B1']}")
+    want_rng = sum(2 * n + 1 for n in steps)
+    print(f"steps (B1l launches) per pass {steps}; B1 {counts['B1']}; rng.cu "
+          f"{counts['RNG']} (expected {want_rng}: per pass the first camera rays, then "
+          "per step u1, u2, urr and the regenerated camera rays)")
     check(counts["B1"] == 0 and min(steps) > 0, f"regen launched {counts}, expected "
           "B1l on every step and no B1")
+    check(counts["RNG"] == want_rng, f"RNG launched {counts['RNG']} times")
     check(max(steps) < REGEN_SPP * config.num_segments, f"steps {steps} hit the backstop")
 
     img = r.film.color.cpu().numpy()
@@ -1108,10 +1188,13 @@ def regen_main_path(torch, scene, camera):
     # (with one sync per sample for its mean), beside regen's pass.
     key = make_key(99)
     t0 = time.perf_counter()
+    means = []
     with torch.no_grad():
-        means = [float(render_rows_planar(scene, camera, fold_in(key, i), W, H, 0, H,
-                                          config, r.tables).mean())
-                 for i in range(REGEN_SPP)]
+        for i in range(REGEN_SPP):
+            means.append(float(render_rows_planar(scene, camera, fold_in(key, i), W, H, 0, H,
+                                                  config, r.tables).mean()))
+            if i + 1 == REGEN_SPP // 2:
+                scan_half_s = time.perf_counter() - t0
     scan_s = time.perf_counter() - t0
     print(f"scan integrator, same config, {REGEN_SPP} spp: {scan_s:.4f} s, "
           f"{W * H * REGEN_SPP / scan_s / 1e6:.4f} Msamples/s, "
@@ -1127,7 +1210,22 @@ def regen_main_path(torch, scene, camera):
     r.save_png(png)
     print(f"wrote {os.path.relpath(png, HERE)}")
     profile_device(torch, "regen pass", lambda: r.render(1),
-                   {"B1l mega_segment": "mega_segment_kernel"}, dt / REGEN_TIMED * 1e3)
+                   {"B1l mega_segment": "mega_segment_kernel", "RNG uniform": "uniform_kernel"},
+                   dt / REGEN_TIMED * 1e3)
+    # Regen against the scan at half the samples per pass, the same way.
+    half = REGEN_SPP // 2
+    rh = Renderer(scene, camera, config, dataclasses.replace(settings, spp_per_pass=half),
+                  device="cuda")
+    rh.render(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rh.render(REGEN_TIMED)
+    torch.cuda.synchronize()
+    half_s = (time.perf_counter() - t0) / REGEN_TIMED
+    check(np.isfinite(rh.film.color.cpu().numpy()).all(), "regen film not finite")
+    print(f"regen against the scan, {W}x{H} RR: {REGEN_SPP} spp/pass {dt / REGEN_TIMED:.4f} s "
+          f"against {scan_s:.4f} s ({scan_s / (dt / REGEN_TIMED):.3f}x); {half} spp/pass "
+          f"{half_s:.4f} s against {scan_half_s:.4f} s ({scan_half_s / half_s:.3f}x)")
     return counts, msps, statistics.mean(steps)
 
 
@@ -1155,7 +1253,7 @@ def bunny_waves(torch, camera, config, tables):
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
     from montecarlopathtracer_tpu_torch.ops.morton import DEAD_KEY, ray_sort_keys
-    from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniforms
 
     key = make_key(13)
     cam = camera_wavefront(torch, camera, BW, BH, key)
@@ -1164,7 +1262,7 @@ def bunny_waves(torch, camera, config, tables):
     R = BW * BH
     idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, *cam[:2], live,
                              tables=tables.walk)
-    u1, u2 = (stream_uniform(key, s, R, "cuda") for s in (0, 1))
+    u1, u2 = stream_uniforms(key, (0, 1), R, "cuda")
     out = F.rows_segment(tables.rows, idx, *cam, u1, u2, torch.zeros(R, device="cuda"),
                          config.segment_flags("cuda")[0])
     alive = out[4] > 0.0
@@ -1178,12 +1276,34 @@ def subset_of(torch, wave, sub):
     return tuple((x[:, sub] if x.dim() == 2 else x[sub]).contiguous() for x in wave)
 
 
+def same_bits(torch, a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def tables_vs_earlier(torch, TW, rows, lo, hi, leaf, big):
+    """B5t's one launch against the earlier two-kernel build of the same
+    tables (bit for bit) and its tree against tree_ref over its own
+    leaves (bit for bit: the climb); one launch counted."""
+    before = TW.walk_tables.launches
+    got = TW.walk_tables(rows, lo, hi, leaf, big)
+    torch.cuda.synchronize()
+    n = TW.walk_tables.launches - before
+    old, _ = TW.walk_tables_split(rows, lo, hi, leaf, big)
+    P, nc = got.leaves, lo.shape[0]
+    ref = TW.tree_ref(lo, hi, got.tree[P:P + nc, 3], got.tree[P:P + nc, 7])
+    return (n == 1 and same_bits(torch, got.tree, old.tree) and same_bits(torch, got.tri, old.tri)
+            and same_bits(torch, got.tree, ref))
+
+
 def walk_tables_vs_plain(torch, scene, tables):
     """B5's tables (tree and triangle records, as scene_tables built them
-    with the kernel) against their plain version; their build timed.
-    Returns (the leaf boxes (lo, hi), max |err| of the float fields,
-    (event ms, plain ms, bound))."""
+    with the kernel) against their plain version and against the earlier
+    two-kernel build; their build timed, and the earlier build's two
+    kernels apart. Returns (the leaf boxes (lo, hi), max |err| of the
+    float fields, (event ms, plain ms, bound))."""
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
+    from montecarlopathtracer_tpu_torch.ops.morton import chunk_aabbs_padded, morton_order
+    from montecarlopathtracer_tpu_torch.testing import HARD_SOUPS, hard_soup
 
     walk = tables.walk
     lo, hi, big = TW.walk_boxes(*scene.triangle_vertices(), scene.tri_valid, tables.perm)
@@ -1209,8 +1329,34 @@ def walk_tables_vs_plain(torch, scene, tables):
     check(rel < 1e-5, f"B5's spheres, ext or grow differ from plain by {rel:.3e} of their "
           "scale")
     T, nb, P = rows.shape[0], lo.shape[0], walk.leaves
+    check(tables_vs_earlier(torch, TW, rows, lo, hi, TW.LEAF, big)
+          and tables_vs_earlier(torch, TW, rows, tables.clo, tables.chi, TW.CHUNK, None),
+          "B5t differs from the earlier build, or its tree from tree_ref over its leaves")
+    n_soups = 0
+    for case in HARD_SOUPS:
+        for n in (1, 20, 70, 1500):
+            verts, srows, _, _ = hard_soup(case, n, 8, seed=n, device="cuda")
+            valid = torch.ones(n, dtype=torch.bool, device="cuda")
+            perm = morton_order(*verts, valid)
+            for leaf in (TW.LEAF, TW.CHUNK):
+                slo, shi = chunk_aabbs_padded(*verts, valid, perm, leaf)
+                check(tables_vs_earlier(torch, TW, srows[perm].contiguous(), slo, shi, leaf,
+                                        None), f"B5t on the {case} soup, T {n}, leaf {leaf}")
+                n_soups += 1
+    print(f"B5t (one launch) bit-equal to the earlier two-kernel build and its tree to tree_ref "
+          f"over its own leaves: the bunny's leaves of {TW.LEAF} and chunks of {TW.CHUNK}, and "
+          f"{n_soups} hard-soup tables (T = 1, 20, 70, 1500 in Morton order)")
     ms = time_pair(torch, lambda: TW.walk_tables(rows, lo, hi, TW.LEAF, big),
                    lambda: TW.walk_tables_ref(rows, lo, hi, TW.LEAF, big), label="B5t")
+    out = TW.walk_tables_split(rows, lo, hi, TW.LEAF, big)
+    split = {name: record_device(torch, f"B5t earlier {name}", lambda p=parts:
+                                 TW.walk_tables_split(rows, lo, hi, TW.LEAF, big, parts=p,
+                                                      out=out))[0]
+             for name, parts in (("both", 3), ("records", 1), ("tree", 2))}
+    print(f"the earlier two-kernel build: device {split['both']:.4f} ms per build, of which "
+          f"triangle_records_kernel {split['records']:.4f} ms and tree_kernel (one block of "
+          f"1,024 threads) {split['tree']:.4f} ms, timed apart; B5t, one launch of {P} warps: "
+          f"{DEVICE_MS['B5t'][0]:.4f} ms")
     # Bytes: the rows' geometry and the boxes read, the records and the tree
     # written; operations: about 120 per triangle record (sphere_parts).
     bound = bound_of(T * 48 + nb * 24 + T * 64 + 2 * P * 32, T * 120)
@@ -1286,7 +1432,7 @@ def rows_vs_plain(torch, tables, bounce):
     phase(f"18. segment from known winners (B6, B6l) vs plain, bunny {BW}x{BH} bounce")
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
-    from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniforms
     from montecarlopathtracer_tpu_torch.testing import compare_segment
 
     pos, dir_, tput, res, live = bounce
@@ -1294,7 +1440,7 @@ def rows_vs_plain(torch, tables, bounce):
     idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
                              tables=tables.walk)
     key = make_key(18)
-    u1, u2, urr = (stream_uniform(key, s, R, "cuda") for s in (0, 1, 3))
+    u1, u2, urr = stream_uniforms(key, (0, 1, 3), R, "cuda")
     worst = {}
     cases = (("B6", torch.tensor([[0.0], [1.0], [0.0]], device="cuda")),
              ("B6l", seeded_lane_flags(torch, R, seed=18)))
@@ -1439,9 +1585,10 @@ def bunny_main_path(torch, scene, camera, config):
     print(f"warm-up pass {warm:.3f} s; {BUNNY_TIMED} timed passes {dt:.3f} s = "
           f"{dt / BUNNY_TIMED:.4f} s/pass, bunny traverse {msps:.4f} Msamples/s")
     want = config.num_segments * (1 + BUNNY_TIMED)
-    print(f"launches: {counts} (expected {want} each of B5 and B6, one tables build B5t)")
-    check(counts["B5"] == want and counts["B6"] == want and counts["B5t"] == 1,
-          f"launches {counts}")
+    print(f"launches: {counts} (expected {want} each of B5 and B6, one tables build B5t, "
+          f"{want + 1 + BUNNY_TIMED} RNG)")
+    check(counts["B5"] == want and counts["B6"] == want and counts["B5t"] == 1
+          and counts["RNG"] == want + 1 + BUNNY_TIMED, f"launches {counts}")
     check(counts["B1"] == counts["B1l"] == counts["B6l"] == 0, f"launches {counts}")
     img = r.film.color.cpu().numpy()
     check(img.shape == (BH, BW, 3) and np.isfinite(img).all(), "bunny film not finite")
@@ -1464,7 +1611,7 @@ def bunny_breakdown(torch, camera, config, r, per_pass):
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
     from montecarlopathtracer_tpu_torch.ops.morton import DEAD_KEY, ray_sort_keys
-    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key, stream_uniform
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key, stream_uniforms
 
     tables = r.tables
     R = BW * BH
@@ -1488,8 +1635,7 @@ def bunny_breakdown(torch, camera, config, r, per_pass):
         pos, dir_, tput, res, live, rid = (st[0:3], st[3:6], st[6:9], st[9:12], st[12] > 0.0,
                                            st[13].long())
         ev[1].record()
-        u1 = stream_uniform(key, 4 * seg, R, "cuda")[rid]
-        u2 = stream_uniform(key, 4 * seg + 1, R, "cuda")[rid]
+        u1, u2 = stream_uniforms(key, (4 * seg, 4 * seg + 1), R, "cuda")[:, rid]
         ev[2].record()
         idx = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
                                  tables=tables.walk)
@@ -1509,7 +1655,8 @@ def bunny_breakdown(torch, camera, config, r, per_pass):
           "itself")
     prof = profile_device(torch, "bunny pass", lambda: r.render(1),
                           {"B5 traverse_select": "traverse_kernel",
-                           "B6 rows_segment": "rows_segment_kernel"}, per_pass * 1e3)
+                           "B6 rows_segment": "rows_segment_kernel",
+                           "RNG uniform": "uniform_kernel"}, per_pass * 1e3)
     if prof is not None:
         walk = prof["B5 traverse_select"]
         span = sum(ms["traverse_select"])
@@ -1544,7 +1691,8 @@ def bunny_regen(torch, scene, config):
     print(f"one pass {dt:.3f} s (first, untimed warm-up included), {steps} steps, "
           f"{w * h * BUNNY_REGEN_SPP / dt / 1e6:.4f} Msamples/s; launches {counts}")
     check(0 < steps < BUNNY_REGEN_SPP * rr.num_segments and counts["B5"] == steps
-          and counts["B6"] == counts["B1"] == counts["B1l"] == 0,
+          and counts["B6"] == counts["B1"] == counts["B1l"] == 0
+          and counts["RNG"] == 2 * steps + 1,
           f"bunny regen launched {counts}, expected one each of B5 and B6l per step")
     img = r.film.color.cpu().numpy()
     check(np.isfinite(img).all() and img.mean() > 0.0, "bunny regen film")
@@ -1660,6 +1808,10 @@ def bunny_grad_frame(torch):
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+# H100 SXM 32-bit integer instructions: 64 INT32 lanes per SM x 132 SMs x
+# 1.98 GHz boost (the Hopper white paper's 33.5 TOPS counts a multiply-add
+# as two; the threefry's adds, xors and funnel shifts are one each).
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # f32 operations of one ray-triangle pair test: o' (3 x 6), d' (3 x 5),
 # one division, beta and gamma (2 x 2), 1 - (beta + gamma) (2).
 PAIR_OPS = 40
@@ -2235,7 +2387,8 @@ def cull_main_path(torch, scene, camera, config):
     check(counts["B1c"] == want and counts["B1"] == counts["B1l"] == 0 and counts["B4r"] == 1,
           f"launches {counts}")
     profile_device(torch, "glossy cull pass", lambda: r.render(1),
-                   {"B1c mega_segment": "mega_segment_kernel"}, dt / CULL_TIMED * 1e3)
+                   {"B1c mega_segment": "mega_segment_kernel", "RNG uniform": "uniform_kernel"},
+                   dt / CULL_TIMED * 1e3)
     img = r.film.color.cpu().numpy()
     check(np.isfinite(img).all() and img.mean() > 0.0, "glossy film is black or not finite")
     png = os.path.join(HERE, "build", "chip_smoke_glossy_cull.png")
@@ -3014,6 +3167,7 @@ def main():
     try:
         name, smi = environment(torch)
         libs = build()
+        rng_ms = rng_vs_plain(torch)
         from montecarlopathtracer_tpu_torch.models import cornell
 
         scene, camera = cornell.cornell_box(
@@ -3027,7 +3181,8 @@ def main():
               f"{scene.num_triangles} triangles")
         bounce, max_err = kernel_vs_plain(torch, scene, rows)
         b1_timing = time_segment(torch, rows, bounce)
-        launches, per_pass, msps = main_path(torch, scene, camera)
+        main_counts, per_pass, msps = main_path(torch, scene, camera)
+        launches = main_counts["B1"]
         breakdown(torch, scene, camera, per_pass)
         whole_frame(torch, scene)
         grad_builds(libs)
@@ -3133,7 +3288,15 @@ def main():
               bunny_counts["B5"], b5_err, b5_ms, "B5", max_t_gap_on_near_ties=b5_err,
               rays=BW * BH, plain_rays=SUBSET, bound_old_count_ms=b5_old[0]),
         entry("traverse tables (B5t: B5's tree and triangle records)", TRAVERSE_SOURCE,
-              TABLES_REPLACES, bunny_counts["B5t"], b5t[1], b5t[2], "B5t"),
+              TABLES_REPLACES, bunny_counts["B5t"], b5t[1], b5t[2], "B5t",
+              earlier_device_ms=DEVICE_MS["B5t earlier both"][0],
+              earlier_records_kernel_ms=DEVICE_MS["B5t earlier records"][0],
+              earlier_tree_kernel_ms=DEVICE_MS["B5t earlier tree"][0]),
+        entry("uniform draws (RNG; not a TPU kernel: counterpart of jax.random.uniform)",
+              RNG_SOURCE, RNG_REPLACES, main_counts["RNG"], 0.0, rng_ms, "RNG",
+              launches_grad=counts["RNG"], launches_regen=regen_counts["RNG"],
+              launches_bunny=bunny_counts["RNG"], rays=W * H, streams=3,
+              device_ms_1m_rays_2_streams=DEVICE_MS["RNG 1M"][0]),
         entry("rows_segment (B6)", ROWS_SOURCE, ROWS_REPLACES, bunny_counts["B6"],
               b6_err["B6"], b6_ms["B6"], "B6"),
         entry("rows_segment (lane flags, B6l)", ROWS_SOURCE, ROWS_LANE_REPLACES,

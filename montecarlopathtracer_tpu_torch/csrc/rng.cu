@@ -1,0 +1,102 @@
+// Uniform draws of counter-based random streams, bit-equal to JAX's
+// threefry on the CPU.
+//
+// Not the counterpart of a TPU kernel: the JAX package draws with
+// `jax.random.uniform(jax.random.fold_in(key, stream), shape)`
+// (montecarlopathtracer_tpu/ops/rng.py::stream_uniform), threefry-2x32 on
+// the CPU and the `rbg` generator on a TPU. The plain PyTorch version is
+// ops/rng.py's `stream_uniforms_ref` (the threefry as element-wise torch
+// ops on int64 masked to 32 bits, ~170 launches per stream), which gives
+// the same bits.
+//
+// Per lane i < n and stream s < k (k <= 4): the threefry-2x32 (20 rounds,
+// key injection every 4) of the counter (0, i) under stream s's folded key
+// (k0_s, k1_s), the xor of its two output words, then the 23 high bits as
+// the mantissa of a float in [1, 2), minus one: out[s n + i], a row per
+// stream. The keys are folded on the host (one threefry block each) and
+// arrive by value, so a call copies nothing to the device. uint32_t
+// arithmetic wraps mod 2^32 exactly where the plain version masks: the
+// third key word k0 ^ k1 ^ 0x1BD11BDA and the injections ks + i + 1.
+//
+// What bounds it on an H100: its integer operations, ~76 per lane and
+// stream (60 in the rounds, ~10 in the injections, ~6 for the output)
+// against 4 bytes written; a grid-stride loop in which each thread draws
+// every stream of its lane keeps the rotations on `__funnelshift_l` (one
+// instruction each) and needs no load.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+constexpr int kMaxStreams = 4;
+
+// The folded keys of up to kMaxStreams streams, passed by value (outside
+// the unnamed namespace: the launcher's C interface takes it).
+struct StreamKeys {
+  uint32_t k0[kMaxStreams];
+  uint32_t k1[kMaxStreams];
+};
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r);
+  x1 ^= x0;
+}
+
+// The 32-bit xor of threefry-2x32's two output words for the counter
+// (0, ctr) under the key (k0, k1).
+__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1, uint32_t ctr) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  uint32_t x0 = ks[0];
+  uint32_t x1 = ctr + ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    if (i % 2 == 0) {
+      mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+    } else {
+      mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  return x0 ^ x1;
+}
+
+__global__ void __launch_bounds__(kThreads)
+uniform_kernel(const StreamKeys keys, int k, uint32_t n, float* __restrict__ out) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+#pragma unroll
+    for (int s = 0; s < kMaxStreams; ++s) {
+      if (s < k) {
+        const uint32_t bits = threefry_xor(keys.k0[s], keys.k1[s], static_cast<uint32_t>(i));
+        out[static_cast<size_t>(s) * n + i] = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// Draws k rows of n uniforms into out f32[k, n] on `stream`; returns
+// cudaGetLastError() so the caller can raise on a refused launch.
+extern "C" int uniform_launch(StreamKeys keys, int k, uint32_t n, float* out, void* stream) {
+  static int resident = 0;  // blocks that fit on the card at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, uniform_kernel, kThreads, 0);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  if (n > 0 && k > 0) {
+    const size_t want = (static_cast<size_t>(n) + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(want < static_cast<size_t>(resident) ? want : resident);
+    uniform_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(keys, k, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -13,7 +13,7 @@
 // the wrapper builds the tables itself) is spatially tight and has a box
 // [lo[j], hi[j]] (ops/traverse_walk.py's `walk_boxes` leaves the large
 // triangles out of it and lists them apart). `traverse_tables_launch`
-// builds, once per table, in two launches:
+// (B5t) builds, once per table:
 // - each triangle's 64-byte record: its widened bounding sphere
 //   (sphere_select.cuh's `triangle_sphere_split`: center and radius K0 at
 //   |o| = 0), then its three geometry rows;
@@ -24,7 +24,29 @@
 //   its triangles' spheres (how far beyond a triangle the exact test can
 //   accept a hit, for |o| = 0) and `grow` = the largest growth of their
 //   radii per unit of |o|; a node holds the min/max box and the largest
-//   ext and grow of its children. Padding nodes are empty (lo > hi).
+//   ext and grow of its children. Padding nodes and node 0 are empty
+//   (lo > hi, ext = grow = 0).
+// It takes the place of the TPU walk's per-tile chunk lists
+// (traverse_pallas.py's `tile_chunk_order`); its plain version is
+// `walk_tables_ref`.
+//
+// B5t is one launch of one warp per leaf, P warps over the whole grid
+// (`tables_kernel`): the warp's lanes build the records of the leaf's
+// triangles (leaf / 32 each), shuffles reduce their slack and growth into
+// ext and grow, and lane 0 writes leaf node P + j, then climbs: after a
+// fence it counts its arrival at the parent (one int per node, zeroed by
+// the launcher); the first of the two children to arrive stops, the
+// second reads its sibling from L2 (`__ldcg`: the sibling's lane wrote it
+// from another SM, and L1 is not coherent), writes the parent and climbs
+// on. So every level is built by whichever warps finish last, on all the
+// SMs. `fminf`/`fmaxf` are exact and the children are combined left
+// first, so the tree is the same bits whatever the order of arrival. What
+// bounds it on an H100: the records' arithmetic (~120 f32 operations a
+// triangle) and bytes (48 read, 64 written a triangle) are a few µs for
+// the bunny; the launch and the climb's chain of dependent L2 round trips
+// (log2 P levels) are what is left. The earlier build, a record kernel
+// and a tree kernel of one block (`traverse_tables_split_launch`), is
+// reached by no path and kept to time and check B5t against.
 //
 // `traverse_kernel` walks the tree per ray, one lane per ray at a time, in
 // persistent blocks: a lane whose walk ends takes the next ray from a
@@ -81,23 +103,22 @@ using namespace seg;
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;  // lanes per block of the walk
-constexpr int kTableThreads = 256;  // triangle records per block
-constexpr int kTreeThreads = 1024;  // the tree's one block
+constexpr int kTableWarps = 8;  // leaves per block of B5t
+constexpr int kTableThreads = 256;  // triangle records per block (the earlier build)
+constexpr int kTreeThreads = 1024;  // the earlier build's tree block
 constexpr int kStack = 24;     // stack entries per lane: a tree of up to 2^24 leaves
 constexpr int kLeafBatch = 8;  // leaf triangles whose spheres are tested at once
 
-// One triangle per thread: its record in `tri` (sphere center and K0,
-// then its three geometry rows), its radius growth e and its slack.
-__global__ void __launch_bounds__(kTableThreads)
-triangle_records_kernel(const float* __restrict__ rows, int T, float4* __restrict__ tri4,
-                        float* __restrict__ e_out, float* __restrict__ slack_out) {
-  const int i = blockIdx.x * kTableThreads + threadIdx.x;
-  if (i >= T) return;
-  const float4* g = reinterpret_cast<const float4*>(rows + static_cast<size_t>(i) * 48);
+// Triangle i's record in `tri` (sphere center and K0, then its three
+// geometry rows); its radius growth e and its slack into e, slack.
+__device__ __forceinline__ void triangle_record_split(const float* __restrict__ rows, size_t i,
+                                                      float4* __restrict__ tri4, float& e,
+                                                      float& slack) {
+  const float4* g = reinterpret_cast<const float4*>(rows + i * 48);
   const float4 g0 = g[0], g1 = g[1], g2 = g[2];
   float4 s;
-  triangle_sphere_split(g0, g1, g2, s, e_out[i], slack_out[i]);
-  float4* rec = tri4 + 4 * static_cast<size_t>(i);
+  triangle_sphere_split(g0, g1, g2, s, e, slack);
+  float4* rec = tri4 + 4 * i;
   rec[0] = s;
   rec[1] = g0;
   rec[2] = g1;
@@ -109,9 +130,75 @@ __device__ __forceinline__ void store_node(float4* tree4, int n, float4 lo, floa
   tree4[2 * n + 1] = hi;
 }
 
-// One block: the leaves (box j; ext = the largest slack and grow = the
-// largest e of its triangles, a warp per leaf), then the levels, each
-// node the min/max box and the largest ext and grow of its children.
+// Node n of children a = 2n (left) and b = 2n + 1, in the kernels' one
+// order of operands.
+__device__ __forceinline__ void join_nodes(float4 la, float4 ha, float4 lb, float4 hb,
+                                           float4& lo, float4& hi) {
+  lo = make_float4(fminf(la.x, lb.x), fminf(la.y, lb.y), fminf(la.z, lb.z), fmaxf(la.w, lb.w));
+  hi = make_float4(fmaxf(ha.x, hb.x), fmaxf(ha.y, hb.y), fmaxf(ha.z, hb.z), fmaxf(ha.w, hb.w));
+}
+
+// B5t: one warp per leaf j < P, the records of its triangles and leaf
+// node P + j, then lane 0 climbs while it is the second child to arrive.
+__global__ void __launch_bounds__(kTableWarps * 32)
+tables_kernel(const float* __restrict__ rows, int T, int leaf, const float* __restrict__ clo,
+              const float* __restrict__ chi, int nc, int P, float4* __restrict__ tri4,
+              float4* tree4, int* __restrict__ arrivals) {
+  const int j = blockIdx.x * kTableWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (j >= P) return;
+  float ext = 0.0f, grow = 0.0f;
+  if (j < nc) {
+    const size_t base = static_cast<size_t>(j) * leaf;
+    const size_t end = min(static_cast<size_t>(T), base + leaf);
+    for (size_t i = base + lane; i < end; i += 32) {
+      float e, slack;
+      triangle_record_split(rows, i, tri4, e, slack);
+      ext = fmaxf(ext, slack);
+      grow = fmaxf(grow, e);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    ext = fmaxf(ext, __shfl_xor_sync(0xffffffffu, ext, off));
+    grow = fmaxf(grow, __shfl_xor_sync(0xffffffffu, grow, off));
+  }
+  if (lane != 0) return;
+  float4 lo = make_float4(kBig, kBig, kBig, 0.0f), hi = make_float4(-kBig, -kBig, -kBig, 0.0f);
+  if (j == 0) store_node(tree4, 0, lo, hi);  // node 0 is not used
+  if (j < nc) {
+    lo = make_float4(clo[3 * j], clo[3 * j + 1], clo[3 * j + 2], ext);
+    hi = make_float4(chi[3 * j], chi[3 * j + 1], chi[3 * j + 2], grow);
+  }
+  int n = P + j;
+  store_node(tree4, n, lo, hi);
+  while (n > 1) {
+    __threadfence();  // node n is written before its arrival counts
+    if (atomicAdd(arrivals + n / 2, 1) == 0) return;  // the sibling builds the parent
+    __threadfence();
+    const int sib = n ^ 1;
+    const float4 ls = __ldcg(tree4 + 2 * sib), hs = __ldcg(tree4 + 2 * sib + 1);
+    if (n & 1) {
+      join_nodes(ls, hs, lo, hi, lo, hi);
+    } else {
+      join_nodes(lo, hi, ls, hs, lo, hi);
+    }
+    n /= 2;
+    store_node(tree4, n, lo, hi);
+  }
+}
+
+// The earlier build, first launch: one triangle per thread.
+__global__ void __launch_bounds__(kTableThreads)
+triangle_records_kernel(const float* __restrict__ rows, int T, float4* __restrict__ tri4,
+                        float* __restrict__ e_out, float* __restrict__ slack_out) {
+  const int i = blockIdx.x * kTableThreads + threadIdx.x;
+  if (i < T) triangle_record_split(rows, i, tri4, e_out[i], slack_out[i]);
+}
+
+// The earlier build, second launch, one block: the leaves (box j; ext =
+// the largest slack and grow = the largest e of its triangles, a warp per
+// leaf), then the levels, each node the min/max box and the largest ext
+// and grow of its children.
 __global__ void __launch_bounds__(kTreeThreads)
 tree_kernel(const float* __restrict__ clo, const float* __restrict__ chi, int T, int leaf,
             int nc, int P, const float* __restrict__ e, const float* __restrict__ slack,
@@ -144,13 +231,9 @@ tree_kernel(const float* __restrict__ clo, const float* __restrict__ chi, int T,
   for (int len = P / 2; len >= 1; len /= 2) {
     for (int k = threadIdx.x; k < len; k += kTreeThreads) {
       const int n = len + k;
-      const float4 la = tree4[4 * n], ha = tree4[4 * n + 1];
-      const float4 lb = tree4[4 * n + 2], hb = tree4[4 * n + 3];
-      store_node(tree4, n,
-                 make_float4(fminf(la.x, lb.x), fminf(la.y, lb.y), fminf(la.z, lb.z),
-                             fmaxf(la.w, lb.w)),
-                 make_float4(fmaxf(ha.x, hb.x), fmaxf(ha.y, hb.y), fmaxf(ha.z, hb.z),
-                             fmaxf(ha.w, hb.w)));
+      float4 lo, hi;
+      join_nodes(tree4[4 * n], tree4[4 * n + 1], tree4[4 * n + 2], tree4[4 * n + 3], lo, hi);
+      store_node(tree4, n, lo, hi);
     }
     __syncthreads();
   }
@@ -308,19 +391,36 @@ traverse_kernel(int T, int leaf, const float4* __restrict__ tree4, int P,
 
 }  // namespace
 
-// Builds the triangle records tri f32[T, 16] and the tree f32[2P, 8] of a
-// table on `stream` (two launches; scratch f32[2, T]); returns
-// cudaGetLastError().
+// B5t: builds the triangle records tri f32[T, 16] and the tree f32[2P, 8]
+// of a table on `stream` in one launch (arrivals: i32[P] scratch, zeroed
+// here by a memset on the stream); returns cudaGetLastError().
 extern "C" int traverse_tables_launch(const float* rows, int T, int leaf, const float* clo,
                                       const float* chi, int nc, int P, float* tree, float* tri,
-                                      float* scratch, void* stream) {
+                                      int* arrivals, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(arrivals, 0, sizeof(int) * static_cast<size_t>(P), st);
+  tables_kernel<<<(P + kTableWarps - 1) / kTableWarps, kTableWarps * 32, 0, st>>>(
+      rows, T, leaf, clo, chi, nc, P, reinterpret_cast<float4*>(tri),
+      reinterpret_cast<float4*>(tree), arrivals);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The earlier build of the same tables, reached by no path: `parts` 1 runs
+// the record kernel (its e and slack into scratch f32[2, T]), 2 the tree
+// kernel of one block (from scratch), 3 both; returns cudaGetLastError().
+extern "C" int traverse_tables_split_launch(const float* rows, int T, int leaf,
+                                            const float* clo, const float* chi, int nc, int P,
+                                            float* tree, float* tri, float* scratch, int parts,
+                                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* e = scratch;
   float* slack = scratch + T;
-  triangle_records_kernel<<<(T + kTableThreads - 1) / kTableThreads, kTableThreads, 0, st>>>(
-      rows, T, reinterpret_cast<float4*>(tri), e, slack);
-  tree_kernel<<<1, kTreeThreads, 0, st>>>(clo, chi, T, leaf, nc, P, e, slack,
-                                           reinterpret_cast<float4*>(tree));
+  if (parts & 1)
+    triangle_records_kernel<<<(T + kTableThreads - 1) / kTableThreads, kTableThreads, 0, st>>>(
+        rows, T, reinterpret_cast<float4*>(tri), e, slack);
+  if (parts & 2)
+    tree_kernel<<<1, kTreeThreads, 0, st>>>(clo, chi, T, leaf, nc, P, e, slack,
+                                             reinterpret_cast<float4*>(tree));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,7 +49,8 @@ import math
 import numpy as np
 import torch
 
-from ..ops.rng import Key, fold_in, stream_uniform
+from ..ops import rng
+from ..ops.rng import Key, fold_in
 from ..render.integrator import (
     TraceConfig,
     interp_normal,
@@ -122,8 +123,7 @@ def _edge_pick(wgt: torch.Tensor, key: Key, ids, n: int):
     dev = wgt.device
     total = torch.sum(wgt)
     cdf = torch.cumsum(wgt, dim=0) / torch.clamp_min(total, 1e-20)
-    u_pick = stream_uniform(key, ids[0], n, dev)
-    u_along = stream_uniform(key, ids[1], n, dev)
+    u_pick, u_along = rng.stream_uniforms(key, ids[:2], n, dev)
     eidx = torch.searchsorted(cdf, u_pick).clamp(0, wgt.shape[0] - 1)
     return total, eidx, u_along
 
@@ -247,8 +247,8 @@ def shadow_boundary_grad_vertices(
     elen = torch.sqrt(torch.sum((p1 - p0) ** 2, dim=0))
 
     # Receiver: one primary hit per sample at a uniform screen point.
-    xs = stream_uniform(key, 31, n, dev) * width
-    ys = stream_uniform(key, 32, n, dev) * height
+    u = rng.stream_uniforms(key, (31, 32), n, dev)
+    xs, ys = u[0] * width, u[1] * height
     zeros = torch.zeros(n, device=dev)
     cpos, cdir = camera.generate_rays_soa(xs, ys, zeros, zeros, width, height)
     cpos, cdir = cpos.contiguous(), cdir.contiguous()

@@ -7,12 +7,13 @@ triangle axis is in Morton order (:func:`.morton.morton_order`), so a
 chunk of :data:`CHUNK` consecutive triangles is spatially tight and its
 box (:func:`.morton.chunk_aabbs_padded`) culls well.
 
-- :func:`walk_boxes` and :func:`walk_tables` (two small kernels on CUDA,
-  :func:`walk_tables_ref` on the CPU): once per table, the boxes of runs
-  of :data:`LEAF` triangles with the large triangles listed apart, each
-  triangle's widened bounding sphere, and the implicit binary tree over
-  the boxes, each node widened by the slack of its triangles' spheres
-  (:class:`WalkTables`).
+- :func:`walk_boxes` and :func:`walk_tables` (one kernel launch on CUDA,
+  B5t, :func:`walk_tables_ref` on the CPU): once per table, the boxes of
+  runs of :data:`LEAF` triangles with the large triangles listed apart,
+  each triangle's widened bounding sphere, and the implicit binary tree
+  over the boxes, each node widened by the slack of its triangles'
+  spheres (:class:`WalkTables`). :func:`walk_tables_split` is the earlier
+  two-kernel build of the same tables, reached by no path.
 - :func:`traverse_select` is the entry point. For CUDA tensors it
   launches ``csrc/traverse_select.cu``, in which each ray walks the tree
   with its own stack, nearer child first, pruning by its best t, and
@@ -247,7 +248,14 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [
         _P, ctypes.c_int, ctypes.c_int,  # rows, T, leaf
         _P, _P, ctypes.c_int, ctypes.c_int,  # clo, chi, nc, P
-        _P, _P, _P, _P,  # tree, tri, scratch, stream
+        _P, _P, _P, _P,  # tree, tri, arrivals, stream
+    ]
+    fn = lib.traverse_tables_split_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        _P, ctypes.c_int, ctypes.c_int,  # rows, T, leaf
+        _P, _P, ctypes.c_int, ctypes.c_int,  # clo, chi, nc, P
+        _P, _P, _P, ctypes.c_int, _P,  # tree, tri, scratch, parts, stream
     ]
     return lib
 
@@ -272,23 +280,54 @@ def _check_table_inputs(rows, clo, chi, leaf) -> None:
                          f"{leaf}, got {tuple(clo.shape)} and {tuple(chi.shape)}")
 
 
+def _empty_tables(rows, nc, leaf, big) -> WalkTables:
+    dev, P = rows.device, tree_leaves(nc)
+    return WalkTables(torch.empty(2 * P, 8, device=dev),
+                      torch.empty(rows.shape[0], 16, device=dev), leaf, big)
+
+
 def _tables_cuda(rows, clo, chi, leaf, big) -> WalkTables:
     dev = rows.device
     T, nc = rows.shape[0], clo.shape[0]
-    P = tree_leaves(nc)
-    tables = WalkTables(torch.empty(2 * P, 8, device=dev), torch.empty(T, 16, device=dev),
-                        leaf, big)
-    scratch = torch.empty(2, T, device=dev)
+    tables = _empty_tables(rows, nc, leaf, big)
+    arrivals = torch.empty(tables.leaves, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.traverse_tables_launch(
-            rows.data_ptr(), T, leaf, clo.data_ptr(), chi.data_ptr(), nc, P,
-            tables.tree.data_ptr(), tables.tri.data_ptr(), scratch.data_ptr(), stream)
+            rows.data_ptr(), T, leaf, clo.data_ptr(), chi.data_ptr(), nc, tables.leaves,
+            tables.tree.data_ptr(), tables.tri.data_ptr(), arrivals.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"traverse_tables kernel launch failed: cudaError {err}")
     walk_tables.launches += 1
     return tables
+
+
+def walk_tables_split(rows, clo, chi, leaf=CHUNK, big=None, *, parts=3, out=None):
+    """The earlier build of :func:`walk_tables` on CUDA tensors, reached by
+    no path and kept to time and check B5t against: ``parts`` 1 launches
+    its record kernel (one triangle per thread), 2 its tree kernel (one
+    block of 1,024 threads, from the records' slack and growth), 3 both.
+    ``out``: the ``(tables, scratch)`` of an earlier call to write into (2
+    needs the scratch of a call with 1). Returns ``(tables, scratch)``;
+    adds nothing to ``walk_tables.launches``."""
+    if big is None:
+        big = torch.zeros(0, dtype=torch.int32, device=rows.device)
+    _check_table_inputs(rows, clo, chi, leaf)
+    if rows.device.type != "cuda" or parts not in (1, 2, 3):
+        raise ValueError("the earlier tables build runs on CUDA tensors, parts 1, 2 or 3")
+    T, nc = rows.shape[0], clo.shape[0]
+    if out is None:
+        out = (_empty_tables(rows, nc, leaf, big), torch.empty(2, T, device=rows.device))
+    tables, scratch = out
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = _lib().traverse_tables_split_launch(
+            rows.data_ptr(), T, leaf, clo.data_ptr(), chi.data_ptr(), nc, tables.leaves,
+            tables.tree.data_ptr(), tables.tri.data_ptr(), scratch.data_ptr(), parts, stream)
+    if err != 0:
+        raise RuntimeError(f"traverse_tables_split kernel launch failed: cudaError {err}")
+    return out
 
 
 def walk_tables(rows, clo, chi, leaf=CHUNK, big=None) -> WalkTables:
@@ -298,9 +337,9 @@ def walk_tables(rows, clo, chi, leaf=CHUNK, big=None) -> WalkTables:
     ``leaf`` = :data:`CHUNK`) and the large triangles ``big`` i32[nb]
     that the boxes leave out (none by default; :func:`walk_boxes` gives
     boxes and list): for CUDA tensors ``csrc/traverse_select.cu``'s
-    ``traverse_tables_launch`` (the spheres' kernel, then the tree's; one
-    call adds one to ``walk_tables.launches``), :func:`walk_tables_ref`
-    for CPU tensors. Build once per table and pass to
+    ``traverse_tables_launch`` (one launch, a warp per leaf; it adds one
+    to ``walk_tables.launches``), :func:`walk_tables_ref` for CPU
+    tensors. Build once per table and pass to
     :func:`traverse_select`."""
     if big is None:
         big = torch.zeros(0, dtype=torch.int32, device=rows.device)

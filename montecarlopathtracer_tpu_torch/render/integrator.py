@@ -94,12 +94,13 @@ from typing import Optional
 import torch
 
 from ..ops import nearest_shade as NS
+from ..ops import rng
 from ..ops import segment_fused as F
 from ..ops import traverse_walk as TW
 from ..ops.cull import chunk_slack, cull_records
 from ..ops.intersect import intersect_brute, triangle_transforms
 from ..ops.morton import DEAD_KEY, chunk_aabbs_padded, morton_order, ray_sort_keys
-from ..ops.rng import Key, fold_in, stream_uniform
+from ..ops.rng import Key, fold_in
 from ..ops.sampling import (
     dot3,
     normalize3,
@@ -463,10 +464,7 @@ def trace_radiance_soa(
     active = torch.ones(R, dtype=torch.bool, device=dev)
     rid = torch.arange(R, device=dev)
     urr = torch.zeros(R, device=dev)
-
-    def draw(sid):
-        u = stream_uniform(key, sid, R, dev)
-        return u[rid] if sort else u
+    rr = config.mode == "rr"
 
     for seg in range(config.num_segments):
         if sort:
@@ -478,10 +476,15 @@ def trace_radiance_soa(
                                rid[None].float()])[:, order]
             pos, dir_, tput, result = state[0:3], state[3:6], state[6:9], state[9:12]
             active, rid = state[12] > 0.0, state[13].long()
-        u1 = draw(seg * 4 + 0)
-        u2 = draw(seg * 4 + 1)
-        if config.mode == "rr":
-            urr = draw(seg * 4 + 3)
+        # u1, u2 (and urr) of the segment in one draw; under the sort, one
+        # gather of its rows.
+        u = rng.stream_uniforms(key, (seg * 4, seg * 4 + 1, seg * 4 + 3)[:3 if rr else 2],
+                                R, dev)
+        if sort:
+            u = u[:, rid]
+        u1, u2 = u[0], u[1]
+        if rr:
+            urr = u[2]
         pos, dir_, tput, result, still = step(pos, dir_, tput, result, active, u1, u2, urr,
                                               flags[seg])
         active = still > 0.0
@@ -508,8 +511,7 @@ def render_rows_planar(
     pix = torch.arange(R, device=dev)
     xs = pix % width
     ys = pix // width + y0
-    jx = stream_uniform(key, 1 << 30, R, dev) * 2.0 - 1.0
-    jy = stream_uniform(key, (1 << 30) + 1, R, dev) * 2.0 - 1.0
+    jx, jy = rng.stream_uniforms(key, (1 << 30, (1 << 30) + 1), R, dev) * 2.0 - 1.0
     pos3, dir3 = camera.generate_rays_soa(xs, ys, jx, jy, width, height)
     if tables is None:
         tables = scene_tables(scene, config)

@@ -35,7 +35,8 @@ from typing import Optional
 
 import torch
 
-from ..ops.rng import Key, stream_uniform
+from ..ops import rng
+from ..ops.rng import Key
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
 from .integrator import WHOLE_SEGMENT, SceneTables, TraceConfig, scene_tables, segment_step
@@ -79,8 +80,7 @@ def render_regen_planar(
 
     def camera_rays(step):
         base = (1 << 30) if step == 0 else (1 << 30) + 2 * step
-        jx = stream_uniform(key, base, R, dev) * 2.0 - 1.0
-        jy = stream_uniform(key, base + 1, R, dev) * 2.0 - 1.0
+        jx, jy = rng.stream_uniforms(key, (base, base + 1), R, dev) * 2.0 - 1.0
         return camera.generate_rays_soa(xs, ys, jx, jy, width, height)
 
     pos, dir_ = camera_rays(0)
@@ -92,15 +92,17 @@ def render_regen_planar(
     depth = torch.zeros(R, dtype=torch.int64, device=dev)  # within the current path
     done = torch.zeros(R, dtype=torch.int64, device=dev)  # samples completed
     urr = torch.zeros(R, device=dev)
+    rr = config.mode == "rr"
     max_steps = spp * config.num_segments + 1
     step = 1  # the segment at depth step - 1 when spp = 1
     while step < max_steps:
         if (step - 1) % LIVE_CHECK_EVERY == 0 and not bool(live.any()):
             break
-        u1 = stream_uniform(key, (step - 1) * 4, R, dev)
-        u2 = stream_uniform(key, (step - 1) * 4 + 1, R, dev)
-        if config.mode == "rr":
-            urr = stream_uniform(key, (step - 1) * 4 + 3, R, dev)
+        sid = (step - 1) * 4
+        u = rng.stream_uniforms(key, (sid, sid + 1, sid + 3)[:3 if rr else 2], R, dev)
+        u1, u2 = u[0], u[1]
+        if rr:
+            urr = u[2]
         npos, ndir, ntput, nres, still = segment_step(
             tables, config, pos, dir_, tput, res, live, u1, u2, urr,
             config.lane_flags(depth))

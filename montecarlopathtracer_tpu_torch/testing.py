@@ -19,12 +19,15 @@ results by a rounding rule. :func:`plain_kernels` routes every kernel
 wrapper to its plain version, so that a path can run plain on the card.
 :func:`tie_soup` builds a table whose winners tie at equal t across
 chunks, in the order that the traversal walk visits them, and
-:func:`hard_soup` seeded soups whose rays aim at triangle edges.
+:func:`hard_soup` seeded soups whose rays aim at triangle edges (or, in
+its "corners" case, just beyond vertices). :func:`cap_torch_threads`
+shares the CPUs between the workers of a parallel test run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 
@@ -55,6 +58,21 @@ EPS32 = float(np.finfo(np.float32).eps)
 # to 0 flip under f32 rounding, and so do distances this close together.
 _MARGIN_TIE = 1e-5
 _T_TIE = 1e-4
+
+
+def cap_torch_threads() -> None:
+    """Under pytest-xdist (``PYTEST_XDIST_WORKER_COUNT`` set), give this
+    worker's torch its share of the CPUs it may run on, at least one
+    thread: n workers each at torch's default of one thread per CPU run
+    the small ops of the CPU emulations two orders of magnitude slower
+    than one worker alone. Elsewhere it does nothing. A test module calls
+    it once, at import; the count then holds for the whole process."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not workers:
+        return
+    import torch
+
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // int(workers)))
 
 
 def _np(x) -> np.ndarray:
@@ -398,9 +416,10 @@ def plain_kernels():
     without culling, segment from known winners, traversal walk and its
     tables, segment backward, row scatter, the split path's nearest hit, which the
     superseded selection entries call too, the fused intersector's index,
-    the selection microkernels) to its plain-torch version, on any
-    device, for the duration of the block."""
+    the selection microkernels, the uniform draws) to its plain-torch
+    version, on any device, for the duration of the block."""
     from .ops import nearest_shade as NS
+    from .ops import rng as RNG
     from .ops import scatter_rows as S
     from .ops import segment_fused as F
     from .ops import selection_micro as SM
@@ -417,7 +436,8 @@ def plain_kernels():
               (TW, "walk_tables", TW.walk_tables_ref),
               (NS, "nearest_shade_full", NS.nearest_shade_full_ref),
               (NS, "nearest_triangle", NS.nearest_triangle_ref),
-              (NS, "scatter_rows", S.scatter_rows_ref)]
+              (NS, "scatter_rows", S.scatter_rows_ref),
+              (RNG, "stream_uniforms", RNG.stream_uniforms_ref)]
     saved = [getattr(mod, name) for mod, name, _ in routes]
     for mod, name, plain in routes:
         setattr(mod, name, plain)
@@ -489,11 +509,26 @@ def hard_soup(case, T, R, seed, device="cpu"):
     (the scene scaled by 1e3 and moved to 3e4), "degenerate" (zero-area
     triangles, and rows holding NaN, +-inf or zeros). Returns the vertices
     a, b, c f32[T, 3], the rows f32[T, 48] (geometry only) and pos, dir
-    f32[3, R], rays sorted by the triangle they aim at."""
+    f32[3, R], rays sorted by the triangle they aim at.
+
+    "corners", not in :data:`HARD_SOUPS`, is :func:`_corner_soup`: rays
+    accepted just beyond a vertex that lies on its leaf's box, for the
+    culled loop's leaf boxes (T a multiple of 32)."""
     import torch
 
     from .ops.intersect import triangle_transforms
 
+    if case == "corners":
+        verts = _corner_soup(T, R, seed)
+        geom_src = verts[:3]
+        pos, dir_ = verts[3:]
+        verts = [torch.tensor(x, dtype=torch.float32, device=device) for x in geom_src]
+        m, m_a = triangle_transforms(*verts)
+        geom = torch.cat([m, -m_a[:, :, None]], dim=2).reshape(-1, 12)
+        rows = torch.cat([geom, torch.zeros(T, 36, device=device)], dim=1).contiguous()
+        pos, dir_ = (torch.tensor(x.T, dtype=torch.float32, device=device).contiguous()
+                     for x in (pos, dir_))
+        return verts, rows, pos, dir_
     rng = np.random.default_rng(seed)
     a = rng.uniform(-1.0, 1.0, (T, 3))
     e1, e2 = rng.normal(size=(T, 3)) * 0.3, rng.normal(size=(T, 3)) * 0.3
@@ -540,3 +575,40 @@ def hard_soup(case, T, R, seed, device="cpu"):
     pos, dir_ = (torch.tensor(x.T, dtype=torch.float32, device=device).contiguous()
                  for x in (o, d))
     return verts, rows, pos, dir_
+
+
+def _corner_soup(T, R, seed):
+    """The "corners" case of :func:`hard_soup` (float64 numpy: a, b, c
+    [T, 3], o, d [R, 3]): T / 32 pairs of leaves of 16 copies each, a
+    backstop leaf, then a corner leaf. A corner is an equilateral
+    triangle (radius 0.05..0.3, centers in [-1, 1]^3) whose vertex 0 lies
+    on the +-axis from its center, so on a face of its bounding sphere's
+    box; its backstop, an equal triangle perpendicular to that axis, lies
+    1e-4 beyond that vertex. Each ray aims at a point 10^-3.7..10^-2.7
+    beyond the vertex along the axis, from 10^3.5..10^4.5 away on the
+    outer side (direction·axis <= -0.3): f32 rounding accepts some of
+    them on the corner, and then the backstop behind the hit, visited
+    first in index order, leaves the ray a best t at which a box that
+    reaches only to the vertex (plus the margin) is never entered."""
+    rng = np.random.default_rng(seed)
+    G = T // 32
+    c = rng.uniform(-1.0, 1.0, (G, 3))
+    rho = rng.uniform(0.05, 0.3, G)
+    e = np.eye(3)[rng.integers(0, 3, G)] * rng.choice([-1.0, 1.0], G)[:, None]
+    w = rng.normal(size=(G, 3))
+    w -= (w * e).sum(1, keepdims=True) * e
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    u = np.cross(e, w)
+    th = np.array([0.0, 2.0, 4.0]) * np.pi / 3.0
+    cos, sin = np.cos(th)[None, :, None], np.sin(th)[None, :, None]
+    corner = c[:, None] + rho[:, None, None] * (cos * e[:, None] + sin * w[:, None])
+    back = (c + (rho + 1e-4)[:, None] * e)[:, None] + rho[:, None, None] * (
+        cos * w[:, None] + sin * u[:, None])
+    tri = np.repeat(np.stack([back, corner], 1).reshape(2 * G, 3, 3), 16, axis=0)
+    j = np.sort(rng.integers(0, G, R))
+    p = c[j] + (rho[j] + 10.0 ** rng.uniform(-3.7, -2.7, R))[:, None] * e[j]
+    d = rng.normal(size=(R, 3))
+    d -= np.maximum((d * e[j]).sum(1, keepdims=True) + 0.3, 0.0) * e[j]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = p - 10.0 ** rng.uniform(3.5, 4.5, (R, 1)) * d
+    return tri[:, 0], tri[:, 1], tri[:, 2], o, d

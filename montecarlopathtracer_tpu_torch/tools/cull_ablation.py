@@ -179,7 +179,7 @@ def _waves(scene, camera, width, height):
     """The culling tables of ``scene`` and its camera wavefront and sorted
     first bounce (dead lanes last), as ``chip_smoke.py`` makes them."""
     from ..ops.morton import DEAD_KEY, ray_sort_keys
-    from ..ops.rng import make_key, stream_uniform
+    from ..ops.rng import make_key, stream_uniforms
     from ..render.integrator import TraceConfig, scene_tables
 
     config = TraceConfig(chunk_cull=True, ray_sort=True)
@@ -187,11 +187,11 @@ def _waves(scene, camera, width, height):
     R = width * height
     key = make_key(24)
     pix = torch.arange(R, device="cuda")
-    jx, jy = (stream_uniform(key, (1 << 30) + k, R, "cuda") * 2.0 - 1.0 for k in (0, 1))
+    jx, jy = stream_uniforms(key, (1 << 30, (1 << 30) + 1), R, "cuda") * 2.0 - 1.0
     pos, dir_ = camera.generate_rays_soa(pix % width, pix // width, jx, jy, width, height)
     pos, dir_ = pos.contiguous(), dir_.contiguous()
     live = torch.ones(R, dtype=torch.bool, device="cuda")
-    u = [stream_uniform(key, s, R, "cuda") for s in (0, 1, 3)]
+    u = stream_uniforms(key, (0, 1, 3), R, "cuda")
     out = F.mega_segment(tables.rows, pos, dir_, torch.ones(3, R, device="cuda"),
                          torch.zeros(3, R, device="cuda"), live, *u,
                          torch.zeros(3, 1, device="cuda"), **tables.cull_boxes)

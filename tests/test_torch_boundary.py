@@ -48,7 +48,9 @@ from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig, render_sample_batch
 from montecarlopathtracer_tpu_torch.scene.camera import Camera
 from montecarlopathtracer_tpu_torch.scene.scene import scene_pack_from_model
-from montecarlopathtracer_tpu_torch.testing import compare_winners
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, compare_winners
+
+cap_torch_threads()
 
 JCFG = JTraceConfig(mode="fixed", max_depth=2, ray_chunk=0)  # the JAX tests' (brute)
 CFG = TraceConfig(mode="fixed", max_depth=2, whole_segment=False)  # B4 on the split path

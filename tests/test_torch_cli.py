@@ -18,7 +18,10 @@ from montecarlopathtracer_tpu.utils import compile_cache as jcompile_cache
 from montecarlopathtracer_tpu_torch import cli, convert
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
 from montecarlopathtracer_tpu_torch.scene.camera import camera_for_scene
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads
 from montecarlopathtracer_tpu_torch.utils import profiling
+
+cap_torch_threads()
 
 NEW_FLAGS = ("eye", "lookat", "up", "fov", "preview", "profile_dir", "scene")
 TINY = ["--device", "cpu", "--scene", "cornell", "--width", "8", "--height", "6",

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card (the segment forward with scalar
 and per-lane flags and with chunk culling, its vjp, the row scatter, the
-traversal walk, the segment from known winners, the split path's nearest
-hit with and without culling and the fused intersector's index, the
-superseded selection entries over it, the selection microkernels): each
+traversal walk and its tables, the segment from known winners, the split
+path's nearest hit with and without culling and the fused intersector's
+index, the superseded selection entries over it, the selection
+microkernels, the uniform draws): each
 builds, launches, agrees with its plain-torch version, counts its
 launches and refuses what it cannot take; gradient, traversal, regen,
 split, fused, cull and kdtree renders through the kernels agree with the
@@ -21,6 +22,7 @@ from montecarlopathtracer_tpu_torch.models import bunny, cornell, glossy
 from montecarlopathtracer_tpu_torch.ops import cull as CU
 from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+from montecarlopathtracer_tpu_torch.ops import rng as RNG
 from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
 from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
@@ -40,6 +42,7 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
 from montecarlopathtracer_tpu_torch.render.regen import render_regen_batch
 from montecarlopathtracer_tpu_torch.testing import (
     HARD_SOUPS,
+    cap_torch_threads,
     compare_grads,
     compare_images,
     compare_micro,
@@ -52,6 +55,8 @@ from montecarlopathtracer_tpu_torch.testing import (
     plain_kernels,
     tie_soup,
 )
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.cuda
 
@@ -223,6 +228,53 @@ def test_gradient_render_kernels_match_plain_path(card):
     assert float(got["vertices"].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("R", [480_000, 1_048_576])
+def test_rng_kernel_is_bit_equal_to_plain_on_card(card, R, k):
+    """rng.cu: one launch per call, the plain version's bits for every
+    stream, a contiguous row per stream; ``stream_uniform`` is its row."""
+    key = RNG.fold_in(make_key(9), 2)
+    ids = (0, (1 << 30) + 673, 3)[:k]
+    before = RNG.stream_uniforms.launches
+    got = RNG.stream_uniforms(key, ids, R, "cuda")
+    torch.cuda.synchronize()
+    assert RNG.stream_uniforms.launches == before + 1
+    assert got.shape == (k, R) and got.dtype == torch.float32
+    assert all(row.is_contiguous() for row in got)
+    want = RNG.stream_uniforms_ref(key, ids, R, "cuda")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    row = RNG.stream_uniform(key, ids[-1], R, "cuda")
+    assert torch.equal(row.view(torch.int32), want[-1].view(torch.int32))
+    assert RNG.stream_uniforms.launches == before + 2
+
+
+def test_rng_wrapper_refuses_on_card(card):
+    before = RNG.stream_uniforms.launches
+    with pytest.raises(ValueError, match="streams"):
+        RNG.stream_uniforms(make_key(1), range(5), 16, "cuda")
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        RNG.stream_uniforms(make_key(1), (0,), 2**32, "cuda")
+    assert RNG.stream_uniforms.launches == before
+
+
+def test_render_under_plain_kernels_equals_kernel_render_on_card(card):
+    """The kernel path's render (B1 and the RNG kernel) against the same
+    render with every wrapper routed to its plain version, same key: the
+    RNG launches only on the kernel path."""
+    scene, camera, _ = card
+    config = TraceConfig(max_depth=7, mode="rr", rr_depth=3, illum=1.0)
+    before = (RNG.stream_uniforms.launches, F.mega_segment.launches)
+    got = render_sample_batch(scene, camera, make_key(6), 64, 48, config)
+    torch.cuda.synchronize()
+    assert RNG.stream_uniforms.launches == before[0] + 1 + config.num_segments
+    assert F.mega_segment.launches == before[1] + config.num_segments
+    with plain_kernels():
+        want = render_sample_batch(scene, camera, make_key(6), 64, 48, config)
+    assert RNG.stream_uniforms.launches == before[0] + 1 + config.num_segments
+    rep = compare_images(got, want)
+    assert rep["ok"], rep
+
+
 def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
     _, camera, rows = card
     _, args = _backward_args(camera, rows, "fixed", [0.0, 0.0, 0.0])
@@ -337,6 +389,53 @@ def test_walk_tables_kernel_matches_plain_on_card(bunny_card):
     assert ((x - y).abs() <= 1e-5 * scale).all(), float(((x - y).abs() / scale).max())
     assert ((got.tree[:, 3] - want.tree[:, 3]).abs() <= 1e-5 * y[:, 3].max()).all()
     assert torch.allclose(got.tree[:, 7], want.tree[:, 7], rtol=1e-5, atol=0.0)
+
+
+def _tables_bits(got, old):
+    return (torch.equal(got.tree.view(torch.int32), old.tree.view(torch.int32))
+            and torch.equal(got.tri.view(torch.int32), old.tri.view(torch.int32)))
+
+
+@pytest.mark.parametrize("which", ["bunny", "hard_soups"])
+def test_walk_tables_one_launch_equals_earlier_build_on_card(card, which):
+    """B5t, one launch of a warp per leaf: the earlier two-kernel build's
+    bits (records and tree), its tree tree_ref over its own leaves bit for
+    bit (the climb across blocks), its boxes and geometry
+    walk_tables_ref's; on the subdivision-6 bunny (81,932 triangles, the
+    render path's leaves of 32 and its chunks of 128) and on the hard
+    soups in Morton order at T = 1, 20, 70, 700 and 1500."""
+    if which == "bunny":
+        scene, _ = bunny.bunny_scene(subdiv=6, width=64, height=48, device="cuda")
+        t = scene_tables(scene, TraceConfig(intersector="traverse"))
+        lo, hi, big = TW.walk_boxes(*scene.triangle_vertices(), scene.tri_valid, t.perm)
+        assert t.rows.shape[0] == 81_932
+        cases = [(t.rows.detach(), lo, hi, TW.LEAF, big),
+                 (t.rows.detach(), t.clo, t.chi, TW.CHUNK, None)]
+    else:
+        cases = []
+        for case in HARD_SOUPS:
+            for T in (1, 20, 70, 700, 1500):
+                verts, rows, _, _ = hard_soup(case, T, 8, seed=T, device="cuda")
+                valid = torch.ones(T, dtype=torch.bool, device="cuda")
+                perm = morton_order(*verts, valid)
+                for leaf in (TW.LEAF, TW.CHUNK):
+                    clo, chi = chunk_aabbs_padded(*verts, valid, perm, leaf)
+                    cases.append((rows[perm].contiguous(), clo, chi, leaf, None))
+    box = [0, 1, 2, 4, 5, 6]
+    for rows, clo, chi, leaf, big in cases:
+        before = TW.walk_tables.launches
+        got = TW.walk_tables(rows, clo, chi, leaf, big)
+        torch.cuda.synchronize()
+        assert TW.walk_tables.launches == before + 1
+        old, _ = TW.walk_tables_split(rows, clo, chi, leaf, big)
+        assert TW.walk_tables.launches == before + 1
+        assert _tables_bits(got, old)
+        P, nc = got.leaves, clo.shape[0]
+        ref = TW.tree_ref(clo, chi, got.tree[P:P + nc, 3], got.tree[P:P + nc, 7])
+        assert torch.equal(got.tree.view(torch.int32), ref.view(torch.int32))
+        want = TW.walk_tables_ref(rows, clo, chi, leaf, big)
+        assert torch.equal(got.tree[:, box], want.tree[:, box])
+        assert torch.equal(got.tri[:, 4:].view(torch.int32), want.tri[:, 4:].view(torch.int32))
 
 
 def test_traverse_kernel_breaks_equal_t_ties_by_index(card):

@@ -51,8 +51,14 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
 )
 from montecarlopathtracer_tpu_torch.render.regen import render_regen_planar
 from montecarlopathtracer_tpu_torch.scene.scene import FIELDS
-from montecarlopathtracer_tpu_torch.testing import compare_images, compare_segment
+from montecarlopathtracer_tpu_torch.testing import (
+    cap_torch_threads,
+    compare_images,
+    compare_segment,
+)
 from montecarlopathtracer_tpu_torch.utils.image import load_png
+
+cap_torch_threads()
 
 R = 3000
 

@@ -18,7 +18,10 @@ the winner's t; the mean visit counts are ordered as the rules nest, on
 the glossy stage's camera wavefront and its Morton-sorted first bounce;
 the culled loop's triangle records (``ops.cull.cull_records``) hold
 ``traverse_walk.sphere_split_ref``'s spheres and the geometry rows, and
-each chunk's grow bounds its triangles' growth.
+each chunk's grow bounds its triangles' growth; and on
+``testing.hard_soup("corners")`` the leaf boxes need their slack (ROADMAP
+C17): rule (d) keeps every winner with them and loses some with boxes of
+the exact spheres.
 """
 
 import pytest
@@ -36,7 +39,14 @@ from montecarlopathtracer_tpu_torch.ops.morton import (
 from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
 from montecarlopathtracer_tpu_torch.ops.traverse_walk import sphere_split_ref
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig, scene_tables
-from montecarlopathtracer_tpu_torch.testing import HARD_SOUPS, hard_soup, tie_soup
+from montecarlopathtracer_tpu_torch.testing import (
+    HARD_SOUPS,
+    cap_torch_threads,
+    hard_soup,
+    tie_soup,
+)
+
+cap_torch_threads()
 
 R = 8192
 BIG = 3.0e38
@@ -93,6 +103,43 @@ def test_each_winner_reaches_its_leaf_box(case):
         leaf = i[hit] // CU.LEAF
         lanes = hit.nonzero()[:, 0]
         assert (ok[lanes, leaf] & (tn[lanes, leaf] <= t[hit])).all(), (case, T)
+
+
+def _exact_sphere_leaf_entry(rows, cslack, o, d):
+    """``ops.cull.leaf_entry`` with the leaf boxes of the exact spheres:
+    c ± ρ (ρ = K0 − slack), no grow·|o|, the margin alone."""
+    T = rows.shape[0]
+    sph, _, slack = sphere_split_ref(rows)
+    rho = torch.where(torch.isfinite(slack), sph[:, 3] - slack, float("inf"))[:, None]
+    pad = -T % CU.LEAF
+    lo, hi = (torch.nn.functional.pad(x, (0, 0, 0, pad), value=fill).reshape(-1, CU.LEAF, 3)
+              for x, fill in ((sph[:, :3] - rho, BIG), (sph[:, :3] + rho, -BIG)))
+    lo, hi = lo.amin(1), hi.amax(1)
+    tn, ok = CU.chunk_entry(lo, hi, o, d)
+    return tn, ok & (lo[:, 0] <= hi[:, 0])[None]
+
+
+def test_leaf_boxes_need_their_slack(monkeypatch):
+    """ROADMAP C17: on ``hard_soup("corners")`` f32 rounding accepts hits
+    just beyond a vertex that lies on its leaf's box, and a backstop
+    behind each, met first, gives the ray a best t short of that box.
+    Rule (d) with the kernels' leaf boxes (widened by the spheres' slack
+    and grow·|o|) keeps every brute-force winner; with the boxes of the
+    exact spheres it loses some, each a winner on a corner."""
+    T = 704
+    verts, rows, pos, dir_ = hard_soup("corners", T, R, seed=3)
+    clo, chi = chunk_aabbs_padded(*verts, torch.ones(T, dtype=torch.bool), torch.arange(T), 128)
+    slack = CU.chunk_slack(rows)
+    live = torch.ones(R, dtype=torch.bool)
+    t, i = _brute(rows, pos, dir_)
+    out = CU.cull_visits(rows, clo, chi, slack, pos, dir_, live)
+    assert torch.equal(out["idx"], i) and torch.equal(out["t"], t)
+    monkeypatch.setattr(CU, "leaf_entry", _exact_sphere_leaf_entry)
+    bare = CU.cull_visits(rows, clo, chi, slack, pos, dir_, live)
+    lost = bare["idx"] != i
+    assert lost.any()
+    assert ((i[lost] // CU.LEAF) % 2 == 1).all()  # the corner leaves
+    assert (bare["t"][lost] > t[lost]).all()
 
 
 def test_warp_order_breaks_equal_t_ties_by_index():

@@ -21,7 +21,9 @@ import torch
 from montecarlopathtracer_tpu_torch.ops import cull as CU
 from montecarlopathtracer_tpu_torch.ops.morton import chunk_aabbs_padded, morton_order
 from montecarlopathtracer_tpu_torch.ops.segment_fused import _select_ref
-from montecarlopathtracer_tpu_torch.testing import HARD_SOUPS, hard_soup
+from montecarlopathtracer_tpu_torch.testing import HARD_SOUPS, cap_torch_threads, hard_soup
+
+cap_torch_threads()
 
 R = 16384
 BIG = 3.0e38

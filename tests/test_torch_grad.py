@@ -34,8 +34,15 @@ from montecarlopathtracer_tpu.ops.intersect import triangle_transforms
 from montecarlopathtracer_tpu_torch.ops import sampling
 from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
-from montecarlopathtracer_tpu_torch.testing import SCATTER_ULPS, compare_grads, compare_scatter
+from montecarlopathtracer_tpu_torch.testing import (
+    SCATTER_ULPS,
+    cap_torch_threads,
+    compare_grads,
+    compare_scatter,
+)
 from test_torch_segment import CASES, T_CHUNK, _inputs, _kw
+
+cap_torch_threads()
 
 GRAD_CASES = dict(CASES, rr_tied_grey=CASES["rr_roulette"])
 

@@ -39,7 +39,9 @@ from montecarlopathtracer_tpu_torch.models import cornell
 from montecarlopathtracer_tpu_torch.ops.rng import make_key
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
-from montecarlopathtracer_tpu_torch.testing import compare_param_grads
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, compare_param_grads
+
+cap_torch_threads()
 
 FIELDS = ("mat_kd", "mat_ka", "vertices")
 

@@ -54,10 +54,13 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
 from montecarlopathtracer_tpu_torch.scene.objio import read_obj
 from montecarlopathtracer_tpu_torch.testing import (
+    cap_torch_threads,
     compare_images,
     compare_param_grads,
     near_ties,
 )
+
+cap_torch_threads()
 
 
 def _random_soup(T, seed=0, spread=3.0):

@@ -31,8 +31,10 @@ import pytest
 import torch
 
 from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
-from montecarlopathtracer_tpu_torch.testing import compare_micro
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, compare_micro
 from montecarlopathtracer_tpu_torch.tools import kernel_micro
+
+cap_torch_threads()
 
 BIG = np.float32(3.0e38)
 R, T, TC = 600, 256, 128  # rays, triangles, chunk: two chunks

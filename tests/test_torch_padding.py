@@ -27,7 +27,9 @@ import torch
 from montecarlopathtracer_tpu_torch.models import cornell
 from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
-from montecarlopathtracer_tpu_torch.testing import HARD_SOUPS, hard_soup
+from montecarlopathtracer_tpu_torch.testing import HARD_SOUPS, cap_torch_threads, hard_soup
+
+cap_torch_threads()
 
 BIG = 3.0e38
 

@@ -45,7 +45,13 @@ from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig, render_rows_planar
 from montecarlopathtracer_tpu_torch.render.regen import render_regen_planar
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
-from montecarlopathtracer_tpu_torch.testing import compare_images, compare_segment
+from montecarlopathtracer_tpu_torch.testing import (
+    cap_torch_threads,
+    compare_images,
+    compare_segment,
+)
+
+cap_torch_threads()
 
 T_CHUNK = 256
 R = 3000

@@ -38,8 +38,10 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
     render_sample_batch,
 )
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
-from montecarlopathtracer_tpu_torch.testing import compare_images
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, compare_images
 from montecarlopathtracer_tpu_torch.utils.image import load_png, save_png
+
+cap_torch_threads()
 
 
 def _assert_images_agree(got, want):

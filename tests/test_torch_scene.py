@@ -19,6 +19,9 @@ from montecarlopathtracer_tpu_torch.ops import intersect
 from montecarlopathtracer_tpu_torch.scene import camera as tcamera
 from montecarlopathtracer_tpu_torch.scene import objio
 from montecarlopathtracer_tpu_torch.scene.scene import FIELDS, load_obj_scene
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

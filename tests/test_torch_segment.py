@@ -40,7 +40,9 @@ from montecarlopathtracer_tpu.ops.intersect_pallas import (
 from montecarlopathtracer_tpu_torch import convert
 from montecarlopathtracer_tpu_torch.ops import segment_fused as F
 from montecarlopathtracer_tpu_torch.scene.scene import FIELDS
-from montecarlopathtracer_tpu_torch.testing import compare_segment
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, compare_segment
+
+cap_torch_threads()
 
 T_CHUNK = 256
 R = 3000  # not a multiple of the JAX kernel's 512-ray tile

@@ -52,10 +52,13 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
     scene_tables,
 )
 from montecarlopathtracer_tpu_torch.testing import (
+    cap_torch_threads,
     compare_images,
     compare_param_grads,
     compare_shade,
 )
+
+cap_torch_threads()
 
 R = 3000  # not a multiple of the JAX kernel's 512-ray tile
 

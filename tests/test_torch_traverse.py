@@ -67,6 +67,7 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
 )
 from montecarlopathtracer_tpu_torch.scene.scene import FIELDS
 from montecarlopathtracer_tpu_torch.testing import (
+    cap_torch_threads,
     compare_images,
     compare_param_grads,
     compare_segment,
@@ -74,6 +75,8 @@ from montecarlopathtracer_tpu_torch.testing import (
     tie_soup,
 )
 from montecarlopathtracer_tpu_torch.utils.image import load_png
+
+cap_torch_threads()
 
 TRAVERSE = TraceConfig(intersector="traverse")
 

@@ -41,7 +41,9 @@ from montecarlopathtracer_tpu.ops.intersect import triangle_transforms
 from montecarlopathtracer_tpu_torch import convert
 from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
 from montecarlopathtracer_tpu_torch.tools import kernel_bench
-from montecarlopathtracer_tpu_torch.testing import _hit64, compare_shade
+from montecarlopathtracer_tpu_torch.testing import _hit64, cap_torch_threads, compare_shade
+
+cap_torch_threads()
 
 R = 1000
 # JAX's v1 and v2 selection kernels rank hits by t = tw · rcp(w², approx),
