@@ -193,7 +193,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
 35. the KD-tree main path: one walk of the Cornell 800x600 first bounce
     timed, then Renderer at 800x600, fixed depth 7 + gather, 1 spp per
     pass, intersector="kdtree": one warm-up and one timed pass, the film
-    against the whole-segment film of the same passes.
+    against the whole-segment film of the same passes;
+36. the sharded paths (montecarlopathtracer_tpu_torch.parallel), each on
+    phase 5's scene at 800x600, fixed depth 7 + gather, megakernel whole
+    segment, with the card's name and power limit on every line: world
+    size 1 under NCCL in this process (36a-e), then two gloo ranks
+    spawned on cuda:0 (36f; NCCL refuses two ranks on one device).
+    36a: sharded_sample_pass at 4 spp bit-equal to the mean of
+    render_rows_planar over fold_in(fold_in(key, 0), s), 32 B1 and 36 RNG
+    launches, timed in turns with phase 5's Renderer pass (the SPMD
+    overhead at world size 1); 36b: make_progressive_step twice, weight
+    8, the film bit-equal to two film_updates of those passes; 36c:
+    make_train_step at 2 spp on {mat_kd, mat_ka, vertices} against one
+    process's value_and_grad + SGD on the same sample keys
+    (compare_param_grads at 1e-6, the loss to 1e-6), B1, B2, B3 launches;
+    36d: sharded_regen_pass, RR, 32 spp, bit-equal to
+    render_regen_planar(y0=0, n_rows=600) under fold_in(key, 0), B1l
+    launches; 36e: make_geom_train_step at phase 30's settings against
+    its single-process emulation (testing.emulate_geom_step) with the
+    same probe key, B4 launches; 36f: sharded_sample_pass at meshes (2,1)
+    and (1,2) and make_train_step at (2,1) on the two ranks, the gathered
+    frames, loss and parameters bit-equal to the parent's emulation of
+    the two ranks. One card cannot measure scaling.
 
 A kernel's device time per launch comes from CUDA events around 20
 back-to-back calls queued behind a torch.cuda._sleep, so that the card,
@@ -2523,7 +2544,7 @@ def split_grad(torch, scene, camera):
 def geometry_step(torch):
     phase(f"30. geometry step (BASELINE config 5): lamp translation at {W}x{H}, fixed depth "
           f"{GEOM_DEPTH}, {GEOM_SPP} spp, {GEOM_EDGES} edge samples, split path (B4)")
-    from montecarlopathtracer_tpu_torch.diff.boundary import make_translation_problem
+    from montecarlopathtracer_tpu_torch.diff.boundary import lamp_mask, make_translation_problem
     from montecarlopathtracer_tpu_torch.models import cornell
     from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
     from montecarlopathtracer_tpu_torch.render.integrator import (
@@ -2533,8 +2554,7 @@ def geometry_step(torch):
 
     scene, camera = cornell.cornell_box(width=W, height=H, device="cuda")
     config = TraceConfig(mode="fixed", max_depth=GEOM_DEPTH, whole_segment=False)
-    emit = (scene.mat_ka > 0).any(dim=1).nonzero()[:, 0]
-    tri_mask = torch.isin(scene.tri_mat.long(), emit).cpu().numpy()
+    tri_mask = lamp_mask(scene)
     with torch.no_grad():
         target = sum(render_sample_batch(scene, camera, fold_in(make_key(123), i), W, H,
                                          config) for i in range(GEOM_SPP)) / GEOM_SPP
@@ -3157,6 +3177,291 @@ def kdtree_main_path(torch, scene, camera, bounce):
     return walk_ms, dt
 
 
+# ------------------------------------------------------------- the sharded paths
+
+SHARD_SPP = 4  # 36a, 36b, 36f: phase 5's samples per pass
+SHARD_FIELDS = ("mat_kd", "mat_ka", "vertices")  # 36c, 36f: phase 11's parameters
+SHARD_LR = 0.5
+
+
+def _shard_timed(torch, fn, dev):
+    """(result, ms) of one call, ended by a synchronise on the card."""
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_paths(torch, scene, camera, smi, w=W, h=H, dev="cuda"):
+    """Phase 36: the sharded paths (montecarlopathtracer_tpu_torch.parallel)
+    on the card: world size 1 under NCCL in this process (36a-e), then two
+    gloo ranks on cuda:0 (36f). Returns the launch counts of 36a-e. The
+    frame size and device are arguments so that the phase can be
+    rehearsed on the CPU at a small size with the plain versions (where
+    its launch-count checks fail, as no kernel launches)."""
+    phase("36. sharded paths (parallel/): world size 1 under NCCL in this process, then two "
+          "gloo ranks on one card")
+    import tempfile
+
+    import torch.distributed as dist
+
+    from montecarlopathtracer_tpu_torch.parallel import distributed, make_mesh
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
+    kw = dict(width=w, height=h, config=config)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.ensure_initialized(device=dev, init_method=f"file://{tmp}/store",
+                                       world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, 1, device=dev)
+            counts["36a"] = world_one_pass(torch, scene, camera, smi, mesh, config, kw, dev)
+            counts["36b"] = world_one_progressive(torch, scene, camera, smi, mesh, kw, dev)
+            counts["36c"] = world_one_train(torch, scene, camera, smi, mesh, kw, dev)
+            counts["36d"] = world_one_regen(torch, scene, camera, smi, mesh, w, h, dev)
+            counts["36e"] = world_one_geometry(torch, smi, mesh, w, h, dev)
+        finally:
+            dist.destroy_process_group()
+    two_ranks_one_card(torch, scene, camera, smi, config, w, h, dev)
+    return counts
+
+
+def _pass_reference(torch, scene, camera, key, w, h, config, spp):
+    """The mean of render_rows_planar over fold_in(fold_in(key, 0), s),
+    s < spp, as f32[H, W, 3]: rank (0, 0)'s samples summed from zero."""
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in
+    from montecarlopathtracer_tpu_torch.render.integrator import render_rows_planar
+
+    total = torch.zeros(3, h, w, device=camera.device)
+    with torch.no_grad():
+        for s in range(spp):
+            total = total + render_rows_planar(scene, camera, fold_in(fold_in(key, 0), s), w,
+                                               h, 0, h, config)
+    return (total / spp).permute(1, 2, 0)
+
+
+def world_one_pass(torch, scene, camera, smi, mesh, config, kw, dev):
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.parallel import sharded as SH
+    from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+
+    w, h = kw["width"], kw["height"]
+    spass = SH.sharded_sample_pass(mesh, spp=SHARD_SPP, **kw)
+    key = make_key(11)
+    with torch.no_grad():
+        spass(scene, camera, key)  # warm-up
+        reset_counts()
+        got, ms = _shard_timed(torch, lambda: spass(scene, camera, key), dev)
+        counts = read_all_counts()
+    want = _pass_reference(torch, scene, camera, key, w, h, config, SHARD_SPP)
+    same = bool(torch.equal(got, want))
+    n_seg = config.num_segments
+    print(f"36a: backend {mesh.backend}, mesh 1x1, sharded_sample_pass {w}x{h} {SHARD_SPP} "
+          f"spp: bit-equal to the mean of render_rows_planar over fold_in(fold_in(key, 0), s): "
+          f"{same}; launches {counts} (expected B1 {n_seg * SHARD_SPP}, RNG "
+          f"{(1 + n_seg) * SHARD_SPP}); {ms:.3f} ms; {smi}")
+    check(mesh.backend == ("nccl" if dev == "cuda" else "gloo"), f"backend {mesh.backend}")
+    check(same, "36a: the sharded pass differs from the mean of its samples")
+    check(counts["B1"] == n_seg * SHARD_SPP and counts["RNG"] == (1 + n_seg) * SHARD_SPP,
+          f"36a launches {counts}")
+    # The SPMD overhead at world size 1: the Renderer's pass (phase 5's
+    # path, tables built once) and the sharded pass (tables built each
+    # call), in turns.
+    r = Renderer(scene, camera, kw["config"], RenderSettings(width=w, height=h,
+                 spp_per_pass=SHARD_SPP, seed=0), device=dev)
+    r.render(1)
+    rms, sms = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            rms.append(_shard_timed(torch, lambda: r.render(1), dev)[1])
+            sms.append(_shard_timed(torch, lambda: spass(scene, camera, key), dev)[1])
+    print(f"36a timing: Renderer pass {statistics.median(rms):.3f} ms, sharded pass (world "
+          f"size 1, NCCL) {statistics.median(sms):.3f} ms (medians of 3, in turns: "
+          f"{' '.join(f'{a:.2f}/{b:.2f}' for a, b in zip(rms, sms))}); {smi}")
+    return counts
+
+
+def world_one_progressive(torch, scene, camera, smi, mesh, kw, dev):
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.parallel import sharded as SH
+    from montecarlopathtracer_tpu_torch.render.film import Film, film_update
+
+    w, h = kw["width"], kw["height"]
+    step = SH.make_progressive_step(mesh, spp=SHARD_SPP, **kw)
+    film = Film.zeros(SH.film_band(mesh, h)[1], w, camera.device)
+    reset_counts()
+    t0 = time.perf_counter()
+    for seed in (11, 12):
+        film = step(scene, camera, film, make_key(seed))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_all_counts()
+    want = Film.zeros(h, w, camera.device)
+    for seed in (11, 12):
+        want = film_update(want, _pass_reference(torch, scene, camera, make_key(seed), w, h,
+                                                 kw["config"], SHARD_SPP), SHARD_SPP)
+    same = bool(torch.equal(SH.gather_film(mesh, film.color), want.color))
+    print(f"36b: make_progressive_step twice: weight {float(film.weight)} (expected "
+          f"{2 * SHARD_SPP}), film bit-equal to two film_updates of the 36a passes: {same}; "
+          f"launches {counts}; {ms:.3f} ms for both; {smi}")
+    check(float(film.weight) == 2 * SHARD_SPP and same, "36b: progressive film differs")
+    return counts
+
+
+def world_one_train(torch, scene, camera, smi, mesh, kw, dev):
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
+    from montecarlopathtracer_tpu_torch.parallel import sharded as SH
+    from montecarlopathtracer_tpu_torch.testing import compare_param_grads
+
+    w, h, config = kw["width"], kw["height"], kw["config"]
+    target = _pass_reference(torch, scene, camera, make_key(11), w, h, config, SHARD_SPP)
+    params = G.split_params(scene, SHARD_FIELDS)
+    params["mat_kd"] = params["mat_kd"] * 0.6
+    step = SH.make_train_step(mesh, scene, camera, spp=GRAD_SPP, lr=SHARD_LR, **kw)
+    key = make_key(14)
+    step(params, target, key)  # warm-up
+    reset_counts()
+    (new, loss), ms = _shard_timed(torch, lambda: step(params, target, key), dev)
+    counts = read_all_counts()
+    # One process, the same sample keys: render_image draws sample i
+    # under fold_in(key', i), and rank (0, 0)'s key is fold_in(key, 0).
+    loss_fn = G.make_loss_fn(scene, camera, target, width=w, height=h, spp=GRAD_SPP,
+                             config=config)
+    rloss, rgrads = G.value_and_grad(loss_fn, params, fold_in(key, 0))
+    with torch.no_grad():
+        rnew = {k: torch.clamp_min(params[k] - SHARD_LR * rgrads[k], 0.0) for k in params}
+    rep = compare_param_grads(rnew, new, 1e-6)
+    lrel = abs(float(loss) - float(rloss)) / abs(float(rloss))
+    n_seg = config.num_segments
+    print(f"36c: make_train_step {w}x{h} {GRAD_SPP} spp {list(SHARD_FIELDS)}: loss "
+          f"{float(loss):.9e} vs one process {float(rloss):.9e} (rel {lrel:.2e}); new params "
+          f"vs one process's value_and_grad + SGD (compare_param_grads 1e-6): "
+          + ", ".join(f"{k} {rep[k]['max_abs_err']:.3e}" for k in SHARD_FIELDS)
+          + f" ok {rep['ok']}; launches {counts} (expected B1, B2, B3 {n_seg * GRAD_SPP}); "
+          f"{ms:.3f} ms; {smi}")
+    check(rep["ok"] and lrel <= 1e-6, f"36c: train step differs from one process: {rep}")
+    check(all(counts[k] == n_seg * GRAD_SPP for k in ("B1", "B2", "B3")),
+          f"36c launches {counts}")
+    return counts
+
+
+def world_one_regen(torch, scene, camera, smi, mesh, w, h, dev):
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
+    from montecarlopathtracer_tpu_torch.parallel import sharded as SH
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+    from montecarlopathtracer_tpu_torch.render.regen import render_regen_planar
+
+    config = TraceConfig(mode="rr", rr_depth=5, illum=1.0)
+    rpass = SH.sharded_regen_pass(mesh, width=w, height=h, spp=REGEN_SPP, config=config)
+    key = make_key(15)
+    reset_counts()
+    got, ms = _shard_timed(torch, lambda: rpass(scene, camera, key), dev)
+    counts = read_all_counts()
+    want = render_regen_planar(scene, camera, fold_in(key, 0), w, h, REGEN_SPP, config, y0=0,
+                               n_rows=h).permute(1, 2, 0)
+    same = bool(torch.equal(got, want))
+    print(f"36d: sharded_regen_pass RR (rr_depth 5, illum 1) {w}x{h} {REGEN_SPP} spp: "
+          f"bit-equal to render_regen_planar(y0=0, n_rows={h}) under fold_in(key, 0): {same}; "
+          f"launches {counts}; {ms:.3f} ms; {smi}")
+    check(same, "36d: the sharded regen pass differs from render_regen_planar")
+    check(counts["B1l"] > 0 and counts["B1"] == 0, f"36d launches {counts}")
+    return counts
+
+
+def world_one_geometry(torch, smi, mesh, w, h, dev):
+    from montecarlopathtracer_tpu_torch import testing as T
+    from montecarlopathtracer_tpu_torch.diff.boundary import lamp_mask
+    from montecarlopathtracer_tpu_torch.models import cornell
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
+    from montecarlopathtracer_tpu_torch.parallel import sharded as SH
+    from montecarlopathtracer_tpu_torch.render.integrator import (
+        TraceConfig,
+        render_sample_batch,
+    )
+
+    scene, camera = cornell.cornell_box(width=w, height=h, device=dev)
+    config = TraceConfig(mode="fixed", max_depth=GEOM_DEPTH, whole_segment=False)
+    lamp = lamp_mask(scene)
+    with torch.no_grad():
+        target = sum(render_sample_batch(scene, camera, fold_in(make_key(123), i), w, h,
+                                         config) for i in range(GEOM_SPP)) / GEOM_SPP
+    step = SH.make_geom_train_step(mesh, scene, camera, lamp, width=w, height=h, spp=GEOM_SPP,
+                                   config=config, n_edge_samples=GEOM_EDGES, lr=2.0)
+    theta, key = [1.2, 0.0, 0.0], make_key(16)
+    step(theta, target, key)  # warm-up
+    reset_counts()
+    (got, loss), ms = _shard_timed(torch, lambda: step(theta, target, key), dev)
+    counts = read_all_counts()
+    want, wloss = T.emulate_geom_step(scene, camera, lamp, theta, target, key, (1, 1), width=w,
+                                      height=h, spp=GEOM_SPP, config=config,
+                                      n_edge_samples=GEOM_EDGES, lr=2.0)
+    rep = T.compare_param_grads({"theta": want}, {"theta": got}, 1e-6)
+    lrel = abs(float(loss) - float(wloss)) / abs(float(wloss))
+    g = (torch.tensor(theta, device=got.device) - got) / 2.0
+    print(f"36e: make_geom_train_step {w}x{h}, depth {GEOM_DEPTH}, {GEOM_SPP} spp, "
+          f"{GEOM_EDGES} edge samples, split path: loss {float(loss):.9e} vs the emulation "
+          f"{float(wloss):.9e} (rel {lrel:.2e}); theta' {got.tolist()} vs {want.tolist()} "
+          f"(max |err| {rep['theta']['max_abs_err']:.3e}, compare_param_grads 1e-6 ok "
+          f"{rep['ok']}); d loss / d theta {g.tolist()}; launches {counts}; {ms:.3f} ms; {smi}")
+    check(rep["ok"] and lrel <= 1e-6, f"36e: geometry step differs from the emulation: {rep}")
+    check(counts["B4"] > 0 and counts["B1"] == 0, f"36e launches {counts}")
+    return counts
+
+
+def two_ranks_one_card(torch, scene, camera, smi, config, w, h, dev):
+    """36f: two gloo ranks spawned on cuda:0 (NCCL refuses two ranks on
+    one device); their gathered films, loss and parameters against the
+    parent's emulation of the two ranks, bit for bit."""
+    import numpy as np
+
+    from montecarlopathtracer_tpu_torch import testing as T
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from montecarlopathtracer_tpu_torch.parallel.launch import run_ranks
+
+    cfg = dict(mode="fixed", max_depth=DEPTH, illum=10.0)
+    target = _pass_reference(torch, scene, camera, make_key(11), w, h, config, SHARD_SPP)
+    base = dict(width=w, height=h, config=cfg, seed=17,
+                scene=dict(with_mirror_sphere=True, with_glass_sphere=True))
+    cases = [dict(base, kind="sample", mesh=(2, 1), spp=SHARD_SPP),
+             dict(base, kind="sample", mesh=(1, 2), spp=SHARD_SPP),
+             dict(base, kind="train", mesh=(2, 1), spp=GRAD_SPP, fields=SHARD_FIELDS,
+                  kd_scale=0.6, target=target.cpu().numpy(), lr=SHARD_LR)]
+    t0 = time.perf_counter()
+    ranks = run_ranks(T.sharded_cases, 2, (cases, dev), backend="gloo", device=dev,
+                      timeout=600)
+    wall = time.perf_counter() - t0
+    key = make_key(17)
+    kw = dict(width=w, height=h, config=config)
+    same = {}
+    for i, c in enumerate(cases[:2]):
+        with torch.no_grad():
+            want = T.emulate_sample_pass(scene, camera, key, c["mesh"], spp=SHARD_SPP, **kw)
+        same[f"sample {c['mesh']}"] = all(np.array_equal(r[i], want.cpu().numpy())
+                                          for r in ranks)
+    params = G.split_params(scene, SHARD_FIELDS)
+    params["mat_kd"] = params["mat_kd"] * 0.6
+    new, loss = T.emulate_train_step(scene, camera, params, target, key, (2, 1), spp=GRAD_SPP,
+                                     lr=SHARD_LR, **kw)
+    same["train (2, 1)"] = all(
+        np.array_equal(r[2]["loss"], loss.cpu().numpy())
+        and all(np.array_equal(r[2]["params"][k], new[k].cpu().numpy()) for k in new)
+        for r in ranks)
+    print(f"36f: two gloo ranks on {dev}:0 (run_ranks, spawn included {wall * 1e3:.1f} ms), "
+          f"{w}x{h}: bit-equal to the parent's emulation of the two ranks (per band and key): "
+          f"{same}; loss {float(loss):.9e}; {smi}")
+    print("36f: one card cannot measure scaling: both ranks share it, so this part checks "
+          "the collectives and the bits, not the speed")
+    check(all(same.values()), f"36f: two ranks differ from their emulation: {same}")
+
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: FAIL: {PKG} is not beside this script", file=sys.stderr)
@@ -3242,6 +3547,7 @@ def main():
         bench_rows, bench_counts, bench_err, micro_counts, micro, micro_gates, cublas_ms = \
             tool_twins(torch)
         walk_ms, kd_pass = kdtree_main_path(torch, scene, camera, bounce)
+        shard = sharded_paths(torch, scene, camera, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3275,13 +3581,15 @@ def main():
                 **({"library_device_ms": DEVICE_MS[lib_dev][0]} if lib_dev else {}), **extra}
 
     print(json.dumps({"kernels": [
-        entry("mega_segment", KERNEL_SOURCE, REPLACES, launches, max_err, b1_timing, "B1"),
+        entry("mega_segment", KERNEL_SOURCE, REPLACES, launches, max_err, b1_timing, "B1",
+              launches_sharded=shard["36a"]["B1"]),
         entry("mega_segment (lane flags, B1l)", KERNEL_SOURCE, LANE_REPLACES,
-              regen_counts["B1l"], lane_err, lane_ms, "B1l"),
+              regen_counts["B1l"], lane_err, lane_ms, "B1l",
+              launches_sharded=shard["36d"]["B1l"]),
         entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms,
-              "B2"),
+              "B2", launches_sharded=shard["36c"]["B2"]),
         entry("scatter_rows (T = 652)", SCATTER_SOURCE, SCATTER_REPLACES, counts["B3"], sc_err,
-              sc_ms, "B3 T652", "index_add_ T652"),
+              sc_ms, "B3 T652", "index_add_ T652", launches_sharded=shard["36c"]["B3"]),
         entry("scatter_rows (T = 81,932)", SCATTER_SOURCE, SCATTER_REPLACES,
               bgrad_counts["B3"], bsc_err, bsc_ms, "B3 T81932", "index_add_ T81932"),
         entry("traverse_select (B5)", TRAVERSE_SOURCE, TRAVERSE_REPLACES,
@@ -3295,7 +3603,8 @@ def main():
         entry("uniform draws (RNG; not a TPU kernel: counterpart of jax.random.uniform)",
               RNG_SOURCE, RNG_REPLACES, main_counts["RNG"], 0.0, rng_ms, "RNG",
               launches_grad=counts["RNG"], launches_regen=regen_counts["RNG"],
-              launches_bunny=bunny_counts["RNG"], rays=W * H, streams=3,
+              launches_bunny=bunny_counts["RNG"], launches_sharded=shard["36a"]["RNG"],
+              rays=W * H, streams=3,
               device_ms_1m_rays_2_streams=DEVICE_MS["RNG 1M"][0]),
         entry("rows_segment (B6)", ROWS_SOURCE, ROWS_REPLACES, bunny_counts["B6"],
               b6_err["B6"], b6_ms["B6"], "B6"),
@@ -3304,7 +3613,7 @@ def main():
         entry("mega_segment (chunk cull, B1c)", KERNEL_SOURCE, CULL_REPLACES,
               cull_counts["B1c"], b1c_err, split_ms["B1c"], "B1c"),
         entry("nearest_shade_full (B4)", SHADE_SOURCE, SHADE_REPLACES, split_counts["B4"],
-              shade_err["B4"], split_ms["B4"], "B4"),
+              shade_err["B4"], split_ms["B4"], "B4", launches_sharded=shard["36e"]["B4"]),
         entry("nearest_shade_full (chunk cull, B4c)", SHADE_SOURCE, SHADE_CULL_REPLACES,
               cull_split_counts["B4c"], shade_err["B4c"], split_ms["B4c"], "B4c"),
         entry("cull records (B4r: the culled loop's triangle records and leaf boxes)",
@@ -3335,6 +3644,7 @@ def main():
               ("B13", "epilogue_only, resident p_all (B13)", "B13"),
               ("B14", "epilogue_shared, one p block (B14)", "B14"))),
     ]}))
+    print("sharded paths (phase 36) launches: " + "; ".join(f"{k} {v}" for k, v in shard.items()))
     print(f"bunny gradient launches: {bgrad_counts}; brute B1 on the bunny wavefront "
           f"{b1_ms[0]:.4f} ms")
     print(smi)

@@ -315,6 +315,24 @@ def shadow_boundary_grad_translation(scene, camera, edges, image_grad, key, *, w
         n_samples=n_samples).sum(dim=0)
 
 
+def lamp_mask(scene: ScenePack) -> np.ndarray:
+    """bool[T]: the valid triangles of the scene's emitting materials."""
+    emit = (scene.mat_ka > 0).any(dim=1).nonzero()[:, 0]
+    return (torch.isin(scene.tri_mat.long(), emit) & scene.tri_valid).cpu().numpy()
+
+
+def translation_support(scene: ScenePack, tri_mask, device):
+    """What a rigid translation θ of the triangles ``tri_mask`` moves:
+    the vertex mask f32[V, 1] (1 on their vertices, on ``device``) that
+    shifts ``scene.vertices`` by ``mask * θ``, and their
+    :func:`unique_edges`."""
+    tm = np.asarray(tri_mask)
+    vids = np.unique(np.asarray(scene.tri_v.cpu())[tm].ravel())
+    vmask = torch.zeros(scene.vertices.shape[0], 1, device=device)
+    vmask[torch.as_tensor(vids, device=device).long()] = 1.0
+    return vmask, unique_edges(scene.tri_v.cpu(), tm)
+
+
 def make_translation_problem(
     scene: ScenePack,
     camera: Camera,
@@ -337,11 +355,7 @@ def make_translation_problem(
     the device of ``scene`` and ``camera``; put them on the card to run
     there."""
     dev = camera.device
-    tm = np.asarray(tri_mask)
-    vids = np.unique(np.asarray(scene.tri_v.cpu())[tm].ravel())
-    vmask = torch.zeros(scene.vertices.shape[0], 1, device=dev)
-    vmask[torch.as_tensor(vids, device=dev).long()] = 1.0
-    edges = unique_edges(scene.tri_v.cpu(), tm)
+    vmask, edges = translation_support(scene, tri_mask, dev)
     target = target.to(dev)
 
     @torch.no_grad()

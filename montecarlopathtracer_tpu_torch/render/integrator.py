@@ -493,6 +493,18 @@ def trace_radiance_soa(
     return result
 
 
+def trace_radiance(
+    scene: ScenePack,
+    origins: torch.Tensor,  # f32[R, 3]
+    dirs: torch.Tensor,  # f32[R, 3] unit
+    key: Key,
+    config: TraceConfig,
+    tables: Optional[SceneTables] = None,
+) -> torch.Tensor:
+    """AoS wrapper over :func:`trace_radiance_soa` (returns f32[R, 3])."""
+    return trace_radiance_soa(scene, origins.T, dirs.T, key, config, tables).T
+
+
 def render_rows_planar(
     scene: ScenePack,
     camera: Camera,
@@ -538,6 +550,22 @@ def render_rows_planar(
     return radiance.reshape(3, n_rows, width)
 
 
+def render_rows(
+    scene: ScenePack,
+    camera: Camera,
+    key: Key,
+    width: int,
+    height: int,
+    y0: int,
+    n_rows: int,
+    config: TraceConfig,
+    tables: Optional[SceneTables] = None,
+) -> torch.Tensor:
+    """AoS wrapper over :func:`render_rows_planar`: f32[n_rows, W, 3]."""
+    return render_rows_planar(scene, camera, key, width, height, y0, n_rows, config,
+                              tables).permute(1, 2, 0)
+
+
 def render_sample_batch(
     scene: ScenePack,
     camera: Camera,
@@ -548,6 +576,4 @@ def render_sample_batch(
     tables: Optional[SceneTables] = None,
 ) -> torch.Tensor:
     """One sample per pixel over the full frame. Returns f32[H, W, 3]."""
-    return render_rows_planar(
-        scene, camera, key, width, height, 0, height, config, tables
-    ).permute(1, 2, 0)
+    return render_rows(scene, camera, key, width, height, 0, height, config, tables)

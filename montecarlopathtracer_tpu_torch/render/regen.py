@@ -54,12 +54,16 @@ def render_regen_planar(
     spp: int,
     config: TraceConfig,
     tables: Optional[SceneTables] = None,
+    y0: int = 0,
+    n_rows: int = 0,
 ) -> torch.Tensor:
     """Mean radiance over ``spp`` samples per pixel as planar
-    f32[3, H, W]. Inference only. The frame is one wavefront: a
-    ``ray_chunk`` is refused rather than ignored. (The JAX function's
-    row band ``y0``, ``n_rows`` serves its sharded renderer, which is not
-    ported.)"""
+    f32[3, n_rows, W] for image rows [y0, y0+n_rows) (``n_rows=0``: the
+    whole frame). Inference only. The band is one wavefront: a
+    ``ray_chunk`` is refused rather than ignored. The row band serves
+    the sharded renderer (:func:`..parallel.sharded.sharded_regen_pass`):
+    lanes pin to the band's pixels, and every stream draws one value per
+    lane of the band, as in the JAX package."""
     if config.intersector not in WHOLE_SEGMENT:
         raise ValueError("regen rendering needs intersector='megakernel' or 'traverse', "
                          f"got {config.intersector!r}")
@@ -71,12 +75,14 @@ def render_regen_planar(
     if spp < 1:
         raise ValueError(f"spp must be at least 1, got {spp}")
     dev = camera.device
-    R = width * height
+    if not n_rows:
+        n_rows = height
+    R = width * n_rows
     if tables is None:
         tables = scene_tables(scene, config)
     lanes = torch.arange(R, device=dev)
     xs = lanes % width
-    ys = lanes // width
+    ys = lanes // width + y0
 
     def camera_rays(step):
         base = (1 << 30) if step == 0 else (1 << 30) + 2 * step
@@ -121,7 +127,7 @@ def render_regen_planar(
         tput = torch.where(rg, 1.0, ntput)
         res = torch.where(rg, 0.0, nres)
         step += 1
-    return accum.reshape(3, height, width) / float(spp)
+    return accum.reshape(3, n_rows, width) / float(spp)
 
 
 def render_regen_batch(

@@ -612,3 +612,251 @@ def _corner_soup(T, R, seed):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = p - 10.0 ** rng.uniform(3.5, 4.5, (R, 1)) * d
     return tri[:, 0], tri[:, 1], tri[:, 2], o, d
+
+
+# ------------------------------------------------------------ sharded paths
+# The sharded paths of parallel/sharded.py with every rank of a (n_rays,
+# n_spp) mesh in one process: the same keys, bands and order of sums, and
+# no collective. An all-reduce of two ranks gives the same bits in either
+# order, so against two ranks these emulations are bit-equal; against more,
+# the all-reduce may sum in another order.
+
+
+def _rank_total(scene, camera, key, ri, si, shape, *, width, height, spp, config, tables):
+    """Rank (ri, si)'s sum of its samples f32[H/n_rays, W, 3], from zero."""
+    import torch
+
+    from .ops.rng import fold_in
+    from .parallel.sharded import RANK_KEY_STRIDE
+    from .render.integrator import render_rows
+
+    rows, spp_local = height // shape[0], spp // shape[1]
+    dev_key = fold_in(key, ri * RANK_KEY_STRIDE + si)
+    total = torch.zeros(rows, width, 3, device=camera.device)
+    for s in range(spp_local):
+        total = total + render_rows(scene, camera, fold_in(dev_key, s), width, height,
+                                    ri * rows, rows, config, tables)
+    return total
+
+
+def emulate_sample_pass(scene, camera, key, shape, *, width, height, spp, config):
+    """``sharded_sample_pass`` of every rank of a ``shape = (n_rays,
+    n_spp)`` mesh, assembled into the frame f32[H, W, 3]: each band the
+    sum from zero of its spp ranks' totals, in rank order, over ``spp``.
+    Differentiable in the scene's fields under autograd."""
+    import torch
+
+    from .render.integrator import scene_tables
+
+    tables = scene_tables(scene, config)
+    kw = dict(width=width, height=height, spp=spp, config=config, tables=tables)
+    bands = []
+    for ri in range(shape[0]):
+        band = torch.zeros(height // shape[0], width, 3, device=camera.device)
+        for si in range(shape[1]):
+            band = band + _rank_total(scene, camera, key, ri, si, shape, **kw)
+        bands.append(band / spp)
+    return torch.cat(bands)
+
+
+def emulate_regen_pass(scene, camera, key, shape, *, width, height, spp, config):
+    """``sharded_regen_pass`` of every rank, assembled: f32[H, W, 3]."""
+    import torch
+
+    from .ops.rng import fold_in
+    from .parallel.sharded import RANK_KEY_STRIDE
+    from .render.integrator import scene_tables
+    from .render.regen import render_regen_planar
+
+    rows, spp_local = height // shape[0], spp // shape[1]
+    tables = scene_tables(scene, config)
+    bands = []
+    with torch.no_grad():
+        for ri in range(shape[0]):
+            band = torch.zeros(3, rows, width, device=camera.device)
+            for si in range(shape[1]):
+                img = render_regen_planar(scene, camera, fold_in(key, ri * RANK_KEY_STRIDE + si),
+                                          width, height, spp_local, config, tables,
+                                          y0=ri * rows, n_rows=rows)
+                band = band + img * spp_local
+            bands.append(band / spp)
+    return torch.cat(bands, dim=1).permute(1, 2, 0)
+
+
+def emulate_train_step(scene, camera, params, target, key, shape, *, width, height, spp,
+                       config, lr):
+    """``make_train_step``'s ``(new_params, loss)`` with every rank in one
+    process: each rank's gradient is the backward of its own band's term
+    through its own samples (the other spp ranks' totals enter its band
+    as constants), and the gradients are summed from zero in rank order."""
+    import torch
+
+    from .diff.grad import merge_params
+    from .render.integrator import scene_tables
+
+    rows = height // shape[0]
+    n = height * width * 3
+    kw = dict(width=width, height=height, spp=spp, config=config)
+    grads = {k: torch.zeros_like(v) for k, v in params.items()}
+    loss = torch.zeros((), device=camera.device)
+    for ri in range(shape[0]):
+        leaves, totals = [], []
+        for si in range(shape[1]):
+            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            s = merge_params(scene, p)
+            leaves.append(p)
+            totals.append(_rank_total(s, camera, key, ri, si, shape,
+                                      tables=scene_tables(s, config), **kw))
+        for si, p in enumerate(leaves):
+            band = torch.zeros(rows, width, 3, device=camera.device)
+            for sj, t in enumerate(totals):
+                band = band + (t if sj == si else t.detach())
+            sq = ((band / spp - target[ri * rows:(ri + 1) * rows]) ** 2).sum()
+            (sq / n).backward()
+            for k, v in p.items():
+                if v.grad is not None:
+                    grads[k] = grads[k] + v.grad
+        loss = loss + sq.detach()
+    with torch.no_grad():
+        new = {k: torch.clamp_min(params[k] - lr * grads[k], 0.0) for k in params}
+    return new, loss / n
+
+
+def reference_train_step(scene, camera, params, target, key, shape, *, width, height, spp,
+                         config, lr):
+    """``make_train_step``'s ``(new_params, loss)`` by plain autograd of
+    the frame's loss ``mean((img − target)²)`` over
+    :func:`emulate_sample_pass`, in one process: a reference for the
+    sharded gradient's scaling that shares none of its bookkeeping."""
+    import torch
+
+    from .diff.grad import merge_params, value_and_grad
+
+    def loss_fn(p, k):
+        img = emulate_sample_pass(merge_params(scene, p), camera, k, shape, width=width,
+                                  height=height, spp=spp, config=config)
+        return torch.mean((img - target) ** 2)
+
+    loss, grads = value_and_grad(loss_fn, params, key)
+    with torch.no_grad():
+        new = {k: torch.clamp_min(params[k] - lr * grads[k], 0.0) for k in params}
+    return new, loss
+
+
+def emulate_geom_step(scene, camera, tri_mask, theta, target, key, shape, *, width, height,
+                      spp, config, n_edge_samples, lr):
+    """``make_geom_train_step``'s ``(theta', loss)`` with every rank in one
+    process: the bands' squared residuals summed in rank order, and every
+    rank's probe estimate under its own key, summed from zero over the
+    number of ranks."""
+    import torch
+
+    import dataclasses
+
+    from .diff.boundary import boundary_grad_translation, translation_support
+    from .ops.rng import fold_in
+    from .parallel.sharded import PROBE_KEY_BASE, RANK_KEY_STRIDE
+
+    n_rays, n_spp = shape
+    rows, n = height // n_rays, height * width * 3
+    vmask, edges = translation_support(scene, tri_mask, camera.device)
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=camera.device)
+    with torch.no_grad():
+        s = dataclasses.replace(scene, vertices=scene.vertices + vmask * theta[None, :])
+        img = emulate_sample_pass(s, camera, key, shape, width=width, height=height,
+                                  spp=spp, config=config)
+        loss = torch.zeros((), device=camera.device)
+        for ri in range(n_rays):
+            band = slice(ri * rows, (ri + 1) * rows)
+            loss = loss + ((img[band] - target[band]) ** 2).sum()
+        image_grad = 2.0 * (img - target) / n
+        g = torch.zeros(3, device=camera.device)
+        for r in range(n_rays * n_spp):
+            probe_key = fold_in(key, PROBE_KEY_BASE + (r // n_spp) * RANK_KEY_STRIDE
+                                + r % n_spp)
+            g = g + boundary_grad_translation(
+                s, camera, edges, image_grad, probe_key, width=width, height=height,
+                config=config, n_samples=n_edge_samples // (n_rays * n_spp))
+        return theta - lr * (g / (n_rays * n_spp)), loss / n
+
+
+def sharded_cases(cases, device):
+    """Run on every rank of a :func:`..parallel.launch.run_ranks` world:
+    each case builds its mesh (``case["mesh"] = (n_rays, n_spp)``) and a
+    Cornell box (``case["scene"]``: ``cornell_box``'s keyword arguments)
+    at ``case["width"] x case["height"]`` on this rank's device, runs one
+    sharded path (``case["kind"]``) under ``make_key(case["seed"])`` with
+    ``TraceConfig(**case["config"])`` and returns its outputs, frames
+    gathered whole:
+
+    - ``"sample"``, ``"regen"``: the frame of one pass of ``spp`` samples;
+    - ``"progressive"``: ``{"color", "weight"}`` of the gathered film
+      after one step per seed of ``case["seeds"]``;
+    - ``"train"``: ``{"loss", "params"}`` after one step from the scene's
+      ``case["fields"]`` (``mat_kd`` scaled by ``case["kd_scale"]``)
+      towards ``case["target"]`` at ``case["lr"]``;
+    - ``"geom"``: ``{"loss", "theta"}`` after one geometry step on the
+      lamp (:func:`..diff.boundary.lamp_mask`) from ``case["theta"]``;
+    - ``"recover"``: ``{"theta", "losses"}`` after ``case["steps"]``
+      geometry steps under keys ``seed + i``, of which only θ's x
+      component is kept, as ``tests/test_parallel.py`` does.
+
+    Tensors come back as numpy arrays."""
+    import torch
+
+    from .diff.boundary import lamp_mask
+    from .diff.grad import split_params
+    from .models import cornell
+    from .ops.rng import make_key
+    from .parallel import sharded as SH
+    from .parallel.launch import to_host
+    from .parallel.mesh import make_mesh
+    from .render.film import Film
+    from .render.integrator import TraceConfig
+
+    results = []
+    for c in cases:
+        mesh = make_mesh(*c["mesh"], device=device)
+        w, h, spp = c["width"], c["height"], c["spp"]
+        scene, camera = cornell.cornell_box(width=w, height=h, device=mesh.device,
+                                            **c.get("scene", {}))
+        config = TraceConfig(**c["config"])
+        kw = dict(width=w, height=h, spp=spp, config=config)
+        key = make_key(c["seed"])
+        kind = c["kind"]
+        if kind == "sample":
+            out = SH.gather_film(mesh, SH.sharded_sample_pass(mesh, **kw)(scene, camera, key))
+        elif kind == "regen":
+            out = SH.gather_film(mesh, SH.sharded_regen_pass(mesh, **kw)(scene, camera, key))
+        elif kind == "progressive":
+            step = SH.make_progressive_step(mesh, **kw)
+            film = Film.zeros(SH.film_band(mesh, h)[1], w, mesh.device)
+            for seed in c["seeds"]:
+                film = step(scene, camera, film, make_key(seed))
+            out = {"color": SH.gather_film(mesh, film.color), "weight": film.weight}
+        elif kind == "train":
+            params = split_params(scene, tuple(c["fields"]))
+            params["mat_kd"] = params["mat_kd"] * c["kd_scale"]
+            step = SH.make_train_step(mesh, scene, camera, lr=c["lr"], **kw)
+            target = torch.as_tensor(c["target"], device=mesh.device)
+            new, loss = step(params, target, key)
+            out = {"loss": loss, "params": new}
+        elif kind in ("geom", "recover"):
+            step = SH.make_geom_train_step(mesh, scene, camera, lamp_mask(scene),
+                                           n_edge_samples=c["n_edge"], lr=c["lr"], **kw)
+            target = torch.as_tensor(c["target"], device=mesh.device)
+            theta = torch.tensor(c["theta"], dtype=torch.float32, device=mesh.device)
+            if kind == "geom":
+                theta, loss = step(theta, target, key)
+                out = {"loss": loss, "theta": theta}
+            else:
+                losses = []
+                for i in range(c["steps"]):
+                    new, loss = step(theta, target, make_key(c["seed"] + i))
+                    theta[0] = new[0]
+                    losses.append(float(loss))
+                out = {"theta": theta, "losses": losses}
+        else:
+            raise ValueError(f"unknown case kind {kind!r}")
+        results.append(to_host(out))
+    return results

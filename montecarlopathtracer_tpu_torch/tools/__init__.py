@@ -4,7 +4,10 @@
 - :mod:`.kernel_bench`: the selection entries B8-B10 timed on the Cornell
   box and the bunny (``tools/kernel_bench.py``);
 - :mod:`.kernel_micro`: the selection-step microkernels B12-B14 timed
-  (``tools/kernel_micro.py``).
+  (``tools/kernel_micro.py``);
+- :mod:`.scaling_bench`: the sharded pass timed over worlds of 1, 2, 4
+  and 8 ranks (``tools/scaling_bench.py``; it writes
+  ``out/scaling_torch.json``, never ``SCALING.json``).
 
 The intersector gate of ``tools/tpu_check.py`` is part of
 ``chip_smoke.py``.

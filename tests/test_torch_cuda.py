@@ -19,6 +19,7 @@ import torch
 
 from montecarlopathtracer_tpu_torch.diff import grad as G
 from montecarlopathtracer_tpu_torch.models import bunny, cornell, glossy
+from montecarlopathtracer_tpu_torch.ops import cuda_build
 from montecarlopathtracer_tpu_torch.ops import cull as CU
 from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
@@ -1137,3 +1138,133 @@ def test_kdtree_render_on_card_matches_cpu(card):
     want = render_sample_batch(scene.to("cpu"), camera.to("cpu"), make_key(2), 64, 48, config)
     rep = compare_images(got, want)
     assert rep["ok"], rep
+
+
+SHARDED_KERNELS = ("segment_fused", "segment_backward", "scatter_rows", "rng")
+
+
+def test_sharded_paths_at_world_size_one_under_nccl_on_card(card, tmp_path):
+    """A real NCCL process group of one rank in this process: the sharded
+    pass, train step and regen pass bit-equal to their single-process
+    emulations, through the kernels."""
+    import torch.distributed as dist
+
+    from montecarlopathtracer_tpu_torch import testing as T
+    from montecarlopathtracer_tpu_torch.parallel import distributed, make_mesh
+    from montecarlopathtracer_tpu_torch.parallel import sharded as SH
+
+    scene, camera, _ = card
+    cfg, rcfg = TraceConfig(max_depth=3), TraceConfig(mode="rr", rr_depth=2, illum=1.0)
+    kw = dict(width=64, height=48, spp=2)
+    distributed.ensure_initialized(init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        assert (mesh.backend, mesh.device.type) == ("nccl", "cuda")
+        before = F.mega_segment.launches
+        with torch.no_grad():
+            got = SH.sharded_sample_pass(mesh, config=cfg, **kw)(scene, camera, make_key(4))
+            assert F.mega_segment.launches == before + 2 * cfg.num_segments
+            want = T.emulate_sample_pass(scene, camera, make_key(4), (1, 1), config=cfg, **kw)
+        assert torch.equal(got, want)
+        got = SH.sharded_regen_pass(mesh, config=rcfg, **kw)(scene, camera, make_key(5))
+        assert torch.equal(got, T.emulate_regen_pass(scene, camera, make_key(5), (1, 1),
+                                                     config=rcfg, **kw))
+        params = G.split_params(scene, ("mat_kd", "mat_ka"))
+        target = torch.zeros(48, 64, 3, device="cuda")
+        new, loss = SH.make_train_step(mesh, scene, camera, config=cfg, **kw)(
+            params, target, make_key(6))
+        wnew, wloss = T.emulate_train_step(scene, camera, params, target, make_key(6), (1, 1),
+                                           config=cfg, lr=0.5, **kw)
+        assert torch.equal(loss, wloss) and all(torch.equal(new[k], wnew[k]) for k in new)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_graft_entry_renders_on_card(card):
+    """``graft_entry.entry()``: one forward pass of the flagship scene at
+    128×128, fixed depth 7, through B1 on the card."""
+    from montecarlopathtracer_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    before = F.mega_segment.launches
+    with torch.no_grad():
+        img = fn(*args)
+    torch.cuda.synchronize()
+    assert tuple(img.shape) == (128, 128, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0 and F.mega_segment.launches == before + 8
+
+
+def test_two_gloo_ranks_share_the_card(card):
+    """Two ranks spawned on cuda:0 with gloo (NCCL refuses two ranks on one
+    device): frames gathered from meshes (2,1) and (1,2) and a train step
+    at (2,1), bit-equal to the emulation of the two ranks."""
+    import numpy as np
+
+    from montecarlopathtracer_tpu_torch import testing as T
+    from montecarlopathtracer_tpu_torch.parallel.launch import run_ranks
+
+    scene, camera, _ = card
+    target = np.zeros((48, 64, 3), np.float32)
+    base = dict(width=64, height=48, spp=2, config=dict(max_depth=3), seed=7,
+                scene=dict(with_mirror_sphere=True, with_glass_sphere=True))
+    cases = [dict(base, kind="sample", mesh=(2, 1)), dict(base, kind="sample", mesh=(1, 2)),
+             dict(base, kind="train", mesh=(2, 1), fields=("mat_kd", "mat_ka"), kd_scale=0.5,
+                  target=target, lr=0.5)]
+    cuda_build.build_all(SHARDED_KERNELS)  # here, so that no two ranks run nvcc
+    ranks = run_ranks(T.sharded_cases, 2, (cases, "cuda"), backend="gloo", timeout=300)
+    kw = dict(width=64, height=48, spp=2, config=TraceConfig(max_depth=3))
+    for i, mesh in enumerate([(2, 1), (1, 2)]):
+        with torch.no_grad():
+            want = T.emulate_sample_pass(scene, camera, make_key(7), mesh, **kw).cpu().numpy()
+        assert all(np.array_equal(r[i], want) for r in ranks)
+    params = G.split_params(scene, ("mat_kd", "mat_ka"))
+    params["mat_kd"] = params["mat_kd"] * 0.5
+    new, loss = T.emulate_train_step(scene, camera, params, torch.as_tensor(target).cuda(),
+                                     make_key(7), (2, 1), lr=0.5, **kw)
+    for r in ranks:
+        assert np.array_equal(r[2]["loss"], loss.cpu().numpy())
+        assert all(np.array_equal(r[2]["params"][k], new[k].cpu().numpy()) for k in new)
+
+
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2), (1, 4)], ids=["4x1", "2x2", "1x4"])
+def test_sharded_paths_on_four_cards_under_nccl(card, mesh):
+    """One rank per card under NCCL, the default, where the host has four
+    cards: the gathered frame, regen frame and a train step against the
+    emulation of the four ranks, to 1e-6 (an all-reduce of four ranks may
+    sum in another order than the emulation's)."""
+    import numpy as np
+
+    from montecarlopathtracer_tpu_torch import testing as T
+    from montecarlopathtracer_tpu_torch.parallel.launch import run_ranks
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    scene, camera, _ = card
+    target = np.zeros((48, 64, 3), np.float32)
+    base = dict(width=64, height=48, spp=4, config=dict(max_depth=3), seed=8, mesh=mesh,
+                scene=dict(with_mirror_sphere=True, with_glass_sphere=True))
+    rcfg = dict(mode="rr", rr_depth=2, illum=1.0)
+    cases = [dict(base, kind="sample"), dict(base, kind="regen", config=rcfg),
+             dict(base, kind="train", fields=("mat_kd", "mat_ka"), kd_scale=0.5,
+                  target=target, lr=0.5)]
+    cuda_build.build_all(SHARDED_KERNELS)  # here, so that no two ranks run nvcc
+    ranks = run_ranks(T.sharded_cases, 4, (cases, "cuda"), timeout=300)
+    kw = dict(width=64, height=48, spp=4)
+    with torch.no_grad():
+        frames = [T.emulate_sample_pass(scene, camera, make_key(8), mesh,
+                                        config=TraceConfig(max_depth=3), **kw),
+                  T.emulate_regen_pass(scene, camera, make_key(8), mesh,
+                                       config=TraceConfig(**rcfg), **kw)]
+    for i, want in enumerate(frames):
+        for r in ranks:
+            np.testing.assert_allclose(r[i], want.cpu().numpy(), rtol=0, atol=1e-6)
+    params = G.split_params(scene, ("mat_kd", "mat_ka"))
+    params["mat_kd"] = params["mat_kd"] * 0.5
+    new, loss = T.emulate_train_step(scene, camera, params, torch.as_tensor(target).cuda(),
+                                     make_key(8), mesh, lr=0.5, config=TraceConfig(max_depth=3),
+                                     **kw)
+    for r in ranks:
+        np.testing.assert_allclose(r[2]["loss"], loss.cpu().numpy(), rtol=1e-6)
+        rep = compare_param_grads({k: v.cpu().numpy() for k, v in new.items()},
+                                  r[2]["params"], 1e-6)
+        assert rep["ok"], rep
