@@ -143,13 +143,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
     two timed passes, B1c launches (and one records build B4r), a profile
     of one pass (device-busy share); one sample against the render
     without culling; then one pass of the same path split (B4c);
-28. the split path: Renderer on the Cornell box, 800x600,
-    whole_segment=False, 4 spp/pass, B4 launches, its film against the
-    whole-segment film of the same passes; one pass of the fused
-    intersector (B7);
-29. the split-path gradient: value and grad at 800x600, 2 spp, {mat_kd,
-    mat_ka, vertices}, B4 and B3 launches, against the whole-segment
-    gradient of the same key;
+28. the split path against the whole segment (tools/wseg_check.py::forward,
+    the check of the wseg_check twin): Renderer on the Cornell box,
+    800x600, 4 spp/pass, whole_segment=False then True over the same
+    passes, B4 and B1 launches, the two films compared; one pass of the
+    fused intersector (B7);
+29. the split-path gradient (tools/wseg_check.py::gradient): value and
+    grad at 800x600, 2 spp, {mat_kd, mat_ka, vertices}, through the split
+    path and the whole segment on the same keys, B4, B1, B2 and B3
+    launches, the gradients compared;
 30. the geometry step (BASELINE config 5): make_translation_problem on
     the Cornell lamp at 800x600, fixed depth 2, 2 spp, 4096 edge samples,
     split path: loss and gradient finite, the gradient against a central
@@ -216,6 +218,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
     frames, loss and parameters bit-equal to the parent's emulation of
     the two ranks. One card cannot measure scaling.
 
+37. the bench twin (python -m montecarlopathtracer_tpu_torch.bench) at full
+    size in this process: its one JSON line printed beside the card's
+    name and power limit, every key of bench.py's line present and
+    finite, the launches of B1, B2, B3 (forward and fwd+bwd) and of B1l
+    and RNG (regen: phase 16's three passes on the same keys) exactly as
+    counted; then under BENCH_INTERSECTOR=brute at 160x120, which must
+    run to its end without rr_regen_msamples_s (ROADMAP C1);
+38. the suite twin (tools/bench_suite.py --quick), every row, in a
+    temporary directory: every row OK, each path's kernel launched, the
+    rows printed; the kernels' JSON line
+    carries each kernel's launches summed over the rows
+    (``launches_suite``) and in phase 37 (``launches_bench``);
+39. the CLI's automatic choices: cli.main with the defaults on
+    cornell-full, glossy and bunny at 64x48, its printed choices equal to
+    cli.resolve_choices of the scene's triangle count, and the chosen
+    kernel launched; then the bunny's 1024x1024 traverse pass with and
+    without the wavefront sort, in turns (the rows behind the
+    ``--ray-sort auto`` rule for the walk);
+40. the NaN guard: every output of every segment finite on the Cornell
+    800x600 camera wavefront in fixed and RR mode (B1 and the draws), the
+    160x120 value and gradient under torch.autograd.detect_anomaly, and
+    one 1024x1024 traverse pass of bunny_scene(glossy=True) with a
+    finite, non-black film.
+
 A kernel's device time per launch comes from CUDA events around 20
 back-to-back calls queued behind a torch.cuda._sleep, so that the card,
 not the host, sets their pace (median of three such spans, over 20); the
@@ -232,6 +258,8 @@ Prints one JSON line of per-kernel numbers, then as the last line
 Imports nothing of JAX.
 """
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -638,70 +666,16 @@ def whole_frame(torch, scene):
 
 
 def reset_counts():
-    from montecarlopathtracer_tpu_torch.ops import cull as CU
-    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
-    from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
-    from montecarlopathtracer_tpu_torch.ops import rng as RNG
-    from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
-    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
-    from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
-    from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
+    from montecarlopathtracer_tpu_torch.utils.profiling import reset_launches
 
-    CU.cull_records.launches = RNG.stream_uniforms.launches = 0
-    F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
-    F.mega_segment.lane_launches = F.mega_segment.cull_launches = 0
-    F.rows_segment.launches = F.rows_segment.lane_launches = 0
-    TW.traverse_select.launches = TW.walk_tables.launches = NS.nearest_triangle.launches = 0
-    NS.nearest_shade_full.launches = NS.nearest_shade_full.cull_launches = 0
-    NV.nearest_shade.launches = NV.nearest_shade2.launches = NV.nearest_shade_culled.launches = 0
-    NV.nearest_shade_streamed.launches = NV.nearest_shade_streamed.cull_launches = 0
-    SM.selection_micro.launches = dict.fromkeys(SM.VARIANTS, 0)
-    SM.epilogue_only.launches = SM.epilogue_shared.launches = 0
-
-
-class Counts(dict):
-    """Launch counts of every kernel; printed with the kernels that
-    launched only."""
-
-    def __repr__(self):
-        return repr({k: v for k, v in self.items() if v})
+    reset_launches()
 
 
 def read_all_counts():
-    """Launches of every kernel: B1 apart from its per-lane-flag form B1l
-    and its culling form B1c (no path here runs both at once), B4 apart
-    from B4c, B5's tables (B5t, one count per build) apart from B5, B6
-    apart from B6l; the entries B8-B11 (each also counted under B4 or
-    B4c, which it launches), B10 apart from B10c; B12 per variant, B13,
-    B14; the culled loop's records (B4r, one count per build); the
-    uniform draws (RNG, rng.cu, one count per draw of 1-4 streams)."""
-    from montecarlopathtracer_tpu_torch.ops import cull as CU
-    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
-    from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
-    from montecarlopathtracer_tpu_torch.ops import rng as RNG
-    from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
-    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
-    from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
-    from montecarlopathtracer_tpu_torch.ops import traverse_walk as TW
+    """Launches of every kernel (utils/profiling.py::launches)."""
+    from montecarlopathtracer_tpu_torch.utils.profiling import launches
 
-    B1 = F.mega_segment
-    B10 = NV.nearest_shade_streamed
-    return Counts({
-        "B8": NV.nearest_shade.launches, "B9": NV.nearest_shade2.launches,
-        "B10": B10.launches - B10.cull_launches, "B10c": B10.cull_launches,
-        "B11": NV.nearest_shade_culled.launches,
-        **{f"B12 {v}": n for v, n in SM.selection_micro.launches.items()},
-        "B13": SM.epilogue_only.launches, "B14": SM.epilogue_shared.launches,
-        "B1": B1.launches - B1.lane_launches - B1.cull_launches,
-        "B1l": B1.lane_launches, "B1c": B1.cull_launches,
-        "B2": F.segment_backward.launches, "B3": S.scatter_rows.launches,
-        "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
-        "B4c": NS.nearest_shade_full.cull_launches, "B4r": CU.cull_records.launches,
-        "B5": TW.traverse_select.launches, "B5t": TW.walk_tables.launches,
-        "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
-        "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches,
-        "RNG": RNG.stream_uniforms.launches,
-    })
+    return launches()
 
 
 def grad_builds(libs):
@@ -2445,43 +2419,35 @@ def cull_main_path(torch, scene, camera, config):
 
 
 def split_main_path(torch, scene, camera):
-    phase(f"28. split path: Renderer Cornell {W}x{H}, whole_segment=False, {SPP} spp/pass; "
-          "then one pass of the fused intersector")
+    phase(f"28. split path against the whole segment (tools/wseg_check.py::forward): Renderer "
+          f"Cornell {W}x{H}, {SPP} spp/pass, whole_segment=False then True; then one pass "
+          "of the fused intersector")
     import numpy as np
 
     from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
     from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
-    from montecarlopathtracer_tpu_torch.testing import compare_images
+    from montecarlopathtracer_tpu_torch.tools import wseg_check
 
-    settings = RenderSettings(width=W, height=H, spp_per_pass=SPP, seed=0)
     config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0, whole_segment=False)
-    r = Renderer(scene, camera, config, settings, device="cuda")
     reset_counts()
-    t0 = time.perf_counter()
-    r.render(1)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    r.render(SPLIT_TIMED)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    rep = wseg_check.forward(scene, camera, width=W, height=H, spp=SPP, passes=SPLIT_TIMED,
+                             device="cuda")
     counts = read_all_counts()
-    msps = W * H * SPP * SPLIT_TIMED / dt / 1e6
+    split, whole, film = rep["split"], rep["whole_segment"], rep["film"]
+    msps, dt = split["msamples_s"], split["seconds_per_pass"] * SPLIT_TIMED
     want = config.num_segments * SPP * (1 + SPLIT_TIMED)
-    print(f"warm-up pass {warm:.3f} s; {SPLIT_TIMED} timed passes {dt:.3f} s = "
-          f"{dt / SPLIT_TIMED:.4f} s/pass, split forward {msps:.4f} Msamples/s")
-    print(f"launches: {counts} (expected {want} of B4 and no segment kernel)")
-    check(counts["B4"] == want and counts["B1"] == counts["B4c"] == 0, f"launches {counts}")
-    img = r.film.color
-    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0, "split film")
-    whole = Renderer(scene, camera, TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0),
-                     settings, device="cuda")
-    whole.render(1 + SPLIT_TIMED)
-    rep = compare_images(img, whole.film.color)
-    print(f"film against the whole-segment film of the same passes: pixels within 1e-4 "
-          f"{rep['pixel_share']:.5f}, max |err| {rep['max_abs_err']:.3e}, mean rel "
-          f"{rep['mean_rel']:.2e}")
+    print(f"split: warm-up pass {split['warmup_s']:.3f} s; {SPLIT_TIMED} timed passes "
+          f"{dt:.3f} s = {split['seconds_per_pass']:.4f} s/pass, split forward {msps:.4f} "
+          f"Msamples/s; whole segment {whole['seconds_per_pass']:.4f} s/pass")
+    print(f"launches: {counts} (expected {want} of B4 for the split path, {want} of B1 for "
+          "the whole segment, no B4c)")
+    check(counts["B4"] == want and counts["B1"] == want and counts["B4c"] == 0,
+          f"launches {counts}")
+    print(f"split film against the whole-segment film of the same passes: pixels within "
+          f"1e-4 {film['pixel_share']:.5f}, max |err| {film['max_abs_err']:.3e}, mean rel "
+          f"{film['mean_rel']:.2e}, split film mean {split['film_mean']:.5f}")
     check(rep["ok"], f"the split film disagrees with the whole-segment film: {rep}")
+    settings = RenderSettings(width=W, height=H, spp_per_pass=SPP, seed=0)
     fused = Renderer(scene, camera, TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0,
                                                 intersector="fused"), settings, device="cuda")
     fused.render(1)
@@ -2501,43 +2467,32 @@ def split_main_path(torch, scene, camera):
 
 
 def split_grad(torch, scene, camera):
-    phase(f"29. split-path gradient: value and grad, {W}x{H}, {GRAD_SPP} spp, against the "
-          "whole-segment gradient of the same key")
-    from montecarlopathtracer_tpu_torch.diff import grad as G
-    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    phase(f"29. split-path gradient against the whole segment's (tools/wseg_check.py::"
+          f"gradient): value and grad, {W}x{H}, {GRAD_SPP} spp, one warm-up and one timed "
+          "iteration each, the same keys")
     from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
-    from montecarlopathtracer_tpu_torch.testing import compare_param_grads
+    from montecarlopathtracer_tpu_torch.tools import wseg_check
 
-    fields = ("mat_kd", "mat_ka", "vertices")
-    target = torch.zeros(H, W, 3, device="cuda")
     config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0, whole_segment=False)
-    loss_fn = G.make_loss_fn(scene, camera, target, width=W, height=H, spp=GRAD_SPP,
-                             config=config)
-    params = G.split_params(scene, fields)
-    G.value_and_grad(loss_fn, params, make_key(29))
-    torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    loss, grads = G.value_and_grad(loss_fn, params, make_key(29))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    rep = wseg_check.gradient(scene, camera, width=W, height=H, spp=GRAD_SPP, iters=1,
+                              device="cuda")
     counts = read_all_counts()
-    want = config.num_segments * GRAD_SPP
-    print(f"one iteration {dt:.4f} s, split fwd+bwd {W * H * GRAD_SPP / dt / 1e6:.4f} "
-          f"Msamples/s (loss {float(loss):.6f}); launches {counts} (expected {want} of B4 "
-          "and of B3)")
-    check(counts["B4"] == want and counts["B3"] == want and counts["B2"] == 0,
-          f"split gradient launches {counts}")
-    whole = G.make_loss_fn(scene, camera, target, width=W, height=H, spp=GRAD_SPP,
-                           config=TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0))
-    wloss, wgrads = G.value_and_grad(whole, params, make_key(29))
-    rep = compare_param_grads(wgrads, grads, 1e-4)
-    print(f"loss {float(loss):.7f} vs whole {float(wloss):.7f}; "
+    split, whole = rep["grad_split"], rep["grad_whole"]
+    dt = split["seconds_per_iteration"]
+    want = config.num_segments * GRAD_SPP * 2
+    print(f"one iteration {dt:.4f} s, split fwd+bwd {split['msamples_s']:.4f} Msamples/s "
+          f"(loss {split['loss']:.6f}); whole segment {whole['seconds_per_iteration']:.4f} s; "
+          f"launches {counts} (expected {want} of B4, of B1 and of B2, {2 * want} of B3)")
+    check(counts["B4"] == want and counts["B1"] == want and counts["B2"] == want
+          and counts["B3"] == 2 * want, f"split gradient launches {counts}")
+    g = rep["grads"]
+    print(f"loss {split['loss']:.7f} vs whole {whole['loss']:.7f}; "
           + " ".join(f"{k} max |err| {v['max_abs_err']:.3e} of {v['scale']:.3e}"
-                     for k, v in rep.items() if k != "ok")
-          + " (tolerance 1e-4 x (|ref| + max |ref|))")
-    check(rep["ok"] and abs(float(loss) - float(wloss)) <= 1e-5 * abs(float(wloss)),
-          f"split-path gradients disagree with the whole segment's: {rep}")
+                     for k, v in g.items() if k != "ok")
+          + f" (tolerance {wseg_check.GRAD_TOL:g} x (|ref| + max |ref|), loss "
+          f"{wseg_check.LOSS_RTOL:g})")
+    check(rep["ok"], f"split-path gradients disagree with the whole segment's: {rep}")
     return counts, dt
 
 
@@ -3462,6 +3417,217 @@ def two_ranks_one_card(torch, scene, camera, smi, config, w, h, dev):
 
 
 
+# ------------------------------------------------ the last slice's entry points (PR 13)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "fwd_msamples_s", "warmup_s",
+              "rr_regen_msamples_s", "fwdbwd_msamples_s", "fwdbwd_mray_segments_s")
+AUTO_SCENES = ("cornell-full", "glossy", "bunny")
+AUTO_W, AUTO_H = 64, 48
+
+
+@contextlib.contextmanager
+def bench_env(**env):
+    """os.environ with every BENCH_* variable removed, then ``env`` set."""
+    saved = dict(os.environ)
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        del os.environ[k]
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def run_bench(**env):
+    """The bench twin in this process; its one stdout line, parsed."""
+    from montecarlopathtracer_tpu_torch import bench
+
+    out = io.StringIO()
+    with bench_env(**env), contextlib.redirect_stdout(out):
+        rc = bench.main()
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"bench twin: rc {rc}, stdout {out.getvalue()!r}")
+    return json.loads(lines[0])
+
+
+def bench_twin(torch, smi, regen_counts):
+    phase("37. the bench twin (python -m montecarlopathtracer_tpu_torch.bench) at full size: "
+          f"Cornell {W}x{H}, fixed depth {DEPTH} + gather, megakernel whole segment; then "
+          "under BENCH_INTERSECTOR=brute at 160x120")
+    import math
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = run_bench()
+    wall = time.perf_counter() - t0
+    counts = read_all_counts()
+    print(json.dumps(rec))
+    print(smi)
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    check(not missing and set(rec) == set(BENCH_KEYS), f"bench line keys: missing {missing}")
+    # warmup_s is 0.0 here: this process built the kernels in phase 2.
+    check(rec["metric"] == "cornell_800x600_depth7_brute_samples_throughput"
+          and rec["unit"] == "Msamples/s" and math.isfinite(rec["warmup_s"])
+          and rec["warmup_s"] >= 0 and all(math.isfinite(rec[k]) and rec[k] > 0
+                                           for k in BENCH_KEYS[1:] if k not in ("unit", "warmup_s")),
+          f"bench line values: {rec}")
+    seg = DEPTH + 1
+    want = {"B1": seg * SPP * (1 + 4) + seg * GRAD_SPP * (1 + 3), "B2": seg * GRAD_SPP * 4,
+            "B3": seg * GRAD_SPP * 4, "B1l": regen_counts["B1l"],
+            "RNG": (1 + seg) * SPP * 5 + (1 + seg) * GRAD_SPP * 4 + regen_counts["RNG"]}
+    print(f"{wall:.1f} s; launches {counts}; expected {want} (B1: {SPP} spp x {seg} segments "
+          f"a pass over 1 + 4 passes, then {GRAD_SPP} spp x {seg} over 1 + 3 iterations; "
+          "B1l and RNG of regen: phase 16's three passes, the same keys)")
+    check(all(counts[k] == v for k, v in want.items()), f"bench launches {counts}")
+    brute = run_bench(BENCH_INTERSECTOR="brute", BENCH_WIDTH=160, BENCH_HEIGHT=120)
+    print(json.dumps(brute))
+    check("rr_regen_msamples_s" not in brute and brute["value"] > 0,
+          f"BENCH_INTERSECTOR=brute: {brute}")
+    print("BENCH_INTERSECTOR=brute ran to its end without rr_regen_msamples_s (C1)")
+    return rec, counts
+
+
+def suite_twin(torch):
+    phase("38. the suite twin (tools/bench_suite.py --quick): every row, in a temporary "
+          "directory")
+    import tempfile
+
+    from montecarlopathtracer_tpu_torch.tools import bench_suite
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = bench_suite.main(["--quick"])
+            with open(bench_suite.OUT) as f:
+                rows = json.load(f)["results"]
+        finally:
+            os.chdir(cwd)
+    total = {}
+    for r in rows:
+        print(json.dumps(r))
+        for k, v in r.get("launches", {}).items():
+            total[k] = total.get(k, 0) + v
+    want = [row[0] for row in bench_suite.plan(quick=True, kdtree=True)] + ["bunny_grad_fwdbwd"]
+    check(rc == 0 and [r["config"] for r in rows] == want
+          and not any("error" in r for r in rows), f"suite rc {rc}, rows {rows}")
+    launched = {r["config"]: r["launches"] for r in rows}
+    for row, kernel in (("scene1_megakernel", "B1"), ("scene1_split_segment", "B4"),
+                        ("glossy_cull", "B1c"), ("bunny_traverse", "B5"),
+                        ("bunny_traverse", "B6"), ("scene1_rr_regen", "B1l"),
+                        ("bunny_grad_fwdbwd", "B2"), ("bunny_grad_fwdbwd", "B3"),
+                        ("bunny_grad_fwdbwd", "B5t")):
+        check(launched[row].get(kernel, 0) > 0, f"suite row {row} launched no {kernel}")
+    print(f"{len(rows)} rows OK in {time.perf_counter() - t0:.1f} s; timed launches summed "
+          f"over the rows: {total}")
+    return total
+
+
+def auto_choices(torch, smi):
+    phase(f"39. the CLI's automatic choices on the card: cli.main with the defaults on "
+          f"{', '.join(AUTO_SCENES)} at {AUTO_W}x{AUTO_H}, 1 spp; then the bunny's walk with "
+          "and without the sort, in turns")
+    import tempfile
+
+    from montecarlopathtracer_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in AUTO_SCENES:
+            err = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["--scene", name, "--width", str(AUTO_W), "--height",
+                               str(AUTO_H), "--spp-per-pass", "1", "--passes", "1",
+                               "--out", os.path.join(tmp, f"{name}.png")])
+            counts = read_all_counts()
+            got = [json.loads(line) for line in err.getvalue().splitlines()
+                   if line.startswith('{"choices"')]
+            check(rc == 0 and len(got) == 1, f"cli {name}: rc {rc}, {err.getvalue()}")
+            want = cli.resolve_choices(got[0]["triangles"], mode="fixed", spp_per_pass=1)
+            ran = ("B5" if want["intersector"] == "traverse"
+                   else "B1c" if want["chunk_cull"] else "B1")
+            print(f"{name}: {got[0]['triangles']} triangles -> {got[0]['choices']}; "
+                  f"launches {counts}")
+            check(got[0]["choices"] == want, f"cli {name} resolved {got[0]}, table {want}")
+            check(counts[ran] > 0, f"cli {name}: no {ran} launch ({counts})")
+    from montecarlopathtracer_tpu_torch.models import bunny
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+    from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+
+    scene, camera = bunny.bunny_scene(subdiv=6, width=BW, height=BH, device="cuda")
+    settings = RenderSettings(width=BW, height=BH, spp_per_pass=1, seed=0)
+    rs = {sort: Renderer(scene, camera, TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0,
+                                                    intersector="traverse", ray_sort=sort),
+                         settings, device="cuda") for sort in (True, False)}
+    times = {True: [], False: []}
+    for sort in (True, False, False, True, True, False):
+        rs[sort].render(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs[sort].render(1)
+        torch.cuda.synchronize()
+        times[sort].append(time.perf_counter() - t0)
+    print(f"bunny {BW}x{BH} traverse pass, 1 spp: sorted {[round(t * 1e3, 2) for t in times[True]]}"
+          f" ms, unsorted {[round(t * 1e3, 2) for t in times[False]]} ms; {smi}")
+    return times
+
+
+def nan_guard(torch):
+    phase(f"40. the NaN guard on the card: per-segment outputs finite at {W}x{H}, fixed and "
+          f"RR; the 160x120 gradient under detect_anomaly; one {BW}x{BH} traverse pass of "
+          "the glossy bunny")
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.models import bunny, cornell
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key, stream_uniforms
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+    from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+
+    scene, camera = cornell.cornell_box(with_mirror_sphere=True, with_glass_sphere=True,
+                                        width=W, height=H, device="cuda")
+    rows = F.pack_rows_full(scene)
+    for config in (TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0),
+                   TraceConfig(mode="rr", rr_depth=5, illum=1.0)):
+        key = fold_in(fold_in(make_key(40), 0), 0)
+        pos, dir_, tput, res, live = camera_wavefront(torch, camera, W, H, key)
+        flags = config.segment_flags("cuda")
+        for seg in range(config.num_segments):
+            u1, u2, urr = stream_uniforms(key, (4 * seg, 4 * seg + 1, 4 * seg + 2), W * H, "cuda")
+            out = F.mega_segment(rows, pos, dir_, tput, res, live, u1, u2, urr, flags[seg])
+            _, pos, dir_, tput, res, still = out
+            bad = [n for n, t in zip(("pos", "dir", "tput", "res", "still"), out[1:])
+                   if not bool(torch.isfinite(t).all())]
+            check(not bad, f"{config.mode} segment {seg}: non-finite {bad}")
+            live = still > 0.0
+        print(f"{config.mode}: {config.num_segments} segments, every output finite; "
+              f"{int(live.sum())} lanes live at the end, radiance mean {float(res.mean()):.5f}")
+    w, h = 160, 120
+    small, cam = cornell.cornell_box(with_mirror_sphere=True, with_glass_sphere=True,
+                                     width=w, height=h, device="cuda")
+    loss_fn = G.make_loss_fn(small, cam, torch.zeros(h, w, 3, device="cuda"), width=w,
+                             height=h, spp=1, config=TraceConfig(mode="fixed", max_depth=DEPTH))
+    with torch.autograd.detect_anomaly(check_nan=True):
+        loss, grads = G.value_and_grad(
+            loss_fn, G.split_params(small, ("mat_kd", "mat_ka", "vertices")), make_key(41))
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()), "non-finite gradients")
+    print(f"gradient at {w}x{h}: loss {float(loss):.6f}, every gradient finite under "
+          "detect_anomaly")
+    gscene, gcam = bunny.bunny_scene(subdiv=6, width=BW, height=BH, glossy=True, device="cuda")
+    r = Renderer(gscene, gcam, TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0,
+                                           intersector="traverse", ray_sort=True),
+                 RenderSettings(width=BW, height=BH, spp_per_pass=1, seed=0), device="cuda")
+    t0 = time.perf_counter()
+    r.render(1)
+    torch.cuda.synchronize()
+    img = r.film.color
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0, "glossy bunny film")
+    print(f"glossy bunny pass {time.perf_counter() - t0:.3f} s (kernels built), film mean "
+          f"{float(img.mean()):.5f}, finite")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: FAIL: {PKG} is not beside this script", file=sys.stderr)
@@ -3548,6 +3714,10 @@ def main():
             tool_twins(torch)
         walk_ms, kd_pass = kdtree_main_path(torch, scene, camera, bounce)
         shard = sharded_paths(torch, scene, camera, smi)
+        bench_rec, twin_counts = bench_twin(torch, smi, regen_counts)
+        suite_counts = suite_twin(torch)
+        auto_choices(torch, smi)
+        nan_guard(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3570,9 +3740,14 @@ def main():
     def entry(name, source, replaces, launches, err, timing, dev, lib_dev=None, **extra):
         """One kernel's numbers; ``ms`` is the CUDA-event pair around one
         call (host work of the wrapper included), ``device_ms`` the device
-        time per launch (DEVICE_MS[dev])."""
+        time per launch (DEVICE_MS[dev]); ``launches_bench`` and
+        ``launches_suite`` its launches in phase 37's bench twin and,
+        summed over the rows' timed passes, in phase 38's suite rows."""
         ms, plain_ms, (bound_ms, bound_by), *lib = timing
         dms, src, _ = DEVICE_MS[dev]
+        count = dev if dev in twin_counts else dev.split()[0]
+        extra.setdefault("launches_bench", twin_counts.get(count, 0))
+        extra.setdefault("launches_suite", suite_counts.get(count, 0))
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": dms,
                 "device_ms_source": src, "plain_ms": plain_ms,
@@ -3589,9 +3764,11 @@ def main():
         entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms,
               "B2", launches_sharded=shard["36c"]["B2"]),
         entry("scatter_rows (T = 652)", SCATTER_SOURCE, SCATTER_REPLACES, counts["B3"], sc_err,
-              sc_ms, "B3 T652", "index_add_ T652", launches_sharded=shard["36c"]["B3"]),
+              sc_ms, "B3 T652", "index_add_ T652", launches_sharded=shard["36c"]["B3"],
+              launches_suite=0),  # the suite's only gradient row is the bunny's
         entry("scatter_rows (T = 81,932)", SCATTER_SOURCE, SCATTER_REPLACES,
-              bgrad_counts["B3"], bsc_err, bsc_ms, "B3 T81932", "index_add_ T81932"),
+              bgrad_counts["B3"], bsc_err, bsc_ms, "B3 T81932", "index_add_ T81932",
+              launches_bench=0),
         entry("traverse_select (B5)", TRAVERSE_SOURCE, TRAVERSE_REPLACES,
               bunny_counts["B5"], b5_err, b5_ms, "B5", max_t_gap_on_near_ties=b5_err,
               rays=BW * BH, plain_rays=SUBSET, bound_old_count_ms=b5_old[0]),
@@ -3644,6 +3821,7 @@ def main():
               ("B13", "epilogue_only, resident p_all (B13)", "B13"),
               ("B14", "epilogue_shared, one p block (B14)", "B14"))),
     ]}))
+    print(f"bench twin (phase 37): {json.dumps(bench_rec)}")
     print("sharded paths (phase 36) launches: " + "; ".join(f"{k} {v}" for k, v in shard.items()))
     print(f"bunny gradient launches: {bgrad_counts}; brute B1 on the bunny wavefront "
           f"{b1_ms[0]:.4f} ms")

@@ -34,20 +34,25 @@ Examples:
 
 ``--device`` defaults to ``cuda``; without a GPU the run fails rather
 than moving to the CPU. ``--device cpu`` runs the plain-torch version of
-every kernel. Every option is explicit: the JAX CLI's automatic choices
-of intersector, chunk culling and regen were measured on a TPU and are
-not carried over. An option that cannot take effect is refused rather
-than dropped: ``--ray-chunk`` with ``--regen on`` (one wavefront),
-``--chunk-cull on`` with another intersector than ``megakernel``, and
-``--regen on`` with ``brute``, ``fused`` or ``kdtree``. ``--lookat``
-without ``--eye`` exits with the JAX CLI's message. The JAX CLI's
-``--ray-tile``, ``--stream-chunk`` and ``--kernel-precision`` tune its
-TPU kernels and have no counterpart here.
+every kernel. ``--intersector``, ``--chunk-cull``, ``--ray-sort`` and
+``--regen`` default to ``auto``, as in the JAX CLI, resolved by
+:func:`resolve_choices` from the triangle count, the mode, the samples
+per pass and the explicit flags; its thresholds were set again from the
+suite twin's rows on the H100 (``tools/bench_suite.py``), not taken from
+the JAX CLI's TPU rules, and they do not depend on the device: the CPU
+runs the plain versions of the same kernels. An option that cannot take
+effect is refused rather than dropped: ``--ray-chunk`` with ``--regen
+on`` (one wavefront), ``--chunk-cull on`` with another intersector than
+``megakernel``, and ``--regen on`` with ``brute``, ``fused`` or
+``kdtree``. ``--lookat`` without ``--eye`` exits with the JAX CLI's
+message. The JAX CLI's ``--ray-tile``, ``--stream-chunk`` and
+``--kernel-precision`` tune its TPU kernels and have no counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import torch
@@ -60,6 +65,95 @@ from .scene.scene import load_obj_scene
 from .scene.camera import Camera
 from .utils.logging import RenderLog
 from .utils.profiling import trace
+
+
+# The automatic choices (resolve_choices), set from the suite twin's rows
+# (tools/bench_suite.py, 800x600 at 4 spp x 4 passes, the bunny 1024x1024 at
+# 1 spp x 4) and chip_smoke.py phase 39 on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit, in Msamples/s unless stated; PERF.md section 6
+# (PR 13) has every row.
+#
+# The traversal walk from TRAVERSE_FROM triangles: it loses at 652
+# (scene1_traverse 45.5 against scene1_megakernel 135.7) and at 1,332
+# (glossy_traverse 48.0 against glossy_cull 233.8) and wins at 81,932
+# (bunny_traverse 55.2 against bunny_cull_sort 18.7 and bunny_megakernel
+# 2.5). No row lies between. The culled megakernel's time per sample grows
+# as T^0.63 (4.28 ns at 1,332, 57.9 ns at 81,932); the walk's stays near
+# flat with the sort (20.8 and 18.1 ns) and is 12.3 ns on the bunny without
+# it (phase 39), so the two cross near 7,000 triangles.
+TRAVERSE_FROM = 7_000
+# Chunk culling of the megakernel from CULL_FROM triangles: it loses at 652
+# (scene1_cull 124.1 against 135.7, the closed box, where every chunk is
+# reached) and wins at 1,332 (glossy_cull 233.8 against glossy_megakernel
+# 136.5) and 81,932 (bunny_cull 17.3 against 2.5). No row lies between.
+CULL_FROM = 1_000
+# Regen wins in no row, so auto never picks it: scene1_rr_regen 40.6 and
+# scene1_rr_regen_spp32 55.9 against scene1_rr_megakernel 90.8 (0.45x and
+# 0.62x); scene1_regen_spp16 62.8 against scene1_megakernel 135.7 (0.46x);
+# glossy_cull_regen_spp16 71.7 against glossy_cull 233.8 (0.31x).
+REGEN_AUTO = False
+
+
+def resolve_ray_chunk(requested) -> int:
+    """Rays per wavefront tile: an explicit ``--ray-chunk`` always wins;
+    by default the whole frame (0) for every intersector, where the JAX
+    CLI tiles its ``brute`` and ``kdtree`` paths by 30,000 rays. The
+    kernel intersectors never hold a [rays, triangles] intermediate, and
+    the plain ``kdtree`` walk ran its suite row untiled on the card. A
+    tile folds its own key (ROADMAP C14), so another default would be
+    another estimator for the same seed."""
+    return 0 if requested is None else requested
+
+
+def resolve_choices(num_tris: int, *, mode: str, spp_per_pass: int, intersector="auto",
+                    chunk_cull="auto", ray_sort="auto", regen="auto",
+                    ray_chunk=None) -> dict:
+    """The CLI's ``auto`` choices, from the scene's triangle count, the
+    mode, the samples per pass and the explicit flags (``"auto"``,
+    ``"on"``/``"off"`` or an intersector name; ``ray_chunk`` None when
+    not given). Device-independent. Returns the resolved
+    ``intersector``, ``chunk_cull``, ``ray_sort``, ``regen`` and
+    ``ray_chunk``.
+
+    - intersector: ``megakernel`` under an explicit ``--chunk-cull on``
+      (the only intersector that culls); else ``traverse`` from
+      :data:`TRAVERSE_FROM` triangles, ``megakernel`` below.
+    - chunk cull: on for the megakernel from :data:`CULL_FROM` triangles.
+    - ray sort: on under chunk culling from :data:`TRAVERSE_FROM`
+      triangles, off otherwise (the traversal walk included).
+    - regen: :data:`REGEN_AUTO`, and never with a ray chunk (the
+      regenerating wavefront is one wavefront).
+
+    ``mode`` and ``spp_per_pass`` decide nothing today: regen, the one
+    choice that the suite's rows tie to them, won in none of them.
+    """
+    if intersector == "auto":
+        if chunk_cull == "on" or num_tris < TRAVERSE_FROM:
+            intersector = "megakernel"
+        else:
+            intersector = "traverse"
+    ray_chunk = resolve_ray_chunk(ray_chunk)
+    if chunk_cull == "auto":
+        cull = intersector == "megakernel" and num_tris >= CULL_FROM
+    else:
+        cull = chunk_cull == "on"
+    if ray_sort == "auto":
+        # Off on the walk, which gains less from coherent rays than the
+        # sort costs (chip_smoke.py phase 39: the bunny's 1024x1024 pass
+        # 12.81-12.90 ms unsorted against 19.21-19.48 ms sorted, in
+        # turns). Under culling only from TRAVERSE_FROM triangles: it
+        # loses on the glossy stage (glossy_cull_sort 34.0 against
+        # glossy_cull 233.8) and wins a little on the bunny
+        # (bunny_cull_sort 18.7 against bunny_cull 17.3).
+        sort = cull and num_tris >= TRAVERSE_FROM
+    else:
+        sort = ray_sort == "on"
+    if regen == "auto":
+        on = REGEN_AUTO and intersector == "megakernel" and not ray_chunk
+    else:
+        on = regen == "on"
+    return {"intersector": intersector, "chunk_cull": cull, "ray_sort": bool(sort),
+            "regen": on, "ray_chunk": ray_chunk}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,28 +192,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fov", type=float, default=60.0,
                    help="horizontal FOV in degrees (with --eye)")
     p.add_argument("--intersector",
-                   choices=["megakernel", "traverse", "fused", "brute", "kdtree"],
-                   default="megakernel",
-                   help="'megakernel' = brute nearest hit in the segment kernel; "
-                   "'traverse' = Morton-chunk walk, for large scenes; 'fused' = "
-                   "nearest-index kernel + differentiable recompute; 'brute' = "
-                   "plain torch; 'kdtree' = KD-tree walk in torch ops, the tree "
-                   "built on the host (the last three on the split path)")
+                   choices=["auto", "megakernel", "traverse", "fused", "brute", "kdtree"],
+                   default="auto",
+                   help=f"'auto' = 'traverse' from {TRAVERSE_FROM:,} triangles, 'megakernel' "
+                   "below (resolve_choices); 'megakernel' = brute nearest hit in the "
+                   "segment kernel; 'traverse' = per-ray tree walk, for large scenes; "
+                   "'fused' = nearest-index kernel + differentiable recompute; 'brute' = "
+                   "plain torch; 'kdtree' = KD-tree walk in torch ops, the tree built on "
+                   "the host (the last three on the split path; 'auto' picks none of them)")
     p.add_argument("--whole-segment", choices=["on", "off"], default="on",
                    help="'on' = one kernel per path segment (megakernel, traverse); "
                    "'off' = the split path: intersector kernel + segment body in "
                    "torch ops")
-    p.add_argument("--chunk-cull", choices=["on", "off"], default="off",
+    p.add_argument("--chunk-cull", choices=["auto", "on", "off"], default="auto",
                    help="megakernel: Morton-order the triangles and skip the "
-                   "128-triangle chunks no ray of a block can reach (open scenes)")
-    p.add_argument("--ray-sort", choices=["on", "off"], default=None,
-                   help="sort the wavefront each segment (default: on for "
-                   "--intersector traverse, off otherwise)")
-    p.add_argument("--regen", choices=["on", "off"], default="off",
+                   f"chunks no ray of a block can reach (open scenes). 'auto' = on for "
+                   f"the megakernel from {CULL_FROM:,} triangles (resolve_choices)")
+    p.add_argument("--ray-sort", choices=["auto", "on", "off"], default="auto",
+                   help="sort the wavefront each segment (megakernel, traverse). 'auto' "
+                   f"= on with chunk culling from {TRAVERSE_FROM:,} triangles, off "
+                   "otherwise (on an H100 the sorted walk took 1.5x as long on the bunny)")
+    p.add_argument("--regen", choices=["auto", "on", "off"], default="auto",
                    help="regenerating wavefront: a lane whose path ends starts "
-                   "its pixel's next sample")
-    p.add_argument("--ray-chunk", type=int, default=0,
-                   help="rays per wavefront tile (0 = the whole frame)")
+                   "its pixel's next sample. 'auto' = off: on an H100 it ran at "
+                   "0.31-0.62x the scan's Msamples/s in every suite row (RR at 4 and 32 "
+                   "spp/pass, fixed at 16)")
+    p.add_argument("--ray-chunk", type=int, default=None,
+                   help="rays per wavefront tile (default: 0 = the whole frame, for "
+                   "every intersector)")
     p.add_argument("--phong-model", choices=["blinn", "phong"], default="blinn",
                    help="specular sampler: 'blinn' = half-vector, 'phong' = "
                    "classic reflection lobe")
@@ -185,37 +285,42 @@ def main(argv=None) -> int:
         print(f"error: --device {args.device} but no CUDA device is available "
               "(pass --device cpu for the plain-torch path)", file=sys.stderr)
         return 2
-    regen = args.regen == "on"
-    if regen and args.ray_chunk:
-        print(f"error: --regen on renders the frame as one wavefront; it cannot "
-              f"honour --ray-chunk {args.ray_chunk} (drop one of the two)",
-              file=sys.stderr)
-        return 2
-    if args.chunk_cull == "on" and args.intersector != "megakernel":
-        print(f"error: --chunk-cull on applies to --intersector megakernel only, not "
-              f"{args.intersector!r}", file=sys.stderr)
-        return 2
-    if regen and args.intersector in ("fused", "brute", "kdtree"):
-        print(f"error: --regen on needs --intersector megakernel or traverse, not "
-              f"{args.intersector!r}", file=sys.stderr)
-        return 2
     scene, camera = load_scene(args.scene, args.width, args.height, args.subdiv)
     camera = look_camera(args, camera)
+    choice = resolve_choices(
+        scene.num_triangles, mode=args.mode, spp_per_pass=args.spp_per_pass,
+        intersector=args.intersector, chunk_cull=args.chunk_cull, ray_sort=args.ray_sort,
+        regen=args.regen, ray_chunk=args.ray_chunk)
+    intersector, regen, ray_chunk = choice["intersector"], choice["regen"], choice["ray_chunk"]
+    if regen and ray_chunk:
+        print(f"error: --regen on renders the frame as one wavefront; it cannot "
+              f"honour --ray-chunk {ray_chunk} (drop one of the two)", file=sys.stderr)
+        return 2
+    if choice["chunk_cull"] and intersector != "megakernel":
+        print(f"error: --chunk-cull on applies to --intersector megakernel only, not "
+              f"{intersector!r}", file=sys.stderr)
+        return 2
+    if regen and intersector in ("fused", "brute", "kdtree"):
+        print(f"error: --regen on needs --intersector megakernel or traverse, not "
+              f"{intersector!r}", file=sys.stderr)
+        return 2
+    if not args.quiet:
+        print(json.dumps({"choices": choice, "triangles": scene.num_triangles}),
+              file=sys.stderr)
     accel = None
-    if args.intersector == "kdtree":
+    if intersector == "kdtree":
         accel = kd_tree(scene.to(device))
-    ray_sort = args.ray_sort == "on" if args.ray_sort else args.intersector == "traverse"
     config = TraceConfig(
         mode=args.mode,
         max_depth=args.max_depth,
         rr_depth=args.rr_depth,
         illum=args.illum,
         phong_model=args.phong_model,
-        intersector=args.intersector,
+        intersector=intersector,
         whole_segment=args.whole_segment == "on",
-        ray_sort=ray_sort,
-        chunk_cull=args.chunk_cull == "on",
-        ray_chunk=args.ray_chunk,
+        ray_sort=choice["ray_sort"],
+        chunk_cull=choice["chunk_cull"],
+        ray_chunk=ray_chunk,
     )
     settings = RenderSettings(
         width=args.width,

@@ -103,11 +103,13 @@ def bunny_scene(
     subdiv: int = 6,
     width: int = 1024,
     height: int = 1024,
+    glossy: bool = False,
     device="cpu",
 ) -> Tuple[ScenePack, Camera]:
-    """The blob (20·4^subdiv triangles, diffuse) on the floor of a room
-    with a ceiling lamp; the scene-1 camera (eye on +z looking −z, 60°
-    FOV). The JAX package's ``glossy=True`` variant is not carried over."""
+    """The blob (20·4^subdiv triangles) on the floor of a room with a
+    ceiling lamp; the scene-1 camera (eye on +z looking −z, 60° FOV).
+    The blob is diffuse, or with ``glossy=True`` a Phong lobe (Kd 0,
+    Ks 0.9, Ns 50), as in the JAX package."""
     mv, mn, mf = bunny_mesh(subdiv)
     mv = mv * (2.6 / np.abs(mv).max())  # radius ~2.6, like scene 1's spheres
     mv[:, 1] += 3.0  # above the floor
@@ -149,9 +151,9 @@ def bunny_scene(
     materials = dict(
         Ka=[Z3, Z3, Z3, (0.78, 0.78, 0.78), Z3],
         Kd=[(0.8, 0.8, 0.8), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.8, 0.8, 0.8),
-            (0.75, 0.71, 0.62)],
-        Ks=[Z3] * 5,
-        Ns=[1.0] * 5,
+            Z3 if glossy else (0.75, 0.71, 0.62)],
+        Ks=[Z3, Z3, Z3, Z3, (0.9, 0.9, 0.9) if glossy else Z3],
+        Ns=[1.0, 1.0, 1.0, 1.0, 50.0 if glossy else 1.0],
         Tr=[0.0] * 5,
         Ni=[1.0] * 5,
     )

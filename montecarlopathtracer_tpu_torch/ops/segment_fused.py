@@ -533,6 +533,7 @@ def _mega_segment_cuda(
     mega_segment.launches += 1
     mega_segment.lane_launches += flags.shape[1] != 1
     mega_segment.cull_launches += cull
+    mega_segment.lane_cull_launches += cull and flags.shape[1] != 1
     return idx, npos, ndir, ntput, nres, still
 
 
@@ -545,7 +546,8 @@ def mega_segment(
     """Whole-segment forward (see the module docstring). CUDA tensors
     launch the kernel and add one to ``mega_segment.launches`` (and to
     ``mega_segment.lane_launches`` for per-lane flags, to
-    ``mega_segment.cull_launches`` with chunk boxes); CPU tensors run
+    ``mega_segment.cull_launches`` with chunk boxes, to
+    ``mega_segment.lane_cull_launches`` with both); CPU tensors run
     :func:`mega_segment_ref`.
 
     ``tested``, on CUDA only: an int32 [ceil(R / 128)] tensor that the
@@ -565,6 +567,7 @@ def mega_segment(
 mega_segment.launches = 0  # kernel launches, per-lane flags and culling included
 mega_segment.lane_launches = 0  # of which with per-lane flags (B1l)
 mega_segment.cull_launches = 0  # of which with chunk culling (B1c)
+mega_segment.lane_cull_launches = 0  # of which with both (culled regen)
 
 
 def _rows_segment_cuda(

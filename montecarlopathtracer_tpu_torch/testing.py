@@ -22,6 +22,8 @@ chunks, in the order that the traversal walk visits them, and
 :func:`hard_soup` seeded soups whose rays aim at triangle edges (or, in
 its "corners" case, just beyond vertices). :func:`cap_torch_threads`
 shares the CPUs between the workers of a parallel test run.
+:func:`nan_trap` raises at the first operation that makes a NaN, the
+counterpart of ``jax_debug_nans``.
 """
 
 from __future__ import annotations
@@ -408,6 +410,43 @@ def compare_param_grads(want, got, tol) -> dict:
         ok &= good
     rep["ok"] = bool(ok)
     return rep
+
+
+class NaNTrapped(FloatingPointError):
+    """An operation under :func:`nan_trap` made a NaN."""
+
+
+# Operations whose output is uninitialised memory: a NaN there is no
+# result of arithmetic.
+_UNINITIALISED = ("empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+                  "resize_", "set_")
+
+
+@contextlib.contextmanager
+def nan_trap():
+    """Raise :class:`NaNTrapped` at the first operation whose floating
+    output holds a NaN, for the duration of the block: the counterpart
+    of ``jax_debug_nans``. Every ATen operation is checked as it runs,
+    the backward pass's too, so a NaN that a later ``where`` masks away
+    still trips it: the guards under test must keep a NaN from ever
+    being made. The check reads each output back (a device sync on the
+    card)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Trap(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ not in _UNINITIALISED:
+                for t in tree_leaves(out):
+                    if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                            and bool(torch.isnan(t).any())):
+                        raise NaNTrapped(f"{func} made a NaN (output {tuple(t.shape)})")
+            return out
+
+    with Trap():
+        yield
 
 
 @contextlib.contextmanager

@@ -24,8 +24,8 @@ from montecarlopathtracer_tpu_torch.utils import profiling
 cap_torch_threads()
 
 NEW_FLAGS = ("eye", "lookat", "up", "fov", "preview", "profile_dir", "scene")
-TINY = ["--device", "cpu", "--scene", "cornell", "--width", "8", "--height", "6",
-        "--passes", "1", "--spp-per-pass", "1", "--max-depth", "1", "--quiet"]
+TINY = ["--device", "cpu", "--scene", "cornell", "--intersector", "megakernel", "--width", "8",
+        "--height", "6", "--passes", "1", "--spp-per-pass", "1", "--max-depth", "1", "--quiet"]
 
 
 def _plain(v):
@@ -144,3 +144,100 @@ def test_trace_config_defaults_differ_from_jax_as_documented():
     assert (jax_.intersector, jax_.ray_chunk) == ("brute", 8192)
     doc = " ".join(TraceConfig.__doc__.split())
     assert 'intersector="megakernel"' in doc and 'ray_chunk=8192' in doc
+
+
+AUTO_FLAGS = ("intersector", "chunk_cull", "ray_sort", "regen", "ray_chunk")
+# The documented table (cli.py's thresholds, from the suite twin's H100
+# rows and chip_smoke.py phase 39): the walk from 7,000 triangles, without
+# the sort; culling from 1,000; regen never.
+AUTO_TABLE = {
+    652: {"intersector": "megakernel", "chunk_cull": False, "ray_sort": False},
+    1_332: {"intersector": "megakernel", "chunk_cull": True, "ray_sort": False},
+    81_932: {"intersector": "traverse", "chunk_cull": False, "ray_sort": False},
+}
+
+
+@pytest.fixture(scope="module")
+def scene_triangles():
+    from montecarlopathtracer_tpu_torch.models import glossy
+
+    return {"cornell-full": cli.load_scene("cornell-full", 8, 6)[0].num_triangles,
+            "glossy": glossy.glossy_steps(width=8, height=6)[0].num_triangles,
+            "bunny": 12 + 20 * 4 ** 6}  # bunny_scene(subdiv=6), from the count alone
+
+
+@pytest.mark.parametrize("spp", [4, 16, 32])
+@pytest.mark.parametrize("mode", ["fixed", "rr"])
+@pytest.mark.parametrize("scene", ["cornell-full", "glossy", "bunny"])
+def test_auto_resolution_table(scene, mode, spp, scene_triangles):
+    tris = scene_triangles[scene]
+    got = cli.resolve_choices(tris, mode=mode, spp_per_pass=spp)
+    assert got == {**AUTO_TABLE[tris], "regen": False, "ray_chunk": 0}
+    assert (cli.TRAVERSE_FROM, cli.CULL_FROM, cli.REGEN_AUTO) == (7_000, 1_000, False)
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--intersector", "auto", "--chunk-cull", "auto", "--ray-sort", "auto", "--regen", "auto"],
+    ["--intersector", "traverse", "--ray-sort", "off"],
+    ["--chunk-cull", "on", "--regen", "off"],
+    ["--regen", "on", "--ray-chunk", "4096"],
+], ids=["defaults", "auto", "traverse-nosort", "cull-on", "regen-chunk"])
+def test_auto_flags_parse_like_jax(argv):
+    got = vars(cli.build_parser().parse_args(argv))
+    want = vars(jcli.build_parser().parse_args(argv))
+    for k in AUTO_FLAGS:
+        assert got[k] == want[k], k
+
+
+def test_explicit_flags_win_over_auto():
+    r = cli.resolve_choices
+    assert r(81_932, mode="fixed", spp_per_pass=4, intersector="brute")["intersector"] == "brute"
+    assert r(81_932, mode="fixed", spp_per_pass=4, chunk_cull="on") == {
+        "intersector": "megakernel", "chunk_cull": True, "ray_sort": True,
+        "regen": False, "ray_chunk": 0}
+    assert r(1_332, mode="fixed", spp_per_pass=4, intersector="traverse")["chunk_cull"] is False
+    assert r(36, mode="rr", spp_per_pass=32, regen="on")["regen"] is True
+    assert r(36, mode="fixed", spp_per_pass=1, ray_sort="on")["ray_sort"] is True
+    assert r(36, mode="fixed", spp_per_pass=1, ray_chunk=0)["ray_chunk"] == 0
+    assert cli.resolve_ray_chunk(None) == 0
+    assert cli.resolve_ray_chunk(30000) == 30000
+
+
+@pytest.mark.parametrize("mode", ["fixed", "rr"])
+def test_ray_chunk_never_gets_auto_regen(mode, monkeypatch, tmp_path, capsys):
+    """The JAX CLI's auto regen drops an explicit --ray-chunk (ROADMAP C2);
+    here auto never resolves regen on with a ray chunk, even where it
+    would without one."""
+    monkeypatch.setattr(cli, "REGEN_AUTO", True)
+    for tris in (36, 652, 1332, 81_932):
+        for spp in (1, 4, 16, 32):
+            for inter in ("auto", "megakernel", "traverse"):
+                c = cli.resolve_choices(tris, mode=mode, spp_per_pass=spp, intersector=inter,
+                                        ray_chunk=64)
+                assert c["regen"] is False and c["ray_chunk"] == 64
+    argv = [*TINY, "--mode", mode, "--spp-per-pass", "32", "--ray-chunk", "16"]
+    argv.remove("--quiet")
+    assert cli.main([*argv, "--out", str(tmp_path / "r.png")]) == 0
+    (line,) = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith('{"choices"')]
+    printed = json.loads(line)
+    assert printed["choices"] == cli.resolve_choices(
+        printed["triangles"], mode=mode, spp_per_pass=32, intersector="megakernel",
+        ray_chunk=16)
+    assert printed["choices"]["regen"] is False
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--regen", "on", "--ray-chunk", "16"], "--ray-chunk 16"),
+    (["--chunk-cull", "on", "--intersector", "fused"], "--chunk-cull on"),
+    (["--chunk-cull", "on", "--intersector", "traverse"], "--chunk-cull on"),
+    (["--regen", "on", "--intersector", "brute"], "--regen on"),
+    (["--regen", "on", "--intersector", "kdtree"], "--regen on"),
+], ids=["regen-chunk", "cull-fused", "cull-traverse", "regen-brute", "regen-kdtree"])
+def test_explicit_refusals_are_unchanged(argv, msg, tmp_path, capsys):
+    out = tmp_path / "r.png"
+    base = ["--device", "cpu", "--scene", "cornell", "--width", "8", "--height", "6",
+            "--passes", "1", "--out", str(out)]
+    assert cli.main([*base, *argv]) == 2
+    assert msg in capsys.readouterr().err
+    assert not out.exists()

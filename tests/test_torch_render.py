@@ -171,7 +171,8 @@ def test_cli_cpu_writes_png(tmp_path):
     out = str(tmp_path / "r.png")
     steps = str(tmp_path / "steps")
     rc = cli.main([
-        "--device", "cpu", "--scene", "cornell-full", "--width", "32",
+        "--device", "cpu", "--scene", "cornell-full", "--intersector", "megakernel",
+        "--width", "32",
         "--height", "24", "--spp-per-pass", "1", "--passes", "2",
         "--max-depth", "2", "--out", out, "--step-dir", steps,
         "--checkpoint", str(tmp_path / "ck.npz"), "--quiet",

@@ -9,12 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from montecarlopathtracer_tpu.models import bunny as jbunny
 from montecarlopathtracer_tpu.models import cornell as jcornell
 from montecarlopathtracer_tpu.ops import intersect as jintersect
 from montecarlopathtracer_tpu.scene import objio as jobjio
 from montecarlopathtracer_tpu.scene.scene import scene_pack_from_model as jpack
 from montecarlopathtracer_tpu_torch import convert
-from montecarlopathtracer_tpu_torch.models import cornell
+from montecarlopathtracer_tpu_torch.models import bunny, cornell
 from montecarlopathtracer_tpu_torch.ops import intersect
 from montecarlopathtracer_tpu_torch.scene import camera as tcamera
 from montecarlopathtracer_tpu_torch.scene import objio
@@ -50,6 +51,22 @@ def test_converted_jax_scene_matches_port_scene(spheres):
             a = a[:T]
         assert a.dtype == b.dtype, f
         assert torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("glossy", [False, True])
+def test_bunny_scene_variants_match_jax(glossy):
+    """bunny_scene(subdiv=2, glossy=g): every field of the JAX package's
+    pack bit for bit (its first T triangles; the JAX pack pads the
+    triangle axis to 128)."""
+    js, _ = jbunny.bunny_scene(subdiv=2, width=16, height=12, glossy=glossy)
+    ts, _ = bunny.bunny_scene(subdiv=2, width=16, height=12, glossy=glossy)
+    T = ts.num_triangles
+    for f in FIELDS:
+        want = np.asarray(getattr(js, f))
+        got = getattr(ts, f).numpy()
+        np.testing.assert_array_equal(got, want[:T] if f.startswith("tri_") else want, f)
+    blob = ts.mat_ks[4].numpy()
+    assert (blob == (np.float32(0.9) if glossy else 0.0)).all()
 
 
 def test_aabb_matches_jax():
