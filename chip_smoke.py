@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. environment: torch/CUDA versions, the GPU (compute capability 9.0
    required), nvcc, and nvidia-smi's name and power limit;
-2. build: compile every csrc/*.cu of the port (nine sources) with nvcc
+2. build: compile every csrc/*.cu of the port (ten sources) with nvcc
    for sm_90a, one nvcc process each, all started together;
 2b. the uniform draws (rng.cu, threefry-2x32, one launch per draw of 1-4
    streams) against their plain version (torch ops) bit for bit at
@@ -54,7 +54,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 12. five SGD steps at 800x600, 1 spp, Kd started at 0.6x: the loss falls;
 13. a 64x48 gradient render, kernel path against plain path, same key;
 14. the regen and traversal paths' kernels (traverse_select.cu,
-    rows_segment.cu): their builds and ptxas reports;
+    rows_segment.cu, regen_pass.cu): their builds and ptxas reports;
 15. the segment kernel with per-lane flags (B1l) against its plain
     version on phase 3's 800x600 first-bounce wavefront, flags drawn per
     lane from a seed (final gather, roulette and hard kill mixed), fixed
@@ -62,10 +62,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
     B1l timed against plain, with its device time;
 16. the regen main path: Renderer on the Cornell box, RR (rr_depth 5,
     illum 1), 800x600, 32 spp per pass, regen; one warm-up and two timed
-    passes, steps and B1l launches per pass (and two RNG launches per
-    step), the film mean held against a 32-spp scan render within 5
+    passes, each exactly one launch of the regen pass kernel B1r (no B1l,
+    no draw), the film mean held against a 32-spp scan render within 5
     standard errors, a profile; then regen against the scan's time at 16
     and 32 spp/pass;
+16b. B1r (regen_pass.cu: every step of a block's lanes inside one
+    launch) against the host loop with B1l (ops/regen_pass.py::
+    regen_pass_ref on the card) at 800x600: the Cornell box RR (rr_depth
+    5) at 32 spp, fixed depth 7 at 16 spp, and the glossy stage with
+    chunk_cull (B1r's culled instance) at 16 spp. The kernel's camera
+    formula in torch ops bit-equal to Camera.generate_rays_soa on the card
+    under the card's division rule; per configuration:
+    render_regen_planar launches B1r (or B1rc) once and nothing else, its
+    lanes bit-equal to the host loop's (or the frame gate), the steps per
+    block (min, p10, median, p90, p99, max; the longest equal to the host
+    loop's, under the backstop), bit-equal to the scan at 1 spp, the film
+    mean within 5 standard errors of the scan's, the pass in turns with
+    the host loop (and, for RR, a profile of each: the host loop's B1l
+    and draws against B1r), its device time per pass (queued events) and
+    its bound (the pairs that the host loop's steps must test, counted on
+    each step's wavefront as phases 10 and 15 count B1c's and B1l's: every
+    live ray x T, or with culling the chunks each ray's segment reaches,
+    at 17 operations, and 40 more for each pair inside a sphere); the plain version's pass (every kernel plain) timed and held
+    to the kernel's frame, for both instances;
 17. the traversal walk (B5) on the 81,932-triangle bunny: its tables
     (tree and triangle records, built by traverse_select.cu's
     traverse_tables_launch in one launch of a warp per leaf, B5t) against
@@ -210,8 +229,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     process's value_and_grad + SGD on the same sample keys
     (compare_param_grads at 1e-6, the loss to 1e-6), B1, B2, B3 launches;
     36d: sharded_regen_pass, RR, 32 spp, bit-equal to
-    render_regen_planar(y0=0, n_rows=600) under fold_in(key, 0), B1l
-    launches; 36e: make_geom_train_step at phase 30's settings against
+    render_regen_planar(y0=0, n_rows=600) under fold_in(key, 0), one B1r
+    launch; 36e: make_geom_train_step at phase 30's settings against
     its single-process emulation (testing.emulate_geom_step) with the
     same probe key, B4 launches; 36f: sharded_sample_pass at meshes (2,1)
     and (1,2) and make_train_step at (2,1) on the two ranks, the gathered
@@ -221,9 +240,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 37. the bench twin (python -m montecarlopathtracer_tpu_torch.bench) at full
     size in this process: its one JSON line printed beside the card's
     name and power limit, every key of bench.py's line present and
-    finite, the launches of B1, B2, B3 (forward and fwd+bwd) and of B1l
-    and RNG (regen: phase 16's three passes on the same keys) exactly as
-    counted; then under BENCH_INTERSECTOR=brute at 160x120, which must
+    finite, the launches of B1, B2, B3 (forward and fwd+bwd), RNG and B1r
+    (regen: one a pass, phase 16's three passes on the same keys) exactly
+    as counted; then under BENCH_INTERSECTOR=brute at 160x120, which must
     run to its end without rr_regen_msamples_s (ROADMAP C1);
 38. the suite twin (tools/bench_suite.py --quick), every row, in a
     temporary directory: every row OK, each path's kernel launched, the
@@ -307,7 +326,13 @@ MICRO_REPLACES = {
     "B14": "tools/kernel_micro.py:281",
 }
 KERNEL_NAMES = ("segment_fused", "segment_backward", "scatter_rows", "traverse_select",
-                "rows_segment", "nearest_shade", "nearest_triangle", "selection_micro", "rng")
+                "rows_segment", "nearest_shade", "nearest_triangle", "selection_micro", "rng",
+                "regen_pass")
+PASS_SOURCE = f"{PKG}/csrc/regen_pass.cu"
+# B1r: the JAX package's regen pass is one device program, a lax.while_loop
+# (PASS_LOOP) over the per-lane-flag segment kernel (its pallas_call).
+PASS_REPLACES = LANE_REPLACES
+PASS_LOOP = "montecarlopathtracer_tpu/render/regen.py:165"
 RNG_SOURCE = f"{PKG}/csrc/rng.cu"
 # Not a TPU kernel: the counterpart of the JAX package's draws,
 # jax.random.uniform(jax.random.fold_in(key, stream), shape).
@@ -1077,10 +1102,11 @@ def grad_frame(torch, scene):
 
 
 def regen_builds(libs):
-    phase("14. build: the regen and traversal paths' kernels")
+    phase("14. build: the regen and traversal paths' kernels (B1r, B5, B6)")
     from montecarlopathtracer_tpu_torch.ops import cuda_build
 
-    for name, src in (("traverse_select", TRAVERSE_SOURCE), ("rows_segment", ROWS_SOURCE)):
+    for name, src in (("traverse_select", TRAVERSE_SOURCE), ("rows_segment", ROWS_SOURCE),
+                      ("regen_pass", PASS_SOURCE)):
         print(f"built {libs[name].relative_to(HERE)} from {src} (sm_90a)")
         ptxas_report(libs[name])
         cuda_build.load(name)
@@ -1147,37 +1173,33 @@ def regen_main_path(torch, scene, camera):
     config = TraceConfig(mode="rr", rr_depth=5, illum=1.0)
     settings = RenderSettings(width=W, height=H, spp_per_pass=REGEN_SPP, seed=0, regen=True)
     r = Renderer(scene, camera, config, settings, device="cuda")
-    # A regen pass launches B1l once per step, and nothing else of B1:
-    # the B1l count after each pass (a host-side counter, no sync) is its
-    # step count.
+    # A regen pass is one launch of B1r and nothing else: no B1l and no
+    # draw, the steps run inside the kernel (phase 16b reports them).
     reset_counts()
     t0 = time.perf_counter()
     r.render(1)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    steps = [read_all_counts()["B1l"]]
+    passes = [read_all_counts()["B1r"]]
     t0 = time.perf_counter()
     for _ in range(REGEN_TIMED):
         r.render(1)
-        steps.append(read_all_counts()["B1l"] - sum(steps))
+        passes.append(read_all_counts()["B1r"] - sum(passes))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_all_counts()
     msps = W * H * REGEN_SPP * REGEN_TIMED / dt / 1e6
     print(f"warm-up pass {warm:.3f} s; {REGEN_TIMED} timed passes {dt:.3f} s = "
           f"{dt / REGEN_TIMED:.4f} s/pass, RR regen {msps:.4f} Msamples/s")
-    want_rng = sum(2 * n + 1 for n in steps)
-    print(f"steps (B1l launches) per pass {steps}; B1 {counts['B1']}; rng.cu "
-          f"{counts['RNG']} (expected {want_rng}: per pass the first camera rays, then "
-          "per step u1, u2, urr and the regenerated camera rays)")
-    check(counts["B1"] == 0 and min(steps) > 0, f"regen launched {counts}, expected "
-          "B1l on every step and no B1")
-    check(counts["RNG"] == want_rng, f"RNG launched {counts['RNG']} times")
-    check(max(steps) < REGEN_SPP * config.num_segments, f"steps {steps} hit the backstop")
+    print(f"B1r launches per pass {passes}; launches {counts} (expected one B1r a pass and "
+          "no B1, B1l or draw)")
+    others = {k: v for k, v in counts.items() if v and k != "B1r"}
+    check(passes == [1] * (1 + REGEN_TIMED) and not others,
+          f"regen launched {counts}, expected one B1r a pass and nothing else")
 
     img = r.film.color.cpu().numpy()
     check(img.shape == (H, W, 3) and np.isfinite(img).all(), "regen film not finite")
-    check(float(r.film.weight) == REGEN_SPP * len(steps), f"film weight {float(r.film.weight)}")
+    check(float(r.film.weight) == REGEN_SPP * len(passes), f"film weight {float(r.film.weight)}")
     # The scan integrator's estimate of the same image from 32 samples:
     # the frame means of its samples give the standard error. Timed too
     # (with one sync per sample for its mean), beside regen's pass.
@@ -1195,9 +1217,9 @@ def regen_main_path(torch, scene, camera):
           f"{W * H * REGEN_SPP / scan_s / 1e6:.4f} Msamples/s, "
           f"{REGEN_SPP * config.num_segments} B1 launches")
     scan, sd = statistics.mean(means), statistics.stdev(means)
-    se = sd * (1.0 / REGEN_SPP + 1.0 / (REGEN_SPP * len(steps))) ** 0.5
+    se = sd * (1.0 / REGEN_SPP + 1.0 / (REGEN_SPP * len(passes))) ** 0.5
     film = float(img.mean())
-    print(f"film mean {film:.6f} ({REGEN_SPP * len(steps)} spp) vs scan {scan:.6f} "
+    print(f"film mean {film:.6f} ({REGEN_SPP * len(passes)} spp) vs scan {scan:.6f} "
           f"({REGEN_SPP} spp): |diff| {abs(film - scan):.2e}, {abs(film - scan) / se:.2f} "
           f"standard errors ({se:.2e}); bound 5")
     check(abs(film - scan) <= 5.0 * se, "regen film mean is off the scan's")
@@ -1205,8 +1227,7 @@ def regen_main_path(torch, scene, camera):
     r.save_png(png)
     print(f"wrote {os.path.relpath(png, HERE)}")
     profile_device(torch, "regen pass", lambda: r.render(1),
-                   {"B1l mega_segment": "mega_segment_kernel", "RNG uniform": "uniform_kernel"},
-                   dt / REGEN_TIMED * 1e3)
+                   {"B1r regen_pass": "regen_pass_kernel"}, dt / REGEN_TIMED * 1e3)
     # Regen against the scan at half the samples per pass, the same way.
     half = REGEN_SPP // 2
     rh = Renderer(scene, camera, config, dataclasses.replace(settings, spp_per_pass=half),
@@ -1221,7 +1242,214 @@ def regen_main_path(torch, scene, camera):
     print(f"regen against the scan, {W}x{H} RR: {REGEN_SPP} spp/pass {dt / REGEN_TIMED:.4f} s "
           f"against {scan_s:.4f} s ({scan_s / (dt / REGEN_TIMED):.3f}x); {half} spp/pass "
           f"{half_s:.4f} s against {scan_half_s:.4f} s ({scan_half_s / half_s:.3f}x)")
-    return counts, msps, statistics.mean(steps)
+    return counts, msps
+
+
+# Phase 16b's configurations: (label, scene, TraceConfig keywords, spp per pass).
+PASS_CASES = (
+    ("Cornell RR", "cornell", dict(mode="rr", rr_depth=5, illum=1.0), REGEN_SPP),
+    ("Cornell fixed", "cornell", dict(mode="fixed", max_depth=DEPTH, illum=10.0), 16),
+    ("glossy fixed cull", "glossy", dict(mode="fixed", max_depth=DEPTH, illum=10.0,
+                                         chunk_cull=True), 16),
+)
+
+
+def pass_pairs(torch, tables, config, pairs):
+    """An ``on_step`` for regen_pass_ref that adds each step's
+    sphere_pairs (tested, exact) to ``pairs`` (a list of two ints), the
+    count of phase 15's B1l and phase 10's B1c bounds: every live ray x T,
+    or with chunk_cull the triangles of the chunks each live ray's segment
+    reaches up to its winner (B4c's winners, bit-equal to B1c's); of
+    those, the pairs inside the triangles' spheres."""
+    from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
+
+    rows = tables.rows
+
+    def on_step(pos, dir_, live):
+        kw = {}
+        if config.chunk_cull:
+            boxes = tables.cull_boxes
+            idx = NS.nearest_shade_full(rows, pos, dir_, live, **boxes)[0]
+            kw = dict(boxes=boxes, t_best=winner_t(torch, rows, idx, pos, dir_),
+                      widen=tuple(tables.cslack.T))
+        tested, exact = sphere_pairs(torch, rows, pos, dir_, live, step=1 << 14, **kw)
+        pairs[0] += tested
+        pairs[1] += exact
+
+    return on_step
+
+
+def pass_bound(T, R, pairs, crec_rows=0):
+    """B1r's bound: ``pairs`` = (tested, exact) summed over the pass's
+    steps by pass_pairs, SPHERE_OPS for each pair tested and PAIR_OPS more
+    for each inside a sphere, as segment_bound counts one segment's,
+    against its bytes: the table (and records) read once, accum written
+    once."""
+    return bound_of(T * 192 + crec_rows * 64 + R * 12,
+                    pairs[0] * SPHERE_OPS + pairs[1] * PAIR_OPS)
+
+
+def regen_pass_vs_host(torch, scene, camera, smi):
+    phase(f"16b. the regen pass kernel (B1r) vs the host loop with B1l on the card, {W}x{H}: "
+          f"Cornell RR (rr_depth 5) {REGEN_SPP} spp, fixed depth {DEPTH} 16 spp, the glossy "
+          "stage with chunk_cull 16 spp")
+    from montecarlopathtracer_tpu_torch.models import glossy
+    from montecarlopathtracer_tpu_torch.ops import regen_pass as RP
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key, stream_uniforms
+    from montecarlopathtracer_tpu_torch.render.integrator import (
+        TraceConfig,
+        render_rows_planar,
+        scene_tables,
+    )
+    from montecarlopathtracer_tpu_torch.render.regen import render_regen_planar
+    from montecarlopathtracer_tpu_torch.testing import compare_images, plain_kernels
+
+    # The kernel's camera formula against Camera.generate_rays_soa on the
+    # card, both in torch ops: torch divides by the image size as a
+    # multiply by its f32 reciprocal there, and so does the kernel.
+    lanes = torch.arange(W * H, device="cuda")
+    u = stream_uniforms(make_key(161), ((1 << 30) + 14, (1 << 30) + 15), W * H, "cuda")
+    want = camera.generate_rays_soa(lanes % W, lanes // W, u[0] * 2.0 - 1.0, u[1] * 2.0 - 1.0,
+                                    W, H)
+    got = RP.camera_rays_ref(camera, lanes % W, lanes // W, u[0], u[1], W, H, scalar_div="card")
+    diff = int((torch.cat(got) != torch.cat(want)).any(0).sum())
+    lc, uc = lanes.cpu(), u.cpu()
+    on_cpu = camera.to("cpu").generate_rays_soa(lc % W, lc // W, uc[0] * 2.0 - 1.0,
+                                                uc[1] * 2.0 - 1.0, W, H)
+    moved = int((torch.cat(on_cpu) != torch.cat(want).cpu()).any(0).sum())
+    print(f"camera rays ({W * H} lanes): the kernel's formula under the card's division "
+          f"rule differs from Camera.generate_rays_soa on the card on {diff} lanes; torch's "
+          f"own rays differ between the CPU and the card on {moved} lanes")
+    check(diff == 0, f"the kernel's camera formula differs from torch's on {diff} lanes")
+    gscene, gcam = glossy.glossy_steps(width=W, height=H, device="cuda")
+    scenes = {"cornell": (scene, camera), "glossy": (gscene, gcam)}
+    out = {"err": 0.0, "launches": {}}
+    for label, which, kw, spp in PASS_CASES:
+        sc, cam = scenes[which]
+        config = TraceConfig(**kw)
+        tables = scene_tables(sc, config)
+        key = fold_in(make_key(16), spp)
+        kernel_id = "B1rc" if config.chunk_cull else "B1r"
+        # The entry point: one launch of B1r, nothing else.
+        reset_counts()
+        img = render_regen_planar(sc, cam, key, W, H, spp, config, tables)
+        torch.cuda.synchronize()
+        counts = read_all_counts()
+        others = {k: v for k, v in counts.items() if v and k != kernel_id}
+        check(counts[kernel_id] == 1 and not others,
+              f"{label}: render_regen_planar launched {counts}")
+        out["launches"][kernel_id] = out["launches"].get(kernel_id, 0) + counts[kernel_id]
+        accum, steps = RP.regen_pass(tables, config, cam, key, W, H, spp)
+        reset_counts()
+        want, host_steps = RP.regen_pass_ref(tables, config, cam, key, W, H, spp)
+        torch.cuda.synchronize()
+        hc = read_all_counts()
+        same = (accum == want).all(0)
+        n_same = int(same.sum())
+        rep = compare_images((accum / spp).reshape(3, H, W).permute(1, 2, 0),
+                             (want / spp).reshape(3, H, W).permute(1, 2, 0))
+        err = float((accum - want).abs().max()) / spp
+        out["err"] = max(out["err"], err)
+        check(torch.equal(img, (accum / float(spp)).reshape(3, H, W)),
+              f"{label}: the entry point's frame differs from the kernel's")
+        sl = sorted(steps.cpu().tolist())
+        stop = RP.max_steps(spp, config)
+        pct = {p: sl[min(len(sl) - 1, int(p / 100 * len(sl)))] for p in (10, 50, 90, 99)}
+        print(f"{label}, {spp} spp: lanes bit-equal {n_same} of {W * H}; frame gate {rep}; "
+              f"host loop launches {hc}")
+        print(f"  steps per block ({len(sl)} blocks of {RP.lane_block(config)} lanes): min "
+              f"{sl[0]}, p10 {pct[10]}, median {statistics.median(sl)}, p90 {pct[90]}, p99 "
+              f"{pct[99]}, max {sl[-1]}; the host loop's {int(host_steps[0])}; backstop {stop}; "
+              f"block-steps {sum(sl)} = {sum(sl) / (len(sl) * sl[-1]):.3f} of blocks x max")
+        check(n_same == W * H or rep["ok"], f"{label}: B1r differs from the host loop: {rep}")
+        check(sl[-1] == int(host_steps[0]) and sl[-1] < stop,
+              f"{label}: steps {sl[-1]} against the host loop's {int(host_steps[0])}, "
+              f"backstop {stop}")
+        # At 1 spp no lane regenerates: the scan's frame, bit for bit.
+        one, _ = RP.regen_pass(tables, config, cam, key, W, H, 1)
+        scan1 = render_rows_planar(sc, cam, key, W, H, 0, H, config, tables)
+        check(torch.equal(one.reshape(3, H, W), scan1), f"{label}: B1r at 1 spp differs "
+              "from the scan")
+        # The film mean against the scan's estimate from spp samples.
+        means = [float(render_rows_planar(sc, cam, fold_in(key, i), W, H, 0, H, config,
+                                          tables).mean()) for i in range(spp)]
+        scan, sd = statistics.mean(means), statistics.stdev(means)
+        se = sd * (2.0 / spp) ** 0.5
+        film = float(accum.mean()) / spp
+        print(f"  1 spp bit-equal to the scan: True; film mean {film:.6f} vs scan {scan:.6f} "
+              f"({spp} spp each): {abs(film - scan) / se:.2f} standard errors ({se:.2e}); "
+              "bound 5")
+        check(abs(film - scan) <= 5.0 * se, f"{label}: the film mean is off the scan's")
+        # The pass in turns: kernel, host loop, host loop, kernel (host clock).
+        turns = {"kernel": [], "host": []}
+        for name in ("kernel", "host", "host", "kernel"):
+            fn = RP.regen_pass if name == "kernel" else RP.regen_pass_ref
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(tables, config, cam, key, W, H, spp)
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+        if label == PASS_CASES[0][0]:
+            # What the host loop's pass spends on the card, by kernel: B1l's
+            # sum is what a pass costs the card in segments run in lockstep.
+            profile_device(torch, f"host loop pass ({label})",
+                           lambda: RP.regen_pass_ref(tables, config, cam, key, W, H, spp),
+                           {"B1l mega_segment": "mega_segment_kernel",
+                            "RNG uniform": "uniform_kernel"}, statistics.mean(turns["host"]))
+            profile_device(torch, f"B1r pass ({label})",
+                           lambda: RP.regen_pass(tables, config, cam, key, W, H, spp),
+                           {"B1r regen_pass": "regen_pass_kernel"},
+                           statistics.mean(turns["kernel"]))
+        dev_label = f"{kernel_id} {label}"
+        DEVICE_MS[dev_label] = device_ms(torch, lambda: RP.regen_pass(tables, config, cam, key,
+                                                                      W, H, spp), n=10)
+        pair = event_ms(torch, lambda: RP.regen_pass(tables, config, cam, key, W, H, spp))
+        # The bound's work: the host loop once more, each step's pairs
+        # counted on its wavefront.
+        pairs = [0, 0]
+        t0 = time.perf_counter()
+        again, _ = RP.regen_pass_ref(tables, config, cam, key, W, H, spp,
+                                     on_step=pass_pairs(torch, tables, config, pairs))
+        count_s = time.perf_counter() - t0
+        check(torch.equal(again, want), f"{label}: the host loop's pass differs between runs")
+        crec = tables.crec.shape[0] if config.chunk_cull else 0
+        bound = pass_bound(tables.rows.shape[0], W * H, pairs, crec)
+        dms = DEVICE_MS[dev_label][0]
+        print(f"  pass in turns: kernel {[round(t, 2) for t in turns['kernel']]} ms, host loop "
+              f"{[round(t, 2) for t in turns['host']]} ms "
+              f"({statistics.mean(turns['host']) / statistics.mean(turns['kernel']):.2f}x); "
+              f"{W * H * spp / statistics.mean(turns['kernel']) / 1e3:.3f} Msamples/s")
+        print(f"  {dev_label}: device {dms:.4f} ms per pass (queued events, 10 passes), event "
+              f"pair {pair:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}: {pairs[0]} pairs "
+              f"tested over the host loop's steps, {pairs[1]} of them inside a sphere; "
+              f"{tables.rows.shape[0]} triangles; counted in {count_s:.1f} s), device time "
+              f"at {bound[0] / dms:.3f} of it")
+        out[label] = {"pair": pair, "bound": bound, "steps": (sl[0], statistics.median(sl),
+                                                              sl[-1]),
+                      "turns": turns, "pairs": pairs, "host_launches": hc,
+                      "dev": dev_label}
+    # The plain version on the card (every kernel plain) of each instance:
+    # its time, and its frame against the kernel's.
+    for label, which, kw, spp in (PASS_CASES[0], PASS_CASES[2]):
+        sc, cam = scenes[which]
+        config = TraceConfig(**kw)
+        tables = scene_tables(sc, config)
+        key = fold_in(make_key(16), spp)
+        accum, _ = RP.regen_pass(tables, config, cam, key, W, H, spp)
+        with plain_kernels():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain, _ = RP.regen_pass(tables, config, cam, key, W, H, spp)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        rep = compare_images((accum / spp).reshape(3, H, W).permute(1, 2, 0),
+                             (plain / spp).reshape(3, H, W).permute(1, 2, 0))
+        print(f"plain version ({label}, every kernel plain): {plain_ms:.1f} ms a pass; frame "
+              f"against B1r's {rep}; lanes bit-equal {int((accum == plain).all(0).sum())}")
+        check(rep["ok"], f"{label}: B1r's frame is off the plain version's: {rep}")
+        out[label]["plain_ms"] = plain_ms
+    print(f"on {smi}")
+    return out
 
 
 def bunny_setup(torch):
@@ -3325,7 +3553,8 @@ def world_one_regen(torch, scene, camera, smi, mesh, w, h, dev):
           f"bit-equal to render_regen_planar(y0=0, n_rows={h}) under fold_in(key, 0): {same}; "
           f"launches {counts}; {ms:.3f} ms; {smi}")
     check(same, "36d: the sharded regen pass differs from render_regen_planar")
-    check(counts["B1l"] > 0 and counts["B1"] == 0, f"36d launches {counts}")
+    check(counts["B1r"] == 1 and counts["B1l"] == counts["B1"] == counts["RNG"] == 0,
+          f"36d launches {counts}, expected one B1r")
     return counts
 
 
@@ -3473,11 +3702,11 @@ def bench_twin(torch, smi, regen_counts):
           f"bench line values: {rec}")
     seg = DEPTH + 1
     want = {"B1": seg * SPP * (1 + 4) + seg * GRAD_SPP * (1 + 3), "B2": seg * GRAD_SPP * 4,
-            "B3": seg * GRAD_SPP * 4, "B1l": regen_counts["B1l"],
-            "RNG": (1 + seg) * SPP * 5 + (1 + seg) * GRAD_SPP * 4 + regen_counts["RNG"]}
+            "B3": seg * GRAD_SPP * 4, "B1r": regen_counts["B1r"], "B1l": 0,
+            "RNG": (1 + seg) * SPP * 5 + (1 + seg) * GRAD_SPP * 4}
     print(f"{wall:.1f} s; launches {counts}; expected {want} (B1: {SPP} spp x {seg} segments "
           f"a pass over 1 + 4 passes, then {GRAD_SPP} spp x {seg} over 1 + 3 iterations; "
-          "B1l and RNG of regen: phase 16's three passes, the same keys)")
+          "B1r: one a regen pass, phase 16's three passes; no draw or B1l in them)")
     check(all(counts[k] == v for k, v in want.items()), f"bench launches {counts}")
     brute = run_bench(BENCH_INTERSECTOR="brute", BENCH_WIDTH=160, BENCH_HEIGHT=120)
     print(json.dumps(brute))
@@ -3517,7 +3746,8 @@ def suite_twin(torch):
     launched = {r["config"]: r["launches"] for r in rows}
     for row, kernel in (("scene1_megakernel", "B1"), ("scene1_split_segment", "B4"),
                         ("glossy_cull", "B1c"), ("bunny_traverse", "B5"),
-                        ("bunny_traverse", "B6"), ("scene1_rr_regen", "B1l"),
+                        ("bunny_traverse", "B6"), ("scene1_rr_regen", "B1r"),
+                        ("glossy_cull_regen_spp16", "B1rc"),
                         ("bunny_grad_fwdbwd", "B2"), ("bunny_grad_fwdbwd", "B3"),
                         ("bunny_grad_fwdbwd", "B5t")):
         check(launched[row].get(kernel, 0) > 0, f"suite row {row} launched no {kernel}")
@@ -3669,7 +3899,9 @@ def main():
         grad_frame(torch, scene)
         regen_builds(libs)
         lane_err, lane_ms = lane_vs_plain(torch, rows, bounce)
-        regen_counts, regen_msps, regen_steps = regen_main_path(torch, scene, camera)
+        regen_counts, regen_msps = regen_main_path(torch, scene, camera)
+        b1r = regen_pass_vs_host(torch, scene, camera, smi)
+        regen_steps = b1r["Cornell RR"]["steps"]
         del idx, d_full
         bscene, bcam, bconfig, tables = bunny_setup(torch)
         waves = bunny_waves(torch, bcam, bconfig, tables)
@@ -3724,7 +3956,7 @@ def main():
     print(f"\nmain path: {per_pass:.4f} s/pass, {msps:.4f} Msamples/s forward; "
           f"gradient path: {per_iter:.4f} s/iteration, {grad_msps:.4f} Msamples/s fwd+bwd")
     print(f"RR regen (Cornell {W}x{H}, {REGEN_SPP} spp/pass): {regen_msps:.4f} Msamples/s, "
-          f"{regen_steps:.1f} steps/pass; bunny traverse ({BW}x{BH}, depth {DEPTH} + 1, "
+          f"steps per block min / median / max {regen_steps}; bunny traverse ({BW}x{BH}, depth {DEPTH} + 1, "
           f"1 spp): {bunny_msps:.4f} Msamples/s; bunny fwd+bwd ({BUNNY_GRAD_W}x"
           f"{BUNNY_GRAD_W}, 1 spp): {bgrad_msps:.4f} Msamples/s; on {smi}")
     print(f"glossy cull ({GW}x{GH}, {CULL_SPP} spp/pass): {cull_msps:.4f} Msamples/s; split "
@@ -3758,9 +3990,19 @@ def main():
     print(json.dumps({"kernels": [
         entry("mega_segment", KERNEL_SOURCE, REPLACES, launches, max_err, b1_timing, "B1",
               launches_sharded=shard["36a"]["B1"]),
-        entry("mega_segment (lane flags, B1l)", KERNEL_SOURCE, LANE_REPLACES,
-              regen_counts["B1l"], lane_err, lane_ms, "B1l",
-              launches_sharded=shard["36d"]["B1l"]),
+        entry("mega_segment (lane flags, B1l; its launches: the host loop regen_pass_ref, "
+              "phase 16b)", KERNEL_SOURCE, LANE_REPLACES,
+              b1r["Cornell RR"]["host_launches"]["B1l"], lane_err, lane_ms, "B1l"),
+        *(entry(name, PASS_SOURCE, PASS_REPLACES, n, b1r["err"],
+                (b1r[label]["pair"], b1r[label]["plain_ms"], b1r[label]["bound"]),
+                b1r[label]["dev"], loop=PASS_LOOP, spp=spp,
+                steps_min_median_max=b1r[label]["steps"],
+                pairs_tested_exact=b1r[label]["pairs"], **extra)
+          for name, label, spp, n, extra in (
+              ("regen_pass (B1r: a whole regen pass in one launch)", "Cornell RR", REGEN_SPP,
+               regen_counts["B1r"], {"launches_sharded": shard["36d"]["B1r"]}),
+              ("regen_pass (chunk cull, B1rc)", "glossy fixed cull", 16,
+               b1r["launches"]["B1rc"], {}))),
         entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms,
               "B2", launches_sharded=shard["36c"]["B2"]),
         entry("scatter_rows (T = 652)", SCATTER_SOURCE, SCATTER_REPLACES, counts["B3"], sc_err,
@@ -3780,6 +4022,7 @@ def main():
         entry("uniform draws (RNG; not a TPU kernel: counterpart of jax.random.uniform)",
               RNG_SOURCE, RNG_REPLACES, main_counts["RNG"], 0.0, rng_ms, "RNG",
               launches_grad=counts["RNG"], launches_regen=regen_counts["RNG"],
+              launches_regen_host_loop=b1r["Cornell RR"]["host_launches"]["RNG"],
               launches_bunny=bunny_counts["RNG"], launches_sharded=shard["36a"]["RNG"],
               rays=W * H, streams=3,
               device_ms_1m_rays_2_streams=DEVICE_MS["RNG 1M"][0]),

@@ -87,11 +87,20 @@ TRAVERSE_FROM = 7_000
 # reached) and wins at 1,332 (glossy_cull 233.8 against glossy_megakernel
 # 136.5) and 81,932 (bunny_cull 17.3 against 2.5). No row lies between.
 CULL_FROM = 1_000
-# Regen wins in no row, so auto never picks it: scene1_rr_regen 40.6 and
-# scene1_rr_regen_spp32 55.9 against scene1_rr_megakernel 90.8 (0.45x and
-# 0.62x); scene1_regen_spp16 62.8 against scene1_megakernel 135.7 (0.46x);
-# glossy_cull_regen_spp16 71.7 against glossy_cull 233.8 (0.31x).
-REGEN_AUTO = False
+# Regen on the megakernel, the JAX CLI's rule: in RR mode at any samples
+# per pass, in fixed mode from REGEN_FIXED_FROM samples per pass. Since a
+# regen pass is one launch of the pass kernel B1r it wins in every regen row
+# (the suite twin's full run, H100 80GB HBM3 at 700.00 W): RR
+# scene1_rr_regen (4 spp x 4) 153.5 and scene1_rr_regen_spp32 201.7
+# against scene1_rr_megakernel 95.8 (1.60x, 2.11x); fixed
+# scene1_regen_spp16 179.2 against scene1_megakernel 143.5 (1.25x) and
+# glossy_cull_regen_spp16 578.9 against glossy_cull 252.7 (2.29x). The
+# threshold of 16 is the JAX CLI's: no fixed-mode row on the card runs
+# fewer than 16 spp per pass, so whether regen wins there is unmeasured
+# and the scan stays. Before B1r, regen lost in every row (0.31-0.62x).
+# Never on the traversal walk, whose regen is still the host loop, and
+# never with a ray chunk (regen is one wavefront).
+REGEN_FIXED_FROM = 16
 
 
 def resolve_ray_chunk(requested) -> int:
@@ -121,11 +130,10 @@ def resolve_choices(num_tris: int, *, mode: str, spp_per_pass: int, intersector=
     - chunk cull: on for the megakernel from :data:`CULL_FROM` triangles.
     - ray sort: on under chunk culling from :data:`TRAVERSE_FROM`
       triangles, off otherwise (the traversal walk included).
-    - regen: :data:`REGEN_AUTO`, and never with a ray chunk (the
-      regenerating wavefront is one wavefront).
-
-    ``mode`` and ``spp_per_pass`` decide nothing today: regen, the one
-    choice that the suite's rows tie to them, won in none of them.
+    - regen: on for the megakernel in RR mode, or in
+      fixed mode from :data:`REGEN_FIXED_FROM` samples per pass; never
+      with a ray chunk (the regenerating wavefront is one wavefront) and
+      never on the traversal walk.
     """
     if intersector == "auto":
         if chunk_cull == "on" or num_tris < TRAVERSE_FROM:
@@ -149,7 +157,8 @@ def resolve_choices(num_tris: int, *, mode: str, spp_per_pass: int, intersector=
     else:
         sort = ray_sort == "on"
     if regen == "auto":
-        on = REGEN_AUTO and intersector == "megakernel" and not ray_chunk
+        on = (intersector == "megakernel" and not ray_chunk
+              and (mode == "rr" or spp_per_pass >= REGEN_FIXED_FROM))
     else:
         on = regen == "on"
     return {"intersector": intersector, "chunk_cull": cull, "ray_sort": bool(sort),
@@ -214,9 +223,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "otherwise (on an H100 the sorted walk took 1.5x as long on the bunny)")
     p.add_argument("--regen", choices=["auto", "on", "off"], default="auto",
                    help="regenerating wavefront: a lane whose path ends starts "
-                   "its pixel's next sample. 'auto' = off: on an H100 it ran at "
-                   "0.31-0.62x the scan's Msamples/s in every suite row (RR at 4 and 32 "
-                   "spp/pass, fixed at 16)")
+                   "its pixel's next sample. 'auto' = on for the megakernel in RR mode, "
+                   f"and in fixed mode from {REGEN_FIXED_FROM} spp/pass, never with "
+                   "--ray-chunk: on an H100 its pass kernel ran at 1.25-2.29x the scan's "
+                   "Msamples/s in every suite row (RR at 4 and 32 spp/pass, fixed at 16)")
     p.add_argument("--ray-chunk", type=int, default=None,
                    help="rays per wavefront tile (default: 0 = the whole frame, for "
                    "every intersector)")

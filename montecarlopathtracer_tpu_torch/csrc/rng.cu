@@ -13,7 +13,8 @@
 // key injection every 4) of the counter (0, i) under stream s's folded key
 // (k0_s, k1_s), the xor of its two output words, then the 23 high bits as
 // the mantissa of a float in [1, 2), minus one: out[s n + i], a row per
-// stream. The keys are folded on the host (one threefry block each) and
+// stream (threefry.cuh, shared with the regen pass regen_pass.cu). The
+// keys are folded on the host (one threefry block each) and
 // arrive by value, so a call copies nothing to the device. uint32_t
 // arithmetic wraps mod 2^32 exactly where the plain version masks: the
 // third key word k0 ^ k1 ^ 0x1BD11BDA and the injections ks + i + 1.
@@ -28,6 +29,8 @@
 
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 constexpr int kMaxStreams = 4;
 
 // The folded keys of up to kMaxStreams streams, passed by value (outside
@@ -41,31 +44,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
-  x0 += x1;
-  x1 = __funnelshift_l(x1, x1, r);
-  x1 ^= x0;
-}
-
-// The 32-bit xor of threefry-2x32's two output words for the counter
-// (0, ctr) under the key (k0, k1).
-__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1, uint32_t ctr) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  uint32_t x0 = ks[0];
-  uint32_t x1 = ctr + ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    if (i % 2 == 0) {
-      mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
-    } else {
-      mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  return x0 ^ x1;
-}
-
 __global__ void __launch_bounds__(kThreads)
 uniform_kernel(const StreamKeys keys, int k, uint32_t n, float* __restrict__ out) {
   const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
@@ -73,8 +51,8 @@ uniform_kernel(const StreamKeys keys, int k, uint32_t n, float* __restrict__ out
 #pragma unroll
     for (int s = 0; s < kMaxStreams; ++s) {
       if (s < k) {
-        const uint32_t bits = threefry_xor(keys.k0[s], keys.k1[s], static_cast<uint32_t>(i));
-        out[static_cast<size_t>(s) * n + i] = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+        out[static_cast<size_t>(s) * n + i] =
+            tf::uniform(keys.k0[s], keys.k1[s], static_cast<uint32_t>(i));
       }
     }
   }

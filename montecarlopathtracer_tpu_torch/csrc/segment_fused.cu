@@ -64,40 +64,21 @@ __device__ __forceinline__ void finish_ray(
     int lane_flags, const SegOptions& opt, int* __restrict__ idx_out, float* __restrict__ npos,
     float* __restrict__ ndir, float* __restrict__ ntput, float* __restrict__ nres,
     float* __restrict__ still_out) {
-  const V3 o = ray.o, d = ray.d;
-  const Hit best = ray.h;
   const V3 tp_in = load3(tput, R, r);
   const V3 rs_in = load3(res, R, r);
   if (!act) {
     idx_out[r] = -1;
-    store3(npos, R, r, o);
-    store3(ndir, R, r, d);
+    store3(npos, R, r, ray.o);
+    store3(ndir, R, r, ray.d);
     store3(ntput, R, r, tp_in);
     store3(nres, R, r, rs_in);
     still_out[r] = 0.0f;
     return;
   }
 
-  // Winner values; a miss has t = BIG, beta = gamma = 0 and an all-zero
-  // shading row.
-  const bool hit = best.t < kBig;
-  idx_out[r] = hit ? best.i : -1;
-  float sh[24];
-  if (hit) {
-    const float4* row = reinterpret_cast<const float4*>(rows + (size_t)best.i * 48 + 12);
-#pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      const float4 v = row[q];
-      sh[4 * q] = v.x, sh[4 * q + 1] = v.y, sh[4 * q + 2] = v.z, sh[4 * q + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 24; ++q) sh[q] = 0.0f;
-  }
-  const SegState out = segment_epilogue(
-      o, d, tp_in, rs_in, hit, hit ? best.t : kBig, hit ? best.beta : 0.0f,
-      hit ? best.gamma : 0.0f, sh, u1[r], u2[r], urr[r], read_flags(flags, lane_flags, R, r),
-      opt);
+  idx_out[r] = ray.h.t < kBig ? ray.h.i : -1;
+  const SegState out = segment_after_select(rows, ray, tp_in, rs_in, u1[r], u2[r], urr[r],
+                                            read_flags(flags, lane_flags, R, r), opt);
   store3(npos, R, r, out.pos);
   store3(ndir, R, r, out.dir);
   store3(ntput, R, r, out.tput);

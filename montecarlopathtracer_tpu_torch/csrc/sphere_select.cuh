@@ -374,6 +374,34 @@ __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T
   }
 }
 
+// One live ray's segment after its selection: the winner's shading row
+// read once from global memory (all zero on a miss: t = kBig, beta =
+// gamma = 0), then segment_common.cuh's `segment_epilogue` in registers.
+// The whole segment's epilogue, shared by B1/B1l/B1c (segment_fused.cu)
+// and the regen pass B1r (regen_pass.cu).
+__device__ __forceinline__ SegState segment_after_select(const float* __restrict__ rows,
+                                                         const Ray& ray, V3 tp_in, V3 rs_in,
+                                                         float v1, float v2, float vrr, Flags f,
+                                                         SegOptions opt) {
+  const Hit best = ray.h;
+  const bool hit = best.t < kBig;
+  float sh[24];
+  if (hit) {
+    const float4* row = reinterpret_cast<const float4*>(rows + (size_t)best.i * 48 + 12);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      const float4 v = row[q];
+      sh[4 * q] = v.x, sh[4 * q + 1] = v.y, sh[4 * q + 2] = v.z, sh[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 24; ++q) sh[q] = 0.0f;
+  }
+  return segment_epilogue(ray.o, ray.d, tp_in, rs_in, hit, hit ? best.t : kBig,
+                          hit ? best.beta : 0.0f, hit ? best.gamma : 0.0f, sh, v1, v2, vrr, f,
+                          opt);
+}
+
 // ---- The culled loop (B1c, B4c) ----
 
 constexpr int kCullThreads = 64;  // threads per block of the culled loop: 128 rays

@@ -452,12 +452,14 @@ def nan_trap():
 @contextlib.contextmanager
 def plain_kernels():
     """Route every kernel wrapper of the port (segment forward with or
-    without culling, segment from known winners, traversal walk and its
-    tables, segment backward, row scatter, the split path's nearest hit, which the
-    superseded selection entries call too, the fused intersector's index,
-    the selection microkernels, the uniform draws) to its plain-torch
-    version, on any device, for the duration of the block."""
+    without culling, the regen pass, segment from known winners,
+    traversal walk and its tables, segment backward, row scatter, the
+    split path's nearest hit, which the superseded selection entries call
+    too, the fused intersector's index, the selection microkernels, the
+    uniform draws) to its plain-torch version, on any device, for the
+    duration of the block."""
     from .ops import nearest_shade as NS
+    from .ops import regen_pass as RP
     from .ops import rng as RNG
     from .ops import scatter_rows as S
     from .ops import segment_fused as F
@@ -468,6 +470,7 @@ def plain_kernels():
               (SM, "epilogue_only", SM.epilogue_only_ref),
               (SM, "epilogue_shared", SM.epilogue_shared_ref),
               (F, "mega_segment", F.mega_segment_ref),
+              (RP, "regen_pass", RP.regen_pass_ref),
               (F, "rows_segment", F.rows_segment_ref),
               (F, "segment_backward", F.segment_backward_ref),
               (F, "scatter_rows", S.scatter_rows_ref),

@@ -88,6 +88,7 @@ def reset_launches() -> None:
     from ..ops import cull as CU
     from ..ops import nearest_shade as NS
     from ..ops import nearest_variants as NV
+    from ..ops import regen_pass as RP
     from ..ops import rng as RNG
     from ..ops import scatter_rows as S
     from ..ops import segment_fused as F
@@ -95,6 +96,7 @@ def reset_launches() -> None:
     from ..ops import traverse_walk as TW
 
     CU.cull_records.launches = RNG.stream_uniforms.launches = 0
+    RP.regen_pass.launches = RP.regen_pass.cull_launches = 0
     F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
     F.mega_segment.lane_launches = F.mega_segment.cull_launches = 0
     F.mega_segment.lane_cull_launches = 0
@@ -115,10 +117,12 @@ def launches() -> Counts:
     (each also counted under B4 or B4c, which it launches), B10 apart
     from B10c; B12 per variant, B13, B14; the culled loop's records (B4r,
     one count per build); the uniform draws (RNG, rng.cu, one count per
-    draw of 1-4 streams)."""
+    draw of 1-4 streams); the regen pass B1r apart from its culled instance
+    B1rc (one count per pass)."""
     from ..ops import cull as CU
     from ..ops import nearest_shade as NS
     from ..ops import nearest_variants as NV
+    from ..ops import regen_pass as RP
     from ..ops import rng as RNG
     from ..ops import scatter_rows as S
     from ..ops import segment_fused as F
@@ -142,6 +146,7 @@ def launches() -> Counts:
         "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
         "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches,
         "RNG": RNG.stream_uniforms.launches,
+        "B1r": RP.regen_pass.launches, "B1rc": RP.regen_pass.cull_launches,
     })
 
 

@@ -149,7 +149,8 @@ def test_trace_config_defaults_differ_from_jax_as_documented():
 AUTO_FLAGS = ("intersector", "chunk_cull", "ray_sort", "regen", "ray_chunk")
 # The documented table (cli.py's thresholds, from the suite twin's H100
 # rows and chip_smoke.py phase 39): the walk from 7,000 triangles, without
-# the sort; culling from 1,000; regen never.
+# the sort; culling from 1,000; regen on the megakernel in RR mode and in
+# fixed mode from 16 spp per pass (the JAX CLI's rule), never on the walk.
 AUTO_TABLE = {
     652: {"intersector": "megakernel", "chunk_cull": False, "ray_sort": False},
     1_332: {"intersector": "megakernel", "chunk_cull": True, "ray_sort": False},
@@ -172,8 +173,9 @@ def scene_triangles():
 def test_auto_resolution_table(scene, mode, spp, scene_triangles):
     tris = scene_triangles[scene]
     got = cli.resolve_choices(tris, mode=mode, spp_per_pass=spp)
-    assert got == {**AUTO_TABLE[tris], "regen": False, "ray_chunk": 0}
-    assert (cli.TRAVERSE_FROM, cli.CULL_FROM, cli.REGEN_AUTO) == (7_000, 1_000, False)
+    regen = AUTO_TABLE[tris]["intersector"] == "megakernel" and (mode == "rr" or spp >= 16)
+    assert got == {**AUTO_TABLE[tris], "regen": regen, "ray_chunk": 0}
+    assert (cli.TRAVERSE_FROM, cli.CULL_FROM, cli.REGEN_FIXED_FROM) == (7_000, 1_000, 16)
 
 
 @pytest.mark.parametrize("argv", [
@@ -188,6 +190,25 @@ def test_auto_flags_parse_like_jax(argv):
     want = vars(jcli.build_parser().parse_args(argv))
     for k in AUTO_FLAGS:
         assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("mode", ["fixed", "rr"])
+def test_auto_regen_follows_the_jax_rule(mode):
+    """Auto regen: the megakernel (culled or not) in RR mode at any spp per
+    pass and in fixed mode from 16; never the walk, the split-path
+    intersectors or a ray chunk; an explicit flag wins."""
+    r = cli.resolve_choices
+    for spp in (1, 4, 15, 16, 32):
+        want = mode == "rr" or spp >= 16
+        for tris in (36, 652, 1_332):
+            assert r(tris, mode=mode, spp_per_pass=spp)["regen"] is want
+        assert r(81_932, mode=mode, spp_per_pass=spp, chunk_cull="on")["regen"] is want
+        assert r(81_932, mode=mode, spp_per_pass=spp)["regen"] is False
+        for inter in ("traverse", "brute", "fused", "kdtree"):
+            assert r(652, mode=mode, spp_per_pass=spp, intersector=inter)["regen"] is False
+        assert r(652, mode=mode, spp_per_pass=spp, ray_chunk=4096)["regen"] is False
+        assert r(652, mode=mode, spp_per_pass=spp, regen="off")["regen"] is False
+        assert r(81_932, mode=mode, spp_per_pass=spp, regen="on")["regen"] is True
 
 
 def test_explicit_flags_win_over_auto():
@@ -205,11 +226,10 @@ def test_explicit_flags_win_over_auto():
 
 
 @pytest.mark.parametrize("mode", ["fixed", "rr"])
-def test_ray_chunk_never_gets_auto_regen(mode, monkeypatch, tmp_path, capsys):
+def test_ray_chunk_never_gets_auto_regen(mode, tmp_path, capsys):
     """The JAX CLI's auto regen drops an explicit --ray-chunk (ROADMAP C2);
     here auto never resolves regen on with a ray chunk, even where it
     would without one."""
-    monkeypatch.setattr(cli, "REGEN_AUTO", True)
     for tris in (36, 652, 1332, 81_932):
         for spp in (1, 4, 16, 32):
             for inter in ("auto", "megakernel", "traverse"):

@@ -23,6 +23,7 @@ from montecarlopathtracer_tpu_torch.ops import cuda_build
 from montecarlopathtracer_tpu_torch.ops import cull as CU
 from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
+from montecarlopathtracer_tpu_torch.ops import regen_pass as RP
 from montecarlopathtracer_tpu_torch.ops import rng as RNG
 from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
 from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
@@ -37,6 +38,7 @@ from montecarlopathtracer_tpu_torch.ops.morton import (
 from montecarlopathtracer_tpu_torch.ops.rng import make_key, stream_uniform
 from montecarlopathtracer_tpu_torch.render.integrator import (
     TraceConfig,
+    render_rows_planar,
     render_sample_batch,
     scene_tables,
 )
@@ -489,13 +491,99 @@ def test_traverse_render_on_card_matches_cpu_plain_path(bunny_card):
 def test_regen_on_card_matches_cpu_plain_path(card, intersector):
     scene, camera, _ = card
     config = TraceConfig(mode="rr", rr_depth=2, illum=1.0, intersector=intersector)
-    launches = (F.mega_segment.launches, F.rows_segment.launches)
+    launches = (RP.regen_pass.launches, F.mega_segment.launches, F.rows_segment.launches)
     got = render_regen_batch(scene, camera, make_key(5), 64, 48, 2, config)
-    assert (F.mega_segment.launches, F.rows_segment.launches) != launches
+    after = (RP.regen_pass.launches, F.mega_segment.launches, F.rows_segment.launches)
+    if intersector == "megakernel":  # one pass kernel (B1r), no segment launch
+        assert after == (launches[0] + 1, *launches[1:])
+    else:  # the host loop: the walk and the rows segment (B6l) per step
+        assert after[:2] == launches[:2] and after[2] > launches[2]
     want = render_regen_batch(scene.to("cpu"), camera.to("cpu"), make_key(5), 64, 48, 2,
                               config)
     rep = compare_images(got, want)
     assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("which", ["cornell_rr", "cornell_fixed_band", "glossy_cull"])
+def test_regen_pass_kernel_equals_host_loop_on_card(card, which):
+    """B1r (regen_pass.cu) against the host loop with B1l on the same
+    tables and key: every lane bit-equal, one launch, no B1l or draw, the
+    longest block's steps equal to the host loop's."""
+    w, h = 64, 48
+    if which == "glossy_cull":
+        scene, camera = glossy.glossy_steps(width=w, height=h, device="cuda")
+        config, spp, band = TraceConfig(mode="fixed", max_depth=3, chunk_cull=True), 3, {}
+    else:
+        scene, camera, _ = card
+        rr = which == "cornell_rr"
+        config = (TraceConfig(mode="rr", rr_depth=2, illum=1.0) if rr
+                  else TraceConfig(mode="fixed", max_depth=3))
+        spp, band = (4, {}) if rr else (3, dict(y0=16, n_rows=16))
+    tables = scene_tables(scene, config)
+    key = make_key(17)
+    before = (RP.regen_pass.launches, RP.regen_pass.cull_launches, F.mega_segment.launches,
+              RNG.stream_uniforms.launches)
+    got, steps = RP.regen_pass(tables, config, camera, key, w, h, spp, **band)
+    torch.cuda.synchronize()
+    after = (RP.regen_pass.launches, RP.regen_pass.cull_launches, F.mega_segment.launches,
+             RNG.stream_uniforms.launches)
+    cull = int(config.chunk_cull)
+    assert after == (before[0] + 1 - cull, before[1] + cull, *before[2:])
+    want, host_steps = RP.regen_pass_ref(tables, config, camera, key, w, h, spp, **band)
+    assert torch.equal(got, want)
+    R = w * band.get("n_rows", h)
+    assert steps.shape == (-(-R // RP.lane_block(config)),)
+    assert int(steps.max()) == int(host_steps[0]) < RP.max_steps(spp, config)
+    with plain_kernels():
+        plain, _ = RP.regen_pass(tables, config, camera, key, w, h, spp, **band)
+    n = band.get("n_rows", h)
+    rep = compare_images((got / spp).reshape(3, n, w).permute(1, 2, 0),
+                         (plain / spp).reshape(3, n, w).permute(1, 2, 0))
+    assert rep["ok"], rep
+
+
+def test_regen_pass_spp1_equals_the_scan_on_card(card):
+    scene, camera, _ = card
+    config = TraceConfig(mode="rr", rr_depth=2, illum=1.0)
+    tables = scene_tables(scene, config)
+    got, _ = RP.regen_pass(tables, config, camera, make_key(18), 64, 48, 1)
+    want = render_rows_planar(scene, camera, make_key(18), 64, 48, 0, 48, config, tables)
+    assert torch.equal(got.reshape(3, 48, 64), want)
+
+
+@pytest.mark.parametrize("which", ["cornell", "mcrt_band"])
+def test_camera_formula_equals_torch_on_card(card, which):
+    """The pass kernel's camera-ray formula in plain torch under the card's
+    division rule (torch on CUDA divides by a Python number as a multiply
+    by its f32 reciprocal) bit-equal to Camera.generate_rays_soa on the
+    card; the kernel itself is held to the scan at 1 spp."""
+    from montecarlopathtracer_tpu_torch.scene.camera import camera_for_mcrt
+
+    w, h = 64, 48
+    camera = card[1] if which == "cornell" else camera_for_mcrt(w, h, device="cuda")
+    y0 = 0 if which == "cornell" else 8
+    R = w * (h - y0)
+    lanes = torch.arange(R, device="cuda")
+    xs, ys = lanes % w, lanes // w + y0
+    u = RNG.stream_uniforms(make_key(19), (1 << 30, (1 << 30) + 1), R, "cuda")
+    o, d = camera.generate_rays_soa(xs, ys, u[0] * 2.0 - 1.0, u[1] * 2.0 - 1.0, w, h)
+    o2, d2 = RP.camera_rays_ref(camera, xs, ys, u[0], u[1], w, h, scalar_div="card")
+    assert torch.equal(o, o2) and torch.equal(d, d2)
+
+
+def test_regen_pass_wrapper_refuses_on_card(card):
+    scene, camera, _ = card
+    config = TraceConfig(mode="rr", rr_depth=2, illum=1.0)
+    tables = scene_tables(scene, config)
+    with pytest.raises(ValueError, match="megakernel"):
+        RP.regen_pass(tables, TraceConfig(intersector="traverse"), camera, make_key(0), 64, 48,
+                      2)
+    with pytest.raises(ValueError, match="spp"):
+        RP.regen_pass(tables, config, camera, make_key(0), 64, 48, 0)
+    with pytest.raises(ValueError, match="rows"):
+        RP.regen_pass(tables, config, camera, make_key(0), 64, 48, 2, y0=40, n_rows=16)
+    with pytest.raises(ValueError, match="camera"):
+        RP.regen_pass(tables, config, camera.to("cpu"), make_key(0), 64, 48, 2)
 
 
 def test_traverse_gradient_render_kernels_match_plain_path(bunny_card):
