@@ -66,25 +66,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
     no draw), the film mean held against a 32-spp scan render within 5
     standard errors, a profile; then regen against the scan's time at 16
     and 32 spp/pass;
-16b. B1r (regen_pass.cu: every step of a block's lanes inside one
-    launch) against the host loop with B1l (ops/regen_pass.py::
-    regen_pass_ref on the card) at 800x600: the Cornell box RR (rr_depth
-    5) at 32 spp, fixed depth 7 at 16 spp, and the glossy stage with
-    chunk_cull (B1r's culled instance) at 16 spp. The kernel's camera
-    formula in torch ops bit-equal to Camera.generate_rays_soa on the card
-    under the card's division rule; per configuration:
-    render_regen_planar launches B1r (or B1rc) once and nothing else, its
-    lanes bit-equal to the host loop's (or the frame gate), the steps per
-    block (min, p10, median, p90, p99, max; the longest equal to the host
-    loop's, under the backstop), bit-equal to the scan at 1 spp, the film
-    mean within 5 standard errors of the scan's, the pass in turns with
-    the host loop (and, for RR, a profile of each: the host loop's B1l
-    and draws against B1r), its device time per pass (queued events) and
-    its bound (the pairs that the host loop's steps must test, counted on
-    each step's wavefront as phases 10 and 15 count B1c's and B1l's: every
-    live ray x T, or with culling the chunks each ray's segment reaches,
-    at 17 operations, and 40 more for each pair inside a sphere); the plain version's pass (every kernel plain) timed and held
-    to the kernel's frame, for both instances;
+16b. B1r (regen_pass.cu: one launch, a persistent grid whose slots pull
+    lanes from a work list) against the host loop with B1l
+    (ops/regen_pass.py::regen_pass_ref on the card) at 800x600: the
+    Cornell box RR (rr_depth 5) at 32 spp, fixed depth 7 at 16 spp, and
+    the glossy stage with chunk_cull (B1r's culled instance, B1rc) at 16
+    spp. The kernel's camera formula in torch ops bit-equal to
+    Camera.generate_rays_soa on the card under the card's division rule;
+    per configuration: render_regen_planar launches B1r (or B1rc) once and
+    nothing else, every lane's accum and lane_steps bit-equal to the host
+    loop's, the kernel's counters (blocks, block-steps, slot-steps, live
+    lane-steps, the card's clock at list spent and end), its live share
+    beside that of pinned blocks (lane i held by block i // 256 until its
+    last lane is done, the earlier design) from the same lane_steps, the
+    live lane-steps equal to the lanes' steps, no lane-step over the
+    staged spheres' origin bound (overflow 0), bit-equal to the scan at 1
+    spp, the film mean within 5 standard errors of the scan's, the pass in
+    turns with the host loop (and, for RR, a profile of each: the host
+    loop's B1l and draws against B1r), its device time per pass (queued
+    events), and its bound (the pairs that the host loop's steps must
+    test, counted on each step's wavefront as phases 10 and 15 count B1c's
+    and B1l's: every live ray x T, or with culling the chunks each ray's
+    segment reaches, at 17 operations, and 40 more for each pair inside a
+    sphere; with culling also the vote's chunks per live lane-step, this
+    kernel's against the pinned groups'); the plain version's pass (every
+    kernel plain) timed and held to the kernel's frame, for both
+    instances; then the glossy stage unculled (1332 rows, above kWholeMax:
+    select_two's ring inside the pass) at 4 spp, every lane bit-equal to
+    the host loop, with its device time;
 17. the traversal walk (B5) on the 81,932-triangle bunny: its tables
     (tree and triangle records, built by traverse_select.cu's
     traverse_tables_launch in one launch of a warp per leaf, B5t) against
@@ -229,8 +238,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     process's value_and_grad + SGD on the same sample keys
     (compare_param_grads at 1e-6, the loss to 1e-6), B1, B2, B3 launches;
     36d: sharded_regen_pass, RR, 32 spp, bit-equal to
-    render_regen_planar(y0=0, n_rows=600) under fold_in(key, 0), one B1r
-    launch; 36e: make_geom_train_step at phase 30's settings against
+    render_regen_planar(y0=0, n_rows=600) under fold_in(key, 0), one
+    B1r launch; 36e: make_geom_train_step at phase 30's settings against
     its single-process emulation (testing.emulate_geom_step) with the
     same probe key, B4 launches; 36f: sharded_sample_pass at meshes (2,1)
     and (1,2) and make_train_step at (2,1) on the two ranks, the gathered
@@ -1163,6 +1172,7 @@ def regen_main_path(torch, scene, camera):
 
     import numpy as np
 
+    from montecarlopathtracer_tpu_torch.ops import regen_pass as RP
     from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
     from montecarlopathtracer_tpu_torch.render.integrator import (
         TraceConfig,
@@ -1191,7 +1201,7 @@ def regen_main_path(torch, scene, camera):
     msps = W * H * REGEN_SPP * REGEN_TIMED / dt / 1e6
     print(f"warm-up pass {warm:.3f} s; {REGEN_TIMED} timed passes {dt:.3f} s = "
           f"{dt / REGEN_TIMED:.4f} s/pass, RR regen {msps:.4f} Msamples/s")
-    print(f"B1r launches per pass {passes}; launches {counts} (expected one B1r a pass and "
+    print(f"B1r launches per pass {passes}; launches {counts} (expected one B1r a pass, and "
           "no B1, B1l or draw)")
     others = {k: v for k, v in counts.items() if v and k != "B1r"}
     check(passes == [1] * (1 + REGEN_TIMED) and not others,
@@ -1256,11 +1266,14 @@ PASS_CASES = (
 
 def pass_pairs(torch, tables, config, pairs):
     """An ``on_step`` for regen_pass_ref that adds each step's
-    sphere_pairs (tested, exact) to ``pairs`` (a list of two ints), the
+    sphere_pairs (tested, exact) to ``pairs`` (a list of four ints), the
     count of phase 15's B1l and phase 10's B1c bounds: every live ray x T,
     or with chunk_cull the triangles of the chunks each live ray's segment
     reaches up to its winner (B4c's winners, bit-equal to B1c's); of
-    those, the pairs inside the triangles' spheres."""
+    those, the pairs inside the triangles' spheres. With chunk_cull it also
+    adds the chunks B4c's vote tests for each group of 128 consecutive
+    lanes (the pinned blocks of B1rc's earlier design) times the group's
+    live lanes, and the live lanes (pairs[2], pairs[3])."""
     from montecarlopathtracer_tpu_torch.ops import nearest_shade as NS
 
     rows = tables.rows
@@ -1269,7 +1282,12 @@ def pass_pairs(torch, tables, config, pairs):
         kw = {}
         if config.chunk_cull:
             boxes = tables.cull_boxes
-            idx = NS.nearest_shade_full(rows, pos, dir_, live, **boxes)[0]
+            R = live.shape[0]
+            tested = torch.zeros(-(-R // 128), dtype=torch.int32, device=live.device)
+            idx = NS.nearest_shade_full(rows, pos, dir_, live, **boxes, tested=tested)[0]
+            group = torch.nn.functional.pad(live, (0, -R % 128)).reshape(-1, 128).sum(1)
+            pairs[2] += int((tested.long() * group).sum())
+            pairs[3] += int(live.sum())
             kw = dict(boxes=boxes, t_best=winner_t(torch, rows, idx, pos, dir_),
                       widen=tuple(tables.cslack.T))
         tested, exact = sphere_pairs(torch, rows, pos, dir_, live, step=1 << 14, **kw)
@@ -1287,6 +1305,35 @@ def pass_bound(T, R, pairs, crec_rows=0):
     once."""
     return bound_of(T * 192 + crec_rows * 64 + R * 12,
                     pairs[0] * SPHERE_OPS + pairs[1] * PAIR_OPS)
+
+
+def pinned_share(torch, lane_steps, block):
+    """The live share of pinned blocks (the kernel's earlier design):
+    lane i in block i // block until the block's longest lane was done, so
+    its slot-steps were the longest lane's steps x block; the live
+    lane-steps are the lanes'."""
+    ls = lane_steps.long()
+    b = torch.nn.functional.pad(ls, (0, -ls.numel() % block)).reshape(-1, block)
+    return float(ls.sum()) / float(b.amax(1).sum() * block)
+
+
+def pass_lines(RP, stats):
+    """The counters of a pass (RP.STATS), printed, and the pass's live
+    share (live lane-steps over slot-steps) and overflow."""
+    col = {name: int(v) for name, v in zip(RP.STATS, stats["counters"].cpu())}
+    spent, end = RP.pass_times(stats["counters"])
+    print(f"    blocks {col['blocks']}, block-steps {col['block_steps']}, slot-steps "
+          f"{col['slot_steps']}, live lane-steps {col['live_steps']}; list spent "
+          f"{'-' if spent is None else f'{spent:.3f}'} ms, end {end:.3f} ms")
+    return {"live": col["live_steps"], "slot_steps": col["slot_steps"],
+            "share": col["live_steps"] / max(col["slot_steps"], 1),
+            "overflow": col["overflow"], "vote_chunks": col["vote_chunks"],
+            "tail_ms": 0.0 if spent is None else end - spent}
+
+
+# A table above kWholeMax (csrc/sphere_select.cuh) runs select_two's ring
+# in B1r: the glossy stage unculled, held to the host loop in phase 16b.
+RING_CASE = ("glossy fixed ring", "glossy", dict(mode="fixed", max_depth=DEPTH, illum=10.0), 4)
 
 
 def regen_pass_vs_host(torch, scene, camera, smi):
@@ -1337,34 +1384,40 @@ def regen_pass_vs_host(torch, scene, camera, smi):
         counts = read_all_counts()
         others = {k: v for k, v in counts.items() if v and k != kernel_id}
         check(counts[kernel_id] == 1 and not others,
-              f"{label}: render_regen_planar launched {counts}")
+              f"{label}: render_regen_planar launched {counts}, expected one {kernel_id}")
         out["launches"][kernel_id] = out["launches"].get(kernel_id, 0) + counts[kernel_id]
-        accum, steps = RP.regen_pass(tables, config, cam, key, W, H, spp)
+        stats = {}
+        accum, lane_steps = RP.regen_pass(tables, config, cam, key, W, H, spp, stats=stats)
         reset_counts()
         want, host_steps = RP.regen_pass_ref(tables, config, cam, key, W, H, spp)
         torch.cuda.synchronize()
         hc = read_all_counts()
-        same = (accum == want).all(0)
-        n_same = int(same.sum())
-        rep = compare_images((accum / spp).reshape(3, H, W).permute(1, 2, 0),
-                             (want / spp).reshape(3, H, W).permute(1, 2, 0))
+        n_same = int((accum == want).all(0).sum())
+        steps_same = bool(torch.equal(lane_steps, host_steps))
         err = float((accum - want).abs().max()) / spp
         out["err"] = max(out["err"], err)
         check(torch.equal(img, (accum / float(spp)).reshape(3, H, W)),
               f"{label}: the entry point's frame differs from the kernel's")
-        sl = sorted(steps.cpu().tolist())
-        stop = RP.max_steps(spp, config)
-        pct = {p: sl[min(len(sl) - 1, int(p / 100 * len(sl)))] for p in (10, 50, 90, 99)}
-        print(f"{label}, {spp} spp: lanes bit-equal {n_same} of {W * H}; frame gate {rep}; "
-              f"host loop launches {hc}")
-        print(f"  steps per block ({len(sl)} blocks of {RP.lane_block(config)} lanes): min "
-              f"{sl[0]}, p10 {pct[10]}, median {statistics.median(sl)}, p90 {pct[90]}, p99 "
-              f"{pct[99]}, max {sl[-1]}; the host loop's {int(host_steps[0])}; backstop {stop}; "
-              f"block-steps {sum(sl)} = {sum(sl) / (len(sl) * sl[-1]):.3f} of blocks x max")
-        check(n_same == W * H or rep["ok"], f"{label}: B1r differs from the host loop: {rep}")
-        check(sl[-1] == int(host_steps[0]) and sl[-1] < stop,
-              f"{label}: steps {sl[-1]} against the host loop's {int(host_steps[0])}, "
-              f"backstop {stop}")
+        ls = lane_steps.long()
+        print(f"{label}, {spp} spp: lanes bit-equal {n_same} of {W * H}, lane_steps equal to "
+              f"the host loop's {steps_same}; host loop launches {hc}")
+        rl = pass_lines(RP, stats)
+        block = RP.slots_per_block(config)
+        pinned = pinned_share(torch, lane_steps, block)
+        omax = "none staged" if stats["omax"] is None else f"{float(stats['omax'][0]):.6f}"
+        print(f"  lane steps min / median / max {int(ls.min())} / {int(ls.median())} / "
+              f"{int(ls.max())} (host loop {int(host_steps.max())}, backstop "
+              f"{RP.max_steps(spp, config)}); live share {rl['share']:.4f} ({rl['live']} live "
+              f"lane-steps of {rl['slot_steps']} slot-steps, grid {stats['grid']} blocks of "
+              f"{block} slots); pinned blocks of {block} on the same lane_steps "
+              f"{pinned:.4f}; list spent to the end {rl['tail_ms']:.3f} ms; origin bound "
+              f"{omax}, overflow lane-steps {rl['overflow']}")
+        check(n_same == W * H and steps_same,
+              f"{label}: B1r differs from the host loop on {W * H - n_same} lanes, "
+              f"lane_steps equal {steps_same}")
+        check(rl["live"] == int(ls.sum()), f"{label}: live lane-steps {rl['live']} against the "
+              f"lanes' steps {int(ls.sum())}")
+        check(rl["overflow"] == 0, f"{label}: {rl['overflow']} lane-steps over the origin bound")
         # At 1 spp no lane regenerates: the scan's frame, bit for bit.
         one, _ = RP.regen_pass(tables, config, cam, key, W, H, 1)
         scan1 = render_rows_planar(sc, cam, key, W, H, 0, H, config, tables)
@@ -1406,7 +1459,7 @@ def regen_pass_vs_host(torch, scene, camera, smi):
         pair = event_ms(torch, lambda: RP.regen_pass(tables, config, cam, key, W, H, spp))
         # The bound's work: the host loop once more, each step's pairs
         # counted on its wavefront.
-        pairs = [0, 0]
+        pairs = [0, 0, 0, 0]
         t0 = time.perf_counter()
         again, _ = RP.regen_pass_ref(tables, config, cam, key, W, H, spp,
                                      on_step=pass_pairs(torch, tables, config, pairs))
@@ -1424,9 +1477,21 @@ def regen_pass_vs_host(torch, scene, camera, smi):
               f"tested over the host loop's steps, {pairs[1]} of them inside a sphere; "
               f"{tables.rows.shape[0]} triangles; counted in {count_s:.1f} s), device time "
               f"at {bound[0] / dms:.3f} of it")
-        out[label] = {"pair": pair, "bound": bound, "steps": (sl[0], statistics.median(sl),
-                                                              sl[-1]),
-                      "turns": turns, "pairs": pairs, "host_launches": hc,
+        vote = None
+        if config.chunk_cull:
+            # The culled vote's chunks per live lane-step: this kernel's
+            # blocks, pinned groups of 128 lanes (B4c's vote on the
+            # host loop's steps), and each ray's own need.
+            vote = (rl["vote_chunks"] / rl["live"], pairs[2] / pairs[3],
+                    pairs[0] / 128 / pairs[3])
+            print(f"  the culled vote's chunks tested per live lane-step: this kernel "
+                  f"{vote[0]:.4f}, pinned groups {vote[1]:.4f}, each ray's own reach "
+                  f"{vote[2]:.4f} ({vote[0] / vote[2]:.2f}x and {vote[1] / vote[2]:.2f}x it)")
+        out[label] = {"pair": pair, "bound": bound,
+                      "lane_steps": (int(ls.min()), int(ls.median()), int(ls.max())),
+                      "live_share": rl["share"], "pinned_share": pinned,
+                      "vote": vote,
+                      "turns": turns, "pairs": pairs[:2], "host_launches": hc,
                       "dev": dev_label}
     # The plain version on the card (every kernel plain) of each instance:
     # its time, and its frame against the kernel's.
@@ -1448,6 +1513,35 @@ def regen_pass_vs_host(torch, scene, camera, smi):
               f"against B1r's {rep}; lanes bit-equal {int((accum == plain).all(0).sum())}")
         check(rep["ok"], f"{label}: B1r's frame is off the plain version's: {rep}")
         out[label]["plain_ms"] = plain_ms
+    # select_two's ring inside the pass (a table above kWholeMax): every
+    # lane's accum and lane_steps against the host loop's, and its time.
+    label, which, kw, spp = RING_CASE
+    sc, cam = scenes[which]
+    config = TraceConfig(**kw)
+    tables = scene_tables(sc, config)
+    key = fold_in(make_key(16), spp)
+    stats = {}
+    reset_counts()
+    accum, lane_steps = RP.regen_pass(tables, config, cam, key, W, H, spp, stats=stats)
+    torch.cuda.synchronize()
+    counts = read_all_counts()
+    want, host_steps = RP.regen_pass_ref(tables, config, cam, key, W, H, spp)
+    n_same = int((accum == want).all(0).sum())
+    steps_same = bool(torch.equal(lane_steps, host_steps))
+    out["err"] = max(out["err"], float((accum - want).abs().max()) / spp)
+    T = tables.rows.shape[0]
+    print(f"{label} ({T} triangles, above kWholeMax), {spp} spp: launches {counts}; lanes "
+          f"bit-equal {n_same} of {W * H}, lane_steps equal to the host loop's {steps_same}")
+    rl = pass_lines(RP, stats)
+    ms = device_ms(torch, lambda: RP.regen_pass(tables, config, cam, key, W, H, spp), n=3)[0]
+    print(f"  live share {rl['share']:.4f}; device {ms:.4f} ms a pass")
+    check(T > 760 and stats["omax"] is None, f"{label}: {T} rows, origin bound {stats['omax']}")
+    check(counts["B1r"] == 1 and n_same == W * H and steps_same,
+          f"{label}: B1r differs from the host loop on {W * H - n_same} lanes, lane_steps "
+          f"equal {steps_same}, launches {counts}")
+    check(rl["live"] == int(lane_steps.long().sum()) and rl["overflow"] == 0,
+          f"{label}: counters {rl}")
+    out[label] = {"ms": ms, "live_share": rl["share"]}
     print(f"on {smi}")
     return out
 
@@ -3535,6 +3629,7 @@ def world_one_train(torch, scene, camera, smi, mesh, kw, dev):
 
 
 def world_one_regen(torch, scene, camera, smi, mesh, w, h, dev):
+    from montecarlopathtracer_tpu_torch.ops import regen_pass as RP
     from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
     from montecarlopathtracer_tpu_torch.parallel import sharded as SH
     from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
@@ -3901,7 +3996,8 @@ def main():
         lane_err, lane_ms = lane_vs_plain(torch, rows, bounce)
         regen_counts, regen_msps = regen_main_path(torch, scene, camera)
         b1r = regen_pass_vs_host(torch, scene, camera, smi)
-        regen_steps = b1r["Cornell RR"]["steps"]
+        regen_steps = b1r["Cornell RR"]["lane_steps"]
+        regen_share = b1r["Cornell RR"]["live_share"]
         del idx, d_full
         bscene, bcam, bconfig, tables = bunny_setup(torch)
         waves = bunny_waves(torch, bcam, bconfig, tables)
@@ -3956,7 +4052,8 @@ def main():
     print(f"\nmain path: {per_pass:.4f} s/pass, {msps:.4f} Msamples/s forward; "
           f"gradient path: {per_iter:.4f} s/iteration, {grad_msps:.4f} Msamples/s fwd+bwd")
     print(f"RR regen (Cornell {W}x{H}, {REGEN_SPP} spp/pass): {regen_msps:.4f} Msamples/s, "
-          f"steps per block min / median / max {regen_steps}; bunny traverse ({BW}x{BH}, depth {DEPTH} + 1, "
+          f"lane steps min / median / max {regen_steps}, live share {regen_share:.4f}; "
+          f"bunny traverse ({BW}x{BH}, depth {DEPTH} + 1, "
           f"1 spp): {bunny_msps:.4f} Msamples/s; bunny fwd+bwd ({BUNNY_GRAD_W}x"
           f"{BUNNY_GRAD_W}, 1 spp): {bgrad_msps:.4f} Msamples/s; on {smi}")
     print(f"glossy cull ({GW}x{GH}, {CULL_SPP} spp/pass): {cull_msps:.4f} Msamples/s; split "
@@ -3996,13 +4093,16 @@ def main():
         *(entry(name, PASS_SOURCE, PASS_REPLACES, n, b1r["err"],
                 (b1r[label]["pair"], b1r[label]["plain_ms"], b1r[label]["bound"]),
                 b1r[label]["dev"], loop=PASS_LOOP, spp=spp,
-                steps_min_median_max=b1r[label]["steps"],
+                lane_steps_min_median_max=b1r[label]["lane_steps"],
+                live_share=b1r[label]["live_share"], pinned_share=b1r[label]["pinned_share"],
                 pairs_tested_exact=b1r[label]["pairs"], **extra)
           for name, label, spp, n, extra in (
-              ("regen_pass (B1r: a whole regen pass in one launch)", "Cornell RR", REGEN_SPP,
-               regen_counts["B1r"], {"launches_sharded": shard["36d"]["B1r"]}),
+              ("regen_pass (B1r: a whole regen pass in one launch)", "Cornell RR",
+               REGEN_SPP, regen_counts["B1r"], {"launches_sharded": shard["36d"]["B1r"]}),
               ("regen_pass (chunk cull, B1rc)", "glossy fixed cull", 16,
-               b1r["launches"]["B1rc"], {}))),
+               b1r["launches"]["B1rc"],
+               {"vote_chunks_per_live_lane_step_kernel_pinned_own":
+                b1r["glossy fixed cull"]["vote"]}))),
         entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms,
               "B2", launches_sharded=shard["36c"]["B2"]),
         entry("scatter_rows (T = 652)", SCATTER_SOURCE, SCATTER_REPLACES, counts["B3"], sc_err,

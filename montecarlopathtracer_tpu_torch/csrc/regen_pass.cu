@@ -1,6 +1,6 @@
-// A whole pass of the regenerating wavefront in one launch (B1r): every
-// step of every lane, with its draws, flags, segment, bookkeeping and
-// regenerated camera rays, inside the kernel.
+// A whole pass of the regenerating wavefront (B1r): every step of every
+// lane, with its draws, flags, segment, bookkeeping and regenerated camera
+// rays, inside one launch.
 //
 // Replaces the JAX package's device program for a regen pass,
 // `render_regen_planar` (montecarlopathtracer_tpu/render/regen.py): a
@@ -8,14 +8,13 @@
 // kernel `_mega_segment_kernel` (ops/segment_fused.py, B1l) and lets XLA
 // fuse the bookkeeping around it. The plain PyTorch version of the same
 // function is `regen_pass_ref` in ops/regen_pass.py: the host loop over
-// one B1l segment per step.
+// one B1l segment per step; `regen_pass_scheduled` there runs this
+// kernel's schedule in plain torch.
 //
 // The loop's lanes are independent: lane i is pinned to pixel i of the
-// band, its draws are element i of counter-based streams (threefry.cuh,
-// bit-equal to ops/rng.py), and a lane that has finished its quota only
-// passes its state through. So a block runs the loop body (JAX
-// regen.py:127-163) for its own lanes, step after step, and stops as soon
-// as none of them is live, without changing any other lane's result:
+// band, and its step s (1, 2, ... from its first) is the global step s of
+// JAX's loop, since a lane is live at every step until it is done. So a
+// lane's step depends on nothing but its own state and step:
 // - the draws u1, u2 and (RR only) urr of step s are element i of the
 //   streams (s-1)*4 + {0, 1, 3}, the camera jitter of step 0 of
 //   (1<<30) and (1<<30)+1 and that of step s of (1<<30)+2s and
@@ -24,12 +23,11 @@
 // - the per-lane flags come from the lane's path depth as
 //   TraceConfig.lane_flags makes them: fixed [depth == max_depth, 0, 0],
 //   RR [0, rr <= depth < 3 rr, depth >= 3 rr];
-// - the segment is B1l's: sphere_select.cuh's `select_two` (128 threads,
-//   two rays each) or `select_culled` (64 threads, 128 rays, the lane map
-//   of `ray_slots<true>`), then `segment_after_select` (the winner's
-//   shading row and segment_common.cuh's `segment_epilogue`), the same
-//   functions as segment_fused.cu's, so a block's winners and outputs are
-//   those of B1l on its lanes;
+// - the segment is B1l's: sphere_select.cuh's whole-table selection
+//   (`select_staged`, `select_two` above kWholeMax rows) or
+//   `select_culled`, then `segment_after_select` (the winner's shading row
+//   and segment_common.cuh's `segment_epilogue`), the functions of
+//   segment_fused.cu, so the winners and outputs are B1l's;
 // - the bookkeeping: a path that ended adds its radiance to the lane's
 //   sum (`accum`, an IEEE add as torch's), and the lane restarts with a
 //   fresh camera ray, tput 1 and res 0 until it has done `spp` samples;
@@ -39,27 +37,58 @@
 //   contracts none into an FMA). torch on the card divides by a Python
 //   number as a multiply by its f32 reciprocal, so x / W is x * (1 / W)
 //   here (`inv_w`, `inv_h`, computed on the host).
-// Outputs: accum f32[3, R], the sum over the lane's spp samples (the
-// caller divides), and steps i32[blocks], the steps each block ran
-// (spp * num_segments + 1, one more than any block can run, if the
-// backstop stopped it with a lane still live: every path ends within
-// num_segments segments, so that never happens).
+// A lane's result therefore does not depend on which slot or block runs
+// it, nor when. Outputs: accum f32[3, R], the sum over the lane's spp
+// samples (the caller divides), and lane_steps i32[R], the step at which
+// the lane's last path ended (max_steps if the backstop
+// retired it with a path live: every path ends within num_segments
+// segments, so that never happens).
 //
 // What bounds it on an H100: the selection's f32 arithmetic, as B1l's:
 // every step tests each live lane against every triangle's sphere (17
-// operations a pair) and runs the exact test on the pairs inside; summed
-// over a pass, the live lane-steps x T x 17. Its bytes (the table, the
-// outputs) are small beside that.
+// operations a pair) and runs the exact test (~40 more) on the pairs
+// inside; summed over a pass, the live lane-steps x T x 17 plus the exact
+// pairs. Its bytes (the table, the outputs) are small beside that.
 //
-// What the design does about it: it takes the host out of the loop, so
-// the card runs only the segments (B1l's ~0.24 ms a step on average) and
-// not ~53 torch ops and three launches a step behind a sync every eight.
-// The ray state (pos, dir, tput, res f32[3, R], scratch from the caller)
-// stays in global memory, read and written each step by the thread that
-// owns the lane (coalesced, as B1l's), so the registers stay where
-// `select_two` needs them; the lane's live flag, depth and sample count
-// are registers. A block restages the table each step inside the
-// selection loop, as B1l does per launch.
+// What held the first design back (one launch, lane i pinned to slot i of
+// block i / 256 until the block's last lane was done): a finished lane kept
+// its slot, and its warp ran the whole triangle loop for it anyway. In
+// the Cornell box at RR 32 spp the blocks ran 145 to 326 steps, and only
+// 0.724 of the slot-steps were live lanes'; the wave tail and the idle
+// slots are one loss. Each step also restaged the table and rebuilt its
+// spheres (three barriers), since the spheres' slack followed the block's
+// largest |o|.
+//
+// What this design does about it:
+// - a persistent grid (the blocks that fit on the card at once), whose
+//   slots pull lanes from a device-side work list, lanes 0 .. R-1 behind
+//   one counter: each warp's free slots take lanes with one atomicAdd a
+//   step. A lane's whole state is in the slot's registers while it holds
+//   it, from its first step to its last;
+// - the block decides, with one vote a step: each warp's live count and
+//   whether it saw the list spent, written to a double buffer in shared
+//   memory behind one barrier;
+// - the tail: a block whose list is spent and whose live lanes are at
+//   most kWideMax packs them through shared memory and traces each with
+//   g = 128 / live threads (a power of two, 1 to 32), each a strided
+//   share of the table, the group's least (t, index) the winner (the
+//   serial loop's, bit for bit). Its last lanes, which set the pass's
+//   end, then step up to 32 times faster;
+// - the whole table (T <= kWholeMax) staged once a launch, with spheres
+//   widened for a pass-wide bound on |o| (computed on the card by the
+//   wrapper from the eye and the vertices, `origin_bound`), then a
+//   barrier-free step of select_two's whole branch (`select_staged`). A
+//   live ray beyond the bound tests every triangle exactly and is counted
+//   (`overflow`, expected 0). Larger tables keep select_two's ring; the
+//   culled instance keeps `select_culled` over its records, which stages
+//   nothing per step, and no tail mode.
+// Resumable lanes handed on between queued launches (rounds) were
+// measured too and cost more than they saved (PERF.md §6), so a pass is
+// one launch.
+// Counters in device memory (ops/regen_pass.py's STATS): block-steps,
+// slot-steps, live lane-steps, overflow lane-steps, the culled vote's
+// chunks x live lanes, the blocks that ran a step, and the card's clock
+// at the first block start, the first spent list and the last block end.
 
 #include <cstdint>
 
@@ -82,13 +111,40 @@ namespace {
 using namespace seg;
 
 constexpr int kKeyWords = 10;  // a step's folded keys: u1, u2, urr, jitter x, jitter y
+constexpr int kWideMax = kSelThreads;  // lanes traced wide at most: a thread a lane or more
+constexpr int kStats = 9;      // counters (ops/regen_pass.py STATS)
+enum Stat { kBlockSteps, kSlotSteps, kLiveSteps, kOverflow, kVoteChunks, kBlocks, kStart, kSpent,
+            kEnd };
 
-// One lane's registers: live, path depth, samples completed.
-struct Lane {
-  bool live;
-  int depth, done;
+// The card's clock (ns); the first start and first spent list are kept
+// as the largest ~t, the last end as the largest t.
+__device__ __forceinline__ unsigned long long clock_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A slot's lane, in registers: its band lane (-1: the slot is empty), its
+// path depth, samples completed and own step, and its ray's state.
+struct Slot {
+  int id, depth, done, step;
+  V3 pos, dir, tput, res;
 };
 
+// A lane traced wide: its ray, and whether its |o| exceeds the staged
+// spheres' bound (then it tests every triangle exactly).
+struct WideRay {
+  V3 o, d;
+  bool force;
+};
+
+// What a pass keeps in global memory.
+struct Scratch {
+  float* accum;                   // f32[3, R]
+  int* lane_steps;                // i32[R]
+  int* head;                      // the work list's fetch counter
+  unsigned long long* stats;      // u64[kStats]
+};
 // Camera.generate_rays_soa of band lane r (pixel (r % W, r / W + y0))
 // with uniforms ux, uy in [0, 1): jitter j = 2 u - 1. `cam` f32[14] =
 // eye, right, up, forward, tan_half_x, tan_half_y.
@@ -115,20 +171,16 @@ __device__ __forceinline__ void camera_ray(const float* __restrict__ cam, const 
   o = make(__ldg(cam), __ldg(cam + 1), __ldg(cam + 2));
 }
 
-// A fresh path for lane r: the camera ray of the jitter keys k[6..9],
-// tput 1, res 0.
+// A fresh path for the slot's lane: the camera ray of the jitter keys
+// k[6..9], tput 1, res 0.
 __device__ __forceinline__ void start_path(const float* __restrict__ cam, const RegenArgs& a,
-                                           const uint32_t* __restrict__ k, int r,
-                                           float* __restrict__ pos, float* __restrict__ dir,
-                                           float* __restrict__ tput, float* __restrict__ res) {
-  const float ux = tf::uniform(__ldg(k + 6), __ldg(k + 7), static_cast<uint32_t>(r));
-  const float uy = tf::uniform(__ldg(k + 8), __ldg(k + 9), static_cast<uint32_t>(r));
-  V3 o, d;
-  camera_ray(cam, a, r, ux, uy, o, d);
-  store3(pos, a.R, r, o);
-  store3(dir, a.R, r, d);
-  store3(tput, a.R, r, make(1.0f, 1.0f, 1.0f));
-  store3(res, a.R, r, make(0.0f, 0.0f, 0.0f));
+                                           const uint32_t* __restrict__ k, Slot& s) {
+  const uint32_t ctr = static_cast<uint32_t>(s.id);
+  const float ux = tf::uniform(__ldg(k + 6), __ldg(k + 7), ctr);
+  const float uy = tf::uniform(__ldg(k + 8), __ldg(k + 9), ctr);
+  camera_ray(cam, a, s.id, ux, uy, s.pos, s.dir);
+  s.tput = make(1.0f, 1.0f, 1.0f);
+  s.res = make(0.0f, 0.0f, 0.0f);
 }
 
 // TraceConfig.lane_flags of a lane at path depth `depth`.
@@ -138,112 +190,234 @@ __device__ __forceinline__ Flags depth_flags(int depth, const RegenArgs& a) {
   return {depth == a.max_depth, false, false};
 }
 
-// One live lane's step after its selection: its draws, the segment's
-// epilogue, then the bookkeeping of the loop body.
+// Puts lane `id` into an empty slot at its step 0, with accum zeroed.
+__device__ __forceinline__ void take(Slot& s, int id, const float* __restrict__ cam,
+                                     const RegenArgs& a, const uint32_t* __restrict__ keys,
+                                     const Scratch& sc) {
+  s.id = id;
+  s.depth = s.done = s.step = 0;
+  start_path(cam, a, keys, s);
+  store3(sc.accum, a.R, id, make(0.0f, 0.0f, 0.0f));
+}
+
+// The warp's empty slots (while its block has not seen the list spent)
+// take the next lanes of the work list, lanes 0 .. R-1, with one
+// atomicAdd; `spent` is set when the list ran short. Every lane of the
+// warp calls it.
+__device__ __forceinline__ void fetch(Slot& sa, Slot& sb, bool& spent,
+                                      const float* __restrict__ cam, const RegenArgs& a,
+                                      const uint32_t* __restrict__ keys, const Scratch& sc) {
+  const int lane = threadIdx.x % 32;
+  const bool na = sa.id < 0 && !spent, nb = sb.id < 0 && !spent;
+  const unsigned ba = __ballot_sync(kAll, na), bb = __ballot_sync(kAll, nb);
+  const int n = __popc(ba) + __popc(bb);
+  if (n == 0) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(sc.head, n);
+  base = __shfl_sync(kAll, base, 0);
+  const unsigned below = (1u << lane) - 1u;
+  if (na) {
+    const int i = base + __popc(ba & below);
+    if (i < a.R) take(sa, i, cam, a, keys, sc);
+  }
+  if (nb) {
+    const int i = base + __popc(ba) + __popc(bb & below);
+    if (i < a.R) take(sb, i, cam, a, keys, sc);
+  }
+  if (base + n > a.R) spent = true;
+}
+
+// One live lane's step after its selection: its draws (keys of its own
+// next step), the segment's epilogue, then the bookkeeping of the loop
+// body; a lane that has done its samples leaves the slot.
 __device__ __forceinline__ void lane_step(const float* __restrict__ rows,
                                           const float* __restrict__ cam, const RegenArgs& a,
-                                          const uint32_t* __restrict__ k, int r, const Ray& ray,
-                                          Lane& lane, float* __restrict__ pos,
-                                          float* __restrict__ dir, float* __restrict__ tput,
-                                          float* __restrict__ res, float* __restrict__ accum) {
+                                          const uint32_t* __restrict__ keys, const Ray& ray,
+                                          Slot& s, const Scratch& sc) {
   const int R = a.R;
-  const uint32_t ctr = static_cast<uint32_t>(r);
+  s.step += 1;
+  const uint32_t* k = keys + static_cast<size_t>(s.step) * kKeyWords;
+  const uint32_t ctr = static_cast<uint32_t>(s.id);
   const float v1 = tf::uniform(__ldg(k), __ldg(k + 1), ctr);
   const float v2 = tf::uniform(__ldg(k + 2), __ldg(k + 3), ctr);
   const float vrr = a.opt.mode_rr ? tf::uniform(__ldg(k + 4), __ldg(k + 5), ctr) : 0.0f;
-  const SegState out = segment_after_select(rows, ray, load3(tput, R, r), load3(res, R, r), v1,
-                                            v2, vrr, depth_flags(lane.depth, a), a.opt);
+  const SegState out = segment_after_select(rows, ray, s.tput, s.res, v1, v2, vrr,
+                                            depth_flags(s.depth, a), a.opt);
   if (out.still) {  // res is unchanged on a path that goes on
-    store3(pos, R, r, out.pos);
-    store3(dir, R, r, out.dir);
-    store3(tput, R, r, out.tput);
-    lane.depth += 1;
-    return;
-  }
-  const V3 s = load3(accum, R, r);
-  store3(accum, R, r,
-         make(__fadd_rn(s.x, out.res.x), __fadd_rn(s.y, out.res.y), __fadd_rn(s.z, out.res.z)));
-  lane.done += 1;
-  if (lane.done < a.spp) {
-    start_path(cam, a, k, r, pos, dir, tput, res);
-    lane.depth = 0;
+    s.pos = out.pos;
+    s.dir = out.dir;
+    s.tput = out.tput;
+    s.depth += 1;
   } else {
-    lane.live = false;
+    const V3 acc = load3(sc.accum, R, s.id);
+    store3(sc.accum, R, s.id,
+           make(__fadd_rn(acc.x, out.res.x), __fadd_rn(acc.y, out.res.y),
+                __fadd_rn(acc.z, out.res.z)));
+    s.done += 1;
+    if (s.done >= a.spp) {
+      sc.lane_steps[s.id] = s.step;
+      s.id = -1;
+      return;
+    }
+    start_path(cam, a, k, s);
+    s.depth = 0;
+  }
+  if (s.step + 1 >= a.max_steps) {  // the backstop, with a path live
+    sc.lane_steps[s.id] = a.max_steps;
+    s.id = -1;
   }
 }
 
 template <bool kCull>
-__global__ void __launch_bounds__(kSelThreads)
+__global__ void __launch_bounds__(kCull ? kCullThreads : kSelThreads)
 regen_pass_kernel(const float* __restrict__ rows, const float* __restrict__ clo,
-                  const float* __restrict__ chi, const float* __restrict__ cslack,
-                  const float4* __restrict__ rec, const uint32_t* __restrict__ keys,
-                  const float* __restrict__ cam, const RegenArgs a, float* __restrict__ pos,
-                  float* __restrict__ dir, float* __restrict__ tput, float* __restrict__ res,
-                  float* __restrict__ accum, int* __restrict__ steps_out) {
-  int ra_i, rb_i;
-  ray_slots<kCull>(ra_i, rb_i);
-  Lane la = {ra_i < a.R, 0, 0}, lb = {rb_i < a.R, 0, 0};
-  const V3 zero = make(0.0f, 0.0f, 0.0f);
-  if (la.live) {
-    start_path(cam, a, keys, ra_i, pos, dir, tput, res);
-    store3(accum, a.R, ra_i, zero);
-  }
-  if (lb.live) {
-    start_path(cam, a, keys, rb_i, pos, dir, tput, res);
-    store3(accum, a.R, rb_i, zero);
-  }
-  const V3 d0 = make(0.0f, 0.0f, 1.0f);
-  int ran = 0;
+                   const float* __restrict__ chi, const float* __restrict__ cslack,
+                   const float4* __restrict__ rec, const uint32_t* __restrict__ keys,
+                   const float* __restrict__ cam, const float* __restrict__ omax_p,
+                   const RegenArgs a, const Scratch sc) {
+  constexpr int kThreads = kCull ? kCullThreads : kSelThreads;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSlots = 2 * kThreads;
+  __shared__ int votes[2][kWarps];  // a step's vote, double-buffered
+  __shared__ WideRay wide_ray[kCull ? 1 : kWideMax];  // the tail's lanes
+  __shared__ Hit wide_hit[kCull ? 1 : kWideMax];
+  unsigned long long* stats = sc.stats;
+  if (threadIdx.x == 0) atomicMax(stats + kStart, ~clock_ns());
+  const bool whole = !kCull && a.T <= kWholeMax;
+  const float omax = whole ? __ldg(omax_p) : 0.0f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const V3 zero = make(0.0f, 0.0f, 0.0f), d0 = make(0.0f, 0.0f, 1.0f);
+  Slot sa, sb;
+  sa.id = sb.id = -1;
+  bool spent = false, seen_spent = false, staged = false;
+  long long steps = 0, live_steps = 0, vote_chunks = 0;
   // Every thread reaches every barrier: the loop's exit is block-uniform.
-  for (int step = 1;; ++step) {
-    if (!__syncthreads_or(la.live || lb.live)) break;
-    if (step >= a.max_steps) {  // the backstop, with a lane still live
-      ran = a.max_steps;
-      break;
+  for (int par = 0;; par ^= 1) {
+    fetch(sa, sb, spent, cam, a, keys, sc);
+    const unsigned la = __ballot_sync(kAll, sa.id >= 0), lb = __ballot_sync(kAll, sb.id >= 0);
+    const bool warp_spent = __any_sync(kAll, spent);
+    if (lane == 0) votes[par][warp] = __popc(la) + __popc(lb) + (warp_spent ? 1 << 16 : 0);
+    __syncthreads();
+    int live = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int v = votes[par][w];
+      live += v & 0xffff;
+      spent = spent || v >> 16;
     }
-    Ray ra = make_ray(la.live ? load3(pos, a.R, ra_i) : zero, la.live ? load3(dir, a.R, ra_i) : d0);
-    Ray rb = make_ray(lb.live ? load3(pos, a.R, rb_i) : zero, lb.live ? load3(dir, a.R, rb_i) : d0);
+    if (live == 0) break;  // the list is spent and the slots are empty
+    if (spent && !seen_spent && threadIdx.x == 0) atomicMax(stats + kSpent, ~clock_ns());
+    seen_spent = spent;
+    if (whole && !staged) {
+      stage_whole(rows, a.T, omax);
+      staged = true;
+    }
+    const bool act_a = sa.id >= 0, act_b = sb.id >= 0;
+    Ray ra = make_ray(act_a ? sa.pos : zero, act_a ? sa.dir : d0);
+    Ray rb = make_ray(act_b ? sb.pos : zero, act_b ? sb.dir : d0);
     if constexpr (kCull) {
       int tested;
-      select_culled<false>(rec, a.T, ra, la.live, rb, lb.live, clo, chi, cslack, tested);
+      select_culled<false>(rec, a.T, ra, act_a, rb, act_b, clo, chi, cslack, tested);
+      vote_chunks += static_cast<long long>(tested) * live;
+    } else if (whole && spent && live <= kWideMax) {
+      // The tail: the live lanes packed, g = kSelThreads / live threads (a
+      // power of two, 1 to 32) a lane, each thread a strided share of the
+      // table, and the group's least (t, index) the lane's winner. The
+      // lanes' rays go through shared memory in the order of their slots.
+      int below_warps = 0;
+      for (int w = 0; w < warp; ++w) below_warps += votes[par][w] & 0xffff;
+      const unsigned below = (1u << lane) - 1u;
+      const int rank_a = below_warps + __popc(la & below);
+      const int rank_b = below_warps + __popc(la) + __popc(lb & below);
+      const bool fa = act_a && beyond_bound(ra.o, omax), fb = act_b && beyond_bound(rb.o, omax);
+      if (fa || fb) atomicAdd(stats + kOverflow, static_cast<unsigned long long>(fa + fb));
+      if (act_a) wide_ray[rank_a] = {ra.o, ra.d, fa};
+      if (act_b) wide_ray[rank_b] = {rb.o, rb.d, fb};
+      __syncthreads();
+      int g = 32;
+      while (g * live > kSelThreads) g >>= 1;
+      const int j = threadIdx.x / g;
+      Ray r = make_ray(zero, d0);
+      if (j < live) {
+        const WideRay w = wide_ray[j];
+        r = make_ray(w.o, w.d);
+        test_strided<false>(a.T, threadIdx.x % g, g, r, w.force);
+      }
+      wide_min(r.h, g);
+      if (j < live && threadIdx.x % g == 0) wide_hit[j] = r.h;
+      __syncthreads();
+      if (act_a) ra.h = wide_hit[rank_a];
+      if (act_b) rb.h = wide_hit[rank_b];
+    } else if (whole) {
+      const int over = select_staged<false>(a.T, omax, ra, act_a, rb, act_b);
+      if (over) atomicAdd(stats + kOverflow, static_cast<unsigned long long>(over));
     } else {
       int tested_a, tested_b;
-      select_two<false>(rows, a.T, ra, la.live, rb, lb.live, tested_a, tested_b);
+      select_two<false>(rows, a.T, ra, act_a, rb, act_b, tested_a, tested_b);
     }
-    const uint32_t* k = keys + static_cast<size_t>(step) * kKeyWords;
-    if (la.live) lane_step(rows, cam, a, k, ra_i, ra, la, pos, dir, tput, res, accum);
-    if (lb.live) lane_step(rows, cam, a, k, rb_i, rb, lb, pos, dir, tput, res, accum);
-    ran = step;
+    if (act_a) lane_step(rows, cam, a, keys, ra, sa, sc);
+    if (act_b) lane_step(rows, cam, a, keys, rb, sb, sc);
+    steps += 1;
+    live_steps += live;
   }
-  if (threadIdx.x == 0) steps_out[blockIdx.x] = ran;
+  if (threadIdx.x == 0) atomicMax(stats + kEnd, clock_ns());
+  if (threadIdx.x == 0 && steps > 0) {
+    atomicAdd(stats + kBlockSteps, static_cast<unsigned long long>(steps));
+    atomicAdd(stats + kSlotSteps, static_cast<unsigned long long>(steps) * kSlots);
+    atomicAdd(stats + kLiveSteps, static_cast<unsigned long long>(live_steps));
+    atomicAdd(stats + kVoteChunks, static_cast<unsigned long long>(vote_chunks));
+    atomicAdd(stats + kBlocks, 1ull);
+  }
 }
 
 }  // namespace
 
-// Blocks of one launch for R lanes: 256 lanes a block, 128 with `cull`.
-extern "C" int regen_pass_blocks(int R, int cull) {
-  const int lanes = cull ? 2 * seg::kCullThreads : seg::kSelRays;
-  return (R + lanes - 1) / lanes;
+// Blocks of the kernel that fit on the current card at once over a T-row
+// table: the occupancy calculator's blocks per SM x the SMs; 0 on an
+// error. A launch takes at most one block per 2 x threads lanes.
+extern "C" long regen_pass_resident(int T, int cull) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err =
+      cull ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, regen_pass_kernel<true>,
+                                                           kCullThreads, cull_smem_bytes(T))
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, regen_pass_kernel<false>,
+                                                           kSelThreads, select_smem_bytes(T));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return 0;
+  return static_cast<long>(per_sm) * sms;
 }
 
-// Runs one regen pass on `stream` (the culled instance when `cull` is
-// set, over the records `rec` of nearest_shade.cu's
-// `cull_records_launch`); `state` is scratch f32[4, 3, R] (pos, dir,
-// tput, res). Returns cudaGetLastError() so the caller can raise on a
-// refused launch.
+// Runs one regen pass on `stream` in `grid` blocks (the culled instance
+// when `cull` is set, over the records `rec` of nearest_shade.cu's
+// `cull_records_launch`): zeroes the counters `work` (u64[9] stats, then
+// the list's i32 counter), then launches the kernel once. `omax` f32[1]
+// is the bound on |o| the staged spheres cover. Returns the first CUDA
+// error (cudaGetLastError() after the launch) so the caller can raise on
+// a refused launch.
 extern "C" int regen_pass_launch(const float* rows, const float* clo, const float* chi,
                                  const float* cslack, const float* rec, int cull,
-                                 const uint32_t* keys, const float* cam, const RegenArgs* args,
-                                 float* state, float* accum, int* steps, void* stream) {
+                                 const uint32_t* keys, const float* cam, const float* omax,
+                                 const RegenArgs* args, float* accum, int* lane_steps,
+                                 void* work, long grid, void* stream) {
   const RegenArgs a = *args;
-  if (a.R > 0) {
-    const size_t n = 3 * static_cast<size_t>(a.R);
-    auto kernel = cull ? regen_pass_kernel<true> : regen_pass_kernel<false>;
-    const int bytes = cull ? seg::cull_smem_bytes(a.T) : seg::select_smem_bytes(a.T);
-    const int threads = cull ? seg::kCullThreads : seg::kSelThreads;
-    kernel<<<regen_pass_blocks(a.R, cull), threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-        rows, clo, chi, cslack, reinterpret_cast<const float4*>(rec), keys, cam, a, state,
-        state + n, state + 2 * n, state + 3 * n, accum, steps);
-  }
+  if (a.R <= 0) return static_cast<int>(cudaGetLastError());
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Scratch sc;
+  sc.accum = accum;
+  sc.lane_steps = lane_steps;
+  sc.stats = static_cast<unsigned long long*>(work);
+  sc.head = reinterpret_cast<int*>(sc.stats + kStats);
+  cudaError_t err = cudaMemsetAsync(work, 0, kStats * sizeof(unsigned long long) + sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bytes = cull ? cull_smem_bytes(a.T) : select_smem_bytes(a.T);
+  const auto* fn = reinterpret_cast<const float4*>(rec);
+  if (cull)
+    regen_pass_kernel<true><<<grid, kCullThreads, bytes, s>>>(rows, clo, chi, cslack, fn, keys,
+                                                               cam, omax, a, sc);
+  else
+    regen_pass_kernel<false><<<grid, kSelThreads, bytes, s>>>(rows, clo, chi, cslack, fn, keys,
+                                                               cam, omax, a, sc);
   return static_cast<int>(cudaGetLastError());
 }

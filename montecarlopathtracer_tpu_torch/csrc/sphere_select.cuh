@@ -32,7 +32,12 @@
 //   cp.async, so the next tile loads while the current one is tested;
 // - two rays per thread (rays r and r + 128 of a 256-ray block) and the
 //   spheres of four triangles at a time, so each sphere read from shared
-//   memory serves two rays and eight independent tests interleave.
+//   memory serves two rays and eight independent tests interleave;
+// - the regen pass B1r (regen_pass.cu), whose blocks run many steps,
+//   stages the whole table once (`stage_whole`, its spheres widened for a
+//   bound on |o| over the pass) and runs each step without a barrier
+//   (`select_staged`); its tail traces a ray with g threads, each a
+//   strided share (`test_strided`), reduced by (t, index) (`wide_min`).
 // B7 runs the loop on its [T, 12] geometry table (kStride = 12). kDzTest
 // adds the explicit |d'_z| > 1e-12 test of the TPU kernels
 // `_nearest_kernel` and `_nearest_shade_culled_kernel`. Selection runs in
@@ -81,6 +86,7 @@ constexpr int kWholeMax = 760;                // triangles staged at once: 64 B 
 constexpr int kUnroll = 4;                    // triangles whose spheres are tested together
 constexpr int kTileFloat4 = 7 * kChunk;       // the ring: two tiles of geometry, one of spheres
 constexpr float kShrink = 1.0f - 0x1p-18f;
+constexpr unsigned kAll = 0xffffffffu;       // a full warp's mask
 
 // One ray of a thread: origin, direction, d.d and d.d (1 - 2^-18) for
 // the sphere test, and its best hit so far.
@@ -249,12 +255,15 @@ __device__ __forceinline__ void exact_test(const float4* g, int i, Ray& r) {
 // Test both rays (where ta, tb) against the n staged triangles base ..
 // base + n - 1 in ascending order: the sphere tests of kUnroll triangles
 // first, then the exact tests of the pairs that passed, triangle by
-// triangle (each ray's exact tests stay in ascending order).
+// triangle (each ray's exact tests stay in ascending order). A ray with
+// fa (fb) set skips the spheres and tests every triangle exactly.
 template <bool kDzTest>
 __device__ __forceinline__ void test_range(const float4* geom, const float4* sph, int n,
-                                           int base, Ray& ra, bool ta, Ray& rb, bool tb) {
+                                           int base, Ray& ra, bool ta, Ray& rb, bool tb,
+                                           bool fa = false, bool fb = false) {
   const unsigned all = (1u << kUnroll) - 1u;
   const unsigned live_a = ta ? all : 0u, live_b = tb ? all : 0u;
+  const unsigned force_a = fa ? all : 0u, force_b = fb ? all : 0u;
   int k = 0;
   for (; k + kUnroll <= n; k += kUnroll) {
     float4 s[kUnroll];
@@ -266,8 +275,8 @@ __device__ __forceinline__ void test_range(const float4* geom, const float4* sph
       ma |= static_cast<unsigned>(sphere_pass(s[j], ra)) << j;
       mb |= static_cast<unsigned>(sphere_pass(s[j], rb)) << j;
     }
-    ma &= live_a;
-    mb &= live_b;
+    ma = (ma | force_a) & live_a;
+    mb = (mb | force_b) & live_b;
     if (ma | mb) {
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
@@ -278,8 +287,8 @@ __device__ __forceinline__ void test_range(const float4* geom, const float4* sph
   }
   for (; k < n; ++k) {
     const float4 s = sph[k];
-    if (ta && sphere_pass(s, ra)) exact_test<kDzTest>(geom + 3 * k, base + k, ra);
-    if (tb && sphere_pass(s, rb)) exact_test<kDzTest>(geom + 3 * k, base + k, rb);
+    if (ta && (fa || sphere_pass(s, ra))) exact_test<kDzTest>(geom + 3 * k, base + k, ra);
+    if (tb && (fb || sphere_pass(s, rb))) exact_test<kDzTest>(geom + 3 * k, base + k, rb);
   }
 }
 
@@ -374,6 +383,85 @@ __device__ __forceinline__ void select_two(const float* __restrict__ rows, int T
   }
 }
 
+// The whole table (T <= kWholeMax) staged once for many selections, by a
+// block that keeps its shared memory across them (the regen pass B1r):
+// the geometry, then the spheres widened for origins with |o| <= omax
+// (`triangle_sphere`), at smem[0 .. 3T) and smem[3T .. 4T), the layout of
+// select_two's whole branch. Every thread of the block must call it.
+template <int kStride = 48>
+__device__ __forceinline__ void stage_whole(const float* __restrict__ rows, int T, float omax) {
+  extern __shared__ float4 smem[];
+  stage_async<kStride>(smem, rows, 0, T);
+  cp_async_wait<0>();
+  __syncthreads();
+  make_spheres(smem, smem + 3 * T, T, omax);
+  __syncthreads();
+}
+
+// Whether a ray's finite |o| exceeds the bound omax that staged spheres
+// were widened for (a NaN or infinite |o| never passes the exact test).
+__device__ __forceinline__ bool beyond_bound(V3 o, float omax) {
+  const float on = sqrtf(dot(o, o));
+  return on < kBig && on > omax;
+}
+
+// A step of select_two's whole branch over the table stage_whole staged,
+// without a barrier: the same sphere and exact tests in the same order,
+// so the same winners, t, beta and gamma (the spheres only reject pairs
+// the exact test cannot accept; a larger omax widens them, and no
+// winner depends on how far). A live ray whose finite |o| exceeds omax
+// (a bound the staged spheres do not cover) tests every triangle
+// exactly instead; returns how many of the thread's two rays did.
+template <bool kDzTest>
+__device__ __forceinline__ int select_staged(int T, float omax, Ray& ra, bool act_a, Ray& rb,
+                                             bool act_b) {
+  extern __shared__ float4 smem[];
+  const bool fa = act_a && beyond_bound(ra.o, omax), fb = act_b && beyond_bound(rb.o, omax);
+  if (act_a || act_b)
+    test_range<kDzTest>(smem, smem + 3 * T, T, 0, ra, act_a, rb, act_b, fa, fb);
+  return static_cast<int>(fa) + static_cast<int>(fb);
+}
+
+// One ray against the staged triangles q, q + g, q + 2g, ... of a T-row
+// table (stage_whole's layout), in ascending order: a thread's share of
+// a ray that g threads test together (the regen pass's tail). Each
+// thread's best hit is the least (t, index) of its share, so the least
+// (t, index) over the g threads (`wide_min`) is select_two's winner.
+template <bool kDzTest>
+__device__ __forceinline__ void test_strided(int T, int q, int g, Ray& r, bool force) {
+  extern __shared__ float4 smem[];
+  const float4* geom = smem;
+  const float4* sph = smem + 3 * T;
+  const unsigned all = (1u << kUnroll) - 1u, forced = force ? all : 0u;
+  int k = q;
+  for (; k + (kUnroll - 1) * g < T; k += kUnroll * g) {
+    float4 s[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) s[j] = sph[k + j * g];
+    unsigned m = forced;
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) m |= static_cast<unsigned>(sphere_pass(s[j], r)) << j;
+    if (m) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        if (m & (1u << j)) exact_test<kDzTest>(geom + 3 * (k + j * g), k + j * g, r);
+    }
+  }
+  for (; k < T; k += g)
+    if (force || sphere_pass(sph[k], r)) exact_test<kDzTest>(geom + 3 * k, k, r);
+}
+
+// The least (t, index) hit over the aligned groups of g lanes of a warp
+// (g a power of two up to 32); every lane of the warp must call it.
+__device__ __forceinline__ void wide_min(Hit& h, int g) {
+  for (int m = 1; m < g; m <<= 1) {
+    const float t = __shfl_xor_sync(kAll, h.t, m), b = __shfl_xor_sync(kAll, h.beta, m);
+    const float c = __shfl_xor_sync(kAll, h.gamma, m);
+    const int i = __shfl_xor_sync(kAll, h.i, m);
+    if (t < h.t || (t == h.t && i < h.i)) h = {t, b, c, i};
+  }
+}
+
 // One live ray's segment after its selection: the winner's shading row
 // read once from global memory (all zero on a miss: t = kBig, beta =
 // gamma = 0), then segment_common.cuh's `segment_epilogue` in registers.
@@ -408,7 +496,6 @@ constexpr int kCullThreads = 64;  // threads per block of the culled loop: 128 r
 constexpr int kWindow = 32;  // chunks a warp orders at once: one key per lane
 constexpr int kLeaf = 16;    // triangles per leaf box inside a chunk
 constexpr int kCullUnroll = 8;  // records whose spheres are tested together
-constexpr unsigned kAll = 0xffffffffu;
 
 // The rays of thread threadIdx.x: r and r + 128 of the block's 256 for
 // the full loop; for the culled loop, whose blocks of two warps take one

@@ -1,5 +1,5 @@
 """A whole pass of the regenerating wavefront (kernel B1r) and its plain
-version.
+versions.
 
 The counterpart of the JAX package's regen device program
 (``montecarlopathtracer_tpu/render/regen.py``: a ``lax.while_loop`` under
@@ -10,29 +10,36 @@ see :mod:`..render.regen` for the estimator and its stream ids.
 
 - :func:`regen_pass` is the entry point. For a CUDA device it launches
   ``csrc/regen_pass.cu`` once (adding one to ``regen_pass.launches``, or
-  to ``regen_pass.cull_launches`` for the culled instance): each block of
-  256 lanes (128 with ``chunk_cull``) runs the loop for its own lanes
-  until none is live, its draws, flags, segment (B1l's selection loop and
-  epilogue), bookkeeping and camera rays inside the kernel, with no host
-  step. For the CPU it runs :func:`regen_pass_ref`. It never falls back
-  from one to the other: a build or launch failure raises.
+  to ``regen_pass.cull_launches`` for the culled instance), with no host
+  sync. A persistent grid of blocks pulls lanes from a device-side work
+  list into free slots and runs each lane in its slot from its first
+  step to its last; a lane carries its own step, so its draws and flags
+  do not depend on which slot or block runs it. A block whose list is
+  spent traces its last lanes packed, several threads a lane. For the
+  CPU it runs :func:`regen_pass_ref`. It never falls back from one to the
+  other: a build or launch failure raises.
 - :func:`regen_pass_ref` is the host loop: one whole segment per step
   through :func:`..render.integrator.segment_step` (B1l on the card, its
   plain version on the CPU or under ``testing.plain_kernels()``), with
-  the live mask read every :data:`LIVE_CHECK_EVERY` steps. With
-  ``lane_block`` it runs each block of that many lanes as its own loop
-  that stops when the block's lanes are done, as the kernel's blocks do.
-  It also serves the traversal path, which has no pass kernel: there each
-  step launches B5 and B6l.
+  the live mask read every :data:`LIVE_CHECK_EVERY` steps. It also
+  serves the traversal path, which has no pass kernel: there each step
+  launches B5 and B6l.
+- :func:`regen_pass_scheduled` runs the pass as the kernel schedules it,
+  in plain torch: blocks of slots pulling lanes from the work list, the
+  per-lane step, lanes leaving their slots when done.
 - :func:`pass_keys` folds every stream key of a pass on the host (the
   table the kernel reads); :func:`camera_rays_ref` is the kernel's camera
-  ray in plain torch, in its operation order.
+  ray in plain torch, in its operation order; :func:`origin_bound` the
+  bound on every origin of a pass that the kernel widens its staged
+  spheres for.
 
-Both return ``(accum f32[3, R], steps i32[blocks])``: the sum of each
-lane's samples (the caller divides by ``spp``) and the steps each block
-ran, the step at which its last path ended (``spp * num_segments + 1``
-if the backstop stopped it with a lane live, which cannot happen: every
-path ends within ``num_segments`` segments).
+All return ``(accum f32[3, R], lane_steps i32[R])`` (the schedule its
+counters too): the sum of each lane's samples (the caller divides by
+``spp``) and the step at which each lane's last path ended (``spp *
+num_segments + 1`` if the backstop stopped it with a path live, which
+cannot happen: every path ends within ``num_segments`` segments). A lane
+is live at every step from its first until that one, so ``lane_steps``
+is also each lane's count of steps.
 """
 
 from __future__ import annotations
@@ -49,16 +56,26 @@ from . import rng
 from .rng import Key
 
 LIVE_CHECK_EVERY = 8  # host-loop steps between two reads of the live mask
-LANE_BLOCK = 256  # lanes of a block of the kernel (csrc/sphere_select.cuh kSelRays)
-CULL_LANE_BLOCK = 128  # with chunk_cull (2 * kCullThreads)
+# The counters of a pass, i64[len(STATS)]: the steps the blocks ran, the
+# slot-steps (block-steps x slots a block), the live lane-steps, the
+# lane-steps whose origin exceeded the staged bound (the plain instance's
+# whole table; those lanes test every triangle exactly), the culled
+# loop's chunks tested x the live lanes of the block-step, the blocks that
+# ran a step; then the card's clock (ns) at the first block start, when a
+# block first found the list spent, and at the last block end, kept as
+# -1 - t, -1 - t and t (:func:`pass_times` reads them).
+STATS = ("block_steps", "slot_steps", "live_steps", "overflow", "vote_chunks", "blocks",
+         "t_start", "t_spent", "t_end")
 _KEY_SLOTS = 5  # a step's streams: u1, u2, urr, jitter x, jitter y
 _M32 = 0xFFFFFFFF
 _JITTER = 1 << 30  # first jitter stream
 
 
-def lane_block(config) -> int:
-    """Lanes per block of the kernel for ``config``."""
-    return CULL_LANE_BLOCK if config.chunk_cull else LANE_BLOCK
+def slots_per_block(config) -> int:
+    """Lane slots of a block of the kernel for ``config``: two a thread,
+    128 threads (csrc/sphere_select.cuh kSelThreads), 64 with chunk_cull
+    (kCullThreads)."""
+    return 128 if config.chunk_cull else 256
 
 
 def max_steps(spp: int, config) -> int:
@@ -67,21 +84,40 @@ def max_steps(spp: int, config) -> int:
     return spp * config.num_segments + 1
 
 
-def fold_in_many(key: Key, data: np.ndarray):
-    """:func:`.rng.fold_in` of every entry of ``data`` (uint32-valued) at
-    once, on numpy uint32 arrays: (k0, k1) uint32 arrays."""
-    k0, k1 = key
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = np.full(data.shape, ks[0], np.uint32)
-    x1 = (np.asarray(data, np.uint64) + ks[1]).astype(np.uint32)  # wraps mod 2**32
+def _threefry(k0, k1, ks2, x1):
+    """Threefry-2x32 (20 rounds) of counter words (0, x1) under keys
+    (k0, k1) and k0 ^ k1 ^ 0x1BD11BDA = ks2, on numpy uint32 arrays
+    (scalars or one key per element): the two output words."""
+    ks = (k0, k1, ks2)
+    x0 = np.zeros(np.broadcast(k0, x1).shape, np.uint32) + k0
+    x1 = np.asarray(x1, np.uint32) + k1
     for i in range(5):
         for r in rng._ROT[i % 2]:
             x0 += x1
             x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
             x1 ^= x0
-        x0 += np.uint32(ks[(i + 1) % 3])
-        x1 += np.uint32((ks[(i + 2) % 3] + i + 1) & _M32)
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3] + np.uint32(i + 1)
     return x0, x1
+
+
+def fold_in_many(key: Key, data: np.ndarray):
+    """:func:`.rng.fold_in` of every entry of ``data`` (uint32-valued) at
+    once, on numpy uint32 arrays: (k0, k1) uint32 arrays."""
+    k0, k1 = (np.full(1, k, np.uint32) for k in key)  # arrays: their sums wrap silently
+    data = (np.asarray(data, np.uint64) & _M32).astype(np.uint32)
+    return _threefry(k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA), data)
+
+
+def uniform_lanes(keys: np.ndarray, lanes: np.ndarray) -> np.ndarray:
+    """The uniform of counter ``lanes[i]`` under key ``keys[i]`` (u32[n,
+    2] folded keys, as :func:`pass_keys` holds them), f32[n]: element
+    ``lanes[i]`` of ``jax.random.uniform`` under that key, as the kernel
+    draws it (threefry.cuh's ``uniform``)."""
+    k0, k1 = keys[..., 0], keys[..., 1]
+    x0, x1 = _threefry(k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA), lanes.astype(np.uint32))
+    mant = ((x0 ^ x1) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return mant.view(np.float32) - np.float32(1.0)
 
 
 def stream_ids(steps: int) -> np.ndarray:
@@ -151,55 +187,79 @@ def camera_rays_ref(camera, xs, ys, ux, uy, width: int, height: int, scalar_div:
     return camera.eye[:, None].expand(d.shape), d
 
 
-# ---------------------------------------------------------------- plain version
+def vertex_norm(rows: torch.Tensor) -> torch.Tensor:
+    """The largest finite |vertex| of a row table f32[T, 48], f64[] on its
+    device, computed there without a host sync. The vertices come from
+    each row's geometry [m | -m_a] in float64: m^-1 = [c0 c1 c2] / det
+    with c0 = m1 x m2, c1 = m2 x m0, c2 = m0 x m1, A = m^-1 m_a, B = A +
+    m^-1 e_x, C = A + m^-1 e_y; a row with det 0 (the padding) gives no
+    finite vertex. ``SceneTables.vertex_norm`` keeps it once a table."""
+    g = rows.detach()[:, :12].to(torch.float64).reshape(-1, 3, 4)
+    m, a = g[:, :, :3], -g[:, :, 3]
+    c0 = torch.linalg.cross(m[:, 1], m[:, 2])
+    c1 = torch.linalg.cross(m[:, 2], m[:, 0])
+    c2 = torch.linalg.cross(m[:, 0], m[:, 1])
+    det = (m[:, 0] * c0).sum(-1, keepdim=True)
+    A = (a[:, :1] * c0 + a[:, 1:2] * c1 + a[:, 2:] * c2) / det
+    norms = torch.stack([A, A + c0 / det, A + c1 / det]).norm(dim=-1)
+    if not norms.numel():
+        return torch.zeros((), dtype=torch.float64, device=rows.device)
+    return torch.where(torch.isfinite(norms), norms, 0.0).amax()
+
+
+def origin_bound(tables, eye: torch.Tensor, eps_offset: float) -> torch.Tensor:
+    """A bound on |o| of every ray origin of a pass over ``tables``, f32[1]
+    on their device, computed there without a host sync: the larger of
+    |eye| and the table's largest finite |vertex| (``tables.vertex_norm``,
+    :func:`vertex_norm`), plus |eps_offset|, times 1 + 2^-10. An origin is
+    the eye or a hit point o + t d (on a triangle within f32 rounding)
+    moved eps_offset along a unit direction."""
+    eye = eye.detach().to(torch.float64).norm()
+    bound = (torch.maximum(tables.vertex_norm, eye) + abs(eps_offset)) * (1.0 + 2.0 ** -10)
+    return bound.to(torch.float32).reshape(1)
+
+
+# ---------------------------------------------------------------- plain versions
 
 def _band(width, height, n_rows):
     n_rows = n_rows or height
     return n_rows, width * n_rows
 
 
-def _loop(tables, config, camera, key, width, height, spp, y0, R, lo, hi, check_every,
-          on_step=None):
-    """The host loop over lanes [lo, hi) of a band of R lanes: (accum
-    f32[3, hi - lo], steps i64[]). Every stream draws R values, of which
-    the lanes take theirs. ``on_step(pos, dir_, live)`` sees each step's
+def _loop(tables, config, camera, key, width, height, spp, y0, R, on_step=None):
+    """The host loop over the R lanes of a band: (accum f32[3, R],
+    lane_steps i32[R]). ``on_step(pos, dir_, live)`` sees each step's
     wavefront before its segment."""
     from ..render.integrator import segment_step
 
     dev = camera.device
-    whole = (lo, hi) == (0, R)
-    lanes = torch.arange(lo, hi, device=dev)
+    lanes = torch.arange(R, device=dev)
     xs = lanes % width
     ys = lanes // width + y0
 
-    def draw(ids):
-        u = rng.stream_uniforms(key, ids, R, dev)
-        return u if whole else u[:, lo:hi]
-
     def camera_rays(step):
         base = _JITTER if step == 0 else _JITTER + 2 * step
-        jx, jy = draw((base, base + 1)) * 2.0 - 1.0
+        jx, jy = rng.stream_uniforms(key, (base, base + 1), R, dev) * 2.0 - 1.0
         return camera.generate_rays_soa(xs, ys, jx, jy, width, height)
 
-    n = hi - lo
     pos, dir_ = camera_rays(0)
     pos, dir_ = pos.contiguous(), dir_.contiguous()
-    tput = torch.ones(3, n, device=dev)
-    res = torch.zeros(3, n, device=dev)
-    accum = torch.zeros(3, n, device=dev)
-    live = torch.ones(n, dtype=torch.bool, device=dev)
-    depth = torch.zeros(n, dtype=torch.int64, device=dev)  # within the current path
-    done = torch.zeros(n, dtype=torch.int64, device=dev)  # samples completed
-    last = torch.zeros(n, dtype=torch.int64, device=dev)  # the step its last path ended
-    urr = torch.zeros(n, device=dev)
+    tput = torch.ones(3, R, device=dev)
+    res = torch.zeros(3, R, device=dev)
+    accum = torch.zeros(3, R, device=dev)
+    live = torch.ones(R, dtype=torch.bool, device=dev)
+    depth = torch.zeros(R, dtype=torch.int64, device=dev)  # within the current path
+    done = torch.zeros(R, dtype=torch.int64, device=dev)  # samples completed
+    last = torch.zeros(R, dtype=torch.int64, device=dev)  # the step its last path ended
+    urr = torch.zeros(R, device=dev)
     rr = config.mode == "rr"
     stop = max_steps(spp, config)
     step = 1  # the segment at depth step - 1 when spp = 1
     while step < stop:
-        if (step - 1) % check_every == 0 and not bool(live.any()):
+        if (step - 1) % LIVE_CHECK_EVERY == 0 and not bool(live.any()):
             break
         sid = (step - 1) * 4
-        u = draw((sid, sid + 1, sid + 3)[:3 if rr else 2])
+        u = rng.stream_uniforms(key, (sid, sid + 1, sid + 3)[:3 if rr else 2], R, dev)
         u1, u2 = u[0], u[1]
         if rr:
             urr = u[2]
@@ -224,38 +284,127 @@ def _loop(tables, config, camera, key, width, height, spp, y0, R, lo, hi, check_
         tput = torch.where(rg, 1.0, ntput)
         res = torch.where(rg, 0.0, nres)
         step += 1
-    return accum, torch.where(live.any(), stop, last.max())
+    return accum, torch.where(live, stop, last).to(torch.int32)
 
 
 def regen_pass_ref(tables, config, camera, key: Key, width: int, height: int, spp: int,
-                   y0: int = 0, n_rows: int = 0, lane_block: Optional[int] = None,
-                   on_step: Optional[Callable] = None):
+                   y0: int = 0, n_rows: int = 0, on_step: Optional[Callable] = None):
     """Plain version of :func:`regen_pass` (see the module docstring): the
-    host loop over one whole segment per step. ``lane_block`` None runs
-    all lanes in one loop (one entry of ``steps``); an int runs each block
-    of that many lanes as its own loop that checks its live mask every
-    step, as the kernel's blocks do (256 lanes, 128 with culling).
-    ``on_step(pos, dir_, live)``, with ``lane_block`` None, is called with
-    each step's wavefront f32[3, R], f32[3, R], bool[R] before its
-    segment: a measurement of the pass's work sees the rays each step
-    traces."""
+    host loop over one whole segment per step. ``on_step(pos, dir_,
+    live)`` is called with each step's wavefront f32[3, R], f32[3, R],
+    bool[R] before its segment: a measurement of the pass's work sees the
+    rays each step traces."""
     _, R = _band(width, height, n_rows)
-    if lane_block is None:
-        accum, steps = _loop(tables, config, camera, key, width, height, spp, y0, R, 0, R,
-                             LIVE_CHECK_EVERY, on_step)
-        return accum, steps.reshape(1).to(torch.int32)
-    if on_step is not None:
-        raise ValueError("on_step sees the whole band's wavefront: lane_block must be None")
-    if lane_block < 1:
-        raise ValueError(f"lane_block must be positive, got {lane_block}")
-    accum = torch.empty(3, R, device=camera.device)
-    steps = []
-    for lo in range(0, R, lane_block):
-        hi = min(lo + lane_block, R)
-        accum[:, lo:hi], s = _loop(tables, config, camera, key, width, height, spp, y0, R, lo,
-                                   hi, 1)
-        steps.append(s)
-    return accum, torch.stack(steps).to(torch.int32)
+    return _loop(tables, config, camera, key, width, height, spp, y0, R, on_step)
+
+
+def regen_pass_scheduled(tables, config, camera, key: Key, width: int, height: int,
+                         spp: int, y0: int = 0, n_rows: int = 0, *, blocks: int = 4,
+                         slots: int = 64):
+    """The pass as the kernel schedules it, in plain torch: (accum f32[3,
+    R], lane_steps i32[R], stats i64[len(STATS)]), the first two bit-equal
+    to :func:`regen_pass_ref`'s (the stats' clock fields stay 0).
+
+    ``blocks`` blocks of ``slots`` slots run in lockstep ticks, block
+    after block within a tick. A tick of a running block: its empty slots
+    fetch the next lanes of the work list (lanes 0 .. R-1, each started at
+    its step 0) until the list is spent; the block's vote counts its live
+    slots; with none it exits; else every live slot runs one step of its
+    own lane, and a lane that has done its samples leaves its slot. A step
+    of lane ``i`` at its step ``s`` draws element ``i`` of the streams
+    under ``pass_keys(key)[s]`` and takes its flags from its own path
+    depth, so its result does not depend on the slot or block that runs
+    it, nor on when it starts."""
+    from ..render.integrator import segment_step
+
+    if blocks < 1 or slots < 1:
+        raise ValueError(f"blocks and slots must be positive, got {blocks}, {slots}")
+    n_rows, R = _band(width, height, n_rows)
+    _check_band(width, height, y0, n_rows, spp)
+    dev = camera.device
+    rr = config.mode == "rr"
+    stop = max_steps(spp, config)
+    keys = pass_keys(key, stop)
+    i64 = torch.int64
+
+    def draw(rows_, lanes):  # u32[n, 2] keys per lane -> f32[n] on dev
+        return torch.from_numpy(uniform_lanes(rows_, lanes.cpu().numpy())).to(dev)
+
+    def start(lanes, steps):  # the camera rays of the jitter keys of rows `steps`
+        k = keys[steps.cpu().numpy()]
+        jx = draw(k[:, 3], lanes) * 2.0 - 1.0
+        jy = draw(k[:, 4], lanes) * 2.0 - 1.0
+        return camera.generate_rays_soa(lanes % width, lanes // width + y0, jx, jy, width,
+                                        height)
+
+    accum = torch.zeros(3, R, device=dev)
+    lane_steps = torch.zeros(R, dtype=torch.int32, device=dev)
+    # The slots' registers: lane id (-1 empty), state, depth/done/step.
+    n = blocks * slots
+    lane = torch.full((n,), -1, dtype=i64, device=dev)
+    reg = {k: torch.zeros(3, n, device=dev) for k in ("pos", "dir", "tput", "res")}
+    meta = torch.zeros(3, n, dtype=i64, device=dev)
+    stats = torch.zeros(len(STATS), dtype=i64)
+    col = {name: i for i, name in enumerate(STATS)}
+    head = 0
+    running = list(range(blocks))
+    ran = [0] * blocks
+    while running:
+        stepping = []
+        for b in list(running):
+            sl = slice(b * slots, (b + 1) * slots)
+            empty = torch.nonzero(lane[sl] < 0).flatten() + b * slots
+            if head < R and empty.numel():
+                got = torch.arange(head, min(head + empty.numel(), R), device=dev)
+                head += got.numel()
+                into = empty[:got.numel()]
+                lane[into] = got
+                meta[:, into] = 0
+                reg["pos"][:, into], reg["dir"][:, into] = start(got, torch.zeros_like(got))
+                reg["tput"][:, into], reg["res"][:, into] = 1.0, 0.0
+            held = torch.nonzero(lane[sl] >= 0).flatten() + b * slots
+            if held.numel() == 0:
+                running.remove(b)
+                continue
+            ran[b] += 1
+            stats[col["block_steps"]] += 1
+            stats[col["live_steps"]] += held.numel()
+            stepping.append(held)
+        if not stepping:
+            continue
+        held = torch.cat(stepping)
+        ids = lane[held]
+        depth, done, step = meta[0, held], meta[1, held], meta[2, held] + 1
+        if bool((step >= stop).any()):
+            raise RuntimeError("a lane passed the backstop")
+        k = keys[step.cpu().numpy()]
+        u1, u2 = draw(k[:, 0], ids), draw(k[:, 1], ids)
+        urr = draw(k[:, 2], ids) if rr else torch.zeros_like(u1)
+        live = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
+        npos, ndir, ntput, nres, still = segment_step(
+            tables, config, reg["pos"][:, held], reg["dir"][:, held],
+            reg["tput"][:, held], reg["res"][:, held], live, u1, u2, urr,
+            config.lane_flags(depth))
+        still = still > 0.0
+        ended = ~still
+        accum[:, ids[ended]] += nres[:, ended]
+        done = done + ended
+        regen = ended & (done < spp)
+        fin = ended & ~regen
+        lane_steps[ids[fin]] = step[fin].to(torch.int32)
+        posr, dirr = start(ids, step)
+        rg = regen[None, :]
+        old = {k: reg[k][:, held] for k in reg}
+        reg["pos"][:, held] = torch.where(rg, posr, torch.where(still, npos, old["pos"]))
+        reg["dir"][:, held] = torch.where(rg, dirr, torch.where(still, ndir, old["dir"]))
+        reg["tput"][:, held] = torch.where(rg, 1.0, torch.where(still, ntput, old["tput"]))
+        reg["res"][:, held] = torch.where(rg, 0.0, old["res"])
+        meta[0, held] = torch.where(regen, 0, depth + 1)
+        meta[1, held], meta[2, held] = done, step
+        lane[held[fin]] = -1
+    stats[col["slot_steps"]] = stats[col["block_steps"]] * slots
+    stats[col["blocks"]] = sum(r > 0 for r in ran)
+    return accum, lane_steps, stats
 
 
 # ---------------------------------------------------------------- the kernel
@@ -272,6 +421,7 @@ class _Args(ctypes.Structure):
 
 
 _P = ctypes.c_void_p
+_WHOLE_MAX = 760  # csrc/sphere_select.cuh kWholeMax: the tables staged whole
 
 
 @functools.cache
@@ -280,11 +430,28 @@ def _lib() -> ctypes.CDLL:
     fn = lib.regen_pass_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int,  # rows, clo, chi, cslack, rec, cull
-                   _P, _P, _P,  # keys, cam, args
-                   _P, _P, _P, _P]  # state, accum, steps, stream
-    lib.regen_pass_blocks.restype = ctypes.c_int
-    lib.regen_pass_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+                   _P, _P, _P, _P,  # keys, cam, omax, args
+                   _P, _P, _P, ctypes.c_long, _P]  # accum, lane_steps, work, grid, stream
+    lib.regen_pass_resident.restype = ctypes.c_long
+    lib.regen_pass_resident.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
+
+
+@functools.cache
+def _resident(T: int, cull: bool, device: int) -> int:
+    """Blocks of the kernel that fit on card ``device`` at once over a
+    T-row table (the occupancy calculator's, once per shape)."""
+    with torch.cuda.device(device):
+        n = int(_lib().regen_pass_resident(T, int(cull)))
+    if n <= 0:
+        raise RuntimeError(f"regen_pass: no occupancy for T={T}, cull={cull}")
+    return n
+
+
+def _grid(R: int, T: int, config, device: int) -> int:
+    """The launch's blocks: those that fit at once, at most one per
+    :func:`slots_per_block` lanes."""
+    return min(-(-R // slots_per_block(config)), _resident(T, config.chunk_cull, device))
 
 
 def _args(config, camera, R, T, width, height, y0, spp) -> _Args:
@@ -315,7 +482,7 @@ def _check_band(width, height, y0, n_rows, spp):
         raise ValueError("the band's lanes must fit in int32")
 
 
-def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows):
+def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows, stats):
     from . import cull as CU
     from . import segment_fused as F
 
@@ -329,7 +496,7 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 48 \
             or not rows.is_contiguous() or rows.data_ptr() % 16:
         raise ValueError("rows must be a contiguous, 16-byte aligned float32 [T, 48] tensor")
-    cull = config.chunk_cull
+    T, cull = rows.shape[0], config.chunk_cull
     boxes = (None,) * 4
     if cull:
         F.check_chunk_boxes(rows, tables.clo, tables.chi, tables.cslack)
@@ -340,42 +507,66 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
     lib = _lib()
     keys = _keys_on(dev, pass_keys(key, max_steps(spp, config)))
     cam = camera_table(camera)
-    args = _args(config, camera, R, rows.shape[0], width, height, y0, spp)
-    state = torch.empty(4, 3, R, device=dev)
+    # Only the whole-table instance stages spheres for a bound on |o|.
+    omax = origin_bound(tables, camera.eye, config.eps_offset) \
+        if not cull and T <= _WHOLE_MAX else None
+    args = _args(config, camera, R, T, width, height, y0, spp)
     accum = torch.empty(3, R, device=dev)
-    steps = torch.empty(lib.regen_pass_blocks(R, int(cull)), dtype=torch.int32, device=dev)
+    lane_steps = torch.empty(R, dtype=torch.int32, device=dev)
+    work = torch.empty(len(STATS) + 1, dtype=torch.int64, device=dev)  # the stats, the list head
+    grid = _grid(R, T, config, torch.cuda.current_device() if dev.index is None else dev.index)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.regen_pass_launch(rows.data_ptr(), *boxes, int(cull), keys.data_ptr(),
-                                    cam.data_ptr(), ctypes.byref(args), state.data_ptr(),
-                                    accum.data_ptr(), steps.data_ptr(), stream)
+                                    cam.data_ptr(), None if omax is None else omax.data_ptr(),
+                                    ctypes.byref(args), accum.data_ptr(), lane_steps.data_ptr(),
+                                    work.data_ptr(), grid, stream)
     if err != 0:
         raise RuntimeError(f"regen_pass kernel launch failed: cudaError {err}")
     if cull:
         regen_pass.cull_launches += 1
     else:
         regen_pass.launches += 1
-    return accum, steps
+    if stats is not None:
+        stats["counters"] = work[:len(STATS)]
+        stats["omax"] = omax
+        stats["grid"] = grid
+    return accum, lane_steps
+
+
+def pass_times(counters: torch.Tensor) -> tuple:
+    """The pass's (list spent, end) in ms after its first block start,
+    from :func:`regen_pass`'s ``stats["counters"]`` (spent is None where
+    no block found the list spent)."""
+    st = counters.cpu().tolist()
+    t0 = -1 - st[STATS.index("t_start")]
+    spent = st[STATS.index("t_spent")]
+    return (None if spent == 0 else (-1 - spent - t0) / 1e6,
+            (st[STATS.index("t_end")] - t0) / 1e6)
 
 
 def regen_pass(tables, config, camera, key: Key, width: int, height: int, spp: int,
-               y0: int = 0, n_rows: int = 0):
+               y0: int = 0, n_rows: int = 0, *, stats: Optional[dict] = None):
     """One regen pass of ``spp`` samples per pixel over image rows [y0,
     y0 + n_rows) (``n_rows=0``: the whole frame) with the ``"megakernel"``
     intersector (``config.chunk_cull`` for the culled instance), over
     ``tables`` (:func:`..render.integrator.scene_tables`): (accum f32[3,
-    R], steps i32[blocks]). On the camera's CUDA device one launch of
-    ``csrc/regen_pass.cu``; on the CPU :func:`regen_pass_ref` (steps of
-    one block)."""
+    R], lane_steps i32[R]). On the camera's CUDA device one launch of
+    ``csrc/regen_pass.cu``, with no host sync. ``stats``, a dict,
+    receives the pass's counters (``"counters"``, i64[len(STATS)] on the
+    card, read after the pass), the origin bound (``"omax"``, None where
+    the instance stages no spheres) and the grid's blocks (``"grid"``). On
+    the CPU :func:`regen_pass_ref`, which takes no ``stats``."""
     dev = camera.device
     if tables.rows is not None and tables.rows.device != dev:
         raise ValueError(f"the camera is on {dev}, the tables on {tables.rows.device}")
     if dev.type == "cuda":
-        return _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows)
+        return _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows,
+                                stats)
     if dev.type == "cpu":
         return regen_pass_ref(tables, config, camera, key, width, height, spp, y0, n_rows)
     raise ValueError(f"no regen pass kernel for device {dev}")
 
 
-regen_pass.launches = 0  # launches of the plain instance (B1r)
+regen_pass.launches = 0  # launches of the plain instance (B1r), one a pass
 regen_pass.cull_launches = 0  # launches of the culled instance (B1rc)

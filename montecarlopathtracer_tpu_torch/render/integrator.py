@@ -100,6 +100,7 @@ from ..ops import traverse_walk as TW
 from ..ops.cull import chunk_slack, cull_records
 from ..ops.intersect import intersect_brute, triangle_transforms
 from ..ops.morton import DEAD_KEY, chunk_aabbs_padded, morton_order, ray_sort_keys
+from ..ops.regen_pass import vertex_norm
 from ..ops.rng import Key, fold_in
 from ..ops.sampling import (
     dot3,
@@ -222,6 +223,13 @@ class SceneTables:
         """The chunk boxes, their slack and the table's records as the
         culling kernels' keyword arguments."""
         return dict(clo=self.clo, chi=self.chi, cslack=self.cslack, crec=self.crec)
+
+    @functools.cached_property
+    def vertex_norm(self) -> torch.Tensor:
+        """The largest finite |vertex| of ``rows`` (f64[] on their device),
+        computed once a table: the regen pass's origin bound reads it
+        (:func:`..ops.regen_pass.origin_bound`)."""
+        return vertex_norm(self.rows)
 
 
 def kd_tree(scene: ScenePack) -> KDArrays:

@@ -16,10 +16,11 @@ whatever ``whole_segment`` says.
 Where the pass runs (:mod:`..ops.regen_pass`):
 
 - ``"megakernel"``, with or without ``chunk_cull``: one call of
-  :func:`..ops.regen_pass.regen_pass`. On the card that is one launch of
-  kernel B1r, which runs every step of a block's lanes inside the kernel
-  (the counterpart of JAX's ``lax.while_loop``, one device program); on
-  the CPU its plain version, the host loop;
+  :func:`..ops.regen_pass.regen_pass`. On the card that is one launch
+  of kernel B1r, whose persistent blocks pull lanes from a work list and
+  run every step of them inside the kernel (the counterpart of JAX's
+  ``lax.while_loop``, one device program); on the CPU its plain version,
+  the host loop;
 - ``"traverse"``: the host loop :func:`..ops.regen_pass.regen_pass_ref`,
   whose steps launch the walk B5 and the segment B6l on the card.
 
@@ -34,9 +35,10 @@ the scan integrator's.
 The host loop looks at the live mask only every
 :data:`..ops.regen_pass.LIVE_CHECK_EVERY` steps, each look being one
 device-to-host sync; a step with no live lane changes nothing, so the
-extra steps leave the result bit-identical. The kernel's blocks stop
-each as soon as their own lanes are done. The bound of
-``spp * num_segments + 1`` steps stays as a backstop.
+extra steps leave the result bit-identical. In the kernel each lane
+counts its own steps, which are the loop's, and leaves its slot when it
+is done. The bound of ``spp * num_segments + 1`` steps stays as a
+backstop.
 """
 
 from __future__ import annotations

@@ -494,7 +494,7 @@ def test_regen_on_card_matches_cpu_plain_path(card, intersector):
     launches = (RP.regen_pass.launches, F.mega_segment.launches, F.rows_segment.launches)
     got = render_regen_batch(scene, camera, make_key(5), 64, 48, 2, config)
     after = (RP.regen_pass.launches, F.mega_segment.launches, F.rows_segment.launches)
-    if intersector == "megakernel":  # one pass kernel (B1r), no segment launch
+    if intersector == "megakernel":  # the pass kernel (B1r), no segment launch
         assert after == (launches[0] + 1, *launches[1:])
     else:  # the host loop: the walk and the rows segment (B6l) per step
         assert after[:2] == launches[:2] and after[2] > launches[2]
@@ -504,36 +504,56 @@ def test_regen_on_card_matches_cpu_plain_path(card, intersector):
     assert rep["ok"], rep
 
 
-@pytest.mark.parametrize("which", ["cornell_rr", "cornell_fixed_band", "glossy_cull"])
+REGEN_PASS_CASES = {
+    "cornell_rr": {},
+    "cornell_fixed_band": {},
+    "glossy_cull": dict(chunk_cull=True),
+    # The glossy stage unculled: 1332 rows, above kWholeMax, so each step
+    # runs select_two's ring of tiles inside the persistent loop.
+    "glossy_ring": {},
+}
+
+
+@pytest.mark.parametrize("which", REGEN_PASS_CASES)
 def test_regen_pass_kernel_equals_host_loop_on_card(card, which):
     """B1r (regen_pass.cu) against the host loop with B1l on the same
-    tables and key: every lane bit-equal, one launch, no B1l or draw, the
-    longest block's steps equal to the host loop's."""
+    tables and key: every lane's accum and lane_steps bit-equal, one
+    launch and no B1l or draw; the counters add up (live lane-steps = the
+    lanes' steps, slot-steps = block-steps x slots, no origin over the
+    staged bound)."""
     w, h = 64, 48
-    if which == "glossy_cull":
+    if which.startswith("glossy"):
         scene, camera = glossy.glossy_steps(width=w, height=h, device="cuda")
-        config, spp, band = TraceConfig(mode="fixed", max_depth=3, chunk_cull=True), 3, {}
+        kw = {"mode": "fixed", "max_depth": 3, **REGEN_PASS_CASES[which]}
+        config, spp, band = TraceConfig(**kw), 3, {}
     else:
         scene, camera, _ = card
-        rr = which == "cornell_rr"
+        rr = which != "cornell_fixed_band"
         config = (TraceConfig(mode="rr", rr_depth=2, illum=1.0) if rr
                   else TraceConfig(mode="fixed", max_depth=3))
         spp, band = (4, {}) if rr else (3, dict(y0=16, n_rows=16))
     tables = scene_tables(scene, config)
+    T = tables.rows.shape[0]
+    assert (T > 760 and not config.chunk_cull) == which.startswith("glossy_ring")  # kWholeMax
     key = make_key(17)
     before = (RP.regen_pass.launches, RP.regen_pass.cull_launches, F.mega_segment.launches,
               RNG.stream_uniforms.launches)
-    got, steps = RP.regen_pass(tables, config, camera, key, w, h, spp, **band)
+    stats = {}
+    got, steps = RP.regen_pass(tables, config, camera, key, w, h, spp, **band, stats=stats)
     torch.cuda.synchronize()
     after = (RP.regen_pass.launches, RP.regen_pass.cull_launches, F.mega_segment.launches,
              RNG.stream_uniforms.launches)
     cull = int(config.chunk_cull)
     assert after == (before[0] + 1 - cull, before[1] + cull, *before[2:])
     want, host_steps = RP.regen_pass_ref(tables, config, camera, key, w, h, spp, **band)
-    assert torch.equal(got, want)
+    assert torch.equal(got, want) and torch.equal(steps, host_steps)
     R = w * band.get("n_rows", h)
-    assert steps.shape == (-(-R // RP.lane_block(config)),)
-    assert int(steps.max()) == int(host_steps[0]) < RP.max_steps(spp, config)
+    assert steps.shape == (R,) and int(steps.max()) < RP.max_steps(spp, config)
+    col = {name: int(v) for name, v in zip(RP.STATS, stats["counters"].cpu())}
+    assert col["live_steps"] == int(steps.long().sum()) and col["overflow"] == 0
+    assert col["slot_steps"] == col["block_steps"] * RP.slots_per_block(config)
+    assert 0 < col["blocks"] <= stats["grid"]
+    assert (stats["omax"] is None) == (cull == 1 or T > 760)
     with plain_kernels():
         plain, _ = RP.regen_pass(tables, config, camera, key, w, h, spp, **band)
     n = band.get("n_rows", h)

@@ -1,13 +1,17 @@
-"""The regen pass (kernel B1r's function) on the CPU: its plain version
-``ops/regen_pass.py::regen_pass_ref`` and the pieces the kernel takes
-from it, at 32x24 and depth <= 3.
+"""The regen pass (kernel B1r's function) on the CPU: its plain versions
+``ops/regen_pass.py::regen_pass_ref`` (the host loop) and
+``regen_pass_scheduled`` (the kernel's schedule: blocks of slots pulling
+lanes from the work list, each lane run in its slot from its first step
+to its last), and the pieces the kernel takes from them, at 32x24 and
+64x48, depth <= 3.
 
-- (a) ``regen_pass_ref`` with the kernel's lane blocks (256 lanes, 128
-  with ``chunk_cull``), each block its own loop that stops when its
-  lanes are done, is bit-equal to the host loop as it stood before the
-  pass kernel (transcribed below), in fixed and RR mode, at spp 1 and 3,
-  with and without culling, and on a row band (``y0 = 8``,
-  ``n_rows = 8``).
+- (a) ``regen_pass_scheduled`` with a few small blocks is bit-equal to
+  the host loop as it stood before the pass kernel (transcribed below),
+  in fixed and RR mode, at spp 1 and 3, with and without culling, and on
+  a row band (``y0 = 8``, ``n_rows = 8``); at 64x48 it equals
+  ``regen_pass_ref`` (accum and ``lane_steps``), and so does a schedule
+  of one block of a few slots, in which most lanes start many steps
+  after the pass.
 - (b) At spp = 1 it is bit-equal to the scan (``render_rows_planar``),
   as ``tests/test_regen.py`` holds the JAX package's regen.
 - (c) It is held against the JAX package's ``render_regen_planar`` run
@@ -21,9 +25,13 @@ from it, at 32x24 and depth <= 3.
   multiply by the f32 reciprocal, what the kernel does) gives the same
   bits too.
 - (e) The folded-key table the kernel reads (``pass_keys``) equals
-  ``fold_in`` for every stream of a pass.
-- (f) Each block's steps are at most the whole loop's, the longest equal
-  to it, and the backstop (``spp * num_segments + 1``) is never reached.
+  ``fold_in`` for every stream of a pass, and the kernel's per-lane draw
+  (``uniform_lanes``) equals ``stream_uniforms`` element for element.
+- (f) The schedule's counters add up: its live lane-steps are the lanes'
+  steps, and the lanes' steps stay under the backstop (``spp *
+  num_segments + 1``).
+- (g) ``origin_bound``, the bound the kernel widens its staged spheres
+  for, holds every origin of a pass.
 - ``regen_pass_ref``'s ``on_step`` (through which ``chip_smoke.py``
   counts B1r's work for its bound) sees each step's wavefront and
   changes nothing.
@@ -133,24 +141,77 @@ CASES = {
 }
 
 
+def scheduled(tables, config, camera, key, width, height, spp, **kw):
+    """``regen_pass_scheduled`` with three blocks of 32 slots, so that each
+    slot runs many lanes one after another."""
+    kw = {"blocks": 3, "slots": 32, **kw}
+    return RP.regen_pass_scheduled(tables, config, camera, key, width, height, spp, **kw)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_lane_blocks_are_bit_equal_to_the_present_host_loop(box, case):
     kw, spp, band = CASES[case]
     scene, camera = box
     config = TraceConfig(**kw)
-    block = RP.lane_block(config)
-    assert block == (128 if config.chunk_cull else 256)
+    assert RP.slots_per_block(config) == (128 if config.chunk_cull else 256)
     key = make_key(3)
     want = present_host_loop(scene, camera, key, W, H, spp, config, **band)
-    got, steps = RP.regen_pass_ref(scene_tables(scene, config), config, camera, key, W, H, spp,
-                                   lane_block=block, **band)
+    tables = scene_tables(scene, config)
+    got, steps, stats = scheduled(tables, config, camera, key, W, H, spp, **band)
     assert torch.equal(got, want)
-    assert steps.numel() == -(-W * band.get("n_rows", H) // block)
+    _, ref_steps = RP.regen_pass_ref(tables, config, camera, key, W, H, spp, **band)
+    assert torch.equal(steps, ref_steps) and steps.dtype == torch.int32
+    assert steps.numel() == W * band.get("n_rows", H)
+    assert int(stats[RP.STATS.index("blocks")]) == 3
     assert float(want.mean()) > 0.0
     # The entry point on the CPU is the plain whole loop: the same bits.
     assert torch.equal(
         REGEN.render_regen_planar(scene, camera, key, W, H, spp, config, **band),
         (want / float(spp)).reshape(3, band.get("n_rows", H), W))
+
+
+BIG = {
+    "fixed": MODES["fixed"],
+    "rr": MODES["rr"],
+    "cull_fixed": {**MODES["fixed"], "chunk_cull": True},
+    "cull_rr": {**MODES["rr"], "chunk_cull": True},
+}
+
+
+@pytest.fixture(scope="module")
+def big_box():
+    return cornell.cornell_box(with_mirror_sphere=True, with_glass_sphere=True, width=64,
+                               height=48)
+
+
+@pytest.mark.parametrize("which", BIG)
+def test_scheduled_pass_equals_the_host_loop_at_64x48(big_box, which):
+    """The schedule at 64x48 (four blocks of 64 slots): accum and
+    lane_steps equal ``regen_pass_ref``'s bit for bit."""
+    scene, camera = big_box
+    config = TraceConfig(**BIG[which])
+    tables, key = scene_tables(scene, config), make_key(23)
+    want, want_steps = RP.regen_pass_ref(tables, config, camera, key, 64, 48, 3)
+    got, steps, stats = RP.regen_pass_scheduled(tables, config, camera, key, 64, 48, 3,
+                                                blocks=4, slots=64)
+    assert torch.equal(got, want) and torch.equal(steps, want_steps)
+    assert int(stats[RP.STATS.index("live_steps")]) == int(steps.long().sum())
+
+
+def test_lanes_started_late_are_bit_equal(box):
+    """One block of five slots runs the 768 lanes of a 32x24 frame a few
+    at a time, so most lanes take their first step long after the pass's
+    first and each slot runs ~150 lanes one after another: accum and
+    lane_steps are still the host loop's, since a lane's draws and flags
+    follow its own step."""
+    scene, camera = box
+    config = TraceConfig(**MODES["rr"])
+    tables, key = scene_tables(scene, config), make_key(24)
+    want, want_steps = RP.regen_pass_ref(tables, config, camera, key, W, H, 2)
+    got, steps, stats = RP.regen_pass_scheduled(tables, config, camera, key, W, H, 2,
+                                                blocks=1, slots=5)
+    assert torch.equal(got, want) and torch.equal(steps, want_steps)
+    assert int(stats[RP.STATS.index("block_steps")]) > 10 * int(want_steps.max())
 
 
 @pytest.mark.parametrize("kw", [MODES["fixed"], MODES["rr"],
@@ -160,8 +221,7 @@ def test_spp1_is_bit_equal_to_the_scan(box, kw):
     scene, camera = box
     config = TraceConfig(**kw)
     key = make_key(8)
-    got, _ = RP.regen_pass_ref(scene_tables(scene, config), config, camera, key, W, H, 1,
-                               lane_block=RP.lane_block(config))
+    got, _, _ = scheduled(scene_tables(scene, config), config, camera, key, W, H, 1)
     want = render_rows_planar(scene, camera, key, W, H, 0, H, config)
     assert torch.equal(got.reshape(3, H, W), want)
 
@@ -181,8 +241,7 @@ def test_lane_blocks_match_jax_regen(which):
                      JTraceConfig(intersector="megakernel", pallas_interpret=True, ray_chunk=0,
                                   **kw))
     config = TraceConfig(**kw)
-    got, _ = RP.regen_pass_ref(scene_tables(ts, config), config, tcam, make_key(4), w, h, spp,
-                               lane_block=RP.lane_block(config))
+    got, _, _ = scheduled(scene_tables(ts, config), config, tcam, make_key(4), w, h, spp)
     got = (got / float(spp)).reshape(3, h, w)
     rep = compare_images(got.permute(1, 2, 0).numpy(), np.asarray(want).transpose(1, 2, 0))
     assert rep["ok"], rep
@@ -227,20 +286,66 @@ def test_pass_keys_equal_fold_in_for_every_stream(kw, spp):
     assert not keys[0, :3].any()
 
 
+def test_uniform_lanes_equal_stream_uniforms():
+    """The kernel's per-lane draw (``uniform_lanes``: lane i's own key row
+    of ``pass_keys``) equals element i of ``stream_uniforms`` for every
+    slot of a few steps, lanes in any order."""
+    key, R = make_key(22), 1000
+    keys = RP.pass_keys(key, 9)
+    ids = RP.stream_ids(9)
+    lanes = np.random.default_rng(0).permutation(R)[:300]
+    steps = np.random.default_rng(1).integers(1, 9, lanes.size)
+    for j in range(5):
+        want = torch.stack([rng.stream_uniforms(key, (int(ids[s, j]),), R, "cpu")[0]
+                            for s in range(9)])
+        got = RP.uniform_lanes(keys[steps, j], lanes)
+        assert np.array_equal(got, want[steps, lanes].numpy())
+
+
 @pytest.mark.parametrize("kw", [{**MODES["rr"], "rr_depth": 2}, {**MODES["fixed"],
                                                                   "chunk_cull": True}],
                          ids=["rr", "cull_fixed"])
 def test_block_steps_stay_within_the_whole_loop(box, kw):
+    """The schedule's counters: its live lane-steps are the lanes' steps,
+    its slot-steps its block-steps times the slots, every block ran; the
+    lanes' steps are at least spp, their largest the host loop's last step
+    and under the backstop. It refuses a block or slot count below 1."""
     scene, camera = box
     config = TraceConfig(**kw)
     tables, key, spp = scene_tables(scene, config), make_key(30), 3
     _, whole = RP.regen_pass_ref(tables, config, camera, key, W, H, spp)
-    _, blocks = RP.regen_pass_ref(tables, config, camera, key, W, H, spp,
-                                  lane_block=RP.lane_block(config))
-    assert whole.shape == (1,) and blocks.dtype == torch.int32
-    assert int(blocks.max()) == int(whole[0]) and bool((blocks <= whole).all())
-    assert int(whole[0]) < RP.max_steps(spp, config)
-    assert int(blocks.min()) >= 1
+    _, steps, stats = scheduled(tables, config, camera, key, W, H, spp)
+    col = {name: int(stats[i]) for i, name in enumerate(RP.STATS)}
+    assert stats.shape == (len(RP.STATS),) and steps.dtype == torch.int32
+    assert col["live_steps"] == int(steps.long().sum())
+    assert col["slot_steps"] == col["block_steps"] * 32 and col["blocks"] == 3
+    assert int(steps.min()) >= spp
+    assert int(steps.max()) == int(whole.max()) < RP.max_steps(spp, config)
+    for bad in (dict(blocks=0), dict(slots=0)):
+        with pytest.raises(ValueError, match="positive"):
+            scheduled(tables, config, camera, key, W, H, spp, **bad)
+
+
+@pytest.mark.parametrize("which", ["cornell_rr", "glossy_fixed"])
+def test_origin_bound_holds_every_origin(box, which):
+    """``origin_bound`` is at least |o| of every live ray of every step
+    of a pass (seen through ``on_step``), and at least |eye|."""
+    if which == "cornell_rr":
+        scene, camera = box
+        config = TraceConfig(**MODES["rr"])
+    else:
+        scene, camera = glossy.glossy_steps(width=W, height=H)
+        config = TraceConfig(**MODES["fixed"], chunk_cull=True)
+    tables = scene_tables(scene, config)
+    bound = RP.origin_bound(tables, camera.eye, config.eps_offset)
+    assert bound.shape == (1,) and bound.dtype == torch.float32
+    seen = [float(camera.eye.norm())]
+
+    def on_step(pos, dir_, live):
+        seen.append(float(pos.norm(dim=0)[live].max()) if bool(live.any()) else 0.0)
+
+    RP.regen_pass_ref(tables, config, camera, make_key(32), W, H, 3, on_step=on_step)
+    assert max(seen) <= float(bound[0]) < 2.0 * max(seen)
 
 
 def test_plain_kernels_route_the_pass(box):
@@ -264,7 +369,7 @@ def test_on_step_sees_each_steps_wavefront(box):
     """``on_step`` sees the wavefront before each step's segment: the
     first wavefront's camera rays with every lane live, some lane live up
     to the last step that ends a path and none after it. It changes
-    nothing, and it refuses lane blocks (it sees the whole band)."""
+    nothing."""
     scene, camera = box
     config = TraceConfig(**MODES["rr"])
     tables, key, spp = scene_tables(scene, config), make_key(31), 2
@@ -276,7 +381,7 @@ def test_on_step_sees_each_steps_wavefront(box):
     accum, steps = RP.regen_pass_ref(tables, config, camera, key, W, H, spp, on_step=on_step)
     want, want_steps = RP.regen_pass_ref(tables, config, camera, key, W, H, spp)
     assert torch.equal(accum, want) and torch.equal(steps, want_steps)
-    n = int(steps[0])
+    n = int(steps.max())
     assert len(seen) >= n and seen[0][2] == W * H
     assert all(s[2] > 0 for s in seen[:n]) and all(s[2] == 0 for s in seen[n:])
     lanes = torch.arange(W * H)
@@ -284,6 +389,3 @@ def test_on_step_sees_each_steps_wavefront(box):
     pos, dir_ = camera.generate_rays_soa(lanes % W, lanes // W, u[0] * 2.0 - 1.0,
                                          u[1] * 2.0 - 1.0, W, H)
     assert torch.equal(seen[0][0], pos) and torch.equal(seen[0][1], dir_)
-    with pytest.raises(ValueError, match="lane_block"):
-        RP.regen_pass_ref(tables, config, camera, key, W, H, spp, lane_block=256,
-                          on_step=on_step)
