@@ -51,6 +51,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import keep, span
 from . import cuda_build
 from . import rng
 from .rng import Key
@@ -63,9 +64,10 @@ LIVE_CHECK_EVERY = 8  # host-loop steps between two reads of the live mask
 # loop's chunks tested x the live lanes of the block-step, the blocks that
 # ran a step; then the card's clock (ns) at the first block start, when a
 # block first found the list spent, and at the last block end, kept as
-# -1 - t, -1 - t and t (:func:`pass_times` reads them).
+# -1 - t, -1 - t and t (:func:`pass_clocks` decodes them).
 STATS = ("block_steps", "slot_steps", "live_steps", "overflow", "vote_chunks", "blocks",
          "t_start", "t_spent", "t_end")
+COUNTERS = STATS[:6]  # the fields that add up over passes
 _KEY_SLOTS = 5  # a step's streams: u1, u2, urr, jitter x, jitter y
 _M32 = 0xFFFFFFFF
 _JITTER = 1 << 30  # first jitter stream
@@ -256,34 +258,35 @@ def _loop(tables, config, camera, key, width, height, spp, y0, R, on_step=None):
     stop = max_steps(spp, config)
     step = 1  # the segment at depth step - 1 when spp = 1
     while step < stop:
-        if (step - 1) % LIVE_CHECK_EVERY == 0 and not bool(live.any()):
-            break
-        sid = (step - 1) * 4
-        u = rng.stream_uniforms(key, (sid, sid + 1, sid + 3)[:3 if rr else 2], R, dev)
-        u1, u2 = u[0], u[1]
-        if rr:
-            urr = u[2]
-        if on_step is not None:
-            on_step(pos, dir_, live)
-        npos, ndir, ntput, nres, still = segment_step(
-            tables, config, pos, dir_, tput, res, live, u1, u2, urr,
-            config.lane_flags(depth))
-        still = still > 0.0
-        ended = live & ~still
-        accum = accum + torch.where(ended[None, :], nres, 0.0)
-        regen = ended & (done + 1 < spp)
-        last = torch.where(ended & ~regen, step, last)
-        live = (live & still) | regen
-        done = done + ended
-        depth = torch.where(regen, 0, depth + 1)
+        with span("regen.step"):
+            if (step - 1) % LIVE_CHECK_EVERY == 0 and not bool(live.any()):
+                break
+            sid = (step - 1) * 4
+            u = rng.stream_uniforms(key, (sid, sid + 1, sid + 3)[:3 if rr else 2], R, dev)
+            u1, u2 = u[0], u[1]
+            if rr:
+                urr = u[2]
+            if on_step is not None:
+                on_step(pos, dir_, live)
+            npos, ndir, ntput, nres, still = segment_step(
+                tables, config, pos, dir_, tput, res, live, u1, u2, urr,
+                config.lane_flags(depth))
+            still = still > 0.0
+            ended = live & ~still
+            accum = accum + torch.where(ended[None, :], nres, 0.0)
+            regen = ended & (done + 1 < spp)
+            last = torch.where(ended & ~regen, step, last)
+            live = (live & still) | regen
+            done = done + ended
+            depth = torch.where(regen, 0, depth + 1)
 
-        posr, dirr = camera_rays(step)
-        rg = regen[None, :]
-        pos = torch.where(rg, posr, npos)
-        dir_ = torch.where(rg, dirr, ndir)
-        tput = torch.where(rg, 1.0, ntput)
-        res = torch.where(rg, 0.0, nres)
-        step += 1
+            posr, dirr = camera_rays(step)
+            rg = regen[None, :]
+            pos = torch.where(rg, posr, npos)
+            dir_ = torch.where(rg, dirr, ndir)
+            tput = torch.where(rg, 1.0, ntput)
+            res = torch.where(rg, 0.0, nres)
+            step += 1
     return accum, torch.where(live, stop, last).to(torch.int32)
 
 
@@ -505,28 +508,33 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
         boxes = (tables.clo.data_ptr(), tables.chi.data_ptr(), tables.cslack.data_ptr(),
                  crec.data_ptr())
     lib = _lib()
-    keys = _keys_on(dev, pass_keys(key, max_steps(spp, config)))
-    cam = camera_table(camera)
-    # Only the whole-table instance stages spheres for a bound on |o|.
-    omax = origin_bound(tables, camera.eye, config.eps_offset) \
-        if not cull and T <= _WHOLE_MAX else None
-    args = _args(config, camera, R, T, width, height, y0, spp)
-    accum = torch.empty(3, R, device=dev)
-    lane_steps = torch.empty(R, dtype=torch.int32, device=dev)
-    work = torch.empty(len(STATS) + 1, dtype=torch.int64, device=dev)  # the stats, the list head
-    grid = _grid(R, T, config, torch.cuda.current_device() if dev.index is None else dev.index)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.regen_pass_launch(rows.data_ptr(), *boxes, int(cull), keys.data_ptr(),
-                                    cam.data_ptr(), None if omax is None else omax.data_ptr(),
-                                    ctypes.byref(args), accum.data_ptr(), lane_steps.data_ptr(),
-                                    work.data_ptr(), grid, stream)
+    with span("regen.keys"):
+        keys = _keys_on(dev, pass_keys(key, max_steps(spp, config)))
+    with span("regen.launch"):
+        cam = camera_table(camera)
+        # Only the whole-table instance stages spheres for a bound on |o|.
+        omax = origin_bound(tables, camera.eye, config.eps_offset) \
+            if not cull and T <= _WHOLE_MAX else None
+        args = _args(config, camera, R, T, width, height, y0, spp)
+        accum = torch.empty(3, R, device=dev)
+        lane_steps = torch.empty(R, dtype=torch.int32, device=dev)
+        # The stats, then the list head.
+        work = torch.empty(len(STATS) + 1, dtype=torch.int64, device=dev)
+        grid = _grid(R, T, config,
+                     torch.cuda.current_device() if dev.index is None else dev.index)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.regen_pass_launch(rows.data_ptr(), *boxes, int(cull), keys.data_ptr(),
+                                        cam.data_ptr(), None if omax is None else omax.data_ptr(),
+                                        ctypes.byref(args), accum.data_ptr(),
+                                        lane_steps.data_ptr(), work.data_ptr(), grid, stream)
     if err != 0:
         raise RuntimeError(f"regen_pass kernel launch failed: cudaError {err}")
     if cull:
         regen_pass.cull_launches += 1
     else:
         regen_pass.launches += 1
+    keep(work, grid)
     if stats is not None:
         stats["counters"] = work[:len(STATS)]
         stats["omax"] = omax
@@ -534,15 +542,22 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
     return accum, lane_steps
 
 
+def pass_clocks(counters: torch.Tensor) -> torch.Tensor:
+    """The card's clock (ns) at a pass's first block start, when a block
+    first found its list spent, and at its last block end, i64[..., 3],
+    from counters i64[..., len(STATS)] (one pass's or stacked): the
+    kernel keeps the first two as -1 - t; spent is -1 where no block found
+    the list spent (kept as 0)."""
+    start, spent, end = counters[..., STATS.index("t_start"):].unbind(-1)
+    return torch.stack([-1 - start, torch.where(spent == 0, -1, -1 - spent), end], dim=-1)
+
+
 def pass_times(counters: torch.Tensor) -> tuple:
     """The pass's (list spent, end) in ms after its first block start,
     from :func:`regen_pass`'s ``stats["counters"]`` (spent is None where
     no block found the list spent)."""
-    st = counters.cpu().tolist()
-    t0 = -1 - st[STATS.index("t_start")]
-    spent = st[STATS.index("t_spent")]
-    return (None if spent == 0 else (-1 - spent - t0) / 1e6,
-            (st[STATS.index("t_end")] - t0) / 1e6)
+    start, spent, end = pass_clocks(counters.cpu()).tolist()
+    return None if spent < 0 else (spent - start) / 1e6, (end - start) / 1e6
 
 
 def regen_pass(tables, config, camera, key: Key, width: int, height: int, spp: int,

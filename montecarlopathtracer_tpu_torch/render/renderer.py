@@ -30,6 +30,7 @@ from ..scene.camera import Camera
 from ..scene.scene import ScenePack
 from ..utils.image import save_png
 from ..utils.logging import RenderLog
+from ..utils.profiling import count_pass, span
 from .film import (
     Film,
     film_update,
@@ -91,6 +92,7 @@ class Renderer:
         self.tables = scene_tables(self.scene, config, accel)
         self.film = Film.zeros(settings.height, settings.width, self.device)
         self.pass_idx = 0
+        self.requests = 0  # render() calls: the request id of their passes' spans
         if settings.checkpoint_path and os.path.exists(settings.checkpoint_path):
             self.load_checkpoint(settings.checkpoint_path)
 
@@ -145,23 +147,28 @@ class Renderer:
         else:
             total = torch.zeros(3, s.height, s.width, device=self.device)
             for i in range(s.spp_per_pass):
-                total += render_rows_planar(
-                    self.scene, self.camera, fold_in(key, i), s.width, s.height,
-                    0, s.height, self.config, self.tables,
-                )
+                with span("sample"):
+                    total += render_rows_planar(
+                        self.scene, self.camera, fold_in(key, i), s.width, s.height,
+                        0, s.height, self.config, self.tables,
+                    )
             mean = total / s.spp_per_pass
         update = film_update_gamma if s.accum == "gamma" else film_update
-        return update(self.film, mean.permute(1, 2, 0), float(s.spp_per_pass))
+        with span("film.update"):
+            return update(self.film, mean.permute(1, 2, 0), float(s.spp_per_pass))
 
     def render(self, passes: Optional[int] = None) -> Film:
         """Run progressive passes (resuming from ``self.pass_idx``)."""
         s = self.settings
         n = passes if passes is not None else s.passes
+        self.requests += 1
         base_key = make_key(s.seed)
         end = self.pass_idx + n
         while self.pass_idx < end:
             t0 = time.perf_counter()
-            self.film = self._pass(fold_in(base_key, self.pass_idx))
+            count_pass()
+            with span("pass", {"pass": self.pass_idx, "request": self.requests}):
+                self.film = self._pass(fold_in(base_key, self.pass_idx))
             self.pass_idx += 1
             if self.log.enabled:
                 m2 = float(self.film.m2)  # waits for the pass to finish
@@ -176,21 +183,24 @@ class Renderer:
                     noise=round(float(np.sqrt(max(m2, 0.0))) / max(weight, 1e-20), 6),
                 )
             if s.step_dir:
-                img_u8 = self.image_u8()
-                save_png(
-                    os.path.join(s.step_dir, f"step{self.pass_idx - 1:06d}.png"),
-                    img_u8,
-                )
-                if s.preview:
-                    self._write_preview(img_u8)
+                with span("output"):
+                    img_u8 = self.image_u8()
+                    save_png(
+                        os.path.join(s.step_dir, f"step{self.pass_idx - 1:06d}.png"),
+                        img_u8,
+                    )
+                    if s.preview:
+                        self._write_preview(img_u8)
             if (
                 s.checkpoint_path
                 and s.checkpoint_every
                 and self.pass_idx % s.checkpoint_every == 0
             ):
-                self.save_checkpoint(s.checkpoint_path)
+                with span("output"):
+                    self.save_checkpoint(s.checkpoint_path)
         if s.checkpoint_path:
-            self.save_checkpoint(s.checkpoint_path)
+            with span("output"):
+                self.save_checkpoint(s.checkpoint_path)
         return self.film
 
     def _write_preview(self, img_u8: np.ndarray) -> None:

@@ -23,12 +23,14 @@ chunks, in the order that the traversal walk visits them, and
 its "corners" case, just beyond vertices). :func:`cap_torch_threads`
 shares the CPUs between the workers of a parallel test run.
 :func:`nan_trap` raises at the first operation that makes a NaN, the
-counterpart of ``jax_debug_nans``.
+counterpart of ``jax_debug_nans``. :func:`program_spans` reads the
+program's spans out of a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 
 import numpy as np
@@ -902,3 +904,20 @@ def sharded_cases(cases, device):
             raise ValueError(f"unknown case kind {kind!r}")
         results.append(to_host(out))
     return results
+
+
+def program_spans(path) -> list:
+    """The program's spans (``utils/profiling.py::span``) in the Chrome
+    trace at ``path``, in start order: [(name without ``mcpt.``, {arg:
+    int}, start us, end us)]."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = []
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") == "user_annotation" \
+                and ev["name"].startswith("mcpt."):
+            name, *args = ev["name"][len("mcpt."):].split(" ")
+            ts = float(ev["ts"])
+            out.append((name, {k: int(v) for k, v in (a.split("=") for a in args)}, ts,
+                        ts + float(ev.get("dur", 0.0))))
+    return sorted(out, key=lambda s: s[2])

@@ -11,16 +11,14 @@ from typing import Optional, TextIO
 
 class RenderLog:
     """Emits one JSON object per render batch to a stream (default
-    stderr) and keeps simple aggregates."""
+    stderr)."""
 
     def __init__(self, stream: Optional[TextIO] = None, enabled: bool = True):
         self.stream = stream if stream is not None else sys.stderr
         self.enabled = enabled
         self.t0 = time.perf_counter()
-        self.total_samples = 0
 
     def batch(self, *, spp: int, width: int, height: int, seconds: float, **extra):
-        self.total_samples += spp * width * height
         if not self.enabled:
             return
         rec = {

@@ -1,13 +1,23 @@
-"""Profiling helpers, the counterpart of
+"""The port's tracing and profiling, the counterpart of
 ``montecarlopathtracer_tpu/utils/profiling.py``.
 
+- :func:`span` names a stretch of the host's work on the device trace's
+  clock: a ``torch.profiler.record_function`` range ``mcpt.<name>``
+  (category ``user_annotation``) while a profiler records, one shared
+  null context otherwise. A span given ``args`` carries them in its name
+  after a space (``mcpt.pass pass=3 request=1``), since the trace's
+  export drops ``record_function``'s own arguments: a reader groups
+  spans by the name's first word.
+- :func:`recording` keeps the program's counters over the enclosed
+  block: the Renderer's passes, each pass kernel's (B1r, B1rc) counters
+  and grid, the spans' host time, the launches. :func:`traced` gives the
+  same over the newest stretch of passes that a profiler recorded, for
+  a tool that only starts ``torch.profiler``.
 - :func:`trace` profiles the enclosed block with ``torch.profiler``
   (host activity, and the card's kernels when CUDA is available) and
   writes a Chrome trace (``trace.json``, loadable in Perfetto or
-  ``chrome://tracing``) into a directory. The CLI enables it with
-  ``--profile-dir``.
-- :func:`time_fn` times one call: CUDA events on the card, the host
-  clock on the CPU.
+  ``chrome://tracing``) and the recorded counters (``counters.json``)
+  into a directory. The CLI enables it with ``--profile-dir``.
 - :func:`reset_launches` and :func:`launches` zero and read every
   kernel wrapper's launch count (a wrapper counts only the launches of
   its CUDA kernel, never its plain version).
@@ -18,17 +28,164 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import subprocess
 import time
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
+
+_OFF = contextlib.nullcontext()  # span() while no profiler records
+
+
+class _Span:
+    """A ``record_function`` range that also adds its host time to the
+    open records."""
+
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name: str, args: Optional[dict]):
+        self.name = name
+        label = f"mcpt.{name}"
+        if args:
+            label += " " + " ".join(f"{k}={v}" for k, v in args.items())
+        self.range = torch.profiler.record_function(label)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        for rec in _records():
+            tally = rec.spans.setdefault(self.name, [0, 0.0])
+            tally[0] += 1
+            tally[1] += seconds
+        return self.range.__exit__(*exc)
+
+
+def span(name: str, args: Optional[dict] = None):
+    """The host span ``mcpt.<name>`` (with ``args``, a dict, in its name)
+    while a profiler records; else one shared ``contextlib.nullcontext``,
+    so a span costs one check of the profiler's state."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, args)
+
+
+class _Record:
+    """What the program kept over a stretch: the Renderer's passes, each
+    pass kernel's work buffer (its counters first, on its device until
+    :meth:`close`), the blocks launched, and each span's count and host
+    seconds."""
+
+    def __init__(self):
+        self.passes = 0
+        self.work = []
+        self.grid = 0
+        self.spans = {}
+        self.before = launches()
+        self.sums = None
+
+    def close(self) -> dict:
+        """The sums (one host sync, the first time; the buffers are
+        dropped then)."""
+        if self.sums is None:
+            from ..ops.regen_pass import STATS, COUNTERS, pass_clocks
+
+            if self.work:
+                c = torch.stack([w[:len(STATS)] for w in self.work]).cpu()
+            else:
+                c = torch.zeros(0, len(STATS), dtype=torch.int64)
+            start, spent, end = pass_clocks(c).unbind(-1)
+            after = launches()
+            self.sums = {
+                "passes": self.passes,
+                **{name: int(c[:, i].sum()) for i, name in enumerate(COUNTERS)},
+                "kernel_ms": int((end - start).sum()) / 1e6,
+                "tail_ms": int(torch.where(spent >= 0, end - spent, 0).sum()) / 1e6,
+                "grid": self.grid,
+                "launches": {k: n - self.before[k] for k, n in after.items()
+                             if n != self.before[k]},
+                "spans": {k: list(v) for k, v in self.spans.items()},
+            }
+            self.work = []
+        return self.sums
+
+
+_recordings: list = []  # the open recording()s; empty: nothing is kept
+_traced: Optional[_Record] = None  # the newest stretch of passes under a profiler
+_tracing = False  # whether the last look found a profiler recording
+
+
+def _records() -> list:
+    """The records that keep what happens now: those of the open
+    :func:`recording` blocks and, while a profiler records, the traced
+    stretch's, which the first look that finds a profiler after one that
+    found none starts anew."""
+    global _traced, _tracing
+    on = torch.autograd._profiler_enabled()
+    if on != _tracing:
+        _tracing = on
+        if on:
+            _traced = _Record()
+    return _recordings + [_traced] if on else _recordings
+
+
+def count_pass() -> None:
+    """A Renderer pass begins: count it in every open record."""
+    for rec in _records():
+        rec.passes += 1
+
+
+def keep(work: torch.Tensor, grid: int) -> None:
+    """Keep a pass kernel's work buffer (its counters first,
+    ``ops/regen_pass.py`` STATS; a reference, no copy) and its grid's
+    blocks in every open record."""
+    for rec in _records():
+        rec.work.append(work)
+        rec.grid += grid
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep the program's counters over the enclosed block. The dict it
+    yields is filled when the block ends (one host sync): ``passes`` (the
+    Renderer's), the sum of each pass kernel counter
+    (``ops/regen_pass.py`` COUNTERS), ``kernel_ms`` (the kernels' time on
+    the card's clock, first block start to last block end) and
+    ``tail_ms`` (the part after the work list ran dry; 0 for a launch
+    whose list was never found spent), ``grid`` (blocks launched),
+    ``launches`` (of the kernels that launched) and ``spans`` (``{name:
+    [count, host seconds]}``, while a profiler records)."""
+    rec = _Record()
+    _recordings.append(rec)
+    out = {}
+    try:
+        yield out
+    finally:
+        _recordings.remove(rec)
+    out.update(rec.close())
+
+
+def traced() -> Optional[dict]:
+    """:func:`recording`'s dict over the newest stretch of passes that a
+    profiler recorded, or None before any. The first call ends the
+    stretch and reads it (one host sync); its launches count up to that
+    call."""
+    global _tracing
+    if _traced is None:
+        return None
+    _tracing = False
+    return _traced.close()
 
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]):
-    """Profile the enclosed block into ``<log_dir>/trace.json`` (no-op
+    """Profile the enclosed block into ``<log_dir>/trace.json``, with
+    :func:`recording`'s counters in ``<log_dir>/counters.json`` (no-op
     when ``log_dir`` is None or empty)."""
     if not log_dir:
         yield
@@ -39,40 +196,13 @@ def trace(log_dir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, recording() as counters:
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def time_fn(
-    fn: Callable,
-    *args,
-    iters: int = 10,
-    warmup: int = 1,
-    device="cuda",
-) -> float:
-    """Seconds per call of ``fn(*args)`` after ``warmup`` calls: CUDA
-    events around ``iters`` back-to-back calls on ``device``'s current
-    stream when it is a CUDA device, the host clock otherwise."""
-    device = torch.device(device)
-    for _ in range(warmup):
-        fn(*args)
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-        return (time.perf_counter() - t0) / iters
-    with torch.cuda.device(device):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn(*args)
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end) / 1e3 / iters
+    with open(os.path.join(log_dir, "counters.json"), "w") as f:
+        json.dump(counters, f, indent=1)
 
 
 class Counts(dict):

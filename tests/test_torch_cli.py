@@ -18,7 +18,7 @@ from montecarlopathtracer_tpu.utils import compile_cache as jcompile_cache
 from montecarlopathtracer_tpu_torch import cli, convert
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
 from montecarlopathtracer_tpu_torch.scene.camera import camera_for_scene
-from montecarlopathtracer_tpu_torch.testing import cap_torch_threads
+from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, program_spans
 from montecarlopathtracer_tpu_torch.utils import profiling
 
 cap_torch_threads()
@@ -118,8 +118,12 @@ def test_profile_dir_writes_a_trace(tmp_path):
     with open(prof / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert len(events) > 0
+    assert [s[1] for s in program_spans(prof / "trace.json") if s[0] == "pass"] == [
+        {"pass": 0, "request": 1}]
+    with open(prof / "counters.json") as f:
+        counters = json.load(f)
+    assert counters["passes"] == 1 and counters["spans"]["pass"][0] == 1
     assert os.path.exists(tmp_path / "r.png")
-    assert profiling.time_fn(lambda: torch.ones(4).sum(), iters=2, device="cpu") > 0.0
     with profiling.trace(None):  # no-op without a directory
         pass
 

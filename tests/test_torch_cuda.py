@@ -43,6 +43,7 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
     scene_tables,
 )
 from montecarlopathtracer_tpu_torch.render.regen import render_regen_batch
+from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
 from montecarlopathtracer_tpu_torch.testing import (
     HARD_SOUPS,
     cap_torch_threads,
@@ -56,8 +57,10 @@ from montecarlopathtracer_tpu_torch.testing import (
     compare_winners,
     hard_soup,
     plain_kernels,
+    program_spans,
     tie_soup,
 )
+from montecarlopathtracer_tpu_torch.utils import profiling
 
 cap_torch_threads()
 
@@ -604,6 +607,43 @@ def test_regen_pass_wrapper_refuses_on_card(card):
         RP.regen_pass(tables, config, camera, make_key(0), 64, 48, 2, y0=40, n_rows=16)
     with pytest.raises(ValueError, match="camera"):
         RP.regen_pass(tables, config, camera.to("cpu"), make_key(0), 64, 48, 2)
+
+
+def test_recording_sums_the_pass_kernels_counters_on_card(card, tmp_path):
+    """Two B1r passes under recording() sum to their two stats; a
+    Renderer pass under the profiler nests the key table's and the
+    launch's spans in its pass span, and traced() reads its launch."""
+    scene, camera, _ = card
+    config = TraceConfig(mode="rr", rr_depth=2, illum=1.0)
+    tables = scene_tables(scene, config)
+    stats = [{}, {}]
+    with profiling.recording() as rec:
+        for i, st in enumerate(stats):
+            RP.regen_pass(tables, config, camera, make_key(20 + i), 64, 48, 2, stats=st)
+    cols = [st["counters"].cpu() for st in stats]
+    for i, name in enumerate(RP.COUNTERS):
+        assert rec[name] == sum(int(c[i]) for c in cols), name
+    times = [RP.pass_times(c) for c in cols]
+    assert rec["kernel_ms"] == pytest.approx(sum(end for _, end in times), abs=1e-9)
+    assert rec["tail_ms"] == pytest.approx(
+        sum(end - spent for spent, end in times if spent is not None), abs=1e-9)
+    assert rec["launches"] == {"B1r": 2} and rec["grid"] == sum(st["grid"] for st in stats)
+    assert rec["passes"] == 0 and 0 < rec["live_steps"] <= rec["slot_steps"]
+    settings = RenderSettings(width=64, height=48, spp_per_pass=2, regen=True)
+    r = Renderer(scene, camera, config, settings, device="cuda")
+    r.render(1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.render(1)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    spans = program_spans(tmp_path / "trace.json")
+    (_, args, lo, hi), = [s for s in spans if s[0] == "pass"]
+    assert args == {"pass": 1, "request": 2}
+    for name in ("regen.keys", "regen.launch", "film.update"):
+        assert any(s[0] == name and lo <= s[2] and s[3] <= hi for s in spans), name
+    got = profiling.traced()
+    assert got["passes"] == 1 and got["launches"] == {"B1r": 1} and got["kernel_ms"] > 0.0
 
 
 def test_traverse_gradient_render_kernels_match_plain_path(bunny_card):
