@@ -80,7 +80,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
     beside that of pinned blocks (lane i held by block i // 256 until its
     last lane is done, the earlier design) from the same lane_steps, the
     live lane-steps equal to the lanes' steps, no lane-step over the
-    staged spheres' origin bound (overflow 0), bit-equal to the scan at 1
+    staged spheres' origin bound (overflow 0); the launch again with its
+    list handed out longest first by its own lane_steps (the Renderer's
+    order from its second pass on; more lanes than slots, so slots take
+    lanes from the ordered list after their first), every lane's accum
+    and lane_steps bit-equal to the host loop's; bit-equal to the scan at 1
     spp, the film mean within 5 standard errors of the scan's, the pass in
     turns with the host loop (and, for RR, a profile of each: the host
     loop's B1l and draws against B1r), its device time per pass (queued
@@ -1418,6 +1422,27 @@ def regen_pass_vs_host(torch, scene, camera, smi):
         check(rl["live"] == int(ls.sum()), f"{label}: live lane-steps {rl['live']} against the "
               f"lanes' steps {int(ls.sum())}")
         check(rl["overflow"] == 0, f"{label}: {rl['overflow']} lane-steps over the origin bound")
+        # The list handed out longest first, as the Renderer orders its
+        # passes from the second on: with more lanes than slots, each slot
+        # takes lanes from the ordered list after its first, and every
+        # lane must still be the host loop's, bit for bit.
+        check(W * H > stats["grid"] * block, f"{label}: {stats['grid']} blocks of {block} "
+              f"slots hold all {W * H} lanes at once, so no slot takes a second lane")
+        ostats = {}
+        ordered, ordered_steps = RP.regen_pass(tables, config, cam, key, W, H, spp,
+                                               stats=ostats, order=RP.longest_first(lane_steps))
+        n_ord = int((ordered == want).all(0).sum())
+        ord_steps_same = bool(torch.equal(ordered_steps, host_steps))
+        print(f"  longest first: lanes bit-equal {n_ord} of {W * H}, lane_steps equal to the "
+              f"host loop's {ord_steps_same}")
+        ro = pass_lines(RP, ostats)
+        print(f"  longest first: live share {ro['share']:.4f} (row order {rl['share']:.4f}); "
+              f"list spent to the end {ro['tail_ms']:.3f} ms (row order {rl['tail_ms']:.3f})")
+        check(n_ord == W * H and ord_steps_same,
+              f"{label}: B1r longest first differs from the host loop on {W * H - n_ord} "
+              f"lanes, lane_steps equal {ord_steps_same}")
+        check(ro["live"] == int(ls.sum()), f"{label}: longest first, live lane-steps "
+              f"{ro['live']} against the lanes' steps {int(ls.sum())}")
         # At 1 spp no lane regenerates: the scan's frame, bit for bit.
         one, _ = RP.regen_pass(tables, config, cam, key, W, H, 1)
         scan1 = render_rows_planar(sc, cam, key, W, H, 0, H, config, tables)

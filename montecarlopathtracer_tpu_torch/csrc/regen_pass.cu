@@ -61,10 +61,19 @@
 //
 // What this design does about it:
 // - a persistent grid (the blocks that fit on the card at once), whose
-//   slots pull lanes from a device-side work list, lanes 0 .. R-1 behind
-//   one counter: each warp's free slots take lanes with one atomicAdd a
-//   step. A lane's whole state is in the slot's registers while it holds
-//   it, from its first step to its last;
+//   slots pull lanes from a device-side work list behind one counter:
+//   each warp's free slots take the list's next entries with one
+//   atomicAdd a step. A lane's whole state is in the slot's registers
+//   while it holds it, from its first step to its last;
+// - the list's order: entry i is lane order[i] (i32[R], a permutation),
+//   or lane i without one. Since a lane's result does not depend on when
+//   it runs, the order changes only the schedule. The Renderer hands
+//   B1r's lanes out longest first, by the previous pass's lane_steps
+//   (ops/regen_pass.py::longest_first; B1rc, measured slower so, keeps
+//   row order): in row order the last lanes fetched were the frame's
+//   bottom rows, often its longest, and the pass's end waited on them
+//   while the other slots emptied; longest first, the lanes still
+//   running when the list runs dry are short ones;
 // - the block decides, with one vote a step: each warp's live count and
 //   whether it saw the list spent, written to a double buffer in shared
 //   memory behind one barrier;
@@ -143,6 +152,7 @@ struct Scratch {
   float* accum;                   // f32[3, R]
   int* lane_steps;                // i32[R]
   int* head;                      // the work list's fetch counter
+  const int* order;               // i32[R]: the list's lanes in order (null: 0 .. R-1)
   unsigned long long* stats;      // u64[kStats]
 };
 // Camera.generate_rays_soa of band lane r (pixel (r % W, r / W + y0))
@@ -201,9 +211,9 @@ __device__ __forceinline__ void take(Slot& s, int id, const float* __restrict__ 
 }
 
 // The warp's empty slots (while its block has not seen the list spent)
-// take the next lanes of the work list, lanes 0 .. R-1, with one
-// atomicAdd; `spent` is set when the list ran short. Every lane of the
-// warp calls it.
+// take the next entries of the work list, each lane order[i] (lane i
+// without an order), with one atomicAdd; `spent` is set when the list
+// ran short. Every lane of the warp calls it.
 __device__ __forceinline__ void fetch(Slot& sa, Slot& sb, bool& spent,
                                       const float* __restrict__ cam, const RegenArgs& a,
                                       const uint32_t* __restrict__ keys, const Scratch& sc) {
@@ -218,11 +228,11 @@ __device__ __forceinline__ void fetch(Slot& sa, Slot& sb, bool& spent,
   const unsigned below = (1u << lane) - 1u;
   if (na) {
     const int i = base + __popc(ba & below);
-    if (i < a.R) take(sa, i, cam, a, keys, sc);
+    if (i < a.R) take(sa, sc.order ? __ldg(sc.order + i) : i, cam, a, keys, sc);
   }
   if (nb) {
     const int i = base + __popc(ba) + __popc(bb & below);
-    if (i < a.R) take(sb, i, cam, a, keys, sc);
+    if (i < a.R) take(sb, sc.order ? __ldg(sc.order + i) : i, cam, a, keys, sc);
   }
   if (base + n > a.R) spent = true;
 }
@@ -392,14 +402,16 @@ extern "C" long regen_pass_resident(int T, int cull) {
 // when `cull` is set, over the records `rec` of nearest_shade.cu's
 // `cull_records_launch`): zeroes the counters `work` (u64[9] stats, then
 // the list's i32 counter), then launches the kernel once. `omax` f32[1]
-// is the bound on |o| the staged spheres cover. Returns the first CUDA
+// is the bound on |o| the staged spheres cover; `order` i32[R], a
+// permutation of the lanes, the order the work list hands them out in
+// (null: 0 .. R-1). Returns the first CUDA
 // error (cudaGetLastError() after the launch) so the caller can raise on
 // a refused launch.
 extern "C" int regen_pass_launch(const float* rows, const float* clo, const float* chi,
                                  const float* cslack, const float* rec, int cull,
                                  const uint32_t* keys, const float* cam, const float* omax,
                                  const RegenArgs* args, float* accum, int* lane_steps,
-                                 void* work, long grid, void* stream) {
+                                 const int* order, void* work, long grid, void* stream) {
   const RegenArgs a = *args;
   if (a.R <= 0) return static_cast<int>(cudaGetLastError());
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -407,6 +419,7 @@ extern "C" int regen_pass_launch(const float* rows, const float* clo, const floa
   Scratch sc;
   sc.accum = accum;
   sc.lane_steps = lane_steps;
+  sc.order = order;
   sc.stats = static_cast<unsigned long long*>(work);
   sc.head = reinterpret_cast<int*>(sc.stats + kStats);
   cudaError_t err = cudaMemsetAsync(work, 0, kStats * sizeof(unsigned long long) + sizeof(int), s);

@@ -14,10 +14,12 @@ see :mod:`..render.regen` for the estimator and its stream ids.
   sync. A persistent grid of blocks pulls lanes from a device-side work
   list into free slots and runs each lane in its slot from its first
   step to its last; a lane carries its own step, so its draws and flags
-  do not depend on which slot or block runs it. A block whose list is
-  spent traces its last lanes packed, several threads a lane. For the
-  CPU it runs :func:`regen_pass_ref`. It never falls back from one to the
-  other: a build or launch failure raises.
+  do not depend on which slot or block runs it, so the list may hand
+  the lanes out in any order (``order``; :func:`longest_first` builds
+  one from a pass's ``lane_steps``). A block whose list is spent traces
+  its last lanes packed, several threads a lane. For the CPU it runs
+  :func:`regen_pass_ref`. It never falls back from one to the other: a
+  build or launch failure raises.
 - :func:`regen_pass_ref` is the host loop: one whole segment per step
   through :func:`..render.integrator.segment_step` (B1l on the card, its
   plain version on the CPU or under ``testing.plain_kernels()``), with
@@ -27,6 +29,8 @@ see :mod:`..render.regen` for the estimator and its stream ids.
 - :func:`regen_pass_scheduled` runs the pass as the kernel schedules it,
   in plain torch: blocks of slots pulling lanes from the work list, the
   per-lane step, lanes leaving their slots when done.
+- :func:`longest_first` orders the work list by a pass's ``lane_steps``,
+  longest lanes first.
 - :func:`pass_keys` folds every stream key of a pass on the host (the
   table the kernel reads); :func:`camera_rays_ref` is the kernel's camera
   ray in plain torch, in its operation order; :func:`origin_bound` the
@@ -71,6 +75,7 @@ COUNTERS = STATS[:6]  # the fields that add up over passes
 _KEY_SLOTS = 5  # a step's streams: u1, u2, urr, jitter x, jitter y
 _M32 = 0xFFFFFFFF
 _JITTER = 1 << 30  # first jitter stream
+_BUCKET_SHIFT = 5  # longest_first compares lane_steps >> 5: lengths in buckets of 32 steps
 
 
 def slots_per_block(config) -> int:
@@ -84,6 +89,20 @@ def max_steps(spp: int, config) -> int:
     """The loop's backstop: ``spp * num_segments + 1`` (every path ends
     within ``num_segments`` segments, so the steps stay below it)."""
     return spp * config.num_segments + 1
+
+
+def longest_first(lane_steps: torch.Tensor) -> torch.Tensor:
+    """The work list's order for a pass whose lanes take about
+    ``lane_steps`` i32[R] steps (a previous pass's of the same band, spp
+    and tables): i32[R] on its device, a stable sort of the lanes by
+    ``lane_steps >> 5`` descending, with no host sync. Lanes of one bucket
+    of 32 steps keep their row order, so equal lengths give the identity.
+
+    Handing the longest lanes out first leaves short ones to run while
+    the slots empty after the list is spent (longest-first list
+    scheduling); the order never changes what a lane computes."""
+    buckets = lane_steps >> _BUCKET_SHIFT
+    return torch.sort(buckets, descending=True, stable=True).indices.to(torch.int32)
 
 
 def _threefry(k0, k1, ks2, x1):
@@ -291,27 +310,30 @@ def _loop(tables, config, camera, key, width, height, spp, y0, R, on_step=None):
 
 
 def regen_pass_ref(tables, config, camera, key: Key, width: int, height: int, spp: int,
-                   y0: int = 0, n_rows: int = 0, on_step: Optional[Callable] = None):
+                   y0: int = 0, n_rows: int = 0, on_step: Optional[Callable] = None,
+                   order: Optional[torch.Tensor] = None):
     """Plain version of :func:`regen_pass` (see the module docstring): the
     host loop over one whole segment per step. ``on_step(pos, dir_,
     live)`` is called with each step's wavefront f32[3, R], f32[3, R],
     bool[R] before its segment: a measurement of the pass's work sees the
-    rays each step traces."""
+    rays each step traces. ``order`` is taken and ignored: the loop steps
+    every lane at once, so it has no work list to order."""
     _, R = _band(width, height, n_rows)
     return _loop(tables, config, camera, key, width, height, spp, y0, R, on_step)
 
 
 def regen_pass_scheduled(tables, config, camera, key: Key, width: int, height: int,
                          spp: int, y0: int = 0, n_rows: int = 0, *, blocks: int = 4,
-                         slots: int = 64):
+                         slots: int = 64, order: Optional[torch.Tensor] = None):
     """The pass as the kernel schedules it, in plain torch: (accum f32[3,
     R], lane_steps i32[R], stats i64[len(STATS)]), the first two bit-equal
     to :func:`regen_pass_ref`'s (the stats' clock fields stay 0).
 
     ``blocks`` blocks of ``slots`` slots run in lockstep ticks, block
     after block within a tick. A tick of a running block: its empty slots
-    fetch the next lanes of the work list (lanes 0 .. R-1, each started at
-    its step 0) until the list is spent; the block's vote counts its live
+    fetch the next entries of the work list (lane ``order[i]`` for entry
+    ``i``, lane ``i`` without an order; each started at its step 0) until
+    the list is spent; the block's vote counts its live
     slots; with none it exits; else every live slot runs one step of its
     own lane, and a lane that has done its samples leaves its slot. A step
     of lane ``i`` at its step ``s`` draws element ``i`` of the streams
@@ -329,6 +351,10 @@ def regen_pass_scheduled(tables, config, camera, key: Key, width: int, height: i
     stop = max_steps(spp, config)
     keys = pass_keys(key, stop)
     i64 = torch.int64
+    if order is None:
+        order = torch.arange(R, dtype=torch.int32)
+    _check_order(order, R)
+    order = order.to(dev, i64)
 
     def draw(rows_, lanes):  # u32[n, 2] keys per lane -> f32[n] on dev
         return torch.from_numpy(uniform_lanes(rows_, lanes.cpu().numpy())).to(dev)
@@ -358,7 +384,7 @@ def regen_pass_scheduled(tables, config, camera, key: Key, width: int, height: i
             sl = slice(b * slots, (b + 1) * slots)
             empty = torch.nonzero(lane[sl] < 0).flatten() + b * slots
             if head < R and empty.numel():
-                got = torch.arange(head, min(head + empty.numel(), R), device=dev)
+                got = order[head:head + empty.numel()]
                 head += got.numel()
                 into = empty[:got.numel()]
                 lane[into] = got
@@ -434,7 +460,8 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int,  # rows, clo, chi, cslack, rec, cull
                    _P, _P, _P, _P,  # keys, cam, omax, args
-                   _P, _P, _P, ctypes.c_long, _P]  # accum, lane_steps, work, grid, stream
+                   _P, _P, _P,  # accum, lane_steps, order
+                   _P, ctypes.c_long, _P]  # work, grid, stream
     lib.regen_pass_resident.restype = ctypes.c_long
     lib.regen_pass_resident.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
@@ -476,6 +503,15 @@ def _keys_on(dev, keys: np.ndarray) -> torch.Tensor:
     return host.to(dev, non_blocking=True)
 
 
+def _check_order(order: torch.Tensor, R: int):
+    """An order's shape and dtype (not that it is a permutation, which
+    would take a host sync; see :func:`regen_pass` for what a bad one
+    does)."""
+    if order.dtype != torch.int32 or order.shape != (R,):
+        raise ValueError(f"order must be an int32 tensor of the band's {R} lanes, got "
+                         f"{order.dtype} {tuple(order.shape)}")
+
+
 def _check_band(width, height, y0, n_rows, spp):
     if width < 1 or height < 1 or not 0 <= y0 or y0 + n_rows > height:
         raise ValueError(f"rows [{y0}, {y0 + n_rows}) of a {width}x{height} frame")
@@ -485,7 +521,8 @@ def _check_band(width, height, y0, n_rows, spp):
         raise ValueError("the band's lanes must fit in int32")
 
 
-def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows, stats):
+def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows, stats,
+                     order):
     from . import cull as CU
     from . import segment_fused as F
 
@@ -500,6 +537,10 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
             or not rows.is_contiguous() or rows.data_ptr() % 16:
         raise ValueError("rows must be a contiguous, 16-byte aligned float32 [T, 48] tensor")
     T, cull = rows.shape[0], config.chunk_cull
+    if order is not None:
+        _check_order(order, R)
+        if order.device != dev or not order.is_contiguous():
+            raise ValueError(f"order must be contiguous on {dev}, got {order.device}")
     boxes = (None,) * 4
     if cull:
         F.check_chunk_boxes(rows, tables.clo, tables.chi, tables.cslack)
@@ -527,14 +568,16 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
             err = lib.regen_pass_launch(rows.data_ptr(), *boxes, int(cull), keys.data_ptr(),
                                         cam.data_ptr(), None if omax is None else omax.data_ptr(),
                                         ctypes.byref(args), accum.data_ptr(),
-                                        lane_steps.data_ptr(), work.data_ptr(), grid, stream)
+                                        lane_steps.data_ptr(),
+                                        None if order is None else order.data_ptr(),
+                                        work.data_ptr(), grid, stream)
     if err != 0:
         raise RuntimeError(f"regen_pass kernel launch failed: cudaError {err}")
     if cull:
         regen_pass.cull_launches += 1
     else:
         regen_pass.launches += 1
-    keep(work, grid)
+    keep(work, grid, ordered=order is not None)
     if stats is not None:
         stats["counters"] = work[:len(STATS)]
         stats["omax"] = omax
@@ -561,7 +604,8 @@ def pass_times(counters: torch.Tensor) -> tuple:
 
 
 def regen_pass(tables, config, camera, key: Key, width: int, height: int, spp: int,
-               y0: int = 0, n_rows: int = 0, *, stats: Optional[dict] = None):
+               y0: int = 0, n_rows: int = 0, *, stats: Optional[dict] = None,
+               order: Optional[torch.Tensor] = None):
     """One regen pass of ``spp`` samples per pixel over image rows [y0,
     y0 + n_rows) (``n_rows=0``: the whole frame) with the ``"megakernel"``
     intersector (``config.chunk_cull`` for the culled instance), over
@@ -570,14 +614,22 @@ def regen_pass(tables, config, camera, key: Key, width: int, height: int, spp: i
     ``csrc/regen_pass.cu``, with no host sync. ``stats``, a dict,
     receives the pass's counters (``"counters"``, i64[len(STATS)] on the
     card, read after the pass), the origin bound (``"omax"``, None where
-    the instance stages no spheres) and the grid's blocks (``"grid"``). On
-    the CPU :func:`regen_pass_ref`, which takes no ``stats``."""
+    the instance stages no spheres) and the grid's blocks (``"grid"``).
+    ``order``, i32[R] on the card, a permutation of the band's lanes, is
+    the order the work list hands them out in (None: row order); it
+    changes the schedule and never the outputs. Only its dtype, shape and
+    device are checked (a permutation check would sync with the host): a
+    lane it leaves out goes unwritten, one it repeats runs twice, and an
+    entry outside [0, R) is undefined behaviour (the kernel reads and
+    writes out of bounds). :func:`longest_first` always gives a
+    permutation. On the CPU
+    :func:`regen_pass_ref`, which takes no ``stats`` and has no list."""
     dev = camera.device
     if tables.rows is not None and tables.rows.device != dev:
         raise ValueError(f"the camera is on {dev}, the tables on {tables.rows.device}")
     if dev.type == "cuda":
         return _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows,
-                                stats)
+                                stats, order)
     if dev.type == "cpu":
         return regen_pass_ref(tables, config, camera, key, width, height, spp, y0, n_rows)
     raise ValueError(f"no regen pass kernel for device {dev}")

@@ -20,7 +20,10 @@ Where the pass runs (:mod:`..ops.regen_pass`):
   of kernel B1r, whose persistent blocks pull lanes from a work list and
   run every step of them inside the kernel (the counterpart of JAX's
   ``lax.while_loop``, one device program); on the CPU its plain version,
-  the host loop;
+  the host loop. A :class:`LaneHistory` (the Renderer keeps one) hands
+  B1r's list out longest lane first, by the lanes' steps in the previous
+  pass of the same band, spp and tables; the culled instance keeps row
+  order;
 - ``"traverse"``: the host loop :func:`..ops.regen_pass.regen_pass_ref`,
   whose steps launch the walk B5 and the segment B6l on the card.
 
@@ -51,7 +54,33 @@ from ..ops import regen_pass as RP
 from ..ops.rng import Key
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
+from ..utils.profiling import span
 from .integrator import WHOLE_SEGMENT, SceneTables, TraceConfig, scene_tables
+
+
+class LaneHistory:
+    """The work-list order for the next pass, learned from the last: the
+    lanes' ``lane_steps`` of a pass on the card, sorted longest first
+    (:func:`..ops.regen_pass.longest_first`, enqueued right after the
+    pass's launch, no host sync), kept for the pass's shape (band, spp,
+    config, tables). A pass of another shape, or the first, or one on the
+    CPU, runs in row order. A pixel's lanes take about as many steps from
+    pass to pass, and an order that no longer fits (the scene changed)
+    costs balance, never correctness. :func:`render_regen_planar` uses it
+    for the plain instance (B1r) only."""
+
+    def __init__(self):
+        self.shape = None
+        self.order = None
+
+    def order_for(self, shape) -> Optional[torch.Tensor]:
+        return self.order if shape == self.shape else None
+
+    def learn(self, shape, lane_steps: torch.Tensor) -> None:
+        if lane_steps.device.type != "cuda":
+            return
+        with span("regen.order"):
+            self.shape, self.order = shape, RP.longest_first(lane_steps)
 
 
 @torch.no_grad()
@@ -66,6 +95,7 @@ def render_regen_planar(
     tables: Optional[SceneTables] = None,
     y0: int = 0,
     n_rows: int = 0,
+    lanes: Optional[LaneHistory] = None,
 ) -> torch.Tensor:
     """Mean radiance over ``spp`` samples per pixel as planar
     f32[3, n_rows, W] for image rows [y0, y0+n_rows) (``n_rows=0``: the
@@ -73,7 +103,9 @@ def render_regen_planar(
     ``ray_chunk`` is refused rather than ignored. The row band serves
     the sharded renderer (:func:`..parallel.sharded.sharded_regen_pass`):
     lanes pin to the band's pixels, and every stream draws one value per
-    lane of the band, as in the JAX package."""
+    lane of the band, as in the JAX package. ``lanes``: the caller's
+    :class:`LaneHistory`, which orders this pass's work list from the
+    last pass of its shape and learns from this one."""
     if config.intersector not in WHOLE_SEGMENT:
         raise ValueError("regen rendering needs intersector='megakernel' or 'traverse', "
                          f"got {config.intersector!r}")
@@ -88,8 +120,18 @@ def render_regen_planar(
         n_rows = height
     if tables is None:
         tables = scene_tables(scene, config)
-    run = RP.regen_pass if config.intersector == "megakernel" else RP.regen_pass_ref
-    accum, _ = run(tables, config, camera, key, width, height, spp, y0, n_rows)
+    if config.intersector != "megakernel":
+        accum, _ = RP.regen_pass_ref(tables, config, camera, key, width, height, spp, y0, n_rows)
+    elif lanes is None or config.chunk_cull:
+        # The culled instance (B1rc) ran 2.6-5.6 % slower longest first on
+        # the glossy stage, though its tail fell (PERF.md §6): its cost a
+        # step follows the chunks its warps' rays reach, not its live lanes.
+        accum, _ = RP.regen_pass(tables, config, camera, key, width, height, spp, y0, n_rows)
+    else:
+        shape = (width, height, y0, n_rows, spp, config, id(tables))
+        accum, steps = RP.regen_pass(tables, config, camera, key, width, height, spp, y0,
+                                     n_rows, order=lanes.order_for(shape))
+        lanes.learn(shape, steps)
     return accum.reshape(3, n_rows, width) / float(spp)
 
 

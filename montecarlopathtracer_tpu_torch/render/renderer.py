@@ -40,7 +40,7 @@ from .film import (
     tonemap_linear,
 )
 from .integrator import TraceConfig, render_rows_planar, scene_tables
-from .regen import render_regen_planar
+from .regen import LaneHistory, render_regen_planar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +93,7 @@ class Renderer:
         self.film = Film.zeros(settings.height, settings.width, self.device)
         self.pass_idx = 0
         self.requests = 0  # render() calls: the request id of their passes' spans
+        self.lanes = LaneHistory()  # the regen pass's work-list order, from the last pass
         if settings.checkpoint_path and os.path.exists(settings.checkpoint_path):
             self.load_checkpoint(settings.checkpoint_path)
 
@@ -133,6 +134,7 @@ class Renderer:
                 m2=torch.as_tensor(m2, dtype=torch.float32).to(self.device),
             )
             self.pass_idx = int(z["pass_idx"])
+            self.lanes = LaneHistory()
 
     # -- rendering ------------------------------------------------------------
 
@@ -143,7 +145,8 @@ class Renderer:
         s = self.settings
         if s.regen:
             mean = render_regen_planar(self.scene, self.camera, key, s.width, s.height,
-                                       s.spp_per_pass, self.config, self.tables)
+                                       s.spp_per_pass, self.config, self.tables,
+                                       lanes=self.lanes)
         else:
             total = torch.zeros(3, s.height, s.width, device=self.device)
             for i in range(s.spp_per_pass):

@@ -10,7 +10,8 @@
   spans by the name's first word.
 - :func:`recording` keeps the program's counters over the enclosed
   block: the Renderer's passes, each pass kernel's (B1r, B1rc) counters
-  and grid, the spans' host time, the launches. :func:`traced` gives the
+  and grid, the launches whose work list was ordered, the spans' host
+  time, the launches. :func:`traced` gives the
   same over the newest stretch of passes that a profiler recorded, for
   a tool that only starts ``torch.profiler``.
 - :func:`trace` profiles the enclosed block with ``torch.profiler``
@@ -78,13 +79,14 @@ def span(name: str, args: Optional[dict] = None):
 class _Record:
     """What the program kept over a stretch: the Renderer's passes, each
     pass kernel's work buffer (its counters first, on its device until
-    :meth:`close`), the blocks launched, and each span's count and host
-    seconds."""
+    :meth:`close`), the blocks launched, the launches whose work list was
+    ordered, and each span's count and host seconds."""
 
     def __init__(self):
         self.passes = 0
         self.work = []
         self.grid = 0
+        self.ordered = 0
         self.spans = {}
         self.before = launches()
         self.sums = None
@@ -107,6 +109,7 @@ class _Record:
                 "kernel_ms": int((end - start).sum()) / 1e6,
                 "tail_ms": int(torch.where(spent >= 0, end - spent, 0).sum()) / 1e6,
                 "grid": self.grid,
+                "ordered": self.ordered,
                 "launches": {k: n - self.before[k] for k, n in after.items()
                              if n != self.before[k]},
                 "spans": {k: list(v) for k, v in self.spans.items()},
@@ -140,13 +143,15 @@ def count_pass() -> None:
         rec.passes += 1
 
 
-def keep(work: torch.Tensor, grid: int) -> None:
+def keep(work: torch.Tensor, grid: int, ordered: bool = False) -> None:
     """Keep a pass kernel's work buffer (its counters first,
-    ``ops/regen_pass.py`` STATS; a reference, no copy) and its grid's
-    blocks in every open record."""
+    ``ops/regen_pass.py`` STATS; a reference, no copy), its grid's blocks
+    and whether its work list ran in an order (``ordered``) in every open
+    record."""
     for rec in _records():
         rec.work.append(work)
         rec.grid += grid
+        rec.ordered += int(ordered)
 
 
 @contextlib.contextmanager
@@ -158,6 +163,8 @@ def recording():
     the card's clock, first block start to last block end) and
     ``tail_ms`` (the part after the work list ran dry; 0 for a launch
     whose list was never found spent), ``grid`` (blocks launched),
+    ``ordered`` (the launches given a work-list order: a Renderer's,
+    from its previous pass, :class:`..render.regen.LaneHistory`),
     ``launches`` (of the kernels that launched) and ``spans`` (``{name:
     [count, host seconds]}``, while a profiler records)."""
     rec = _Record()

@@ -42,8 +42,9 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
     render_sample_batch,
     scene_tables,
 )
-from montecarlopathtracer_tpu_torch.render.regen import render_regen_batch
+from montecarlopathtracer_tpu_torch.render.regen import render_regen_batch, render_regen_planar
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+from montecarlopathtracer_tpu_torch.scene.camera import Camera
 from montecarlopathtracer_tpu_torch.testing import (
     HARD_SOUPS,
     cap_torch_threads,
@@ -563,6 +564,105 @@ def test_regen_pass_kernel_equals_host_loop_on_card(card, which):
     rep = compare_images((got / spp).reshape(3, n, w).permute(1, 2, 0),
                          (plain / spp).reshape(3, n, w).permute(1, 2, 0))
     assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("which", ["cornell_rr", "glossy_cull"])
+def test_regen_pass_kernel_with_an_order_is_bit_equal_on_card(card, which):
+    """B1r (``cornell_rr``) and B1rc (``glossy_cull``) handing lanes out in
+    an order (longest first by a pass's own ``lane_steps``, and that order
+    reversed) give the unordered launch's accum and ``lane_steps`` bit for
+    bit, and the host loop's; the live lane-steps stay the lanes' steps.
+    ``longest_first`` syncs with nothing; a bad order is refused."""
+    w, h = 64, 48
+    if which == "glossy_cull":
+        scene, camera = glossy.glossy_steps(width=w, height=h, device="cuda")
+        config, spp = TraceConfig(mode="fixed", max_depth=3, chunk_cull=True), 16
+    else:
+        scene, camera, _ = card
+        config, spp = TraceConfig(mode="rr", rr_depth=2, illum=1.0), 16
+    tables, key = scene_tables(scene, config), make_key(34)
+    want, want_steps = RP.regen_pass(tables, config, camera, key, w, h, spp)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = RP.longest_first(want_steps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not torch.equal(first, torch.arange(w * h, dtype=torch.int32, device="cuda"))
+    host, host_steps = RP.regen_pass_ref(tables, config, camera, key, w, h, spp)
+    assert torch.equal(want, host) and torch.equal(want_steps, host_steps)
+    for order in (first, first.flip(0).contiguous()):
+        stats = {}
+        with profiling.recording() as rec:
+            got, steps = RP.regen_pass(tables, config, camera, key, w, h, spp, stats=stats,
+                                       order=order)
+        assert torch.equal(got, want) and torch.equal(steps, want_steps)
+        live = int(stats["counters"][RP.STATS.index("live_steps")])
+        assert live == int(steps.long().sum()) and rec["ordered"] == 1
+    with pytest.raises(ValueError, match="order"):
+        RP.regen_pass(tables, config, camera, key, w, h, spp, order=first.long())
+    with pytest.raises(ValueError, match="order"):
+        RP.regen_pass(tables, config, camera, key, w, h, spp, order=first.cpu())
+
+
+def test_renderer_orders_its_second_pass_on_card(card, monkeypatch):
+    """A Renderer's first regen pass runs in row order and its second in
+    the order learned from the first: ``ordered`` 0 then 1; a culled
+    Renderer's passes (B1rc) all run in row order. The frame's
+    long lanes are its bottom rows (the Cornell box seen from below the
+    middle of its open front, eye (0, 3, 26), forward (0, 0.25, -1), 50
+    degrees; 800x600, fixed depth 3, 16 spp: the top rows miss, 16
+    steps, the floor's lanes up to ~60), so longest first cuts the share
+    of the kernel after its list ran dry (``tail_ms / kernel_ms``). The
+    frame has more lanes than the grid has slots, so slots take lanes
+    from the ordered list after their first: the ordered pass's frame and
+    ``lane_steps`` are a row-order launch's on its key, bit for bit."""
+    w, h = 800, 600
+    scene, _ = cornell.cornell_box(width=w, height=h, device="cuda")
+    camera = Camera.look((0.0, 3.0, 26.0), (0.0, 0.25, -1.0), (0.0, 1.0, 0.0), width=w,
+                         height=h, fov_x_deg=50.0, device="cuda")
+    settings = RenderSettings(width=w, height=h, spp_per_pass=16, regen=True)
+    r = Renderer(scene, camera, TraceConfig(mode="fixed", max_depth=3), settings,
+                 device="cuda")
+    frames, learned = [], []  # each pass's (key, frame); (its order, its lane_steps)
+
+    def spy_planar(*args, **kw):
+        frames.append((args[2], render_regen_planar(*args, **kw)))
+        return frames[-1][1]
+
+    learn = r.lanes.learn
+
+    def spy_learn(shape, steps):
+        learned.append((r.lanes.order, steps))
+        learn(shape, steps)
+
+    monkeypatch.setattr("montecarlopathtracer_tpu_torch.render.renderer.render_regen_planar",
+                        spy_planar)
+    r.lanes.learn = spy_learn
+    recs = []
+    for _ in range(2):
+        with profiling.recording() as rec:
+            r.render(1)
+        recs.append(rec)
+    assert [rec["ordered"] for rec in recs] == [0, 1]
+    assert [rec["launches"] for rec in recs] == [{"B1r": 1}] * 2
+    shares = [rec["tail_ms"] / rec["kernel_ms"] for rec in recs]
+    assert shares[1] < shares[0], shares
+    assert r.lanes.order is not None and r.lanes.order.shape == (w * h,)
+    assert recs[1]["grid"] * RP.slots_per_block(r.config) < w * h
+    (key, frame), (order, steps) = frames[1], learned[1]
+    assert learned[0][0] is None and order is not None
+    assert not torch.equal(order, torch.arange(w * h, dtype=torch.int32, device="cuda"))
+    want, want_steps = RP.regen_pass(r.tables, r.config, camera, key, w, h, 16)
+    assert torch.equal(steps, want_steps)
+    assert torch.equal(frame, want.reshape(3, h, w) / 16.0)  # exact: a power of two
+    # The culled instance (B1rc) keeps row order.
+    gscene, gcam = glossy.glossy_steps(width=64, height=48, device="cuda")
+    settings = RenderSettings(width=64, height=48, spp_per_pass=4, regen=True)
+    g = Renderer(gscene, gcam, TraceConfig(mode="fixed", max_depth=3, chunk_cull=True),
+                 settings, device="cuda")
+    with profiling.recording() as rec:
+        g.render(2)
+    assert rec["launches"] == {"B1rc": 2} and rec["ordered"] == 0 and g.lanes.order is None
 
 
 def test_regen_pass_spp1_equals_the_scan_on_card(card):

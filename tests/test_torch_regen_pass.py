@@ -35,6 +35,12 @@ to its last), and the pieces the kernel takes from them, at 32x24 and
 - ``regen_pass_ref``'s ``on_step`` (through which ``chip_smoke.py``
   counts B1r's work for its bound) sees each step's wavefront and
   changes nothing.
+- (h) The work list's order: ``longest_first`` is a stable sort of the
+  lanes by ``lane_steps >> 5``, longest first; the schedule with an
+  order (longest first, reversed) stays bit-equal to the host loop, the
+  identity order gives the unordered schedule's counters, and on a frame
+  whose long lanes are its bottom rows longest first runs fewer
+  block-steps. A Renderer on the CPU keeps row order.
 """
 
 import jax
@@ -57,12 +63,14 @@ from montecarlopathtracer_tpu_torch.render.integrator import (
     scene_tables,
     segment_step,
 )
-from montecarlopathtracer_tpu_torch.scene.camera import camera_for_mcrt
+from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
+from montecarlopathtracer_tpu_torch.scene.camera import Camera, camera_for_mcrt
 from montecarlopathtracer_tpu_torch.testing import (
     cap_torch_threads,
     compare_images,
     plain_kernels,
 )
+from montecarlopathtracer_tpu_torch.utils import profiling
 
 cap_torch_threads()
 
@@ -389,3 +397,104 @@ def test_on_step_sees_each_steps_wavefront(box):
     pos, dir_ = camera.generate_rays_soa(lanes % W, lanes // W, u[0] * 2.0 - 1.0,
                                          u[1] * 2.0 - 1.0, W, H)
     assert torch.equal(seen[0][0], pos) and torch.equal(seen[0][1], dir_)
+
+
+@pytest.mark.parametrize("which", ["mixed", "equal", "one_bucket"])
+def test_longest_first_sorts_lanes_by_bucket_and_keeps_row_order(which):
+    """``longest_first`` is a permutation of the lanes, i32 on the steps'
+    device; its buckets (``lane_steps >> 5``) do not increase along the
+    list and lanes of one bucket keep their row order; equal lengths, or
+    lengths within one bucket, give the identity."""
+    R = 5000
+    if which == "mixed":
+        steps = torch.from_numpy(np.random.default_rng(7).integers(100, 735, R)).int()
+        steps[::7] = 100  # many ties, as the misses of a frame
+    elif which == "equal":
+        steps = torch.full((R,), 300, dtype=torch.int32)
+    else:
+        steps = torch.from_numpy(np.random.default_rng(8).integers(96, 128, R)).int()
+    order = RP.longest_first(steps)
+    assert order.dtype == torch.int32 and order.shape == (R,) and order.device == steps.device
+    assert torch.equal(order.sort().values, torch.arange(R, dtype=torch.int32))
+    buckets = (steps >> 5)[order.long()]
+    assert bool((buckets[1:] <= buckets[:-1]).all())
+    same = buckets[1:] == buckets[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())
+    if which != "mixed":
+        assert torch.equal(order, torch.arange(R, dtype=torch.int32))
+    else:
+        assert int(buckets[0]) == 734 >> 5 and int(buckets[-1]) == 100 >> 5
+
+
+@pytest.mark.parametrize("how", ["longest_first", "reversed"])
+@pytest.mark.parametrize("kw", [MODES["rr"], {**MODES["fixed"], "chunk_cull": True}],
+                         ids=["rr", "cull_fixed"])
+def test_scheduled_pass_with_an_order_is_bit_equal(box, kw, how):
+    """The schedule fetching lanes in an order (longest first by the host
+    loop's own ``lane_steps``, or that order reversed) gives the host
+    loop's accum and ``lane_steps`` bit for bit."""
+    scene, camera = box
+    config = TraceConfig(**kw)
+    tables, key, spp = scene_tables(scene, config), make_key(33), 16
+    want, want_steps = RP.regen_pass_ref(tables, config, camera, key, W, H, spp)
+    order = RP.longest_first(want_steps)
+    if how == "reversed":
+        order = order.flip(0)
+    assert not torch.equal(order, torch.arange(W * H, dtype=torch.int32))
+    got, steps, stats = scheduled(tables, config, camera, key, W, H, spp, order=order)
+    assert torch.equal(got, want) and torch.equal(steps, want_steps)
+    assert int(stats[RP.STATS.index("live_steps")]) == int(steps.long().sum())
+
+
+def test_longest_first_shortens_a_schedule_whose_long_lanes_come_last():
+    """The Cornell box seen from below its open front's middle (eye (0, 3,
+    26), forward (0, 0.25, -1), 50 degrees) at 16x12, fixed depth 3, 16
+    spp: the top rows see past the box (every sample misses, 16 steps),
+    the bottom rows its floor and walls (up to 63). Three blocks of 16
+    slots, four lanes a slot: longest first (on the host loop's
+    ``lane_steps``) runs fewer block-steps than row order, whose last
+    lanes are the longest. The identity order gives row order's counters
+    exactly; the host loop's accum and steps hold in every order."""
+    scene, _ = cornell.cornell_box(width=16, height=12)
+    camera = Camera.look((0.0, 3.0, 26.0), (0.0, 0.25, -1.0), (0.0, 1.0, 0.0), width=16,
+                         height=12, fov_x_deg=50.0)
+    config = TraceConfig(**MODES["fixed"])
+    tables, key, spp = scene_tables(scene, config), make_key(3), 16
+    want, want_steps = RP.regen_pass_ref(tables, config, camera, key, 16, 12, spp)
+    rows = want_steps.reshape(12, 16)
+    assert bool((rows[:4] == spp).all()) and int(rows[6:].max()) >= 2 * 32 - 1
+    runs = {}
+    for name, order in [("rows", None), ("identity", torch.arange(192, dtype=torch.int32)),
+                        ("longest_first", RP.longest_first(want_steps))]:
+        got, steps, stats = RP.regen_pass_scheduled(tables, config, camera, key, 16, 12, spp,
+                                                    blocks=3, slots=16, order=order)
+        assert torch.equal(got, want) and torch.equal(steps, want_steps), name
+        runs[name] = stats
+    assert torch.equal(runs["identity"], runs["rows"])
+    block_steps = {k: int(v[RP.STATS.index("block_steps")]) for k, v in runs.items()}
+    assert block_steps["longest_first"] < 0.95 * block_steps["rows"], block_steps
+
+
+def test_scheduled_pass_refuses_a_bad_order(box):
+    scene, camera = box
+    config = TraceConfig(**MODES["fixed"])
+    tables = scene_tables(scene, config)
+    for bad in (torch.arange(W * H), torch.arange(W * H - 1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="order"):
+            scheduled(tables, config, camera, make_key(0), W, H, 1, order=bad)
+
+
+def test_a_renderer_on_the_cpu_keeps_row_order(box):
+    """The CPU's pass is the host loop, which has no work list: a
+    Renderer's history learns nothing there, and no launch counts as
+    ordered; a LaneHistory orders only a pass of the shape it learned."""
+    scene, camera = box
+    settings = RenderSettings(width=W, height=H, spp_per_pass=2, regen=True)
+    r = Renderer(scene, camera, TraceConfig(**MODES["rr"]), settings, device="cpu")
+    with profiling.recording() as rec:
+        r.render(2)
+    assert rec["passes"] == 2 and rec["ordered"] == 0
+    assert r.lanes.order is None and r.lanes.order_for(r.lanes.shape) is None
+    lanes = REGEN.LaneHistory()
+    lanes.shape, lanes.order = ("a",), torch.arange(3, dtype=torch.int32)
+    assert lanes.order_for(("a",)) is lanes.order and lanes.order_for(("b",)) is None

@@ -75,14 +75,14 @@ def test_a_recording_sums_the_counters_and_decodes_the_clocks():
         with profiling.recording() as rec:
             for i, w in enumerate(works):
                 profiling.count_pass()
-                profiling.keep(w, 9 + i)
+                profiling.keep(w, 9 + i, ordered=i != 1)
         profiling.count_pass()
     times = [RP.pass_times(w[:len(RP.STATS)]) for w in works]
     assert times[1][0] is None
     assert rec["passes"] == 3 and outer["passes"] == 4
     for i, name in enumerate(RP.COUNTERS):
         assert rec[name] == outer[name] == sum(int(w[i]) for w in works), name
-    assert rec["grid"] == 9 + 10 + 11
+    assert rec["grid"] == 9 + 10 + 11 and rec["ordered"] == outer["ordered"] == 2
     assert rec["kernel_ms"] == pytest.approx(sum(end for _, end in times), abs=1e-12)
     assert rec["kernel_ms"] == pytest.approx(4.5 + 1.25 + 0.100001, abs=1e-12)
     assert rec["tail_ms"] == pytest.approx(1.5 + 0.0 + 0.000001, abs=1e-12)
@@ -105,3 +105,4 @@ def test_nothing_is_kept_while_nothing_records():
     with profiling.recording() as rec:
         pass
     assert rec["passes"] == 0 and rec["grid"] == 0 and rec["kernel_ms"] == 0.0
+    assert rec["ordered"] == 0
