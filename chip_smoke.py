@@ -16,6 +16,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    R = 480,000 and 1,048,576 for 1-3 streams, and against the CPU's plain
    draws; timed, with its bound (bytes, and its integer operations at
    the H100's INT32 rate);
+2c. the same kernel drawing under a key staged on the card (ops/rng.py's
+   DeviceKey, the words a CUDA graph's draws read at replay), with 0-3
+   host words folded in on the card, 2-4 streams at R = 480,000 (the
+   segment loop's R): bit-equal to the plain draws of the host key, one
+   launch a call, counters zeroed just before;
 3. the segment kernel against its plain-torch version on the card, on
    64x48 camera rays and a full 800x600 wavefront of first-bounce rays,
    in fixed mode (final gather off and on) and RR mode (roulette, hard
@@ -51,7 +56,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
     {mat_kd, mat_ka, vertices}; one warm-up and three timed iterations,
     launch counts of all three kernels, checks on the gradients, and a
     profile of one iteration;
-12. five SGD steps at 800x600, 1 spp, Kd started at 0.6x: the loss falls;
+12. five SGD steps at 800x600, 1 spp, Kd started at 0.6x: the loss falls
+    (the steps replay the loss's CUDA graphs);
+12b. the inverse cell's step: make_adam_step at 800x600, 4 spp, fixed
+    depth 7, over the red row of Kd, its loss captured as CUDA graphs at
+    the first step; a later step's loss bit-equal to value_and_grad of the
+    eager loss under the same key, Adam's moments and the moved row to
+    the update from the eager gradient (rtol 1e-6), the other rows
+    untouched, and B1, B2, B3 and RNG counted as the replay's launches;
 13. a 64x48 gradient render, kernel path against plain path, same key;
 14. the regen and traversal paths' kernels (traverse_select.cu,
     rows_segment.cu, regen_pass.cu): their builds and ptxas reports;
@@ -293,6 +305,7 @@ Imports nothing of JAX.
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -467,6 +480,32 @@ def rng_vs_plain(torch):
           f"(event pairs, median of 10); u1, u2 of a {BW}x{BH} segment: device {big:.4f} ms")
     device_line("RNG", ms[0], bound)
     return (*ms, bound)
+
+
+def keyed_draws(torch):
+    phase("2c. uniform draws under a key on the card (DeviceKey) vs plain: bits at R = 480,000, "
+          "0-3 folds, 2-4 streams")
+    from montecarlopathtracer_tpu_torch.ops import rng as RNG
+
+    key = RNG.fold_in(RNG.make_key(3_900_000_001), 17)
+    staged = RNG.DeviceKey.stage(key, torch.zeros(2, dtype=torch.int32, device="cuda"))
+    calls = 0
+    reset_counts()
+    for folds in ((), (2,), (2, (1 << 29) + 1), (2, (1 << 29) + 1, 5)):
+        host, dev = key, staged
+        for d in folds:
+            host, dev = RNG.fold_in(host, d), RNG.fold_in(dev, d)
+        for ids in ((4, 5), (28, 29, 31), ((1 << 30), (1 << 30) + 1, 8, 9)):
+            got = RNG.stream_uniforms(dev, ids, W * H, "cuda")
+            calls += 1
+            want = RNG.stream_uniforms_ref(host, ids, W * H, "cuda")
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            check(same, f"keyed draws differ from the plain ones: folds {folds}, streams {ids}")
+    n = read_all_counts()["RNG"]
+    print(f"{calls} keyed draws (folds 0-3 x streams 2-4) at R {W * H}: bit-equal to the plain "
+          f"draws of the host key; launches {n}")
+    check(n == calls, f"keyed draws launched {n} times, expected {calls}")
+    return {"keyed_bit_equal_calls": calls, "launches_keyed": n}
 
 
 def seg_args(torch, rows, pos, dir_, tput, res, live, key, flags):
@@ -1087,6 +1126,64 @@ def sgd_steps(torch, scene, camera):
           + f"; L1 error to the true Kd {err0:.4f} -> {err1:.4f}")
     check(all(x == x and abs(x) != float("inf") for x in losses), "loss not finite")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+
+def adam_graphed(torch, scene, camera):
+    phase(f"12b. the inverse cell's step: make_adam_step (CUDA graphs) at {W}x{H}, {SPP} spp, "
+          f"fixed depth {DEPTH}, vs value_and_grad of the eager loss")
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops.rng import fold_in, make_key
+    from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
+
+    config = TraceConfig(mode="fixed", max_depth=DEPTH, illum=10.0)
+    base = make_key(3_900_000_021)
+    kd = scene.mat_kd
+    red = int((kd[:, 0] - kd[:, 1] - kd[:, 2]).argmax())
+    with torch.no_grad():
+        target = G.render_image({}, scene, camera, fold_in(base, 99), width=W, height=H,
+                                spp=SPP, config=config)
+    loss_fn = G.make_loss_fn(scene, camera, target, width=W, height=H, spp=SPP, config=config)
+    b1, b2, eps, lr = 0.9, 0.999, 1e-8, 0.05
+    step = G.make_adam_step(loss_fn, lr=lr, betas=(b1, b2), eps=eps, bounds=(0.0, 1.0),
+                            rows=[red])
+    start = kd.clone()
+    start[red] = torch.tensor([0.01, 0.2, 0.9], device="cuda")
+    params, _, state = step({"mat_kd": start}, fold_in(base, 0))  # captures the graphs
+    torch.cuda.synchronize()
+    key = fold_in(base, 1)
+    want_loss, want = G.value_and_grad(loss_fn, params, key)
+    g = want["mat_kd"][red:red + 1]
+    m = state.m["mat_kd"].lerp(g, 1.0 - b1)
+    v = (state.v["mat_kd"] * b2).addcmul_(g, g, value=1.0 - b2)
+    denom = (v.sqrt() / math.sqrt(1.0 - b2**2)).add_(eps)
+    row = params["mat_kd"][red:red + 1].addcdiv(m, denom, value=-lr / (1.0 - b1**2))
+    row = row.clamp_(0.0, 1.0)
+    torch.cuda.synchronize()
+    reset_counts()
+    new, loss, state = step(params, key, state)
+    torch.cuda.synchronize()
+    counts = read_all_counts()
+    same_loss = torch.equal(loss, want_loss)
+    errs = {name: float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+            for name, got, ref in (("m", state.m["mat_kd"], m), ("v", state.v["mat_kd"], v),
+                                   ("row", new["mat_kd"][red:red + 1], row))}
+    others = torch.ones(kd.shape[0], dtype=torch.bool, device="cuda")
+    others[red] = False
+    untouched = torch.equal(new["mat_kd"][others], params["mat_kd"][others])
+    print(f"loss {float(loss):.9e} vs eager {float(want_loss):.9e} (bit-equal {same_loss}); "
+          f"largest relative gap to the eager update: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; other rows untouched {untouched}; red row {new['mat_kd'][red].tolist()}")
+    check(same_loss, "the graphed step's loss differs from the eager loss")
+    check(all(e <= 1e-6 for e in errs.values()), f"the graphed step's update differs: {errs}")
+    check(untouched, "the graphed step moved a row outside `rows`")
+    segments = config.num_segments * SPP
+    want_counts = {"B1": segments, "B2": segments, "B3": segments,
+                   "RNG": segments + SPP}
+    got_counts = {k: counts[k] for k in want_counts}
+    print(f"launches of the replayed step: {got_counts} (expected {want_counts})")
+    check(got_counts == want_counts, f"replay launches {got_counts}, expected {want_counts}")
+    return {"launches_adam_graphed": got_counts, "adam_graphed_max_rel_gap": max(errs.values())}
 
 
 def grad_frame(torch, scene):
@@ -3989,6 +4086,7 @@ def main():
         name, smi = environment(torch)
         libs = build()
         rng_ms = rng_vs_plain(torch)
+        keyed = keyed_draws(torch)
         from montecarlopathtracer_tpu_torch.models import cornell
 
         scene, camera = cornell.cornell_box(
@@ -4016,6 +4114,7 @@ def main():
         bwd_ms, sc_ms = time_backward(torch, rows, bounce)
         counts, per_iter, grad_msps = grad_main_path(torch, scene, camera)
         sgd_steps(torch, scene, camera)
+        adam = adam_graphed(torch, scene, camera)
         grad_frame(torch, scene)
         regen_builds(libs)
         lane_err, lane_ms = lane_vs_plain(torch, rows, bounce)
@@ -4111,7 +4210,8 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("mega_segment", KERNEL_SOURCE, REPLACES, launches, max_err, b1_timing, "B1",
-              launches_sharded=shard["36a"]["B1"]),
+              launches_sharded=shard["36a"]["B1"],
+              launches_adam_graphed=adam["launches_adam_graphed"]["B1"]),
         entry("mega_segment (lane flags, B1l; its launches: the host loop regen_pass_ref, "
               "phase 16b)", KERNEL_SOURCE, LANE_REPLACES,
               b1r["Cornell RR"]["host_launches"]["B1l"], lane_err, lane_ms, "B1l"),
@@ -4129,9 +4229,12 @@ def main():
                {"vote_chunks_per_live_lane_step_kernel_pinned_own":
                 b1r["glossy fixed cull"]["vote"]}))),
         entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms,
-              "B2", launches_sharded=shard["36c"]["B2"]),
+              "B2", launches_sharded=shard["36c"]["B2"],
+              launches_adam_graphed=adam["launches_adam_graphed"]["B2"],
+              adam_graphed_max_rel_gap=adam["adam_graphed_max_rel_gap"]),
         entry("scatter_rows (T = 652)", SCATTER_SOURCE, SCATTER_REPLACES, counts["B3"], sc_err,
               sc_ms, "B3 T652", "index_add_ T652", launches_sharded=shard["36c"]["B3"],
+              launches_adam_graphed=adam["launches_adam_graphed"]["B3"],
               launches_suite=0),  # the suite's only gradient row is the bunny's
         entry("scatter_rows (T = 81,932)", SCATTER_SOURCE, SCATTER_REPLACES,
               bgrad_counts["B3"], bsc_err, bsc_ms, "B3 T81932", "index_add_ T81932",
@@ -4149,6 +4252,7 @@ def main():
               launches_grad=counts["RNG"], launches_regen=regen_counts["RNG"],
               launches_regen_host_loop=b1r["Cornell RR"]["host_launches"]["RNG"],
               launches_bunny=bunny_counts["RNG"], launches_sharded=shard["36a"]["RNG"],
+              launches_adam_graphed=adam["launches_adam_graphed"]["RNG"], **keyed,
               rays=W * H, streams=3,
               device_ms_1m_rays_2_streams=DEVICE_MS["RNG 1M"][0]),
         entry("rows_segment (B6)", ROWS_SOURCE, ROWS_REPLACES, bunny_counts["B6"],

@@ -22,12 +22,13 @@ __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
   x1 ^= x0;
 }
 
-// The 32-bit xor of threefry-2x32's two output words for the counter
-// (0, ctr) under the key (k0, k1).
-__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1, uint32_t ctr) {
+// Threefry-2x32's two output words (x0, x1) for the counter (0, ctr)
+// under the key (k0, k1): also `fold_in((k0, k1), ctr)`, a folded key.
+__device__ __forceinline__ void threefry_block(uint32_t k0, uint32_t k1, uint32_t ctr,
+                                               uint32_t& x0, uint32_t& x1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  uint32_t x0 = ks[0];
-  uint32_t x1 = ctr + ks[1];
+  x0 = ks[0];
+  x1 = ctr + ks[1];
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
     if (i % 2 == 0) {
@@ -38,6 +39,13 @@ __device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1, uint3
     x0 += ks[(i + 1) % 3];
     x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
   }
+}
+
+// The 32-bit xor of threefry-2x32's two output words for the counter
+// (0, ctr) under the key (k0, k1).
+__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1, uint32_t ctr) {
+  uint32_t x0, x1;
+  threefry_block(k0, k1, ctr, x0, x1);
   return x0 ^ x1;
 }
 

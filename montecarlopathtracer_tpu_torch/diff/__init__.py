@@ -12,6 +12,9 @@ from .boundary import (
 )
 from .grad import (
     PARAM_FIELDS,
+    AdamState,
+    graphed_loss,
+    make_adam_step,
     make_loss_fn,
     make_sgd_step,
     merge_params,
@@ -27,6 +30,9 @@ __all__ = [
     "render_image",
     "make_loss_fn",
     "make_sgd_step",
+    "make_adam_step",
+    "AdamState",
+    "graphed_loss",
     "value_and_grad",
     "unique_edges",
     "boundary_grad_vertices",

@@ -17,6 +17,13 @@ the same bits, bit-equal to
 ``jax_threefry_partitionable`` on (the JAX default).
 :func:`stream_uniform` is its one-stream row.
 
+A :class:`DeviceKey` is a key whose words live in a tensor on the
+device, with host words folded into it (:func:`fold_in` appends them);
+:func:`stream_uniforms` draws the same bits from it (on a CUDA device,
+``csrc/rng.cu`` reads the words there and folds them on the card). A CUDA graph
+that holds such draws draws under whatever key the tensor holds when it
+replays (``diff/grad.py``'s graphed steps).
+
 The JAX package draws with the ``rbg`` generator on a TPU; this package
 uses threefry everywhere, so its renders match the JAX package's CPU
 renders.
@@ -25,17 +32,47 @@ renders.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 
 from . import cuda_build
 
-Key = Tuple[int, int]
-
 _M32 = 0xFFFFFFFF
 MAX_STREAMS = 4  # streams per call of the kernel (csrc/rng.cu's kMaxStreams)
+MAX_FOLDS = 3  # host words folded into a device key by one call (csrc/rng.cu's kMaxFolds)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceKey:
+    """A key on a device: ``base`` i32[2] holds its two words (as signed
+    32-bit), ``folds`` the host words folded into it since, in order."""
+
+    base: torch.Tensor
+    folds: Tuple[int, ...] = ()
+
+    @classmethod
+    def stage(cls, key: Tuple[int, int], out: torch.Tensor) -> "DeviceKey":
+        """``key``'s words written into ``out`` (i32[2], contiguous, on
+        any device) without waiting for the device: one fill of the pair
+        as an int64 (the low word first), its value passed by value, so
+        nothing is copied from the host."""
+        packed = key[0] | (key[1] << 32)
+        out.view(torch.int64).fill_(packed - (1 << 64) if packed >> 63 else packed)
+        return cls(out)
+
+    def host(self) -> Tuple[int, int]:
+        """The key's words on the host (a read of ``base``: it waits for
+        the device)."""
+        key = tuple(int(w) & _M32 for w in self.base.tolist())
+        for d in self.folds:
+            key = fold_in(key, d)
+        return key
+
+
+Key = Union[Tuple[int, int], DeviceKey]
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -63,7 +100,11 @@ def make_key(seed: int) -> Key:
 
 
 def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)`` for a 32-bit unsigned ``data``."""
+    """``jax.random.fold_in(key, data)`` for a 32-bit unsigned ``data``;
+    for a :class:`DeviceKey`, the same key with ``data`` appended to its
+    folds (nothing runs on the device)."""
+    if isinstance(key, DeviceKey):
+        return dataclasses.replace(key, folds=key.folds + (int(data) & _M32,))
     return _threefry2x32_int(key, 0, int(data) & _M32)
 
 
@@ -101,13 +142,19 @@ def uniform(key: Key, n: int, device) -> torch.Tensor:
 def stream_uniforms_ref(key: Key, stream_ids: Sequence[int], n: int, device) -> torch.Tensor:
     """Plain version of :func:`stream_uniforms`: one :func:`uniform` per
     stream, f32[k, n]."""
+    if isinstance(key, DeviceKey):
+        key = key.host()
     return torch.stack([uniform(fold_in(key, s), n, device) for s in stream_ids])
 
 
-class _StreamKeys(ctypes.Structure):
-    """csrc/rng.cu's ``StreamKeys``: the folded keys, passed by value."""
+class _Draw(ctypes.Structure):
+    """csrc/rng.cu's ``Draw``: a call's keys, passed by value (each
+    stream's folded key for a host key; for a :class:`DeviceKey`, its
+    folds and the streams' ids)."""
 
-    _fields_ = [("k0", ctypes.c_uint32 * MAX_STREAMS), ("k1", ctypes.c_uint32 * MAX_STREAMS)]
+    _fields_ = [("k0", ctypes.c_uint32 * MAX_STREAMS), ("k1", ctypes.c_uint32 * MAX_STREAMS),
+                ("fold", ctypes.c_uint32 * MAX_FOLDS), ("stream", ctypes.c_uint32 * MAX_STREAMS),
+                ("n_folds", ctypes.c_int)]
 
 
 @functools.cache
@@ -115,20 +162,41 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("rng")
     fn = lib.uniform_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [_StreamKeys, ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p,
-                   ctypes.c_void_p]  # keys, k, n, out, stream
+    fn.argtypes = [ctypes.c_void_p, _Draw, ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p,
+                   ctypes.c_void_p]  # base (None for a host key), keys, k, n, out, stream
     return lib
 
 
-def _uniforms_cuda(key: Key, stream_ids, n: int, dev: torch.device) -> torch.Tensor:
-    keys = _StreamKeys()
+def _draw(key: Key, stream_ids, dev: torch.device):
+    """(base pointer or None, :class:`_Draw`) of a call."""
+    d = _Draw()
+    if not isinstance(key, DeviceKey):
+        for s, sid in enumerate(stream_ids):
+            d.k0[s], d.k1[s] = fold_in(key, sid)
+        return None, d
+    base = key.base
+    if dev.index is None:  # "cuda": the current card
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if base.device != dev or base.dtype != torch.int32 or tuple(base.shape) != (2,) \
+            or not base.is_contiguous():
+        raise ValueError(f"a device key's base must be a contiguous int32 [2] tensor on {dev}")
+    if len(key.folds) > MAX_FOLDS:
+        raise ValueError(f"fold at most {MAX_FOLDS} words into a device key, got {key.folds}")
+    d.n_folds = len(key.folds)
+    for i, w in enumerate(key.folds):
+        d.fold[i] = w
     for s, sid in enumerate(stream_ids):
-        keys.k0[s], keys.k1[s] = fold_in(key, sid)
+        d.stream[s] = sid
+    return base.data_ptr(), d
+
+
+def _uniforms_cuda(key: Key, stream_ids, n: int, dev: torch.device) -> torch.Tensor:
+    base, d = _draw(key, stream_ids, dev)
     out = torch.empty(len(stream_ids), n, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.uniform_launch(keys, len(stream_ids), n, out.data_ptr(), stream)
+        err = lib.uniform_launch(base, d, len(stream_ids), n, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"uniform kernel launch failed: cudaError {err}")
     stream_uniforms.launches += 1
@@ -140,9 +208,10 @@ def stream_uniforms(key: Key, stream_ids: Sequence[int], n: int, device) -> torc
     :data:`MAX_STREAMS` given streams of ``key``, a contiguous row per
     stream (so each row is a contiguous f32[n]). For a CUDA ``device``
     one launch of ``csrc/rng.cu`` (adding one to
-    ``stream_uniforms.launches``); :func:`stream_uniforms_ref` for the
-    CPU. Raises on k outside 1..4 and on n >= 2**32 (the lane counter is
-    32 bits)."""
+    ``stream_uniforms.launches``; the base of a :class:`DeviceKey`
+    must be on ``device``);
+    :func:`stream_uniforms_ref` for the CPU. Raises on k outside 1..4
+    and on n >= 2**32 (the lane counter is 32 bits)."""
     stream_ids = [int(s) & _M32 for s in stream_ids]
     if not 1 <= len(stream_ids) <= MAX_STREAMS:
         raise ValueError(f"draw 1 to {MAX_STREAMS} streams at once, got {len(stream_ids)}")

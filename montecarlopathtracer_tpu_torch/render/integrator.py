@@ -174,15 +174,9 @@ class TraceConfig:
 
     def segment_flags(self, device) -> torch.Tensor:
         """f32[num_segments, 3, 1]: [final_gather, do_rr, hard_kill] per
-        segment."""
-        flags = torch.zeros(self.num_segments, 3, 1)
-        for s in range(self.num_segments):
-            if self.mode == "fixed":
-                flags[s, 0] = float(s == self.max_depth)
-            else:
-                flags[s, 1] = float(self.rr_depth <= s < 3 * self.rr_depth)
-                flags[s, 2] = float(s >= 3 * self.rr_depth)
-        return flags.to(device)
+        segment. Built once per (config, device) and shared, read-only:
+        a copy from the host each wavefront would wait for the card."""
+        return _segment_flags(self, torch.device(device))
 
     def lane_flags(self, depth: torch.Tensor) -> torch.Tensor:
         """f32[3, R]: the flags of :meth:`segment_flags` per lane, for
@@ -197,6 +191,18 @@ class TraceConfig:
     def kernel_options(self) -> dict:
         return dict(mode=self.mode, illum=self.illum, eps_offset=self.eps_offset,
                     refract_kd=self.refract_kd, phong_model=self.phong_model)
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_flags(config: TraceConfig, device: torch.device) -> torch.Tensor:
+    flags = torch.zeros(config.num_segments, 3, 1)
+    for s in range(config.num_segments):
+        if config.mode == "fixed":
+            flags[s, 0] = float(s == config.max_depth)
+        else:
+            flags[s, 1] = float(config.rr_depth <= s < 3 * config.rr_depth)
+            flags[s, 2] = float(s >= 3 * config.rr_depth)
+    return flags.to(device)
 
 
 @dataclasses.dataclass(frozen=True)

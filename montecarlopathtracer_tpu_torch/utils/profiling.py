@@ -9,11 +9,12 @@
   export drops ``record_function``'s own arguments: a reader groups
   spans by the name's first word.
 - :func:`recording` keeps the program's counters over the enclosed
-  block: the Renderer's passes, each pass kernel's (B1r, B1rc) counters
-  and grid, the launches whose work list was ordered, the spans' host
-  time, the launches. :func:`traced` gives the
-  same over the newest stretch of passes that a profiler recorded, for
-  a tool that only starts ``torch.profiler``.
+  block: the Renderer's passes, the gradient steps (``diff/grad.py``),
+  each pass kernel's (B1r, B1rc) counters and grid, the launches whose
+  work list was ordered, the spans' host time, the launches.
+  :func:`traced` gives the same over the newest stretch of passes or
+  steps that a profiler recorded, for a tool that only starts
+  ``torch.profiler``.
 - :func:`trace` profiles the enclosed block with ``torch.profiler``
   (host activity, and the card's kernels when CUDA is available) and
   writes a Chrome trace (``trace.json``, loadable in Perfetto or
@@ -21,7 +22,8 @@
   into a directory. The CLI enables it with ``--profile-dir``.
 - :func:`reset_launches` and :func:`launches` zero and read every
   kernel wrapper's launch count (a wrapper counts only the launches of
-  its CUDA kernel, never its plain version).
+  its CUDA kernel, never its plain version); :func:`count_replay` adds a
+  CUDA graph's launches at each replay.
 - :func:`card` names the card and its power limit, as ``nvidia-smi``
   reports them, for the lines that carry a measurement.
 """
@@ -77,13 +79,15 @@ def span(name: str, args: Optional[dict] = None):
 
 
 class _Record:
-    """What the program kept over a stretch: the Renderer's passes, each
-    pass kernel's work buffer (its counters first, on its device until
-    :meth:`close`), the blocks launched, the launches whose work list was
-    ordered, and each span's count and host seconds."""
+    """What the program kept over a stretch: the Renderer's passes, the
+    gradient steps, each pass kernel's work buffer (its counters first, on
+    its device until :meth:`close`), the blocks launched, the launches
+    whose work list was ordered, and each span's count and host
+    seconds."""
 
     def __init__(self):
         self.passes = 0
+        self.steps = 0
         self.work = []
         self.grid = 0
         self.ordered = 0
@@ -105,6 +109,7 @@ class _Record:
             after = launches()
             self.sums = {
                 "passes": self.passes,
+                "steps": self.steps,
                 **{name: int(c[:, i].sum()) for i, name in enumerate(COUNTERS)},
                 "kernel_ms": int((end - start).sum()) / 1e6,
                 "tail_ms": int(torch.where(spent >= 0, end - spent, 0).sum()) / 1e6,
@@ -143,6 +148,13 @@ def count_pass() -> None:
         rec.passes += 1
 
 
+def count_step() -> None:
+    """A gradient step begins (``diff/grad.py``): count it in every open
+    record."""
+    for rec in _records():
+        rec.steps += 1
+
+
 def keep(work: torch.Tensor, grid: int, ordered: bool = False) -> None:
     """Keep a pass kernel's work buffer (its counters first,
     ``ops/regen_pass.py`` STATS; a reference, no copy), its grid's blocks
@@ -158,15 +170,18 @@ def keep(work: torch.Tensor, grid: int, ordered: bool = False) -> None:
 def recording():
     """Keep the program's counters over the enclosed block. The dict it
     yields is filled when the block ends (one host sync): ``passes`` (the
-    Renderer's), the sum of each pass kernel counter
-    (``ops/regen_pass.py`` COUNTERS), ``kernel_ms`` (the kernels' time on
-    the card's clock, first block start to last block end) and
-    ``tail_ms`` (the part after the work list ran dry; 0 for a launch
-    whose list was never found spent), ``grid`` (blocks launched),
-    ``ordered`` (the launches given a work-list order: a Renderer's,
-    from its previous pass, :class:`..render.regen.LaneHistory`),
-    ``launches`` (of the kernels that launched) and ``spans`` (``{name:
-    [count, host seconds]}``, while a profiler records)."""
+    Renderer's), ``steps`` (the gradient steps of ``diff/grad.py``), the
+    sum of each pass kernel counter (``ops/regen_pass.py`` COUNTERS),
+    ``kernel_ms`` (the kernels' time on the card's clock, first block
+    start to last block end) and ``tail_ms`` (the part after the work
+    list ran dry; 0 for a launch whose list was never found spent),
+    ``grid`` (blocks launched), ``ordered`` (the launches given a
+    work-list order: a Renderer's, from its previous pass,
+    :class:`..render.regen.LaneHistory`),
+    ``launches`` (of the kernels that launched, counted on the host at
+    each launch: a gradient step's B1, B2, B3 and RNG among them) and
+    ``spans`` (``{name: [count, host seconds]}``, while a profiler
+    records)."""
     rec = _Record()
     _recordings.append(rec)
     out = {}
@@ -178,8 +193,8 @@ def recording():
 
 
 def traced() -> Optional[dict]:
-    """:func:`recording`'s dict over the newest stretch of passes that a
-    profiler recorded, or None before any. The first call ends the
+    """:func:`recording`'s dict over the newest stretch of passes or steps
+    that a profiler recorded, or None before any. The first call ends the
     stretch and reads it (one host sync); its launches count up to that
     call."""
     global _tracing
@@ -220,8 +235,9 @@ class Counts(dict):
         return repr({k: v for k, v in self.items() if v})
 
 
-def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+def _counters() -> list:
+    """Every kernel wrapper's integer launch counter, as (wrapper,
+    attribute); B12's per-variant counts are a dict apart."""
     from ..ops import cull as CU
     from ..ops import nearest_shade as NS
     from ..ops import nearest_variants as NV
@@ -232,18 +248,51 @@ def reset_launches() -> None:
     from ..ops import selection_micro as SM
     from ..ops import traverse_walk as TW
 
-    CU.cull_records.launches = RNG.stream_uniforms.launches = 0
-    RP.regen_pass.launches = RP.regen_pass.cull_launches = 0
-    F.mega_segment.launches = F.segment_backward.launches = S.scatter_rows.launches = 0
-    F.mega_segment.lane_launches = F.mega_segment.cull_launches = 0
-    F.mega_segment.lane_cull_launches = 0
-    F.rows_segment.launches = F.rows_segment.lane_launches = 0
-    TW.traverse_select.launches = TW.walk_tables.launches = NS.nearest_triangle.launches = 0
-    NS.nearest_shade_full.launches = NS.nearest_shade_full.cull_launches = 0
-    NV.nearest_shade.launches = NV.nearest_shade2.launches = NV.nearest_shade_culled.launches = 0
-    NV.nearest_shade_streamed.launches = NV.nearest_shade_streamed.cull_launches = 0
+    return [
+        (CU.cull_records, "launches"), (RNG.stream_uniforms, "launches"),
+        (RP.regen_pass, "launches"), (RP.regen_pass, "cull_launches"),
+        (F.mega_segment, "launches"), (F.mega_segment, "lane_launches"),
+        (F.mega_segment, "cull_launches"), (F.mega_segment, "lane_cull_launches"),
+        (F.segment_backward, "launches"), (S.scatter_rows, "launches"),
+        (F.rows_segment, "launches"), (F.rows_segment, "lane_launches"),
+        (TW.traverse_select, "launches"), (TW.walk_tables, "launches"),
+        (NS.nearest_triangle, "launches"), (NS.nearest_shade_full, "launches"),
+        (NS.nearest_shade_full, "cull_launches"), (NV.nearest_shade, "launches"),
+        (NV.nearest_shade2, "launches"), (NV.nearest_shade_culled, "launches"),
+        (NV.nearest_shade_streamed, "launches"), (NV.nearest_shade_streamed, "cull_launches"),
+        (SM.epilogue_only, "launches"), (SM.epilogue_shared, "launches"),
+    ]
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from ..ops import selection_micro as SM
+
+    for owner, name in _counters():
+        setattr(owner, name, 0)
     SM.selection_micro.launches = dict.fromkeys(SM.VARIANTS, 0)
-    SM.epilogue_only.launches = SM.epilogue_shared.launches = 0
+
+
+def launch_counts() -> list:
+    """Every wrapper's integer launch counter now, in :func:`_counters`'
+    order (for :func:`replay_counts`' difference)."""
+    return [getattr(owner, name) for owner, name in _counters()]
+
+
+def replay_counts(counts: list) -> list:
+    """What :func:`count_replay` adds at each replay of a CUDA graph:
+    ``counts`` (a difference of :func:`launch_counts` over one run of
+    what the graph captured) as (wrapper, attribute, launches), the
+    wrappers that launched only, resolved once."""
+    return [(owner, name, n) for (owner, name), n in zip(_counters(), counts) if n]
+
+
+def count_replay(held: list) -> None:
+    """A CUDA graph replays: add the launches it holds
+    (:func:`replay_counts`) to their wrappers' counters, as those
+    launches would have."""
+    for owner, name, n in held:
+        setattr(owner, name, getattr(owner, name) + n)
 
 
 def launches() -> Counts:
