@@ -18,19 +18,35 @@
 // reverse, so no 0 * inf is ever formed: a lane whose geometry
 // cotangent is zero gets an exact zero, never NaN.
 //
-// What bounds it on an H100: memory. Per ray it reads 4 x 3 state and
-// 4 x 3 cotangent floats, 3 uniforms, 2 masks and the 48-float winner
-// row, and writes 4 x 3 + 48 floats: ~0.5 KB per ray, 240 MB per
+// Two ways to read each lane's winner row, one kernel template:
+// `segment_backward_rows_launch` (kIndexed) reads `rows[idx]` itself, as
+// rows_segment.cu does: the 21 shading floats of a hit lane and the 12
+// geometry floats of a lane that goes on, as float4 loads through the
+// read-only path, straight from the [T, 48] table, so no [48, R] copy of
+// the winners' rows is made. `segment_backward_launch` reads them from
+// that copy, lane-major (JAX's contract). A miss reads no row either way,
+// and what follows the loads is the same code, so the two give bit-equal
+// outputs.
+//
+// What bounds it on an H100: memory. Per ray it reads 3 x 3 state and
+// 4 x 3 cotangent floats, 3 uniforms, a mask and the winner index (or
+// hit flag), and writes 4 x 3 + 48 floats: ~0.4 KB per ray, ~190 MB per
 // 800x600 segment, against a few hundred flops of replay and reverse.
+// The row reads, 84 B a hit lane and 48 B more a lane that goes on, are
+// scattered over the table, which stays in L1 and L2 (6 KB for the
+// 32-triangle Cornell box, 15.7 MB for the 81,932-triangle bunny); from
+// the gathered copy they are coalesced but the copy itself costs a
+// 92 MB write and read per 800x600 segment.
 // The design keeps every intermediate in registers, reads and writes
 // lane-major [k, R] arrays so that a warp's accesses coalesce, and
 // writes d_full once per ray (zeros included, so no memset is needed).
 //
-// Contract (that of segment_backward): pos/dir/tput/res f32[3, R];
-// act/hit bool[R]; full f32[48, R] (the winner rows, lane-major);
+// Contract (segment_backward_rows): pos/dir/tput/res f32[3, R]; act
+// bool[R]; rows f32[T, 48], 16-byte aligned; idx i32[R] (-1 = miss);
 // u1/u2/urr f32[R]; flags f32[3]; cotangents of npos/ndir/ntput/nres
-// f32[3, R]. Outputs d_pos/d_dir/d_tput/d_res f32[3, R], d_full
-// f32[48, R].
+// f32[3, R]. segment_backward takes hit bool[R] and full f32[48, R] (the
+// winner rows, lane-major) in place of rows and idx. Outputs
+// d_pos/d_dir/d_tput/d_res f32[3, R], d_full f32[48, R].
 
 #include <cuda_runtime.h>
 
@@ -223,15 +239,41 @@ __device__ float sample_fresnel_bwd(float u, V3 normal, V3 indir, float tr, floa
   return g_ni;
 }
 
+// The winner row's floats [kFirst, kFirst + kN) into `out`. kIndexed:
+// row i of the [T, 48] table, float4 loads through the read-only path
+// (kFirst a multiple of 4; `out` holds kN rounded up to 4). Otherwise
+// lane r of the gathered copy f32[48, R].
+template <bool kIndexed, int kFirst, int kN>
+__device__ __forceinline__ void load_row(const float* __restrict__ src, int i, int r, size_t sR,
+                                         float* out) {
+  if constexpr (kIndexed) {
+    const float4* row =
+        reinterpret_cast<const float4*>(src + static_cast<size_t>(i) * 48 + kFirst);
+#pragma unroll
+    for (int q = 0; q < (kN + 3) / 4; ++q) {
+      const float4 v = __ldg(row + q);
+      out[4 * q] = v.x, out[4 * q + 1] = v.y, out[4 * q + 2] = v.z, out[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kN; ++k) out[k] = src[(kFirst + k) * sR + r];
+  }
+}
+
+// kIndexed: the rows come from `src` = rows f32[T, 48] through `idx`
+// (hit_in unused); otherwise from `src` = full f32[48, R], hit from
+// hit_in (idx unused).
+template <bool kIndexed>
 __global__ void __launch_bounds__(kThreads)
 segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
                         const float* __restrict__ tput, const float* __restrict__ res,
                         const bool* __restrict__ act_in, const bool* __restrict__ hit_in,
-                        const float* __restrict__ full, const float* __restrict__ u1,
-                        const float* __restrict__ u2, const float* __restrict__ urr,
-                        const float* __restrict__ flags, const float* __restrict__ cnp,
-                        const float* __restrict__ cnd, const float* __restrict__ cnt,
-                        const float* __restrict__ cnr, int R, int mode_rr, float illum,
+                        const float* __restrict__ src, const int* __restrict__ idx,
+                        const float* __restrict__ u1, const float* __restrict__ u2,
+                        const float* __restrict__ urr, const float* __restrict__ flags,
+                        const float* __restrict__ cnp, const float* __restrict__ cnd,
+                        const float* __restrict__ cnt, const float* __restrict__ cnr, int R,
+                        int mode_rr, float illum,
                         float eps_offset, int refract_kd, int phong_reflect,
                         float* __restrict__ dpos, float* __restrict__ ddir,
                         float* __restrict__ dtput, float* __restrict__ dres,
@@ -248,7 +290,6 @@ segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__
   const V3 o = load3(pos), d = load3(dir), tp_in = load3(tput);
   const V3 g_np = load3(cnp), g_nd = load3(cnd), g_nt = load3(cnt), g_nr = load3(cnr);
   const bool act = act_in[r];
-  const bool hit = hit_in[r];
 
   // Row cotangents: geometry 0..11, shading 12..32 (n0 n1 n2 Ka Kd Ks Ns
   // Tr Ni); Tr, the 11 free shading slots and the pad take none.
@@ -262,9 +303,15 @@ segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__
     d_o = g_np, d_d = g_nd, d_tp = g_nt, d_rs = g_nr;
   } else {
     // ---- forward replay: shading row and RR / emission decisions ----
-    float sh[21];
+    const int i = kIndexed ? idx[r] : 0;
+    const bool hit = kIndexed ? i >= 0 : hit_in[r];
+    float sh[24];
+    if (hit) {
+      load_row<kIndexed, 12, 21>(src, i, r, sR, sh);
+    } else {
 #pragma unroll
-    for (int k = 0; k < 21; ++k) sh[k] = hit ? full[(12 + k) * sR + r] : 0.0f;
+      for (int k = 0; k < 24; ++k) sh[k] = 0.0f;
+    }
     const V3 ka = make(sh[9], sh[10], sh[11]);
     const V3 kd = make(sh[12], sh[13], sh[14]);
     const V3 ks = make(sh[15], sh[16], sh[17]);
@@ -305,8 +352,7 @@ segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__
     } else {  // still implies hit
       // Replay the winner recompute and the smooth normal.
       float m[12];
-#pragma unroll
-      for (int k = 0; k < 12; ++k) m[k] = full[k * sR + r];
+      load_row<kIndexed, 0, 12>(src, i, r, sR, m);
       float op[3], dp[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -415,21 +461,46 @@ segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__
   for (int k = 33; k < 48; ++k) dfull[k * sR + r] = 0.0f;
 }
 
+template <bool kIndexed>
+int launch(const float* pos, const float* dir, const float* tput, const float* res,
+           const bool* act, const bool* hit, const float* src, const int* idx, const float* u1,
+           const float* u2, const float* urr, const float* flags, const float* cnp,
+           const float* cnd, const float* cnt, const float* cnr, int R, int mode_rr, float illum,
+           float eps_offset, int refract_kd, int phong_reflect, float* dpos, float* ddir,
+           float* dtput, float* dres, float* dfull, void* stream) {
+  if (R > 0) {
+    const int blocks = (R + kThreads - 1) / kThreads;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    segment_backward_kernel<kIndexed><<<blocks, kThreads, 0, st>>>(
+        pos, dir, tput, res, act, hit, src, idx, u1, u2, urr, flags, cnp, cnd, cnt, cnr, R,
+        mode_rr, illum, eps_offset, refract_kd, phong_reflect, dpos, ddir, dtput, dres, dfull);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches the segment vjp on `stream`; returns cudaGetLastError() so the
-// caller can raise on a refused launch.
+// Launch the segment vjp on `stream`, the winner rows gathered (`full`)
+// or read through the index from the table (`rows`, `idx`); each returns
+// cudaGetLastError() so the caller can raise on a refused launch.
 extern "C" int segment_backward_launch(
     const float* pos, const float* dir, const float* tput, const float* res, const bool* act,
     const bool* hit, const float* full, const float* u1, const float* u2, const float* urr,
     const float* flags, const float* cnp, const float* cnd, const float* cnt, const float* cnr,
     int R, int mode_rr, float illum, float eps_offset, int refract_kd, int phong_reflect,
     float* dpos, float* ddir, float* dtput, float* dres, float* dfull, void* stream) {
-  if (R > 0) {
-    const int blocks = (R + kThreads - 1) / kThreads;
-    segment_backward_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        pos, dir, tput, res, act, hit, full, u1, u2, urr, flags, cnp, cnd, cnt, cnr, R,
-        mode_rr, illum, eps_offset, refract_kd, phong_reflect, dpos, ddir, dtput, dres, dfull);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(pos, dir, tput, res, act, hit, full, nullptr, u1, u2, urr, flags, cnp,
+                       cnd, cnt, cnr, R, mode_rr, illum, eps_offset, refract_kd, phong_reflect,
+                       dpos, ddir, dtput, dres, dfull, stream);
+}
+
+extern "C" int segment_backward_rows_launch(
+    const float* pos, const float* dir, const float* tput, const float* res, const bool* act,
+    const float* rows, const int* idx, const float* u1, const float* u2, const float* urr,
+    const float* flags, const float* cnp, const float* cnd, const float* cnt, const float* cnr,
+    int R, int mode_rr, float illum, float eps_offset, int refract_kd, int phong_reflect,
+    float* dpos, float* ddir, float* dtput, float* dres, float* dfull, void* stream) {
+  return launch<true>(pos, dir, tput, res, act, nullptr, rows, idx, u1, u2, urr, flags, cnp,
+                      cnd, cnt, cnr, R, mode_rr, illum, eps_offset, refract_kd, phong_reflect,
+                      dpos, ddir, dtput, dres, dfull, stream);
 }

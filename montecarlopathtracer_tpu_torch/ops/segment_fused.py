@@ -39,14 +39,21 @@ Gradient (JAX ``segment_backward`` / ``_make_whole_segment``):
 - :func:`segment_core_rows` is the differentiable segment at fixed
   winners: :func:`recompute_rows` (t, β, γ and the shading rows from the
   gathered 48-float winner rows) followed by the same :func:`_epilogue`.
-- :func:`segment_backward` is its vjp: the hand-written kernel
-  ``csrc/segment_backward.cu`` for CUDA tensors, :func:`segment_backward_ref`
-  (``torch.autograd.grad`` of :func:`segment_core_rows`) for CPU tensors.
+- :func:`segment_backward` is its vjp on the gathered winner rows: the
+  hand-written kernel ``csrc/segment_backward.cu`` for CUDA tensors,
+  :func:`segment_backward_ref` (``torch.autograd.grad`` of
+  :func:`segment_core_rows`) for CPU tensors.
+- :func:`segment_backward_rows` is the same vjp given the table and the
+  winner index in place of the gathered rows: the same kernel reads each
+  lane's row through the index (no [48, R] copy) for CUDA tensors, and
+  :func:`segment_backward_rows_ref` (:func:`segment_backward_ref` on
+  :func:`gather_rows`) runs for CPU tensors. The two kernels' outputs are
+  bit-equal.
 - :class:`WholeSegment` / :func:`whole_segment_megakernel` is the
-  differentiable segment: forward :func:`mega_segment`; backward one
-  gather of the winner rows, :func:`segment_backward`, and
-  :func:`.scatter_rows.scatter_rows` of the row cotangents into the
-  table. The winner index is piecewise constant and carries no gradient.
+  differentiable segment: forward :func:`mega_segment`; backward
+  :func:`segment_backward_rows` and :func:`.scatter_rows.scatter_rows` of
+  the row cotangents into the table. The winner index is piecewise
+  constant and carries no gradient.
 
 Segment from known winners (JAX ``rows_segment_fwd``, Pallas kernel
 ``_rows_segment_kernel``; the traversal path's epilogue):
@@ -365,6 +372,17 @@ def segment_backward_ref(
     return tuple(torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads))
 
 
+def segment_backward_rows_ref(
+    pos3, dir3, tput, res, act, rows, idx, u1, u2, urr, flags,
+    ct_npos, ct_ndir, ct_ntput, ct_nres, **kw,
+):
+    """Plain-torch :func:`segment_backward_rows`: :func:`segment_backward_ref`
+    on the winners' rows gathered from ``rows`` f32[T, 48] by ``idx``
+    i32[R] (−1 = miss)."""
+    return segment_backward_ref(pos3, dir3, tput, res, act, idx >= 0, gather_rows(rows, idx),
+                                u1, u2, urr, flags, ct_npos, ct_ndir, ct_ntput, ct_nres, **kw)
+
+
 _P = ctypes.c_void_p
 
 
@@ -406,18 +424,20 @@ def _rows_lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load("segment_backward")
-    fn = lib.segment_backward_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P,  # pos, dir, tput, res, act, hit, full
-        _P, _P, _P, _P,  # u1, u2, urr, flags
-        _P, _P, _P, _P,  # cotangents of npos, ndir, ntput, nres
-        ctypes.c_int,  # R
-        ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
-        ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
-        _P, _P, _P, _P, _P,  # d_pos, d_dir, d_tput, d_res, d_full
-        _P,  # stream
-    ]
+    # segment_backward_launch takes (hit, full), segment_backward_rows_launch
+    # (rows, idx), in the same two places.
+    for fn in (lib.segment_backward_launch, lib.segment_backward_rows_launch):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P,  # pos, dir, tput, res, act, hit | rows, full | idx
+            _P, _P, _P, _P,  # u1, u2, urr, flags
+            _P, _P, _P, _P,  # cotangents of npos, ndir, ntput, nres
+            ctypes.c_int,  # R
+            ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
+            ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
+            _P, _P, _P, _P, _P,  # d_pos, d_dir, d_tput, d_res, d_full
+            _P,  # stream
+        ]
     return lib
 
 
@@ -451,10 +471,16 @@ def _check_vectors(dev, R, vec3, vec1, masks, flags, lane_flags_ok=False) -> Non
 
 
 def _check_cuda_inputs(rows, vec3, vec1, live, flags) -> None:
-    if rows.device != vec3[0].device:
-        raise ValueError(f"all inputs must be on {vec3[0].device}, got {rows.device}")
-    _check_vectors(rows.device, vec3[0].shape[1], vec3, vec1, (live,), flags,
+    _check_vectors(vec3[0].device, vec3[0].shape[1], vec3, vec1, (live,), flags,
                    lane_flags_ok=True)
+    _check_rows(rows, vec3[0].device)
+
+
+def _check_rows(rows, dev) -> None:
+    """The row table: a contiguous, 16-byte aligned f32[T, 48] on ``dev``
+    (the kernels read it as float4)."""
+    if rows.device != dev:
+        raise ValueError(f"all inputs must be on {dev}, got {rows.device}")
     if not rows.is_contiguous():
         raise ValueError("all inputs must be contiguous")
     if rows.dtype != torch.float32:
@@ -465,6 +491,13 @@ def _check_cuda_inputs(rows, vec3, vec1, live, flags) -> None:
         raise ValueError("rows must be 16-byte aligned for float4 loads")
     if rows.shape[0] >= 2**31:
         raise ValueError("R and T must fit in int32")
+
+
+def _check_idx(idx, R, dev) -> None:
+    """The winner index: a contiguous int32 [R] on ``dev``."""
+    if idx.device != dev or idx.dtype != torch.int32 \
+            or tuple(idx.shape) != (R,) or not idx.is_contiguous():
+        raise ValueError(f"idx must be a contiguous int32 [{R}] tensor on {dev}")
 
 
 def check_chunk_boxes(rows, clo, chi, cslack, chunk=128) -> None:
@@ -577,9 +610,7 @@ def _rows_segment_cuda(
     _check_options(mode, phong_model)
     _check_cuda_inputs(rows, (pos3, dir3, tput, res), (u1, u2, urr), live, flags)
     R = pos3.shape[1]
-    if idx.device != pos3.device or idx.dtype != torch.int32 \
-            or tuple(idx.shape) != (R,) or not idx.is_contiguous():
-        raise ValueError(f"idx must be a contiguous int32 [{R}] tensor on {pos3.device}")
+    _check_idx(idx, R, pos3.device)
     npos, ndir, ntput, nres = (torch.empty_like(pos3) for _ in range(4))
     still = torch.empty(R, dtype=torch.float32, device=pos3.device)
     lib = _rows_lib()
@@ -644,16 +675,24 @@ def _segment_backward_cuda(
         raise TypeError(f"full must be float32, got {full.dtype}")
     if tuple(full.shape) != (48, R):
         raise ValueError(f"full must be [48, {R}], got {tuple(full.shape)}")
+    return _launch_backward(
+        "segment_backward_launch", (pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
+                                    *cts), mode, illum, eps_offset, refract_kd, phong_model)
+
+
+def _launch_backward(name, ins, mode, illum, eps_offset, refract_kd, phong_model):
+    """Launch ``csrc/segment_backward.cu``'s ``name`` on the checked inputs
+    ``ins`` (its 15 tensor arguments in order, ``pos3`` first); returns
+    (d_pos, d_dir, d_tput, d_res, d_full) and counts the launch."""
+    pos3 = ins[0]
+    R, dev = pos3.shape[1], pos3.device
     d_pos, d_dir, d_tput, d_res = (torch.empty_like(pos3) for _ in range(4))
-    d_full = torch.empty_like(full)
-    lib = _bwd_lib()
+    d_full = torch.empty(48, R, dtype=torch.float32, device=dev)
+    launch = getattr(_bwd_lib(), name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.segment_backward_launch(
-            pos3.data_ptr(), dir3.data_ptr(), tput.data_ptr(), res.data_ptr(),
-            act.data_ptr(), hit.data_ptr(), full.data_ptr(),
-            u1.data_ptr(), u2.data_ptr(), urr.data_ptr(), flags.data_ptr(),
-            *(c.data_ptr() for c in cts), R,
+        err = launch(
+            *(x.data_ptr() for x in ins), R,
             int(mode == "rr"), float(illum), float(eps_offset),
             int(bool(refract_kd)), int(phong_model == "phong"),
             d_pos.data_ptr(), d_dir.data_ptr(), d_tput.data_ptr(),
@@ -688,18 +727,64 @@ def segment_backward(
     raise ValueError(f"no segment backward kernel for device {pos3.device}")
 
 
-segment_backward.launches = 0
+segment_backward.launches = 0  # kernel launches, those through the index included
+segment_backward.indexed_launches = 0  # of which segment_backward_rows' (rows through idx)
+
+
+def _segment_backward_rows_cuda(
+    pos3, dir3, tput, res, act, rows, idx, u1, u2, urr, flags,
+    ct_npos, ct_ndir, ct_ntput, ct_nres, *,
+    mode, illum, eps_offset, refract_kd, phong_model,
+):
+    _check_options(mode, phong_model)
+    R = pos3.shape[1]
+    dev = pos3.device
+    cts = (ct_npos, ct_ndir, ct_ntput, ct_nres)
+    _check_vectors(dev, R, (pos3, dir3, tput, res, *cts), (u1, u2, urr), (act,), flags)
+    _check_rows(rows, dev)
+    _check_idx(idx, R, dev)
+    out = _launch_backward(
+        "segment_backward_rows_launch", (pos3, dir3, tput, res, act, rows, idx, u1, u2, urr,
+                                         flags, *cts), mode, illum, eps_offset, refract_kd,
+        phong_model)
+    segment_backward.indexed_launches += 1
+    return out
+
+
+def segment_backward_rows(
+    pos3, dir3, tput, res, act, rows, idx, u1, u2, urr, flags,
+    ct_npos, ct_ndir, ct_ntput, ct_nres, *,
+    mode: str = "fixed", illum: float = 10.0, eps_offset: float = 0.01,
+    refract_kd: bool = True, phong_model: str = "blinn",
+):
+    """Whole-segment vjp from the row table ``rows`` f32[T, 48] and the
+    winner index ``idx`` i32[R] (−1 = miss) in place of
+    :func:`segment_backward`'s ``hit`` and ``full``; the same outputs.
+    CUDA tensors launch ``csrc/segment_backward.cu``'s kernel that reads
+    each lane's row through the index, and add one to
+    ``segment_backward.launches`` and to
+    ``segment_backward.indexed_launches``; CPU tensors run
+    :func:`segment_backward_rows_ref`."""
+    kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
+              refract_kd=refract_kd, phong_model=phong_model)
+    args = (pos3, dir3, tput, res, act, rows, idx, u1, u2, urr, flags,
+            ct_npos, ct_ndir, ct_ntput, ct_nres)
+    if pos3.device.type == "cuda":
+        return _segment_backward_rows_cuda(*args, **kw)
+    if pos3.device.type == "cpu":
+        return segment_backward_rows_ref(*args, **kw)
+    raise ValueError(f"no segment backward kernel for device {pos3.device}")
 
 
 class WholeSegment(torch.autograd.Function):
     """The differentiable whole segment (JAX ``_make_whole_segment``).
 
     Forward: :func:`mega_segment` (B1, or B1c given chunk boxes), saving
-    the winner index and the inputs. Backward: one gather of the winner
-    rows, :func:`segment_backward` and :func:`.scatter_rows.scatter_rows`
-    into d_rows f32[T, 48]. The index, ``still``, the masks, the
-    uniforms, the flags and the chunk boxes carry no gradient (the winner
-    is piecewise constant in the geometry)."""
+    the winner index and the inputs. Backward: :func:`segment_backward_rows`
+    (B2, reading the winners' rows through the index) and
+    :func:`.scatter_rows.scatter_rows` into d_rows f32[T, 48]. The index,
+    ``still``, the masks, the uniforms, the flags and the chunk boxes carry
+    no gradient (the winner is piecewise constant in the geometry)."""
 
     @staticmethod
     def forward(ctx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags, clo, chi, cslack,
@@ -720,13 +805,12 @@ class WholeSegment(torch.autograd.Function):
 
 def _segment_vjp(ctx, cts):
     """The backward shared by :class:`WholeSegment` and
-    :class:`WholeSegmentRows`: one gather of whole winner rows (lane-major,
-    as the vjp kernel reads them), :func:`segment_backward`, and
-    :func:`scatter_rows` when ``rows`` needs a gradient. Returns (d_rows,
-    (d_pos, d_dir, d_tput, d_res))."""
+    :class:`WholeSegmentRows`: :func:`segment_backward_rows` (the winners'
+    rows read through the index) and :func:`scatter_rows` when ``rows``
+    needs a gradient. Returns (d_rows, (d_pos, d_dir, d_tput, d_res))."""
     idx, rows, pos3, dir3, tput, res, live, u1, u2, urr, flags = ctx.saved_tensors
-    d_pos, d_dir, d_tput, d_res, d_full = segment_backward(
-        pos3, dir3, tput, res, live, idx >= 0, gather_rows(rows, idx),
+    d_pos, d_dir, d_tput, d_res, d_full = segment_backward_rows(
+        pos3, dir3, tput, res, live, rows, idx,
         u1, u2, urr, flags, *(c.contiguous() for c in cts), **ctx.kw,
     )
     d_rows = scatter_rows(idx, d_full, rows.shape[0]) if ctx.needs_input_grad[0] else None
@@ -755,7 +839,7 @@ class WholeSegmentRows(torch.autograd.Function):
     """The differentiable segment from known winners (JAX
     ``_make_whole_segment_rows``), the traversal path's: forward
     :func:`rows_segment` on the detached index, backward that of
-    :class:`WholeSegment` (a gather of the winner rows, B2 and B3)."""
+    :class:`WholeSegment` (B2 through the index, and B3)."""
 
     @staticmethod
     def forward(ctx, rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags, kw):

@@ -475,6 +475,7 @@ def plain_kernels():
               (RP, "regen_pass", RP.regen_pass_ref),
               (F, "rows_segment", F.rows_segment_ref),
               (F, "segment_backward", F.segment_backward_ref),
+              (F, "segment_backward_rows", F.segment_backward_rows_ref),
               (F, "scatter_rows", S.scatter_rows_ref),
               (TW, "traverse_select", TW.traverse_select_ref),
               (TW, "walk_tables", TW.walk_tables_ref),

@@ -253,7 +253,8 @@ def _counters() -> list:
         (RP.regen_pass, "launches"), (RP.regen_pass, "cull_launches"),
         (F.mega_segment, "launches"), (F.mega_segment, "lane_launches"),
         (F.mega_segment, "cull_launches"), (F.mega_segment, "lane_cull_launches"),
-        (F.segment_backward, "launches"), (S.scatter_rows, "launches"),
+        (F.segment_backward, "launches"), (F.segment_backward, "indexed_launches"),
+        (S.scatter_rows, "launches"),
         (F.rows_segment, "launches"), (F.rows_segment, "lane_launches"),
         (TW.traverse_select, "launches"), (TW.walk_tables, "launches"),
         (NS.nearest_triangle, "launches"), (NS.nearest_shade_full, "launches"),
@@ -298,8 +299,9 @@ def count_replay(held: list) -> None:
 def launches() -> Counts:
     """Launches of every kernel since :func:`reset_launches`: B1 apart
     from its per-lane-flag form B1l and its culling form B1c (a culled
-    regen step counts under both), B4 apart from B4c, B5's tables (B5t, one count
-    per build) apart from B5, B6 apart from B6l; the entries B8-B11
+    regen step counts under both), B2i (B2 reading its rows through the
+    winner index, also counted under B2), B4 apart from B4c, B5's tables
+    (B5t, one count per build) apart from B5, B6 apart from B6l; the entries B8-B11
     (each also counted under B4 or B4c, which it launches), B10 apart
     from B10c; B12 per variant, B13, B14; the culled loop's records (B4r,
     one count per build); the uniform draws (RNG, rng.cu, one count per
@@ -325,7 +327,8 @@ def launches() -> Counts:
         "B13": SM.epilogue_only.launches, "B14": SM.epilogue_shared.launches,
         "B1": B1.launches - B1.lane_launches - B1.cull_launches + B1.lane_cull_launches,
         "B1l": B1.lane_launches, "B1c": B1.cull_launches,
-        "B2": F.segment_backward.launches, "B3": S.scatter_rows.launches,
+        "B2": F.segment_backward.launches, "B2i": F.segment_backward.indexed_launches,
+        "B3": S.scatter_rows.launches,
         "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
         "B4c": NS.nearest_shade_full.cull_launches, "B4r": CU.cull_records.launches,
         "B5": TW.traverse_select.launches, "B5t": TW.walk_tables.launches,

@@ -171,6 +171,71 @@ def test_segment_backward_kernel_matches_plain(card, mode, flags, opts):
     assert rep["ok"], rep
 
 
+def _assert_indexed_b2_bit_equal(rows, idx, args, mode, opts):
+    """B2 through the index (``segment_backward_rows`` on ``rows`` and
+    ``idx``) against B2 on ``gather_rows(rows, idx)``, bit for bit; one
+    launch each, the first counted as indexed. Returns its outputs."""
+    state, rest = args[:5], args[7:]
+    before = (F.segment_backward.launches, F.segment_backward.indexed_launches)
+    want = F.segment_backward(*state, idx >= 0, F.gather_rows(rows, idx), *rest, mode=mode,
+                              **opts)
+    got = F.segment_backward_rows(*state, rows, idx, *rest, mode=mode, **opts)
+    torch.cuda.synchronize()
+    assert (F.segment_backward.launches, F.segment_backward.indexed_launches) == \
+        (before[0] + 2, before[1] + 1)
+    for name, g, w in zip(("d_pos", "d_dir", "d_tput", "d_res", "d_full"), got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+    return got
+
+
+@pytest.mark.parametrize("mode,flags,opts", [
+    ("fixed", [0.0, 0.0, 0.0], {}), ("fixed", [1.0, 0.0, 0.0], {}),
+    ("rr", [0.0, 1.0, 0.0], {"tied": True}), ("rr", [0.0, 0.0, 1.0], {}),
+    ("fixed", [0.0, 0.0, 0.0], {"phong_model": "phong"}),
+])
+def test_indexed_segment_backward_is_bit_equal_to_gathered(card, mode, flags, opts):
+    """A second-bounce wavefront (lanes that are not live among them), a
+    lane in seven made a miss on top of the wavefront's own."""
+    _, camera, rows = card
+    opts = dict(opts)
+    tput = torch.full((3, 64 * 48), 0.6, device="cuda") if opts.pop("tied", False) else None
+    idx, args = _backward_args(camera, rows, mode, flags, tput)
+    idx = idx.clone()
+    idx[::7] = -1
+    act = args[4]
+    assert bool((~act).any()) and bool((act & (idx < 0)).any()) and bool((act & (idx >= 0)).any())
+    got = _assert_indexed_b2_bit_equal(rows, idx, args, mode, opts)
+    if flags[0] == 0.0 and flags[2] == 0.0:  # lanes go on: the geometry rows are read
+        assert float(got[4][:12].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("T", [32, 81_931])
+def test_indexed_segment_backward_reads_any_table(card, T):
+    """Tables of T rows (T = 32, the benchmark's box; 81,931, larger than
+    L1 and not a multiple of 4) holding a scene's rows at seeded places
+    and copies of them elsewhere; each lane's winner moved to its row's
+    place. T = 32 takes the box without spheres (12 rows), 81,931 the
+    card scene's 652."""
+    _, camera, card_rows = card
+    if T == 32:
+        scene, _ = cornell.cornell_box(width=64, height=48, device="cuda")
+        rows = F.pack_rows_full(scene)
+    else:
+        rows = card_rows
+    idx, args = _backward_args(camera, rows, "rr", [0.0, 1.0, 0.0])
+    g = torch.Generator(device="cuda").manual_seed(T)
+    T0 = rows.shape[0]
+    place = torch.randperm(T, device="cuda", generator=g)[:T0]
+    fill = torch.randint(0, T0, (T,), device="cuda", generator=g)
+    fill[place] = torch.arange(T0, device="cuda")
+    table = rows[fill].contiguous()
+    moved = torch.where(idx >= 0, place[idx.clamp_min(0).long()], -1).to(torch.int32)
+    hit = idx >= 0
+    assert torch.equal(F.gather_rows(table, moved)[:, hit], F.gather_rows(rows, idx)[:, hit])
+    assert bool((moved >= T0).any()) and bool((moved < 0).any())
+    _assert_indexed_b2_bit_equal(table, moved, args, "rr", {})
+
+
 def _scatter_inputs(R, T, hot, seed):
     """Seeded rays: about a tenth with idx = -1, ``hot`` of them into row 7
     (when T > 7), the rest uniform over the rows; N(0, 1) cotangents."""
@@ -223,9 +288,11 @@ def test_gradient_render_kernels_match_plain_path(card):
     loss_fn = G.make_loss_fn(scene, camera, torch.zeros(48, 64, 3, device="cuda"),
                              width=64, height=48, spp=1, config=config)
     params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
-    counts = (F.mega_segment.launches, F.segment_backward.launches, S.scatter_rows.launches)
+    counts = (F.mega_segment.launches, F.segment_backward.launches,
+              F.segment_backward.indexed_launches, S.scatter_rows.launches)
     loss, got = G.value_and_grad(loss_fn, params, make_key(4))
     assert (F.mega_segment.launches, F.segment_backward.launches,
+            F.segment_backward.indexed_launches,
             S.scatter_rows.launches) == tuple(c + 8 for c in counts)
     with plain_kernels():
         loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
@@ -285,7 +352,8 @@ def test_render_under_plain_kernels_equals_kernel_render_on_card(card):
 def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
     _, camera, rows = card
     _, args = _backward_args(camera, rows, "fixed", [0.0, 0.0, 0.0])
-    before = (F.segment_backward.launches, S.scatter_rows.launches)
+    before = (F.segment_backward.launches, F.segment_backward.indexed_launches,
+              S.scatter_rows.launches)
     bad = list(args)
     bad[1] = args[1].cpu()
     with pytest.raises(ValueError, match="on"):
@@ -298,6 +366,23 @@ def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
     bad[6] = args[6][:33]
     with pytest.raises(ValueError, match="full"):
         F.segment_backward(*bad)
+    # The entry through the index: idx's dtype and length, the table's
+    # shape, dtype and layout.
+    win = torch.zeros(args[0].shape[1], dtype=torch.int32, device="cuda")
+    for rows_, idx_, err, match in (
+            (rows, win.long(), ValueError, "int32"), (rows, win[:-1], ValueError, "idx"),
+            (rows, win.cpu(), ValueError, "idx"),
+            (rows[:, :47].contiguous(), win, ValueError, "48"),
+            (rows.double(), win, TypeError, "float32"),
+            (rows.T.contiguous().T, win, ValueError, "contiguous"),
+            (rows.flatten()[1:1 + 48 * 10].view(10, 48), win, ValueError, "aligned"),
+            (rows.cpu(), win, ValueError, "on")):
+        with pytest.raises(err, match=match):
+            F.segment_backward_rows(*args[:5], rows_, idx_, *args[7:])
+    bad = list(args[:5])
+    bad[4] = args[4].float()
+    with pytest.raises(TypeError, match="bool"):
+        F.segment_backward_rows(*bad, rows, win, *args[7:])
     idx = torch.zeros(10, dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError, match="int32"):
         S.scatter_rows(idx.long(), torch.zeros(48, 10, device="cuda"), 4)
@@ -309,7 +394,8 @@ def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
         S.scatter_rows(idx, torch.zeros(10, 48, device="cuda").T, 4)
     with pytest.raises(ValueError, match="out of range"):
         S.scatter_rows(idx, torch.zeros(48, 10, device="cuda"), 0)
-    assert (F.segment_backward.launches, S.scatter_rows.launches) == before
+    assert (F.segment_backward.launches, F.segment_backward.indexed_launches,
+            S.scatter_rows.launches) == before
 
 
 def _lane_flags(R, seed):
@@ -753,11 +839,12 @@ def test_traverse_gradient_render_kernels_match_plain_path(bunny_card):
                              width=64, height=48, spp=1, config=config)
     params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
     counts = (TW.traverse_select.launches, F.rows_segment.launches,
-              F.segment_backward.launches, S.scatter_rows.launches)
+              F.segment_backward.launches, F.segment_backward.indexed_launches,
+              S.scatter_rows.launches)
     loss, got = G.value_and_grad(loss_fn, params, make_key(4))
     assert (TW.traverse_select.launches, F.rows_segment.launches,
-            F.segment_backward.launches, S.scatter_rows.launches) == \
-        tuple(c + 4 for c in counts)
+            F.segment_backward.launches, F.segment_backward.indexed_launches,
+            S.scatter_rows.launches) == tuple(c + 4 for c in counts)
     with plain_kernels():
         loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
     assert float(loss) == pytest.approx(float(loss_ref), rel=1e-5)

@@ -118,6 +118,33 @@ def test_segment_backward_matches_jax(tables, case):
         assert np.abs(got[4][:12].numpy()).max() > 0.0
 
 
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_segment_backward_rows_plain_path_is_the_gathered_one(tables, case):
+    """B2 through the index, on CPU tensors: exactly
+    ``segment_backward_ref`` on the gathered rows (a lane in seven made a
+    miss on top of the wavefront's own), and no launch counted."""
+    _, rows = tables
+    x = _case_inputs(case)
+    kw = _kw(case if case != "rr_tied_grey" else "rr_roulette")
+    flags = np.asarray(GRAD_CASES[case]["flags"], np.float32).reshape(3, 1)
+    idx, _, cts = _backward_inputs(rows, x, flags, kw, seed=7)
+    idx[::7] = -1
+    t = _torch(x)
+    state = (t["pos"], t["dir"], t["tput"], t["res"], t["live"])
+    rest = (t["u1"], t["u2"], t["urr"], torch.from_numpy(flags), *map(torch.from_numpy, cts))
+    before = (F.segment_backward.launches, F.segment_backward.indexed_launches)
+    got = F.segment_backward_rows(*state, torch.from_numpy(rows), torch.from_numpy(idx), *rest,
+                                  **kw)
+    assert (F.segment_backward.launches, F.segment_backward.indexed_launches) == before
+    full = np.ascontiguousarray(rows[np.maximum(idx, 0)].T)
+    want = F.segment_backward_ref(*state, torch.from_numpy(idx >= 0), torch.from_numpy(full),
+                                  *rest, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case != "rr_hard_kill":  # a hard kill ends every lane: no row takes a cotangent
+        assert np.abs(got[4].numpy()).max() > 0.0
+
+
 def test_compare_scatter_holds_each_row_to_its_own_scale():
     """A row of huge cotangents (a shading frame near ±Y) does not widen
     the tolerance of the other rows: the same adds summed in another
@@ -250,6 +277,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         F.segment_backward(x, x, x, x, m, m, torch.empty(48, 4, device="meta"), x[0],
                            x[0], x[0], torch.empty(3, 1, device="meta"), x, x, x, x)
+    with pytest.raises(ValueError, match="device"):
+        F.segment_backward_rows(x, x, x, x, m, torch.empty(8, 48, device="meta"),
+                                torch.empty(4, dtype=torch.int32, device="meta"), x[0], x[0],
+                                x[0], torch.empty(3, 1, device="meta"), x, x, x, x)
     with pytest.raises(ValueError, match="device"):
         S.scatter_rows(torch.empty(4, dtype=torch.int32, device="meta"),
                        torch.empty(48, 4, device="meta"), 8)

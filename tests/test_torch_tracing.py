@@ -1,8 +1,9 @@
 """The port's spans and counters (utils/profiling.py) on the CPU: a span
 is one shared null context while no profiler records, a Renderer pass
 emits its nested spans under ``torch.profiler``, a recording sums the
-pass kernel's counters and decodes their clocks, and nothing is kept
-while nothing records."""
+pass kernel's counters and decodes their clocks, nothing is kept
+while nothing records, and a CUDA graph's replay counts B2 through the
+index as it counts B2."""
 
 import contextlib
 
@@ -12,6 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from montecarlopathtracer_tpu_torch.models import cornell
 from montecarlopathtracer_tpu_torch.ops import regen_pass as RP
+from montecarlopathtracer_tpu_torch.ops import segment_fused as F
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
 from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, program_spans
@@ -106,3 +108,29 @@ def test_nothing_is_kept_while_nothing_records():
         pass
     assert rec["passes"] == 0 and rec["grid"] == 0 and rec["kernel_ms"] == 0.0
     assert rec["ordered"] == 0
+
+
+def test_a_replay_counts_b2_through_the_index_as_it_counts_b2():
+    """The launch table holds B2's launches through the winner index beside
+    B2's, so what a graphed step's capture launched (diff/grad.py's
+    ``graphed_loss``: 32 B2 launches, all through the index, at 4 spp and
+    depth 7 + the gather) is added to both at each replay. The CPU runs no
+    graph: the capture's counts are made here by hand."""
+    table = profiling._counters()
+    k = table.index((F.segment_backward, "launches"))
+    assert table[k + 1] == (F.segment_backward, "indexed_launches")
+    saved = F.segment_backward.launches, F.segment_backward.indexed_launches
+    try:
+        before = profiling.launch_counts()
+        F.segment_backward.launches += 32
+        F.segment_backward.indexed_launches += 32
+        captured = [n - b for n, b in zip(profiling.launch_counts(), before)]
+        held = profiling.replay_counts(captured)
+        assert held == [(F.segment_backward, "launches", 32),
+                        (F.segment_backward, "indexed_launches", 32)]
+        with profiling.recording() as rec:
+            for _ in range(3):
+                profiling.count_replay(held)
+        assert rec["launches"] == {"B2": 96, "B2i": 96}
+    finally:
+        F.segment_backward.launches, F.segment_backward.indexed_launches = saved
