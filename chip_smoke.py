@@ -41,21 +41,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    breakdown of one sample (B1 against its one RNG launch);
 6. a 160x120 frame at 1 spp, kernel against plain path, same key;
 7. the gradient path's kernels (segment_backward.cu, scatter_rows.cu):
-   their builds and ptxas reports;
-8. the segment vjp kernel (B2) as the main path runs it, reading each
-   lane's row through the winner index (segment_backward_rows), against
-   its plain version on the 800x600 first-bounce wavefront of phase 3,
-   seeded random cotangents on all four outputs, in fixed mode (final
-   gather off and on), RR mode (roulette on tied grey throughput, hard
-   kill) and classic Phong; and bit-equal there to B2 on the gathered
-   rows (segment_backward, JAX's contract);
+   their builds and ptxas reports (B2's registers and spills);
+8. the segment vjp kernel (B2), reading each lane's row through the
+   winner index (segment_backward_rows), against its plain version on
+   the 800x600 first-bounce wavefront of phase 3, seeded random
+   cotangents on all four outputs, in fixed mode (final gather off and
+   on), RR mode (roulette on tied grey throughput, hard kill) and classic
+   Phong; and bit-equal there to segment_backward on the gathered rows
+   (JAX's contract, the same kernel over the gathered copy);
 9. the row scatter kernel (B3) against its plain version, 652 triangles,
    480,000 rays, on phase 8's row cotangents and on N(0,1) ones, each
    entry held to its own rounding bound, and two calls bit-equal;
-10. one 800x600 segment's B2 (through the index) and B3 timed against
-    their plain versions, with their device times and index_add_'s
-    (zero-fill included), and beside B2 the device times of B2 on the
-    gathered rows and of the gather it no longer needs;
+10. one 800x600 segment's B2 and B3 timed against their plain versions,
+    with their device times and index_add_'s (zero-fill included);
 11. the gradient main path (bench.py's fwd+bwd): value and gradient of
     an L2 pixel loss at 800x600, 2 spp, fixed depth 7, params
     {mat_kd, mat_ka, vertices}; one warm-up and three timed iterations,
@@ -68,8 +66,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
     the first step; a later step's loss bit-equal to value_and_grad of the
     eager loss under the same key, Adam's moments and the moved row to
     the update from the eager gradient (rtol 1e-6), the other rows
-    untouched, and B1, B2 (all of it through the index, B2i), B3 and RNG
-    counted as the replay's launches;
+    untouched, and B1, B2, B3 and RNG counted as the replay's launches;
 13. a 64x48 gradient render, kernel path against plain path, same key;
 14. the regen and traversal paths' kernels (traverse_select.cu,
     rows_segment.cu, regen_pass.cu): their builds and ptxas reports;
@@ -462,10 +459,10 @@ def rng_vs_plain(torch):
     ids = (4, 5, 7, (1 << 30) + 673)
     for R in (W * H, BW * BH):
         for k in (1, 2, 3):
-            before = RNG.stream_uniforms.launches
+            before = read_all_counts()
             got = RNG.stream_uniforms(key, ids[:k], R, "cuda")
             torch.cuda.synchronize()
-            n = RNG.stream_uniforms.launches - before
+            n = (read_all_counts() - before)["RNG"]
             want = RNG.stream_uniforms_ref(key, ids[:k], R, "cuda")
             same = torch.equal(got.view(torch.int32), want.view(torch.int32))
             print(f"R {R:9d} k {k}: bit-equal to plain {same}, launches {n}, rows "
@@ -783,9 +780,7 @@ BWD_CASES = {
 def backward_args(torch, rows, bounce, mode, flags, kw, tput=None, seed=0):
     """Segment-vjp inputs on a wavefront, as :func:`segment_backward_rows`
     takes them (the table and the winner index, seeded random cotangents
-    on the four outputs); and the same inputs as :func:`segment_backward`
-    takes them (the hit mask and the gathered rows in place of the table
-    and the index)."""
+    on the four outputs)."""
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
     from montecarlopathtracer_tpu_torch.ops.rng import make_key
 
@@ -795,17 +790,7 @@ def backward_args(torch, rows, bounce, mode, flags, kw, tput=None, seed=0):
     idx = F.mega_segment(*args, mode=mode, **kw)[0]
     g = torch.Generator(device="cuda").manual_seed(seed)
     cts = [torch.randn(3, pos.shape[1], device="cuda", generator=g) for _ in range(4)]
-    indexed = (*args[1:6], rows, idx, *args[6:10], *cts)
-    return idx, indexed, gathered_args(indexed)
-
-
-def gathered_args(indexed):
-    """:func:`segment_backward_rows`'s inputs ``indexed`` recast as
-    :func:`segment_backward`'s: (hit, gathered rows) for (rows, idx)."""
-    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
-
-    rows, idx = indexed[5:7]
-    return (*indexed[:5], idx >= 0, F.gather_rows(rows, idx), *indexed[7:])
+    return idx, (*args[1:6], rows, idx, *args[6:10], *cts)
 
 
 def backward_vs_plain(torch, rows, bounce):
@@ -819,9 +804,11 @@ def backward_vs_plain(torch, rows, bounce):
     for i, (cname, (mode, flags, kw)) in enumerate(BWD_CASES.items()):
         # Tied grey throughput: RR's p is a three-way tie on every lane.
         tput = torch.full_like(bounce[2], 0.6) if "tied" in cname else None
-        idx, args, gathered = backward_args(torch, rows, bounce, mode, flags, kw, tput, seed=i)
+        idx, args = backward_args(torch, rows, bounce, mode, flags, kw, tput, seed=i)
         got = F.segment_backward_rows(*args, mode=mode, **kw)
-        same = F.segment_backward(*gathered, mode=mode, **kw)
+        # JAX's contract (the hit mask and the gathered rows), on the same kernel.
+        same = F.segment_backward(*args[:5], idx >= 0, F.gather_rows(rows, idx), *args[7:],
+                                  mode=mode, **kw)
         torch.cuda.synchronize()
         want = F.segment_backward_rows_ref(*args, mode=mode, **kw)
         torch.cuda.synchronize()
@@ -833,15 +820,15 @@ def backward_vs_plain(torch, rows, bounce):
               f"within tol " + " ".join(f"{k} {v:.6f}" for k, v in rep["share_within"].items()))
         print(f"{'':18s} max |err| (scale) "
               + " ".join(f"{k} {errs[k]:.2e} ({rep['scale'][k]:.2e})" for k in errs)
-              + f"; bit-equal to B2 on the gathered rows: {equal}")
+              + f"; segment_backward on the gathered rows bit-equal: {equal}")
         check(rep["ok"], f"segment_backward_rows disagrees with plain on {cname}: {rep}")
         check(equal, f"segment_backward_rows differs from segment_backward on {cname}")
         last = (idx, got[4])
     counts = read_all_counts()
     n = len(BWD_CASES)
-    print(f"launches: B2 {counts['B2']}, of which through the index (B2i) {counts['B2i']} "
-          f"(expected {2 * n} and {n})")
-    check(counts["B2"] == 2 * n and counts["B2i"] == n, f"B2 launches {counts}")
+    print(f"launches: B2 {counts['B2']} (expected {2 * n}: segment_backward_rows and "
+          f"segment_backward, one each a case)")
+    check(counts["B2"] == 2 * n, f"B2 launches {counts}")
     print(f"tolerance: per output |err| <= {GRAD_TOL:g} * (|ref| + max |ref|) on at "
           f"least 99.9% of live lanes, 1e-2 on all; worst |err| {worst:.3e}")
     return worst, last
@@ -947,7 +934,7 @@ def record_device(torch, label, fn):
 # records built once per table (B4r), leaf boxes of 16 triangles.
 EARLIER_MS = {
     "B1": (0.3424, 0.5661), "B1c": (0.3196, 0.6185), "B1l": (0.3470, 0.5393),
-    "B2 gathered": (0.0992, 0.2931), "B3 T652": (0.1419, 0.1864), "B3 T81932": (0.0999, 0.1618),
+    "B3 T652": (0.1419, 0.1864), "B3 T81932": (0.0999, 0.1618),
     "B4": (0.3146, 0.4692), "B4c": (0.3218, 0.6011), "B5": (1.5650, 1.8375),
     "B5t": (0.0927, 0.2501), "B6": (0.0521, 0.2948), "B6l": (0.0527, 0.3102),
     "B7": (0.3329, 0.4519), "B8": (0.3696, 0.7785), "B9": (0.3699, 0.7470),
@@ -1005,15 +992,11 @@ def time_backward(torch, rows, bounce):
     from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
     from montecarlopathtracer_tpu_torch.ops import segment_fused as F
 
-    idx, args, gathered = backward_args(torch, rows, bounce, "fixed", [0.0, 0.0, 0.0], {})
+    idx, args = backward_args(torch, rows, bounce, "fixed", [0.0, 0.0, 0.0], {})
     d_full = F.segment_backward_rows(*args)[4]
     T = rows.shape[0]
     bwd = time_pair(torch, lambda: F.segment_backward_rows(*args),
                     lambda: F.segment_backward_rows_ref(*args), label="B2")
-    # Beside it, what the main path ran before B2 read through the index:
-    # the gather of the winners' rows, then B2 on the gathered copy.
-    record_device(torch, "B2 gathered", lambda: F.segment_backward(*gathered))
-    record_device(torch, "gather_rows", lambda: F.gather_rows(rows, idx))
     sc = time_pair(torch, lambda: S.scatter_rows(idx, d_full, T),
                    lambda: S.scatter_rows_ref(idx, d_full, T), label="B3 T652")
     R, hits = W * H, int((idx >= 0).sum())
@@ -1028,9 +1011,6 @@ def time_backward(torch, rows, bounce):
           f"{sc[1]:.4f} ms (bound {sc[2][0]:.4f} ms, {sc[2][1]}; one index_add_ {sc[3]:.4f} ms) "
           f"(median of 10, {int(bounce[4].sum())} live rays of {W * H}, {T} triangles)")
     device_line("B2", bwd[0], bwd[2])
-    print(f"B2 on the gathered rows: device {DEVICE_MS['B2 gathered'][0]:.4f} ms per launch "
-          f"(earlier run {EARLIER_MS['B2 gathered'][0]:.4f}); the gather itself "
-          f"(gather_rows, f32[48, {R}]) {DEVICE_MS['gather_rows'][0]:.4f} ms")
     device_line("B3 T652", sc[0], sc[2], library="index_add_ T652")
     return bwd, sc
 
@@ -1057,7 +1037,7 @@ def grad_main_path(torch, scene, camera):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     all_counts = read_all_counts()
-    counts = {k: v for k, v in all_counts.items() if k in ("B1", "B2", "B2i", "B3")}
+    counts = {k: v for k, v in all_counts.items() if k in ("B1", "B2", "B3")}
     msps = W * H * GRAD_SPP * GRAD_ITERS / dt / 1e6
     print(f"warm-up iteration {warm:.3f} s; {GRAD_ITERS} timed iterations {dt:.3f} s = "
           f"{dt / GRAD_ITERS:.4f} s/iteration, fwd+bwd {msps:.4f} Msamples/s "
@@ -1218,8 +1198,7 @@ def adam_graphed(torch, scene, camera):
     check(all(e <= 1e-6 for e in errs.values()), f"the graphed step's update differs: {errs}")
     check(untouched, "the graphed step moved a row outside `rows`")
     segments = config.num_segments * SPP
-    want_counts = {"B1": segments, "B2": segments, "B2i": segments, "B3": segments,
-                   "RNG": segments + SPP}
+    want_counts = {"B1": segments, "B2": segments, "B3": segments, "RNG": segments + SPP}
     got_counts = {k: counts[k] for k in want_counts}
     print(f"launches of the replayed step: {got_counts} (expected {want_counts})")
     check(got_counts == want_counts, f"replay launches {got_counts}, expected {want_counts}")
@@ -1763,10 +1742,10 @@ def tables_vs_earlier(torch, TW, rows, lo, hi, leaf, big):
     """B5t's one launch against the earlier two-kernel build of the same
     tables (bit for bit) and its tree against tree_ref over its own
     leaves (bit for bit: the climb); one launch counted."""
-    before = TW.walk_tables.launches
+    before = read_all_counts()
     got = TW.walk_tables(rows, lo, hi, leaf, big)
     torch.cuda.synchronize()
-    n = TW.walk_tables.launches - before
+    n = (read_all_counts() - before)["B5t"]
     old, _ = TW.walk_tables_split(rows, lo, hi, leaf, big)
     P, nc = got.leaves, lo.shape[0]
     ref = TW.tree_ref(lo, hi, got.tree[P:P + nc, 3], got.tree[P:P + nc, 7])
@@ -2206,9 +2185,9 @@ def bunny_grad(torch, scene, config):
           f"= {dt / BUNNY_GRAD_ITERS:.4f} s/iteration, bunny fwd+bwd {msps:.4f} Msamples/s "
           f"(loss {float(loss):.6f})")
     want = config.num_segments * (1 + BUNNY_GRAD_ITERS)
-    print(f"launches: {counts} (expected {want} each of B5, B6, B2, B2i and B3, and "
+    print(f"launches: {counts} (expected {want} each of B5, B6, B2 and B3, and "
           f"{1 + BUNNY_GRAD_ITERS} tables builds B5t, one per iteration)")
-    for name in ("B5", "B6", "B2", "B2i", "B3"):
+    for name in ("B5", "B6", "B2", "B3"):
         check(counts[name] == want, f"{name} launched {counts[name]} times, expected {want}")
     check(counts["B5t"] == 1 + BUNNY_GRAD_ITERS, f"B5t launched {counts['B5t']} times")
     for name, g in grads.items():
@@ -4269,10 +4248,8 @@ def main():
                {"vote_chunks_per_live_lane_step_kernel_pinned_own":
                 b1r["glossy fixed cull"]["vote"]}))),
         entry("segment_backward", BWD_SOURCE, BWD_REPLACES, counts["B2"], bwd_err, bwd_ms,
-              "B2", launches_indexed=counts["B2i"], launches_sharded=shard["36c"]["B2"],
+              "B2", launches_sharded=shard["36c"]["B2"],
               launches_adam_graphed=adam["launches_adam_graphed"]["B2"],
-              gathered_device_ms=DEVICE_MS["B2 gathered"][0],
-              gather_rows_device_ms=DEVICE_MS["gather_rows"][0],
               adam_graphed_max_rel_gap=adam["adam_graphed_max_rel_gap"]),
         entry("scatter_rows (T = 652)", SCATTER_SOURCE, SCATTER_REPLACES, counts["B3"], sc_err,
               sc_ms, "B3 T652", "index_add_ T652", launches_sharded=shard["36c"]["B3"],

@@ -18,15 +18,14 @@
 // reverse, so no 0 * inf is ever formed: a lane whose geometry
 // cotangent is zero gets an exact zero, never NaN.
 //
-// Two ways to read each lane's winner row, one kernel template:
-// `segment_backward_rows_launch` (kIndexed) reads `rows[idx]` itself, as
+// The kernel reads each lane's winner row `rows[idx]` itself, as
 // rows_segment.cu does: the 21 shading floats of a hit lane and the 12
 // geometry floats of a lane that goes on, as float4 loads through the
 // read-only path, straight from the [T, 48] table, so no [48, R] copy of
-// the winners' rows is made. `segment_backward_launch` reads them from
-// that copy, lane-major (JAX's contract). A miss reads no row either way,
-// and what follows the loads is the same code, so the two give bit-equal
-// outputs.
+// the winners' rows is made. A miss reads no row. JAX's contract, the
+// gathered rows f32[48, R] and a hit mask, is served by the caller
+// (`segment_backward` in ops/segment_fused.py) as the table full^T with
+// idx = r where hit: the same floats, so the same outputs.
 //
 // What bounds it on an H100: memory. Per ray it reads 3 x 3 state and
 // 4 x 3 cotangent floats, 3 uniforms, a mask and the winner index (or
@@ -34,9 +33,9 @@
 // 800x600 segment, against a few hundred flops of replay and reverse.
 // The row reads, 84 B a hit lane and 48 B more a lane that goes on, are
 // scattered over the table, which stays in L1 and L2 (6 KB for the
-// 32-triangle Cornell box, 15.7 MB for the 81,932-triangle bunny); from
-// the gathered copy they are coalesced but the copy itself costs a
-// 92 MB write and read per 800x600 segment.
+// 32-triangle Cornell box, 15.7 MB for the 81,932-triangle bunny); a
+// gathered copy would coalesce them but cost a 92 MB write and read per
+// 800x600 segment.
 // The design keeps every intermediate in registers, reads and writes
 // lane-major [k, R] arrays so that a warp's accesses coalesce, and
 // writes d_full once per ray (zeros included, so no memset is needed).
@@ -44,9 +43,8 @@
 // Contract (segment_backward_rows): pos/dir/tput/res f32[3, R]; act
 // bool[R]; rows f32[T, 48], 16-byte aligned; idx i32[R] (-1 = miss);
 // u1/u2/urr f32[R]; flags f32[3]; cotangents of npos/ndir/ntput/nres
-// f32[3, R]. segment_backward takes hit bool[R] and full f32[48, R] (the
-// winner rows, lane-major) in place of rows and idx. Outputs
-// d_pos/d_dir/d_tput/d_res f32[3, R], d_full f32[48, R].
+// f32[3, R]. Outputs d_pos/d_dir/d_tput/d_res f32[3, R], d_full
+// f32[48, R].
 
 #include <cuda_runtime.h>
 
@@ -239,36 +237,24 @@ __device__ float sample_fresnel_bwd(float u, V3 normal, V3 indir, float tr, floa
   return g_ni;
 }
 
-// The winner row's floats [kFirst, kFirst + kN) into `out`. kIndexed:
-// row i of the [T, 48] table, float4 loads through the read-only path
-// (kFirst a multiple of 4; `out` holds kN rounded up to 4). Otherwise
-// lane r of the gathered copy f32[48, R].
-template <bool kIndexed, int kFirst, int kN>
-__device__ __forceinline__ void load_row(const float* __restrict__ src, int i, int r, size_t sR,
-                                         float* out) {
-  if constexpr (kIndexed) {
-    const float4* row =
-        reinterpret_cast<const float4*>(src + static_cast<size_t>(i) * 48 + kFirst);
+// Floats [kFirst, kFirst + kN) of row i of the [T, 48] table into
+// `out`, float4 loads through the read-only path (kFirst a multiple of 4;
+// `out` holds kN rounded up to 4).
+template <int kFirst, int kN>
+__device__ __forceinline__ void load_row(const float* __restrict__ rows, int i, float* out) {
+  const float4* row = reinterpret_cast<const float4*>(rows + static_cast<size_t>(i) * 48 + kFirst);
 #pragma unroll
-    for (int q = 0; q < (kN + 3) / 4; ++q) {
-      const float4 v = __ldg(row + q);
-      out[4 * q] = v.x, out[4 * q + 1] = v.y, out[4 * q + 2] = v.z, out[4 * q + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kN; ++k) out[k] = src[(kFirst + k) * sR + r];
+  for (int q = 0; q < (kN + 3) / 4; ++q) {
+    const float4 v = __ldg(row + q);
+    out[4 * q] = v.x, out[4 * q + 1] = v.y, out[4 * q + 2] = v.z, out[4 * q + 3] = v.w;
   }
 }
 
-// kIndexed: the rows come from `src` = rows f32[T, 48] through `idx`
-// (hit_in unused); otherwise from `src` = full f32[48, R], hit from
-// hit_in (idx unused).
-template <bool kIndexed>
 __global__ void __launch_bounds__(kThreads)
 segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
                         const float* __restrict__ tput, const float* __restrict__ res,
-                        const bool* __restrict__ act_in, const bool* __restrict__ hit_in,
-                        const float* __restrict__ src, const int* __restrict__ idx,
+                        const bool* __restrict__ act_in, const float* __restrict__ rows,
+                        const int* __restrict__ idx,
                         const float* __restrict__ u1, const float* __restrict__ u2,
                         const float* __restrict__ urr, const float* __restrict__ flags,
                         const float* __restrict__ cnp, const float* __restrict__ cnd,
@@ -303,11 +289,11 @@ segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__
     d_o = g_np, d_d = g_nd, d_tp = g_nt, d_rs = g_nr;
   } else {
     // ---- forward replay: shading row and RR / emission decisions ----
-    const int i = kIndexed ? idx[r] : 0;
-    const bool hit = kIndexed ? i >= 0 : hit_in[r];
+    const int i = idx[r];
+    const bool hit = i >= 0;
     float sh[24];
     if (hit) {
-      load_row<kIndexed, 12, 21>(src, i, r, sR, sh);
+      load_row<12, 21>(rows, i, sh);
     } else {
 #pragma unroll
       for (int k = 0; k < 24; ++k) sh[k] = 0.0f;
@@ -352,7 +338,7 @@ segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__
     } else {  // still implies hit
       // Replay the winner recompute and the smooth normal.
       float m[12];
-      load_row<kIndexed, 0, 12>(src, i, r, sR, m);
+      load_row<0, 12>(rows, i, m);
       float op[3], dp[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -461,46 +447,21 @@ segment_backward_kernel(const float* __restrict__ pos, const float* __restrict__
   for (int k = 33; k < 48; ++k) dfull[k * sR + r] = 0.0f;
 }
 
-template <bool kIndexed>
-int launch(const float* pos, const float* dir, const float* tput, const float* res,
-           const bool* act, const bool* hit, const float* src, const int* idx, const float* u1,
-           const float* u2, const float* urr, const float* flags, const float* cnp,
-           const float* cnd, const float* cnt, const float* cnr, int R, int mode_rr, float illum,
-           float eps_offset, int refract_kd, int phong_reflect, float* dpos, float* ddir,
-           float* dtput, float* dres, float* dfull, void* stream) {
-  if (R > 0) {
-    const int blocks = (R + kThreads - 1) / kThreads;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    segment_backward_kernel<kIndexed><<<blocks, kThreads, 0, st>>>(
-        pos, dir, tput, res, act, hit, src, idx, u1, u2, urr, flags, cnp, cnd, cnt, cnr, R,
-        mode_rr, illum, eps_offset, refract_kd, phong_reflect, dpos, ddir, dtput, dres, dfull);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Launch the segment vjp on `stream`, the winner rows gathered (`full`)
-// or read through the index from the table (`rows`, `idx`); each returns
-// cudaGetLastError() so the caller can raise on a refused launch.
-extern "C" int segment_backward_launch(
-    const float* pos, const float* dir, const float* tput, const float* res, const bool* act,
-    const bool* hit, const float* full, const float* u1, const float* u2, const float* urr,
-    const float* flags, const float* cnp, const float* cnd, const float* cnt, const float* cnr,
-    int R, int mode_rr, float illum, float eps_offset, int refract_kd, int phong_reflect,
-    float* dpos, float* ddir, float* dtput, float* dres, float* dfull, void* stream) {
-  return launch<false>(pos, dir, tput, res, act, hit, full, nullptr, u1, u2, urr, flags, cnp,
-                       cnd, cnt, cnr, R, mode_rr, illum, eps_offset, refract_kd, phong_reflect,
-                       dpos, ddir, dtput, dres, dfull, stream);
-}
-
+// Launch the segment vjp on `stream`; returns cudaGetLastError() so the
+// caller can raise on a refused launch.
 extern "C" int segment_backward_rows_launch(
     const float* pos, const float* dir, const float* tput, const float* res, const bool* act,
     const float* rows, const int* idx, const float* u1, const float* u2, const float* urr,
     const float* flags, const float* cnp, const float* cnd, const float* cnt, const float* cnr,
     int R, int mode_rr, float illum, float eps_offset, int refract_kd, int phong_reflect,
     float* dpos, float* ddir, float* dtput, float* dres, float* dfull, void* stream) {
-  return launch<true>(pos, dir, tput, res, act, nullptr, rows, idx, u1, u2, urr, flags, cnp,
-                      cnd, cnt, cnr, R, mode_rr, illum, eps_offset, refract_kd, phong_reflect,
-                      dpos, ddir, dtput, dres, dfull, stream);
+  if (R > 0) {
+    const int blocks = (R + kThreads - 1) / kThreads;
+    segment_backward_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        pos, dir, tput, res, act, rows, idx, u1, u2, urr, flags, cnp, cnd, cnt, cnr, R, mode_rr,
+        illum, eps_offset, refract_kd, phong_reflect, dpos, ddir, dtput, dres, dfull);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

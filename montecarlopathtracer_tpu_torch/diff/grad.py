@@ -161,7 +161,8 @@ def graphed_loss(loss_fn, params: Dict[str, torch.Tensor], key: Key):
     which each call writes its own key without a sync. Returns
     ``(loss(params, key), launches)``: the graphed function, whose
     arguments are ``loss_fn``'s, and the kernel launches one replay of
-    both graphs holds (:func:`..utils.profiling.launch_counts`' order)."""
+    both graphs holds, ``{name: n}`` by :data:`..utils.profiling.KERNELS`'
+    names."""
     names = sorted(params)
     base = torch.empty(2, dtype=torch.int32, device=params[names[0]].device)
     DeviceKey.stage(key, base)
@@ -171,11 +172,12 @@ def graphed_loss(loss_fn, params: Dict[str, torch.Tensor], key: Key):
         return loss_fn(dict(zip(names, fields)), DeviceKey(words))
 
     sample = tuple(params[k].detach().clone().requires_grad_(True) for k in names)
-    before = profiling.launch_counts()
+    before = profiling.launches()
     graphed = torch.cuda.make_graphed_callables(flat, sample + (base,),
                                                 num_warmup_iters=GRAPH_WARMUP)
     runs = GRAPH_WARMUP + 1  # the eager runs and the captures, each forward and backward
-    launches = [(n - b) // runs for n, b in zip(profiling.launch_counts(), before)]
+    made = profiling.launches() - before
+    launches = {k: n // runs for k, n in made.items() if n // runs}
 
     def loss(p, k: Key):
         DeviceKey.stage(k, base)
@@ -190,15 +192,14 @@ def _stepped(loss_fn):
     names, shapes and device fixed then), each replay counted as the
     launches it holds; the loss and the gradient it gives are
     overwritten by the next step. Elsewhere ``loss_fn`` itself."""
-    graphs = {}  # device -> (the graphed loss, profiling.replay_counts of a replay)
+    graphs = {}  # device -> (the graphed loss, the launches of a replay)
 
     def run(params, key):
         dev = next(iter(params.values())).device
         if dev.type != "cuda":
             return loss_fn
         if dev not in graphs:
-            fn, launches = graphed_loss(loss_fn, params, key)
-            graphs[dev] = fn, profiling.replay_counts(launches)
+            graphs[dev] = graphed_loss(loss_fn, params, key)
         fn, held = graphs[dev]
         profiling.count_replay(held)
         return fn

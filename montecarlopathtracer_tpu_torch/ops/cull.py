@@ -17,7 +17,7 @@ tree widens its nodes.
 - :func:`cull_records` builds, once per table, the 64-byte triangle
   records that the culled loop reads (``nearest_shade.cu::
   cull_records_kernel`` for CUDA tensors, :func:`cull_records_ref` for
-  CPU ones; it adds one to ``cull_records.launches`` where it launches);
+  CPU ones; it counts its launch as B4r);
 - :func:`chunk_entry` and :func:`chunk_reach` are the plain versions of
   the kernels' per-lane test (``nearest_common.cuh::chunk_entry``),
   rounded as the kernels round it;
@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_build
 from .traverse_walk import CHUNK, sphere_split_ref
 
@@ -106,8 +107,8 @@ def cull_records(rows) -> torch.Tensor:
     table ``rows`` f32[T, 48] (contiguous, 16-byte aligned): per triangle
     its sphere's center and K0, then its three geometry rows; then the box
     of each leaf of 16 triangles (:func:`cull_records_ref`). CUDA tensors
-    launch ``nearest_shade.cu``'s record kernel and add one to
-    ``cull_records.launches``; CPU tensors run :func:`cull_records_ref`."""
+    launch ``nearest_shade.cu``'s record kernel and count it as B4r; CPU
+    tensors run :func:`cull_records_ref`."""
     if rows.device.type == "cpu":
         return cull_records_ref(rows)
     if rows.device.type != "cuda":
@@ -123,11 +124,8 @@ def cull_records(rows) -> torch.Tensor:
                                                  rec.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cull_records kernel launch failed: cudaError {err}")
-    cull_records.launches += 1
+    count_launch("B4r")
     return rec
-
-
-cull_records.launches = 0
 
 
 def check_records(crec, rows) -> None:

@@ -55,6 +55,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_build
 from . import cull as CU
 from .intersect import Hit
@@ -162,8 +163,7 @@ def _nearest_shade_full_cuda(rows, pos3, dir3, live, clo, chi, cslack, crec, tes
         )
     if err != 0:
         raise RuntimeError(f"nearest_shade kernel launch failed: cudaError {err}")
-    nearest_shade_full.launches += 1
-    nearest_shade_full.cull_launches += cull
+    count_launch("B4c" if cull else "B4")
     return idx, tbg, shade
 
 
@@ -175,9 +175,8 @@ def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, 
     ``clo``, ``chi`` f32[ceil(T / 128), 3] of a Morton-ordered table,
     their slack ``cslack`` f32[ceil(T / 128), 2] and the table's records
     ``crec`` f32[T, 16] (:func:`.cull.cull_records`, built here when
-    None), and add one to
-    ``nearest_shade_full.launches`` (and to ``.cull_launches`` for B4c);
-    CPU tensors run :func:`nearest_shade_full_ref`. ``dz_test`` adds the
+    None), and count the launch as B4 or B4c; CPU tensors run
+    :func:`nearest_shade_full_ref`. ``dz_test`` adds the
     explicit |d'_z| > 1e-12 test (JAX ``nearest_shade_culled``).
 
     ``tested``, on CUDA only: an int32 [ceil(R / 128)] tensor that the
@@ -190,10 +189,6 @@ def nearest_shade_full(rows, pos3, dir3, live, clo=None, chi=None, cslack=None, 
         return nearest_shade_full_ref(rows, pos3, dir3, live, clo, chi, cslack, crec,
                                       tested=tested, dz_test=dz_test)
     raise ValueError(f"no nearest_shade kernel for device {pos3.device}")
-
-
-nearest_shade_full.launches = 0  # B4 and B4c
-nearest_shade_full.cull_launches = 0  # of which with chunk culling (B4c)
 
 
 def _winner_values(full, hit, pos3, dir3):
@@ -334,12 +329,11 @@ def _nearest_triangle_cuda(geom, pos3, dir3, control=False):
 def nearest_triangle(geom, pos3, dir3):
     """Index i32[R] of the nearest accepted triangle of ``geom`` f32[T, 12]
     (:func:`pack_geom_rows`) per ray of ``pos3``, ``dir3`` f32[3, R], −1
-    for a miss. CUDA tensors launch B7 and add one to
-    ``nearest_triangle.launches``; CPU tensors run
+    for a miss. CUDA tensors launch B7 and count it; CPU tensors run
     :func:`nearest_triangle_ref`."""
     if pos3.device.type == "cuda":
         idx = _nearest_triangle_cuda(geom, pos3, dir3)
-        nearest_triangle.launches += 1
+        count_launch("B7")
         return idx
     if pos3.device.type == "cpu":
         return nearest_triangle_ref(geom, pos3, dir3)
@@ -356,9 +350,6 @@ def nearest_triangle_control(geom, pos3, dir3):
     if pos3.device.type == "cpu":
         return nearest_triangle_ref(geom, pos3, dir3)
     raise ValueError(f"no nearest_triangle kernel for device {pos3.device}")
-
-
-nearest_triangle.launches = 0
 
 
 def refine_hit(m, m_a, origins, dirs, tri_id) -> Hit:

@@ -23,8 +23,8 @@ culling entries, over the triangle records that they build with their
 unpacking, with the explicit |d'_z| > 1e-12 test of
 ``_nearest_shade_culled_kernel`` for :func:`nearest_shade_culled`, and
 their chunk boxes regridded to B4c's 128-triangle tiles by
-:func:`tile_boxes`), for CPU tensors its plain version. Each entry adds
-one to its own ``.launches`` where it launches the kernel.
+:func:`tile_boxes`), for CPU tensors its plain version. Each entry counts
+the kernel launches it made under its own name (B8-B11, B10c).
 
 Packers (bit-equal to JAX's, through numpy): :func:`pack_transforms`
 ``w f32[6, 8, T]``, :func:`pack_transforms_fused` ``wf f32[6T, 8]``
@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count_launch, launches
 from . import nearest_shade as NS
 from .cull import chunk_slack, cull_records
 
@@ -202,13 +203,13 @@ def _all_live(pos3) -> torch.Tensor:
     return torch.ones(pos3.shape[1], dtype=torch.bool, device=pos3.device)
 
 
-def _select(entry, rows, pos3, dir3, live, **kw):
+def _select(name, rows, pos3, dir3, live, **kw):
     """:func:`.nearest_shade.nearest_shade_full` on the unpacked rows,
-    adding to ``entry.launches`` the kernel launches it made."""
-    b4 = NS.nearest_shade_full  # looked up per call: testing.plain_kernels swaps it
-    before = getattr(b4, "launches", 0)
-    out = b4(rows, pos3, dir3, live, **kw)
-    entry.launches += getattr(b4, "launches", 0) - before
+    counting under ``name`` the B4 or B4c launches it made."""
+    before = launches()
+    out = NS.nearest_shade_full(rows, pos3, dir3, live, **kw)
+    made = launches() - before
+    count_launch(name, made["B4"] + made["B4c"])
     return out
 
 
@@ -243,7 +244,7 @@ def nearest_shade(w, table, pos3, dir3):
     ``nearest_shade``, TPU kernel ``_nearest_idx_kernel``, B8) over
     ``w f32[6, 8, T]`` (:func:`pack_transforms`) and ``table f32[T, 32]``
     for rays ``pos3``, ``dir3`` f32[3, R]: B4 on the unpacked rows."""
-    return _select(nearest_shade, rows_from_w(w, table), pos3, dir3, _all_live(pos3))
+    return _select("B8", rows_from_w(w, table), pos3, dir3, _all_live(pos3))
 
 
 def nearest_shade2(wf, geom, table, pos3, dir3, *, t_chunk: int = T_CHUNK):
@@ -255,7 +256,7 @@ def nearest_shade2(wf, geom, table, pos3, dir3, *, t_chunk: int = T_CHUNK):
     valid triangles; its shape is checked, and the rows come from ``wf``,
     which the selection reads."""
     _check_geom(geom, table)
-    return _select(nearest_shade2, rows_from_fused(wf, table, t_chunk), pos3, dir3,
+    return _select("B9", rows_from_fused(wf, table, t_chunk), pos3, dir3,
                    _all_live(pos3))
 
 
@@ -284,11 +285,7 @@ def nearest_shade_streamed(ws, geom, table, pos3, dir3, live=None, clo=None, chi
         boxes = dict(zip(("clo", "chi"), tile_boxes(clo, chi, t_chunk, rows.shape[0])),
                      cslack=chunk_slack(rows) if cslack is None else cslack,
                      crec=cull_records(rows))
-    before = nearest_shade_streamed.launches
-    out = _select(nearest_shade_streamed, rows, pos3, dir3, live, **boxes)
-    if cull:
-        nearest_shade_streamed.cull_launches += nearest_shade_streamed.launches - before
-    return out
+    return _select("B10c" if cull else "B10", rows, pos3, dir3, live, **boxes)
 
 
 def nearest_shade_culled(w, table, clo, chi, pos3, dir3, live, cslack=None):
@@ -305,7 +302,7 @@ def nearest_shade_culled(w, table, clo, chi, pos3, dir3, live, cslack=None):
         raise ValueError(f"{T} triangles do not divide into {nc} chunk boxes")
     clo, chi = tile_boxes(clo, chi, T // nc, T)
     rows = rows_from_w(w, table)
-    return _select(nearest_shade_culled, rows, pos3, dir3, live.to(torch.bool).contiguous(),
+    return _select("B11", rows, pos3, dir3, live.to(torch.bool).contiguous(),
                    clo=clo, chi=chi, cslack=chunk_slack(rows) if cslack is None else cslack,
                    crec=cull_records(rows), dz_test=True)
 
@@ -315,9 +312,3 @@ def _check_geom(geom, table) -> None:
         raise ValueError(f"geom must be [T, 12] for a table of {table.shape[0]} rows, "
                          f"got {tuple(geom.shape)}")
 
-
-nearest_shade.launches = 0  # B8
-nearest_shade2.launches = 0  # B9
-nearest_shade_streamed.launches = 0  # B10, with or without cull
-nearest_shade_streamed.cull_launches = 0  # of which with cull
-nearest_shade_culled.launches = 0  # B11

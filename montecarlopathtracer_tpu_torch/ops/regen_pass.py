@@ -9,11 +9,11 @@ around it by XLA). Lane ``i`` is pinned to pixel ``i`` of the band
 see :mod:`..render.regen` for the estimator and its stream ids.
 
 - :func:`regen_pass` is the entry point. For a CUDA device it launches
-  ``csrc/regen_pass.cu`` once (adding one to ``regen_pass.launches``, or
-  to ``regen_pass.cull_launches`` for the culled instance), with no host
-  sync. A persistent grid of blocks pulls lanes from a device-side work
-  list into free slots and runs each lane in its slot from its first
-  step to its last; a lane carries its own step, so its draws and flags
+  ``csrc/regen_pass.cu`` once (counted as B1r, or as B1rc for the
+  culled instance), with no host sync. A persistent grid of blocks
+  pulls lanes from a device-side work list into free slots and runs
+  each lane in its slot from its first step to its last; a lane
+  carries its own step, so its draws and flags
   do not depend on which slot or block runs it, so the list may hand
   the lanes out in any order (``order``; :func:`longest_first` builds
   one from a pass's ``lane_steps``). A block whose list is spent traces
@@ -55,7 +55,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..utils.profiling import keep, span
+from ..utils.profiling import count_launch, keep, span
 from . import cuda_build
 from . import rng
 from .rng import Key
@@ -503,13 +503,16 @@ def _keys_on(dev, keys: np.ndarray) -> torch.Tensor:
     return host.to(dev, non_blocking=True)
 
 
-def _check_order(order: torch.Tensor, R: int):
-    """An order's shape and dtype (not that it is a permutation, which
-    would take a host sync; see :func:`regen_pass` for what a bad one
-    does)."""
+def _check_order(order: torch.Tensor, R: int, dev: Optional[torch.device] = None):
+    """An order's dtype and shape, and, given the device ``dev`` that
+    reads it in place, that it is contiguous there (not that it is a
+    permutation, which would take a host sync; see :func:`regen_pass` for
+    what a bad one does)."""
     if order.dtype != torch.int32 or order.shape != (R,):
         raise ValueError(f"order must be an int32 tensor of the band's {R} lanes, got "
                          f"{order.dtype} {tuple(order.shape)}")
+    if dev is not None and (order.device != dev or not order.is_contiguous()):
+        raise ValueError(f"order must be contiguous on {dev}, got {order.device}")
 
 
 def _check_band(width, height, y0, n_rows, spp):
@@ -538,9 +541,7 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
         raise ValueError("rows must be a contiguous, 16-byte aligned float32 [T, 48] tensor")
     T, cull = rows.shape[0], config.chunk_cull
     if order is not None:
-        _check_order(order, R)
-        if order.device != dev or not order.is_contiguous():
-            raise ValueError(f"order must be contiguous on {dev}, got {order.device}")
+        _check_order(order, R, dev)
     boxes = (None,) * 4
     if cull:
         F.check_chunk_boxes(rows, tables.clo, tables.chi, tables.cslack)
@@ -573,10 +574,7 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
                                         work.data_ptr(), grid, stream)
     if err != 0:
         raise RuntimeError(f"regen_pass kernel launch failed: cudaError {err}")
-    if cull:
-        regen_pass.cull_launches += 1
-    else:
-        regen_pass.launches += 1
+    count_launch("B1rc" if cull else "B1r")
     keep(work, grid, ordered=order is not None)
     if stats is not None:
         stats["counters"] = work[:len(STATS)]
@@ -633,7 +631,3 @@ def regen_pass(tables, config, camera, key: Key, width: int, height: int, spp: i
     if dev.type == "cpu":
         return regen_pass_ref(tables, config, camera, key, width, height, spp, y0, n_rows)
     raise ValueError(f"no regen pass kernel for device {dev}")
-
-
-regen_pass.launches = 0  # launches of the plain instance (B1r), one a pass
-regen_pass.cull_launches = 0  # launches of the culled instance (B1rc)

@@ -8,8 +8,7 @@ A key is a pair of unsigned 32-bit Python ints, exactly the two words
 of a JAX threefry key. :func:`make_key` and :func:`fold_in` run on the
 host (one threefry block each). :func:`stream_uniforms` draws up to
 :data:`MAX_STREAMS` streams of a key at once: for a CUDA device it
-launches ``csrc/rng.cu`` once (adding one to
-``stream_uniforms.launches``), for the CPU it runs
+launches ``csrc/rng.cu`` once (counted as RNG), for the CPU it runs
 :func:`stream_uniforms_ref`, the per-lane threefry on int64 tensors
 masked to 32 bits; it never falls back from one to the other. Both give
 the same bits, bit-equal to
@@ -38,6 +37,7 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_build
 
 _M32 = 0xFFFFFFFF
@@ -199,7 +199,7 @@ def _uniforms_cuda(key: Key, stream_ids, n: int, dev: torch.device) -> torch.Ten
         err = lib.uniform_launch(base, d, len(stream_ids), n, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"uniform kernel launch failed: cudaError {err}")
-    stream_uniforms.launches += 1
+    count_launch("RNG")
     return out
 
 
@@ -207,9 +207,8 @@ def stream_uniforms(key: Key, stream_ids: Sequence[int], n: int, device) -> torc
     """Uniform [0, 1) draws f32[k, n] of the k = len(stream_ids) <=
     :data:`MAX_STREAMS` given streams of ``key``, a contiguous row per
     stream (so each row is a contiguous f32[n]). For a CUDA ``device``
-    one launch of ``csrc/rng.cu`` (adding one to
-    ``stream_uniforms.launches``; the base of a :class:`DeviceKey`
-    must be on ``device``);
+    one launch of ``csrc/rng.cu`` (counted as RNG; the base of a
+    :class:`DeviceKey` must be on ``device``);
     :func:`stream_uniforms_ref` for the CPU. Raises on k outside 1..4
     and on n >= 2**32 (the lane counter is 32 bits)."""
     stream_ids = [int(s) & _M32 for s in stream_ids]
@@ -223,9 +222,6 @@ def stream_uniforms(key: Key, stream_ids: Sequence[int], n: int, device) -> torc
     if dev.type == "cpu":
         return stream_uniforms_ref(key, stream_ids, n, dev)
     raise ValueError(f"no uniform kernel for device {dev}")
-
-
-stream_uniforms.launches = 0
 
 
 def stream_uniform(key: Key, stream_id: int, n: int, device) -> torch.Tensor:

@@ -9,8 +9,7 @@ gradient of a segment from the rays back to the table of
 :func:`.segment_fused.pack_rows_full`.
 
 - :func:`scatter_rows` is the entry point: CUDA tensors launch
-  ``csrc/scatter_rows.cu`` and add one to ``scatter_rows.launches``;
-  CPU tensors run :func:`scatter_rows_ref`.
+  ``csrc/scatter_rows.cu`` and count the launch as B3; CPU tensors run :func:`scatter_rows_ref`.
 - :func:`scatter_rows_ref` is the plain-torch version, an exact f32
   ``index_add_``.
 
@@ -31,6 +30,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_build
 
 _P = ctypes.c_void_p
@@ -83,7 +83,7 @@ def _scatter_rows_cuda(idx, dvals, T):
                                       work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
-    scatter_rows.launches += 1
+    count_launch("B3")
     return out
 
 
@@ -95,6 +95,3 @@ def scatter_rows(idx: torch.Tensor, dvals: torch.Tensor, T: int) -> torch.Tensor
     if dvals.device.type == "cpu":
         return scatter_rows_ref(idx, dvals, int(T))
     raise ValueError(f"no scatter_rows kernel for device {dvals.device}")
-
-
-scatter_rows.launches = 0

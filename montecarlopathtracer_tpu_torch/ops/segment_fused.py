@@ -39,16 +39,16 @@ Gradient (JAX ``segment_backward`` / ``_make_whole_segment``):
 - :func:`segment_core_rows` is the differentiable segment at fixed
   winners: :func:`recompute_rows` (t, β, γ and the shading rows from the
   gathered 48-float winner rows) followed by the same :func:`_epilogue`.
-- :func:`segment_backward` is its vjp on the gathered winner rows: the
-  hand-written kernel ``csrc/segment_backward.cu`` for CUDA tensors,
-  :func:`segment_backward_ref` (``torch.autograd.grad`` of
-  :func:`segment_core_rows`) for CPU tensors.
-- :func:`segment_backward_rows` is the same vjp given the table and the
-  winner index in place of the gathered rows: the same kernel reads each
-  lane's row through the index (no [48, R] copy) for CUDA tensors, and
-  :func:`segment_backward_rows_ref` (:func:`segment_backward_ref` on
-  :func:`gather_rows`) runs for CPU tensors. The two kernels' outputs are
-  bit-equal.
+- :func:`segment_backward_rows` is its vjp given the row table and the
+  winner index: the hand-written kernel ``csrc/segment_backward.cu``,
+  which reads each lane's row through the index (no [48, R] copy), for
+  CUDA tensors; :func:`segment_backward_rows_ref`
+  (:func:`segment_backward_ref` on :func:`gather_rows`) for CPU tensors.
+- :func:`segment_backward` is the same vjp on the gathered winner rows
+  (JAX's contract): for CUDA tensors the same kernel, over the gathered
+  copy as a table of one row per lane; :func:`segment_backward_ref`
+  (``torch.autograd.grad`` of :func:`segment_core_rows`) for CPU
+  tensors.
 - :class:`WholeSegment` / :func:`whole_segment_megakernel` is the
   differentiable segment: forward :func:`mega_segment`; backward
   :func:`segment_backward_rows` and :func:`.scatter_rows.scatter_rows` of
@@ -81,6 +81,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_build
 from .intersect import triangle_transforms
 from .sampling import (
@@ -424,20 +425,18 @@ def _rows_lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load("segment_backward")
-    # segment_backward_launch takes (hit, full), segment_backward_rows_launch
-    # (rows, idx), in the same two places.
-    for fn in (lib.segment_backward_launch, lib.segment_backward_rows_launch):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P,  # pos, dir, tput, res, act, hit | rows, full | idx
-            _P, _P, _P, _P,  # u1, u2, urr, flags
-            _P, _P, _P, _P,  # cotangents of npos, ndir, ntput, nres
-            ctypes.c_int,  # R
-            ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
-            ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
-            _P, _P, _P, _P, _P,  # d_pos, d_dir, d_tput, d_res, d_full
-            _P,  # stream
-        ]
+    fn = lib.segment_backward_rows_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P,  # pos, dir, tput, res, act, rows, idx
+        _P, _P, _P, _P,  # u1, u2, urr, flags
+        _P, _P, _P, _P,  # cotangents of npos, ndir, ntput, nres
+        ctypes.c_int,  # R
+        ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode_rr, illum, eps_offset
+        ctypes.c_int, ctypes.c_int,  # refract_kd, phong_reflect
+        _P, _P, _P, _P, _P,  # d_pos, d_dir, d_tput, d_res, d_full
+        _P,  # stream
+    ]
     return lib
 
 
@@ -563,10 +562,13 @@ def _mega_segment_cuda(
         )
     if err != 0:
         raise RuntimeError(f"mega_segment kernel launch failed: cudaError {err}")
-    mega_segment.launches += 1
-    mega_segment.lane_launches += flags.shape[1] != 1
-    mega_segment.cull_launches += cull
-    mega_segment.lane_cull_launches += cull and flags.shape[1] != 1
+    lane = flags.shape[1] != 1
+    if lane:
+        count_launch("B1l")
+    if cull:
+        count_launch("B1c")
+    if not (lane or cull):
+        count_launch("B1")
     return idx, npos, ndir, ntput, nres, still
 
 
@@ -577,10 +579,8 @@ def mega_segment(
     cslack=None, crec=None, tested=None,
 ):
     """Whole-segment forward (see the module docstring). CUDA tensors
-    launch the kernel and add one to ``mega_segment.launches`` (and to
-    ``mega_segment.lane_launches`` for per-lane flags, to
-    ``mega_segment.cull_launches`` with chunk boxes, to
-    ``mega_segment.lane_cull_launches`` with both); CPU tensors run
+    launch the kernel and count it as B1, or as B1l with per-lane flags
+    and as B1c with chunk boxes (both with both); CPU tensors run
     :func:`mega_segment_ref`.
 
     ``tested``, on CUDA only: an int32 [ceil(R / 128)] tensor that the
@@ -595,12 +595,6 @@ def mega_segment(
     if pos3.device.type == "cpu":
         return mega_segment_ref(*args, **kw)
     raise ValueError(f"no segment kernel for device {pos3.device}")
-
-
-mega_segment.launches = 0  # kernel launches, per-lane flags and culling included
-mega_segment.lane_launches = 0  # of which with per-lane flags (B1l)
-mega_segment.cull_launches = 0  # of which with chunk culling (B1c)
-mega_segment.lane_cull_launches = 0  # of which with both (culled regen)
 
 
 def _rows_segment_cuda(
@@ -628,8 +622,7 @@ def _rows_segment_cuda(
         )
     if err != 0:
         raise RuntimeError(f"rows_segment kernel launch failed: cudaError {err}")
-    rows_segment.launches += 1
-    rows_segment.lane_launches += flags.shape[1] != 1
+    count_launch("B6l" if flags.shape[1] != 1 else "B6")
     return npos, ndir, ntput, nres, still
 
 
@@ -642,9 +635,8 @@ def rows_segment(
     ``idx`` i32[R] index ``rows`` f32[T, 48]; flags f32[3, 1] or f32[3, R].
     Returns (new_pos, new_dir, new_tput, new_res f32[3, R], still f32[R]).
     CUDA tensors launch ``csrc/rows_segment.cu`` (which reads the
-    winners' rows itself) and add one to ``rows_segment.launches`` (and
-    to ``rows_segment.lane_launches`` for per-lane flags); CPU tensors
-    run :func:`rows_segment_ref`."""
+    winners' rows itself) and count it as B6, or as B6l with per-lane
+    flags; CPU tensors run :func:`rows_segment_ref`."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
               refract_kd=refract_kd, phong_model=phong_model)
     args = (rows, idx, pos3, dir3, tput, res, live, u1, u2, urr, flags)
@@ -655,53 +647,24 @@ def rows_segment(
     raise ValueError(f"no rows_segment kernel for device {pos3.device}")
 
 
-rows_segment.launches = 0  # kernel launches, per-lane flags included
-rows_segment.lane_launches = 0  # of which with per-lane flags (B6l)
-
-
 def _segment_backward_cuda(
     pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
-    ct_npos, ct_ndir, ct_ntput, ct_nres, *,
-    mode, illum, eps_offset, refract_kd, phong_model,
+    ct_npos, ct_ndir, ct_ntput, ct_nres, **kw,
 ):
-    _check_options(mode, phong_model)
-    R = pos3.shape[1]
-    dev = pos3.device
-    cts = (ct_npos, ct_ndir, ct_ntput, ct_nres)
-    _check_vectors(dev, R, (pos3, dir3, tput, res, *cts), (u1, u2, urr), (act, hit), flags)
+    """B2 on the gathered rows: the copy ``full`` f32[48, R] is itself a
+    table, lane r's row at row r, read through the index r where ``hit``
+    (the same floats, so the outputs are those of the gathered rows)."""
+    R, dev = pos3.shape[1], pos3.device
+    _check_vectors(dev, R, (), (), (hit,), flags)
     if full.device != dev or not full.is_contiguous():
         raise ValueError(f"full must be a contiguous tensor on {dev}")
     if full.dtype != torch.float32:
         raise TypeError(f"full must be float32, got {full.dtype}")
     if tuple(full.shape) != (48, R):
         raise ValueError(f"full must be [48, {R}], got {tuple(full.shape)}")
-    return _launch_backward(
-        "segment_backward_launch", (pos3, dir3, tput, res, act, hit, full, u1, u2, urr, flags,
-                                    *cts), mode, illum, eps_offset, refract_kd, phong_model)
-
-
-def _launch_backward(name, ins, mode, illum, eps_offset, refract_kd, phong_model):
-    """Launch ``csrc/segment_backward.cu``'s ``name`` on the checked inputs
-    ``ins`` (its 15 tensor arguments in order, ``pos3`` first); returns
-    (d_pos, d_dir, d_tput, d_res, d_full) and counts the launch."""
-    pos3 = ins[0]
-    R, dev = pos3.shape[1], pos3.device
-    d_pos, d_dir, d_tput, d_res = (torch.empty_like(pos3) for _ in range(4))
-    d_full = torch.empty(48, R, dtype=torch.float32, device=dev)
-    launch = getattr(_bwd_lib(), name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(
-            *(x.data_ptr() for x in ins), R,
-            int(mode == "rr"), float(illum), float(eps_offset),
-            int(bool(refract_kd)), int(phong_model == "phong"),
-            d_pos.data_ptr(), d_dir.data_ptr(), d_tput.data_ptr(),
-            d_res.data_ptr(), d_full.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"segment_backward kernel launch failed: cudaError {err}")
-    segment_backward.launches += 1
-    return d_pos, d_dir, d_tput, d_res, d_full
+    idx = torch.where(hit, torch.arange(R, dtype=torch.int32, device=dev), -1).int()
+    return segment_backward_rows(pos3, dir3, tput, res, act, full.T.contiguous(), idx,
+                                 u1, u2, urr, flags, ct_npos, ct_ndir, ct_ntput, ct_nres, **kw)
 
 
 def segment_backward(
@@ -713,8 +676,8 @@ def segment_backward(
     """Whole-segment vjp (JAX ``segment_backward``): given the segment
     inputs, the gathered winner rows ``full`` f32[48, R] and the four
     output cotangents, returns (d_pos, d_dir, d_tput, d_res f32[3, R],
-    d_full f32[48, R]). CUDA tensors launch ``csrc/segment_backward.cu``
-    and add one to ``segment_backward.launches``; CPU tensors run
+    d_full f32[48, R]). CUDA tensors run :func:`segment_backward_rows`
+    with ``full`` as the table (B2, one launch); CPU tensors run
     :func:`segment_backward_ref`."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
               refract_kd=refract_kd, phong_model=phong_model)
@@ -725,10 +688,6 @@ def segment_backward(
     if pos3.device.type == "cpu":
         return segment_backward_ref(*args, **kw)
     raise ValueError(f"no segment backward kernel for device {pos3.device}")
-
-
-segment_backward.launches = 0  # kernel launches, those through the index included
-segment_backward.indexed_launches = 0  # of which segment_backward_rows' (rows through idx)
 
 
 def _segment_backward_rows_cuda(
@@ -743,12 +702,23 @@ def _segment_backward_rows_cuda(
     _check_vectors(dev, R, (pos3, dir3, tput, res, *cts), (u1, u2, urr), (act,), flags)
     _check_rows(rows, dev)
     _check_idx(idx, R, dev)
-    out = _launch_backward(
-        "segment_backward_rows_launch", (pos3, dir3, tput, res, act, rows, idx, u1, u2, urr,
-                                         flags, *cts), mode, illum, eps_offset, refract_kd,
-        phong_model)
-    segment_backward.indexed_launches += 1
-    return out
+    d_pos, d_dir, d_tput, d_res = (torch.empty_like(pos3) for _ in range(4))
+    d_full = torch.empty(48, R, dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.segment_backward_rows_launch(
+            *(x.data_ptr() for x in (pos3, dir3, tput, res, act, rows, idx, u1, u2, urr, flags,
+                                     *cts)), R,
+            int(mode == "rr"), float(illum), float(eps_offset),
+            int(bool(refract_kd)), int(phong_model == "phong"),
+            d_pos.data_ptr(), d_dir.data_ptr(), d_tput.data_ptr(),
+            d_res.data_ptr(), d_full.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"segment_backward kernel launch failed: cudaError {err}")
+    count_launch("B2")
+    return d_pos, d_dir, d_tput, d_res, d_full
 
 
 def segment_backward_rows(
@@ -760,10 +730,8 @@ def segment_backward_rows(
     """Whole-segment vjp from the row table ``rows`` f32[T, 48] and the
     winner index ``idx`` i32[R] (−1 = miss) in place of
     :func:`segment_backward`'s ``hit`` and ``full``; the same outputs.
-    CUDA tensors launch ``csrc/segment_backward.cu``'s kernel that reads
-    each lane's row through the index, and add one to
-    ``segment_backward.launches`` and to
-    ``segment_backward.indexed_launches``; CPU tensors run
+    CUDA tensors launch ``csrc/segment_backward.cu``, which reads each
+    lane's row through the index, and count it as B2; CPU tensors run
     :func:`segment_backward_rows_ref`."""
     kw = dict(mode=mode, illum=illum, eps_offset=eps_offset,
               refract_kd=refract_kd, phong_model=phong_model)

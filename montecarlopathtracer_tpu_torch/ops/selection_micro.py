@@ -26,11 +26,10 @@ package's ``tools/kernel_micro.py``), each with its plain version.
 
 They stay in bf16, as the TPU kernels do: they measure a bf16-input
 contraction and are not the renderer's selection, which runs in f32.
-For CUDA tensors each launches ``csrc/selection_micro.cu`` and adds one
-to its launch count (``selection_micro.launches[variant]``,
-``epilogue_only.launches``, ``epilogue_shared.launches``); for CPU
-tensors it runs the plain version. B13's and B14's plain versions round
-as their kernel does, so the two agree bit for bit. B12's kernel sums p
+For CUDA tensors each launches ``csrc/selection_micro.cu`` and counts
+the launch (as ``B12 <variant>``, B13, B14); for CPU tensors it runs the
+plain version. B13's and B14's plain versions round as their kernel
+does, so the two agree bit for bit. B12's kernel sums p
 on the bf16 tensor cores, in their order and rounding, where the plain
 version sums the 48 rows in order: the two are held together by
 ``testing.compare_micro``'s rounding rule.
@@ -43,6 +42,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_build
 
 VARIANTS = ("full", "matmul_only", "matmul_bf16")
@@ -174,7 +174,7 @@ def selection_micro(ws, rays, t_chunk: int = 256, variant: str = "full"):
                                             stream)
     if err != 0:
         raise RuntimeError(f"selection_micro kernel launch failed: cudaError {err}")
-    selection_micro.launches[variant] += 1
+    count_launch(f"B12 {variant}")
     return out
 
 
@@ -190,9 +190,9 @@ def _epilogue_ref(p, T, tc, R, shared):
     return _select_chunks(blocks, T, tc, R, p.device)
 
 
-def _epilogue(p, T, tc, R, shared, entry):
+def _epilogue(p, T, tc, R, shared):
     """The kernel (or, for a CPU tensor, the plain version) of B13, or of
-    B14 with ``shared``; adds one to ``entry.launches`` per launch."""
+    B14 with ``shared``, counting each launch."""
     if p.dtype != torch.float32 or p.dim() != 2:
         raise ValueError(f"p must be a float32 matrix, got {p.dtype} {tuple(p.shape)}")
     if p.device.type == "cpu":
@@ -215,7 +215,7 @@ def _epilogue(p, T, tc, R, shared, entry):
                                                    stream)
     if err != 0:
         raise RuntimeError(f"selection epilogue kernel launch failed: cudaError {err}")
-    entry.launches += 1
+    count_launch("B14" if shared else "B13")
     return out
 
 
@@ -224,7 +224,7 @@ def epilogue_only(p_all, t_chunk: int = 256):
     if p_all.shape[0] % (6 * t_chunk):
         raise ValueError(f"p_all has {p_all.shape[0]} rows: not 6 x T with T a multiple of "
                          f"{t_chunk}")
-    return _epilogue(p_all, p_all.shape[0] // 6, t_chunk, p_all.shape[1], False, epilogue_only)
+    return _epilogue(p_all, p_all.shape[0] // 6, t_chunk, p_all.shape[1], False)
 
 
 def epilogue_only_ref(p_all, t_chunk: int = 256):
@@ -240,14 +240,9 @@ def epilogue_shared(p_blk, T: int, R: int):
     tc = p_blk.shape[0] // 6
     if p_blk.shape[0] % 6 or tc == 0 or T % tc:
         raise ValueError(f"p_blk {tuple(p_blk.shape)} and T {T} do not make chunks")
-    return _epilogue(p_blk, T, tc, R, True, epilogue_shared)
+    return _epilogue(p_blk, T, tc, R, True)
 
 
 def epilogue_shared_ref(p_blk, T: int, R: int):
     """Plain version of :func:`epilogue_shared`."""
     return _epilogue_ref(p_blk, T, p_blk.shape[0] // 6, R, True)
-
-
-selection_micro.launches = dict.fromkeys(VARIANTS, 0)
-epilogue_only.launches = 0  # B13
-epilogue_shared.launches = 0  # B14

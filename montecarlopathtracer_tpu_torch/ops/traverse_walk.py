@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count_launch
 from . import cuda_build
 from .morton import chunk_aabbs_padded
 from .segment_fused import _select_ref
@@ -299,7 +300,7 @@ def _tables_cuda(rows, clo, chi, leaf, big) -> WalkTables:
             tables.tree.data_ptr(), tables.tri.data_ptr(), arrivals.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"traverse_tables kernel launch failed: cudaError {err}")
-    walk_tables.launches += 1
+    count_launch("B5t")
     return tables
 
 
@@ -310,7 +311,7 @@ def walk_tables_split(rows, clo, chi, leaf=CHUNK, big=None, *, parts=3, out=None
     block of 1,024 threads, from the records' slack and growth), 3 both.
     ``out``: the ``(tables, scratch)`` of an earlier call to write into (2
     needs the scratch of a call with 1). Returns ``(tables, scratch)``;
-    adds nothing to ``walk_tables.launches``."""
+    counts no launch."""
     if big is None:
         big = torch.zeros(0, dtype=torch.int32, device=rows.device)
     _check_table_inputs(rows, clo, chi, leaf)
@@ -337,8 +338,8 @@ def walk_tables(rows, clo, chi, leaf=CHUNK, big=None) -> WalkTables:
     ``leaf`` = :data:`CHUNK`) and the large triangles ``big`` i32[nb]
     that the boxes leave out (none by default; :func:`walk_boxes` gives
     boxes and list): for CUDA tensors ``csrc/traverse_select.cu``'s
-    ``traverse_tables_launch`` (one launch, a warp per leaf; it adds one
-    to ``walk_tables.launches``), :func:`walk_tables_ref` for CPU
+    ``traverse_tables_launch`` (one launch, a warp per leaf, counted as
+    B5t), :func:`walk_tables_ref` for CPU
     tensors. Build once per table and pass to
     :func:`traverse_select`."""
     if big is None:
@@ -352,9 +353,6 @@ def walk_tables(rows, clo, chi, leaf=CHUNK, big=None) -> WalkTables:
     if rows.device.type == "cpu":
         return walk_tables_ref(rows, clo, chi, leaf, big)
     raise ValueError(f"no traverse_tables kernel for device {rows.device}")
-
-
-walk_tables.launches = 0
 
 
 def _check_cuda_inputs(rows, clo, chi, pos3, dir3, live, tables, visits) -> None:
@@ -416,14 +414,14 @@ def _walk(rows, pos3, dir3, live, tables, visits):
         )
     if err != 0:
         raise RuntimeError(f"traverse_select kernel launch failed: cudaError {err}")
-    traverse_select.launches += 1
+    count_launch("B5")
     return idx
 
 
 def traverse_select(rows, clo, chi, pos3, dir3, live, *, tables=None, visits=None):
     """Winner index i32[R] in the permuted order (−1 = miss or not
-    live): for CUDA tensors the walk kernel (adding one to
-    ``traverse_select.launches``), :func:`traverse_select_ref` for CPU
+    live): for CUDA tensors the walk kernel (counted as B5),
+    :func:`traverse_select_ref` for CPU
     tensors. ``rows`` f32[T, 48] is the Morton-permuted row table and
     ``clo``, ``chi`` f32[ceil(T / CHUNK), 3] its chunk boxes.
 
@@ -444,6 +442,3 @@ def traverse_select(rows, clo, chi, pos3, dir3, live, *, tables=None, visits=Non
                              "walks no tree")
         return traverse_select_ref(rows, clo, chi, pos3, dir3, live)
     raise ValueError(f"no traverse_select kernel for device {pos3.device}")
-
-
-traverse_select.launches = 0

@@ -20,9 +20,10 @@
   writes a Chrome trace (``trace.json``, loadable in Perfetto or
   ``chrome://tracing``) and the recorded counters (``counters.json``)
   into a directory. The CLI enables it with ``--profile-dir``.
-- :func:`reset_launches` and :func:`launches` zero and read every
-  kernel wrapper's launch count (a wrapper counts only the launches of
-  its CUDA kernel, never its plain version); :func:`count_replay` adds a
+- :func:`count_launch` adds a launch to the kernel table's count by name
+  (:data:`KERNELS`): each kernel wrapper calls it where it launches its
+  CUDA kernel, never for its plain version. :func:`reset_launches` and
+  :func:`launches` zero and read the counts; :func:`count_replay` adds a
   CUDA graph's launches at each replay.
 - :func:`card` names the card and its power limit, as ``nvidia-smi``
   reports them, for the lines that carry a measurement.
@@ -106,7 +107,6 @@ class _Record:
             else:
                 c = torch.zeros(0, len(STATS), dtype=torch.int64)
             start, spent, end = pass_clocks(c).unbind(-1)
-            after = launches()
             self.sums = {
                 "passes": self.passes,
                 "steps": self.steps,
@@ -115,8 +115,7 @@ class _Record:
                 "tail_ms": int(torch.where(spent >= 0, end - spent, 0).sum()) / 1e6,
                 "grid": self.grid,
                 "ordered": self.ordered,
-                "launches": {k: n - self.before[k] for k, n in after.items()
-                             if n != self.before[k]},
+                "launches": dict(launches() - self.before),
                 "spans": {k: list(v) for k, v in self.spans.items()},
             }
             self.work = []
@@ -227,116 +226,66 @@ def trace(log_dir: Optional[str]):
         json.dump(counters, f, indent=1)
 
 
+KERNELS = (
+    "B1", "B1l", "B1c", "B2", "B3", "B4", "B4c", "B4r", "B5", "B5t", "B6", "B6l", "B7",
+    "B8", "B9", "B10", "B10c", "B11", "B12 full", "B12 matmul_only", "B12 matmul_bf16",
+    "B13", "B14", "RNG", "B1r", "B1rc",
+)
+"""The names that :func:`count_launch` takes, PERF.md's kernel table's:
+B1 apart from its per-lane-flag form B1l and its culling form B1c (a
+culled regen step counts under both), B4 apart from B4c, B5's tables
+(B5t, one count per build) apart from B5, B6 apart from B6l; the entries
+B8-B11 (each also counted under B4 or B4c, which it launches), B10 apart
+from B10c; B12 per variant, B13, B14; the culled loop's records (B4r, one
+count per build); the uniform draws (RNG, rng.cu, one count per draw of
+1-4 streams); the regen pass B1r apart from its culled instance B1rc (one
+count per pass)."""
+
+
 class Counts(dict):
-    """Launch counts of every kernel; printed with the kernels that
-    launched only."""
+    """Launch counts by kernel name; a name that is not in it reads 0, and
+    it prints the kernels that launched only. ``a - b`` is what launched
+    between two readings, the kernels that launched only."""
+
+    def __missing__(self, name):
+        return 0
 
     def __repr__(self):
         return repr({k: v for k, v in self.items() if v})
 
+    def __sub__(self, before):
+        return Counts({k: n - before[k] for k, n in self.items() if n != before[k]})
 
-def _counters() -> list:
-    """Every kernel wrapper's integer launch counter, as (wrapper,
-    attribute); B12's per-variant counts are a dict apart."""
-    from ..ops import cull as CU
-    from ..ops import nearest_shade as NS
-    from ..ops import nearest_variants as NV
-    from ..ops import regen_pass as RP
-    from ..ops import rng as RNG
-    from ..ops import scatter_rows as S
-    from ..ops import segment_fused as F
-    from ..ops import selection_micro as SM
-    from ..ops import traverse_walk as TW
 
-    return [
-        (CU.cull_records, "launches"), (RNG.stream_uniforms, "launches"),
-        (RP.regen_pass, "launches"), (RP.regen_pass, "cull_launches"),
-        (F.mega_segment, "launches"), (F.mega_segment, "lane_launches"),
-        (F.mega_segment, "cull_launches"), (F.mega_segment, "lane_cull_launches"),
-        (F.segment_backward, "launches"), (F.segment_backward, "indexed_launches"),
-        (S.scatter_rows, "launches"),
-        (F.rows_segment, "launches"), (F.rows_segment, "lane_launches"),
-        (TW.traverse_select, "launches"), (TW.walk_tables, "launches"),
-        (NS.nearest_triangle, "launches"), (NS.nearest_shade_full, "launches"),
-        (NS.nearest_shade_full, "cull_launches"), (NV.nearest_shade, "launches"),
-        (NV.nearest_shade2, "launches"), (NV.nearest_shade_culled, "launches"),
-        (NV.nearest_shade_streamed, "launches"), (NV.nearest_shade_streamed, "cull_launches"),
-        (SM.epilogue_only, "launches"), (SM.epilogue_shared, "launches"),
-    ]
+_launched = Counts.fromkeys(KERNELS, 0)  # launches since reset_launches()
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of the kernel ``name`` (one of :data:`KERNELS`);
+    each kernel wrapper calls it where it launches its CUDA kernel, never
+    for its plain version."""
+    if name not in _launched:
+        raise ValueError(f"no kernel {name!r} in the launch table")
+    _launched[name] += n
+
+
+def count_replay(held: dict) -> None:
+    """A CUDA graph replays: add the launches it holds (``{name: n}``, as
+    :func:`..diff.grad.graphed_loss` counted them at its capture), as
+    those launches would have."""
+    for name, n in held.items():
+        count_launch(name, n)
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    from ..ops import selection_micro as SM
-
-    for owner, name in _counters():
-        setattr(owner, name, 0)
-    SM.selection_micro.launches = dict.fromkeys(SM.VARIANTS, 0)
-
-
-def launch_counts() -> list:
-    """Every wrapper's integer launch counter now, in :func:`_counters`'
-    order (for :func:`replay_counts`' difference)."""
-    return [getattr(owner, name) for owner, name in _counters()]
-
-
-def replay_counts(counts: list) -> list:
-    """What :func:`count_replay` adds at each replay of a CUDA graph:
-    ``counts`` (a difference of :func:`launch_counts` over one run of
-    what the graph captured) as (wrapper, attribute, launches), the
-    wrappers that launched only, resolved once."""
-    return [(owner, name, n) for (owner, name), n in zip(_counters(), counts) if n]
-
-
-def count_replay(held: list) -> None:
-    """A CUDA graph replays: add the launches it holds
-    (:func:`replay_counts`) to their wrappers' counters, as those
-    launches would have."""
-    for owner, name, n in held:
-        setattr(owner, name, getattr(owner, name) + n)
+    """Set every kernel's launch count to 0."""
+    _launched.update(dict.fromkeys(KERNELS, 0))
 
 
 def launches() -> Counts:
-    """Launches of every kernel since :func:`reset_launches`: B1 apart
-    from its per-lane-flag form B1l and its culling form B1c (a culled
-    regen step counts under both), B2i (B2 reading its rows through the
-    winner index, also counted under B2), B4 apart from B4c, B5's tables
-    (B5t, one count per build) apart from B5, B6 apart from B6l; the entries B8-B11
-    (each also counted under B4 or B4c, which it launches), B10 apart
-    from B10c; B12 per variant, B13, B14; the culled loop's records (B4r,
-    one count per build); the uniform draws (RNG, rng.cu, one count per
-    draw of 1-4 streams); the regen pass B1r apart from its culled instance
-    B1rc (one count per pass)."""
-    from ..ops import cull as CU
-    from ..ops import nearest_shade as NS
-    from ..ops import nearest_variants as NV
-    from ..ops import regen_pass as RP
-    from ..ops import rng as RNG
-    from ..ops import scatter_rows as S
-    from ..ops import segment_fused as F
-    from ..ops import selection_micro as SM
-    from ..ops import traverse_walk as TW
-
-    B1 = F.mega_segment
-    B10 = NV.nearest_shade_streamed
-    return Counts({
-        "B8": NV.nearest_shade.launches, "B9": NV.nearest_shade2.launches,
-        "B10": B10.launches - B10.cull_launches, "B10c": B10.cull_launches,
-        "B11": NV.nearest_shade_culled.launches,
-        **{f"B12 {v}": n for v, n in SM.selection_micro.launches.items()},
-        "B13": SM.epilogue_only.launches, "B14": SM.epilogue_shared.launches,
-        "B1": B1.launches - B1.lane_launches - B1.cull_launches + B1.lane_cull_launches,
-        "B1l": B1.lane_launches, "B1c": B1.cull_launches,
-        "B2": F.segment_backward.launches, "B2i": F.segment_backward.indexed_launches,
-        "B3": S.scatter_rows.launches,
-        "B4": NS.nearest_shade_full.launches - NS.nearest_shade_full.cull_launches,
-        "B4c": NS.nearest_shade_full.cull_launches, "B4r": CU.cull_records.launches,
-        "B5": TW.traverse_select.launches, "B5t": TW.walk_tables.launches,
-        "B6": F.rows_segment.launches - F.rows_segment.lane_launches,
-        "B6l": F.rows_segment.lane_launches, "B7": NS.nearest_triangle.launches,
-        "RNG": RNG.stream_uniforms.launches,
-        "B1r": RP.regen_pass.launches, "B1rc": RP.regen_pass.cull_launches,
-    })
+    """Launches of every kernel of :data:`KERNELS` since
+    :func:`reset_launches`, a copy."""
+    return Counts(_launched)
 
 
 def card(device) -> str:

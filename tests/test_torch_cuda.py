@@ -101,10 +101,10 @@ def _camera_args(camera, rows, flags, key=make_key(1)):
 def test_kernel_matches_plain_on_card(card, mode, flags):
     _, camera, rows = card
     args = _camera_args(camera, rows, flags)
-    before = F.mega_segment.launches
+    before = profiling.launches()
     got = F.mega_segment(*args, mode=mode)
     torch.cuda.synchronize()
-    assert F.mega_segment.launches == before + 1
+    assert profiling.launches() - before == {"B1": 1}
     want = F.mega_segment_ref(*args, mode=mode)
     rep = compare_segment(want, got, live=args[5], rows=rows, pos=args[1], dir_=args[2])
     assert rep["ok"], rep
@@ -113,7 +113,7 @@ def test_kernel_matches_plain_on_card(card, mode, flags):
 def test_wrapper_refuses_bad_inputs_on_card(card):
     _, camera, rows = card
     args = list(_camera_args(camera, rows, [0.0, 0.0, 0.0]))
-    before = F.mega_segment.launches
+    before = profiling.launches()
     bad = list(args)
     bad[1] = torch.ones(args[1].shape[1], 3, device="cuda").T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
@@ -126,7 +126,7 @@ def test_wrapper_refuses_bad_inputs_on_card(card):
     bad[0] = rows.cpu()
     with pytest.raises(ValueError, match="on"):
         F.mega_segment(*bad)
-    assert F.mega_segment.launches == before
+    assert profiling.launches() - before == {}
 
 
 def test_render_on_card_matches_cpu_plain_path(card):
@@ -162,28 +162,32 @@ def test_segment_backward_kernel_matches_plain(card, mode, flags, opts):
     opts = dict(opts)
     tput = torch.full((3, 64 * 48), 0.6, device="cuda") if opts.pop("tied", False) else None
     idx, args = _backward_args(camera, rows, mode, flags, tput)
-    before = F.segment_backward.launches
+    before = profiling.launches()
     got = F.segment_backward(*args, mode=mode, **opts)
     torch.cuda.synchronize()
-    assert F.segment_backward.launches == before + 1
+    assert profiling.launches() - before == {"B2": 1}
     want = F.segment_backward_ref(*args, mode=mode, **opts)
     rep = compare_grads(want, got, lanes=args[4])
     assert rep["ok"], rep
 
 
-def _assert_indexed_b2_bit_equal(rows, idx, args, mode, opts):
-    """B2 through the index (``segment_backward_rows`` on ``rows`` and
-    ``idx``) against B2 on ``gather_rows(rows, idx)``, bit for bit; one
-    launch each, the first counted as indexed. Returns its outputs."""
+def _assert_b2_on_rows(rows, idx, args, mode, opts):
+    """B2 (``segment_backward_rows`` on ``rows`` and ``idx``) against its
+    plain version (``testing.compare_grads``, as the other B2 tests hold
+    it), and ``segment_backward`` on ``gather_rows(rows, idx)``, which
+    runs the same kernel over the gathered copy, bit-equal to it; one B2
+    launch each. Returns B2's outputs."""
     state, rest = args[:5], args[7:]
-    before = (F.segment_backward.launches, F.segment_backward.indexed_launches)
-    want = F.segment_backward(*state, idx >= 0, F.gather_rows(rows, idx), *rest, mode=mode,
-                              **opts)
+    before = profiling.launches()
     got = F.segment_backward_rows(*state, rows, idx, *rest, mode=mode, **opts)
+    same = F.segment_backward(*state, idx >= 0, F.gather_rows(rows, idx), *rest, mode=mode,
+                              **opts)
     torch.cuda.synchronize()
-    assert (F.segment_backward.launches, F.segment_backward.indexed_launches) == \
-        (before[0] + 2, before[1] + 1)
-    for name, g, w in zip(("d_pos", "d_dir", "d_tput", "d_res", "d_full"), got, want):
+    assert profiling.launches() - before == {"B2": 2}
+    want = F.segment_backward_rows_ref(*state, rows, idx, *rest, mode=mode, **opts)
+    rep = compare_grads(want, got, lanes=state[4])
+    assert rep["ok"], rep
+    for name, g, w in zip(("d_pos", "d_dir", "d_tput", "d_res", "d_full"), same, got):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
     return got
 
@@ -204,7 +208,7 @@ def test_indexed_segment_backward_is_bit_equal_to_gathered(card, mode, flags, op
     idx[::7] = -1
     act = args[4]
     assert bool((~act).any()) and bool((act & (idx < 0)).any()) and bool((act & (idx >= 0)).any())
-    got = _assert_indexed_b2_bit_equal(rows, idx, args, mode, opts)
+    got = _assert_b2_on_rows(rows, idx, args, mode, opts)
     if flags[0] == 0.0 and flags[2] == 0.0:  # lanes go on: the geometry rows are read
         assert float(got[4][:12].abs().max()) > 0.0
 
@@ -233,7 +237,7 @@ def test_indexed_segment_backward_reads_any_table(card, T):
     hit = idx >= 0
     assert torch.equal(F.gather_rows(table, moved)[:, hit], F.gather_rows(rows, idx)[:, hit])
     assert bool((moved >= T0).any()) and bool((moved < 0).any())
-    _assert_indexed_b2_bit_equal(table, moved, args, "rr", {})
+    _assert_b2_on_rows(table, moved, args, "rr", {})
 
 
 def _scatter_inputs(R, T, hot, seed):
@@ -254,10 +258,10 @@ def _scatter_inputs(R, T, hot, seed):
 ], ids=["T652", "T2000", "T5000", "T81932", "R0", "R1", "R37", "R8193-T1", "T1025"])
 def test_scatter_rows_kernel_matches_plain(card, R, T, hot):
     idx, dvals = _scatter_inputs(R, T, hot, seed=T + R)
-    before = S.scatter_rows.launches
+    before = profiling.launches()
     got = S.scatter_rows(idx, dvals, T)
     torch.cuda.synchronize()
-    assert S.scatter_rows.launches == before + 1
+    assert profiling.launches() - before == {"B3": 1}
     # Against the exact sums: the plain f32 index_add_ adds with atomics
     # in no fixed order.
     want = S.scatter_rows_ref(idx, dvals.double(), T)
@@ -288,12 +292,10 @@ def test_gradient_render_kernels_match_plain_path(card):
     loss_fn = G.make_loss_fn(scene, camera, torch.zeros(48, 64, 3, device="cuda"),
                              width=64, height=48, spp=1, config=config)
     params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
-    counts = (F.mega_segment.launches, F.segment_backward.launches,
-              F.segment_backward.indexed_launches, S.scatter_rows.launches)
+    before = profiling.launches()
     loss, got = G.value_and_grad(loss_fn, params, make_key(4))
-    assert (F.mega_segment.launches, F.segment_backward.launches,
-            F.segment_backward.indexed_launches,
-            S.scatter_rows.launches) == tuple(c + 8 for c in counts)
+    made = profiling.launches() - before
+    assert {k: made[k] for k in ("B1", "B2", "B3")} == dict.fromkeys(("B1", "B2", "B3"), 8)
     with plain_kernels():
         loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
     assert float(loss) == pytest.approx(float(loss_ref), rel=1e-5)
@@ -309,26 +311,26 @@ def test_rng_kernel_is_bit_equal_to_plain_on_card(card, R, k):
     stream, a contiguous row per stream; ``stream_uniform`` is its row."""
     key = RNG.fold_in(make_key(9), 2)
     ids = (0, (1 << 30) + 673, 3)[:k]
-    before = RNG.stream_uniforms.launches
+    before = profiling.launches()
     got = RNG.stream_uniforms(key, ids, R, "cuda")
     torch.cuda.synchronize()
-    assert RNG.stream_uniforms.launches == before + 1
+    assert profiling.launches() - before == {"RNG": 1}
     assert got.shape == (k, R) and got.dtype == torch.float32
     assert all(row.is_contiguous() for row in got)
     want = RNG.stream_uniforms_ref(key, ids, R, "cuda")
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     row = RNG.stream_uniform(key, ids[-1], R, "cuda")
     assert torch.equal(row.view(torch.int32), want[-1].view(torch.int32))
-    assert RNG.stream_uniforms.launches == before + 2
+    assert profiling.launches() - before == {"RNG": 2}
 
 
 def test_rng_wrapper_refuses_on_card(card):
-    before = RNG.stream_uniforms.launches
+    before = profiling.launches()
     with pytest.raises(ValueError, match="streams"):
         RNG.stream_uniforms(make_key(1), range(5), 16, "cuda")
     with pytest.raises(ValueError, match="2\\*\\*32"):
         RNG.stream_uniforms(make_key(1), (0,), 2**32, "cuda")
-    assert RNG.stream_uniforms.launches == before
+    assert profiling.launches() - before == {}
 
 
 def test_render_under_plain_kernels_equals_kernel_render_on_card(card):
@@ -337,14 +339,14 @@ def test_render_under_plain_kernels_equals_kernel_render_on_card(card):
     RNG launches only on the kernel path."""
     scene, camera, _ = card
     config = TraceConfig(max_depth=7, mode="rr", rr_depth=3, illum=1.0)
-    before = (RNG.stream_uniforms.launches, F.mega_segment.launches)
+    before = profiling.launches()
     got = render_sample_batch(scene, camera, make_key(6), 64, 48, config)
     torch.cuda.synchronize()
-    assert RNG.stream_uniforms.launches == before[0] + 1 + config.num_segments
-    assert F.mega_segment.launches == before[1] + config.num_segments
+    made = profiling.launches() - before
+    assert (made["RNG"], made["B1"]) == (1 + config.num_segments, config.num_segments)
     with plain_kernels():
         want = render_sample_batch(scene, camera, make_key(6), 64, 48, config)
-    assert RNG.stream_uniforms.launches == before[0] + 1 + config.num_segments
+    assert profiling.launches() - before == made
     rep = compare_images(got, want)
     assert rep["ok"], rep
 
@@ -352,8 +354,7 @@ def test_render_under_plain_kernels_equals_kernel_render_on_card(card):
 def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
     _, camera, rows = card
     _, args = _backward_args(camera, rows, "fixed", [0.0, 0.0, 0.0])
-    before = (F.segment_backward.launches, F.segment_backward.indexed_launches,
-              S.scatter_rows.launches)
+    before = profiling.launches()
     bad = list(args)
     bad[1] = args[1].cpu()
     with pytest.raises(ValueError, match="on"):
@@ -394,8 +395,7 @@ def test_gradient_wrappers_refuse_bad_inputs_on_card(card):
         S.scatter_rows(idx, torch.zeros(10, 48, device="cuda").T, 4)
     with pytest.raises(ValueError, match="out of range"):
         S.scatter_rows(idx, torch.zeros(48, 10, device="cuda"), 0)
-    assert (F.segment_backward.launches, F.segment_backward.indexed_launches,
-            S.scatter_rows.launches) == before
+    assert profiling.launches() - before == {}
 
 
 def _lane_flags(R, seed):
@@ -411,10 +411,10 @@ def test_lane_flag_kernel_matches_plain_on_card(card, mode):
     out = F.mega_segment(*args)  # a first-bounce wavefront
     args[1:6] = [out[1], out[2], out[3], out[4], out[5] > 0]
     args[9] = _lane_flags(64 * 48, seed=len(mode))
-    before = F.mega_segment.launches
+    before = profiling.launches()
     got = F.mega_segment(*args, mode=mode)
     torch.cuda.synchronize()
-    assert F.mega_segment.launches == before + 1
+    assert profiling.launches() - before == {"B1l": 1}
     want = F.mega_segment_ref(*args, mode=mode)
     rep = compare_segment(want, got, live=args[5], rows=rows, pos=args[1], dir_=args[2])
     assert rep["ok"], rep
@@ -444,11 +444,11 @@ def test_traverse_kernel_matches_plain_on_card(bunny_card):
     nleaf, P = -(-tables.rows.shape[0] // tables.walk.leaf), tables.walk.leaves
     for pos, dir_, _, _, live in _waves(camera, tables.rows):
         visits = torch.full((2, pos.shape[1]), -1, dtype=torch.int32, device="cuda")
-        before = TW.traverse_select.launches
+        before = profiling.launches()
         got = TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live,
                                  tables=tables.walk, visits=visits)
         torch.cuda.synchronize()
-        assert TW.traverse_select.launches == before + 1
+        assert profiling.launches() - before == {"B5": 1}
         want = TW.traverse_select_ref(tables.rows, tables.clo, tables.chi, pos, dir_, live)
         rep = compare_winners(got, want, live=live, rows=tables.rows, pos=pos, dir_=dir_)
         assert rep["ok"], rep
@@ -465,10 +465,10 @@ def test_walk_tables_kernel_matches_plain_on_card(bunny_card):
     scale (the kernel contracts FMAs), infinite exactly where the plain
     version's are."""
     _, _, tables = bunny_card
-    before = TW.walk_tables.launches
+    before = profiling.launches()
     got = TW.walk_tables(tables.rows.detach(), tables.clo, tables.chi)
     torch.cuda.synchronize()
-    assert TW.walk_tables.launches == before + 1
+    assert profiling.launches() - before == {"B5t": 1}
     want = TW.walk_tables_ref(tables.rows.detach(), tables.clo, tables.chi)
     box = [0, 1, 2, 4, 5, 6]
     assert torch.equal(got.tree[:, box], want.tree[:, box])
@@ -516,12 +516,12 @@ def test_walk_tables_one_launch_equals_earlier_build_on_card(card, which):
                     cases.append((rows[perm].contiguous(), clo, chi, leaf, None))
     box = [0, 1, 2, 4, 5, 6]
     for rows, clo, chi, leaf, big in cases:
-        before = TW.walk_tables.launches
+        before = profiling.launches()
         got = TW.walk_tables(rows, clo, chi, leaf, big)
         torch.cuda.synchronize()
-        assert TW.walk_tables.launches == before + 1
+        assert profiling.launches() - before == {"B5t": 1}
         old, _ = TW.walk_tables_split(rows, clo, chi, leaf, big)
-        assert TW.walk_tables.launches == before + 1
+        assert profiling.launches() - before == {"B5t": 1}
         assert _tables_bits(got, old)
         P, nc = got.leaves, clo.shape[0]
         ref = TW.tree_ref(clo, chi, got.tree[P:P + nc, 3], got.tree[P:P + nc, 7])
@@ -557,10 +557,10 @@ def test_rows_segment_kernel_matches_plain_on_card(bunny_card, lane):
         torch.tensor([[0.0], [1.0], [0.0]], device="cuda")
     args = (tables.rows, idx, pos, dir_, tput, res, live, u1, u2, urr, flags)
     for mode in ("fixed", "rr"):
-        before = F.rows_segment.launches
+        before = profiling.launches()
         got = F.rows_segment(*args, mode=mode)
         torch.cuda.synchronize()
-        assert F.rows_segment.launches == before + 1
+        assert profiling.launches() - before == {"B6l" if lane else "B6": 1}
         want = F.rows_segment_ref(*args, mode=mode)
         rep = compare_segment((idx, *want), (idx, *got), live=live, rows=tables.rows,
                               pos=pos, dir_=dir_)
@@ -581,13 +581,14 @@ def test_traverse_render_on_card_matches_cpu_plain_path(bunny_card):
 def test_regen_on_card_matches_cpu_plain_path(card, intersector):
     scene, camera, _ = card
     config = TraceConfig(mode="rr", rr_depth=2, illum=1.0, intersector=intersector)
-    launches = (RP.regen_pass.launches, F.mega_segment.launches, F.rows_segment.launches)
+    before = profiling.launches()
     got = render_regen_batch(scene, camera, make_key(5), 64, 48, 2, config)
-    after = (RP.regen_pass.launches, F.mega_segment.launches, F.rows_segment.launches)
+    made = profiling.launches() - before
+    b1, b6 = made["B1"] + made["B1l"] + made["B1c"], made["B6"] + made["B6l"]
     if intersector == "megakernel":  # the pass kernel (B1r), no segment launch
-        assert after == (launches[0] + 1, *launches[1:])
+        assert (made["B1r"], b1, b6) == (1, 0, 0)
     else:  # the host loop: the walk and the rows segment (B6l) per step
-        assert after[:2] == launches[:2] and after[2] > launches[2]
+        assert (made["B1r"], b1) == (0, 0) and b6 > 0
     want = render_regen_batch(scene.to("cpu"), camera.to("cpu"), make_key(5), 64, 48, 2,
                               config)
     rep = compare_images(got, want)
@@ -626,15 +627,12 @@ def test_regen_pass_kernel_equals_host_loop_on_card(card, which):
     T = tables.rows.shape[0]
     assert (T > 760 and not config.chunk_cull) == which.startswith("glossy_ring")  # kWholeMax
     key = make_key(17)
-    before = (RP.regen_pass.launches, RP.regen_pass.cull_launches, F.mega_segment.launches,
-              RNG.stream_uniforms.launches)
+    before = profiling.launches()
     stats = {}
     got, steps = RP.regen_pass(tables, config, camera, key, w, h, spp, **band, stats=stats)
     torch.cuda.synchronize()
-    after = (RP.regen_pass.launches, RP.regen_pass.cull_launches, F.mega_segment.launches,
-             RNG.stream_uniforms.launches)
     cull = int(config.chunk_cull)
-    assert after == (before[0] + 1 - cull, before[1] + cull, *before[2:])
+    assert profiling.launches() - before == {"B1rc" if cull else "B1r": 1}
     want, host_steps = RP.regen_pass_ref(tables, config, camera, key, w, h, spp, **band)
     assert torch.equal(got, want) and torch.equal(steps, host_steps)
     R = w * band.get("n_rows", h)
@@ -838,13 +836,11 @@ def test_traverse_gradient_render_kernels_match_plain_path(bunny_card):
     loss_fn = G.make_loss_fn(scene, camera, torch.zeros(48, 64, 3, device="cuda"),
                              width=64, height=48, spp=1, config=config)
     params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
-    counts = (TW.traverse_select.launches, F.rows_segment.launches,
-              F.segment_backward.launches, F.segment_backward.indexed_launches,
-              S.scatter_rows.launches)
+    before = profiling.launches()
     loss, got = G.value_and_grad(loss_fn, params, make_key(4))
-    assert (TW.traverse_select.launches, F.rows_segment.launches,
-            F.segment_backward.launches, F.segment_backward.indexed_launches,
-            S.scatter_rows.launches) == tuple(c + 4 for c in counts)
+    made = profiling.launches() - before
+    names = ("B5", "B6", "B2", "B3")
+    assert {k: made[k] for k in names} == dict.fromkeys(names, 4)
     with plain_kernels():
         loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
     assert float(loss) == pytest.approx(float(loss_ref), rel=1e-5)
@@ -855,7 +851,7 @@ def test_traverse_gradient_render_kernels_match_plain_path(bunny_card):
 def test_traverse_wrappers_refuse_bad_inputs_on_card(bunny_card):
     _, camera, tables = bunny_card
     pos, dir_, tput, res, live = _waves(camera, tables.rows)[0]
-    before = (TW.traverse_select.launches, F.rows_segment.launches)
+    before = profiling.launches()
     with pytest.raises(TypeError, match="live"):
         TW.traverse_select(tables.rows, tables.clo, tables.chi, pos, dir_, live.float())
     with pytest.raises(ValueError, match="chunk boxes"):
@@ -877,7 +873,7 @@ def test_traverse_wrappers_refuse_bad_inputs_on_card(bunny_card):
     with pytest.raises(ValueError, match="flags"):
         F.rows_segment(tables.rows, idx.int(), pos, dir_, tput, res, live, u, u, u,
                        torch.zeros(3, 7, device="cuda"))
-    assert (TW.traverse_select.launches, F.rows_segment.launches) == before
+    assert profiling.launches() - before == {}
 
 
 @pytest.fixture(scope="module")
@@ -902,11 +898,10 @@ def test_cull_kernel_matches_plain_on_card(glossy_card, lane):
         args = (tables.rows, pos, dir_, tput, res, live, u1, u2, urr, flags)
         for mode in ("fixed", "rr"):
             tested = torch.zeros(-(-R // 128), dtype=torch.int32, device="cuda")
-            before = (F.mega_segment.launches, F.mega_segment.cull_launches)
+            before = profiling.launches()
             got = F.mega_segment(*args, mode=mode, tested=tested, **tables.cull_boxes)
             torch.cuda.synchronize()
-            assert (F.mega_segment.launches, F.mega_segment.cull_launches) == \
-                (before[0] + 1, before[1] + 1)
+            assert profiling.launches() - before == {"B1c": 1, **({"B1l": 1} if lane else {})}
             want = F.mega_segment_ref(*args, mode=mode)
             rep = compare_segment(want, got, live=live, rows=tables.rows, pos=pos, dir_=dir_)
             assert rep["ok"], rep
@@ -1048,8 +1043,7 @@ def _entries_vs_b4(verts, pos, dir_, live, seed):
     assert (rows_p[T:, :12] == 0).all()
     ws_c = NV.pack_transforms_stream(m[perm], m_a[perm], valid[perm], 128)
     clo, chi = chunk_aabbs_padded(a, b, c, valid, perm, 128)
-    before = (NV.nearest_shade_streamed.cull_launches, NV.nearest_shade_culled.launches,
-              CU.cull_records.launches)
+    before = profiling.launches()
     b10c = NV.nearest_shade_streamed(ws_c, NV._geometry(wp).contiguous(), tp, pos, dir_, live,
                                      clo, chi, t_chunk=128, cull=True)
     b11 = NV.nearest_shade_culled(wp, tp, *chunk_aabbs(a, b, c, valid, perm, 128), pos, dir_,
@@ -1058,8 +1052,8 @@ def _entries_vs_b4(verts, pos, dir_, live, seed):
     want_dz = NS.nearest_shade_full(rows_p, pos, dir_, live, dz_test=True)
     torch.cuda.synchronize()
     # Each entry builds its records with its unpacking: one B4r launch each.
-    assert (NV.nearest_shade_streamed.cull_launches, NV.nearest_shade_culled.launches,
-            CU.cull_records.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+    made = profiling.launches() - before
+    assert (made["B10c"], made["B11"], made["B4r"]) == (1, 1, 2)
     return (all(torch.equal(x, y) for x, y in zip(b10c, want)),
             all(torch.equal(x, y) for x, y in zip(b11, want_dz)))
 
@@ -1117,7 +1111,7 @@ def test_culled_wrappers_refuse_bad_records_on_card(glossy_card):
     _, camera, tables = glossy_card
     pos, dir_, _, _, live = _waves(camera, tables.rows)[0]
     boxes = tables.cull_boxes
-    before = (NS.nearest_shade_full.launches, F.mega_segment.launches, CU.cull_records.launches)
+    before = profiling.launches()
     for bad in (boxes["crec"][:-1], boxes["crec"].cpu(), boxes["crec"][:, :12]):
         with pytest.raises(ValueError, match="records"):
             NS.nearest_shade_full(tables.rows, pos, dir_, live, **dict(boxes, crec=bad))
@@ -1127,12 +1121,11 @@ def test_culled_wrappers_refuse_bad_records_on_card(glossy_card):
                            **dict(boxes, crec=bad))
     with pytest.raises(ValueError, match="records"):
         CU.cull_records(tables.rows[:, :12])
-    assert (NS.nearest_shade_full.launches, F.mega_segment.launches,
-            CU.cull_records.launches) == before
+    assert profiling.launches() - before == {}
     # Records built by the wrapper when none are given: one B4r launch.
     got = NS.nearest_shade_full(tables.rows, pos, dir_, live, **dict(boxes, crec=None))
     torch.cuda.synchronize()
-    assert CU.cull_records.launches == before[2] + 1
+    assert profiling.launches() - before == {"B4r": 1, "B4c": 1}
     want = NS.nearest_shade_full(tables.rows, pos, dir_, live, **boxes)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -1158,11 +1151,10 @@ def test_nearest_shade_kernel_matches_plain_on_card(card, glossy_card, cull):
         cases = cases[1:]
     for camera, rows, boxes in cases:
         for pos, dir_, _, _, live in _waves(camera, rows):
-            before = (NS.nearest_shade_full.launches, NS.nearest_shade_full.cull_launches)
+            before = profiling.launches()
             got = NS.nearest_shade_full(rows, pos, dir_, live, **boxes)
             torch.cuda.synchronize()
-            assert (NS.nearest_shade_full.launches, NS.nearest_shade_full.cull_launches) == \
-                (before[0] + 1, before[1] + cull)
+            assert profiling.launches() - before == {"B4c" if cull else "B4": 1}
             want = NS.nearest_shade_full_ref(rows, pos, dir_, live)
             rep = compare_shade(got, want, live=live, rows=rows, pos=pos, dir_=dir_)
             assert rep["ok"], rep
@@ -1173,10 +1165,10 @@ def test_nearest_triangle_kernel_matches_plain_on_card(card, glossy_card):
         rows = F.pack_rows_full(scene)
         geom = rows[:, :12].contiguous()
         for pos, dir_, _, _, _ in _waves(camera, rows):
-            before = NS.nearest_triangle.launches
+            before = profiling.launches()
             got = NS.nearest_triangle(geom, pos, dir_)
             torch.cuda.synchronize()
-            assert NS.nearest_triangle.launches == before + 1
+            assert profiling.launches() - before == {"B7": 1}
             want = NS.nearest_triangle_ref(geom, pos, dir_)
             rep = compare_winners(got, want, live=torch.ones_like(got, dtype=torch.bool),
                                   rows=rows, pos=pos, dir_=dir_)
@@ -1209,12 +1201,12 @@ def test_fused_index_equals_control_loop_on_card(card, glossy_card, which):
     for rows, waves in _b7_waves(card, glossy_card, which):
         geom = rows[:, :12].contiguous()
         for pos, dir_, live in waves:
-            before = NS.nearest_triangle.launches
+            before = profiling.launches()
             control = NS.nearest_triangle_control(geom, pos, dir_)
             b7 = NS.nearest_triangle(geom, pos, dir_)
             dz = NS.nearest_shade_full(rows, pos, dir_, live, dz_test=True)[0]
             torch.cuda.synchronize()
-            assert NS.nearest_triangle.launches == before + 1
+            assert profiling.launches() - before == {"B7": 1, "B4": 1}
             assert torch.equal(b7, control), int((b7 != control).sum())
             assert torch.equal(dz, torch.where(live, control, -1))
             assert (control >= 0).float().mean() > 0.1
@@ -1227,11 +1219,10 @@ def test_fused_index_equals_control_loop_on_card(card, glossy_card, which):
 def test_split_and_cull_renders_on_card_match_cpu_plain_path(glossy_card, kw):
     scene, camera, _ = glossy_card
     config = TraceConfig(max_depth=3, **kw)
-    counts = (F.mega_segment.cull_launches, NS.nearest_shade_full.launches,
-              NS.nearest_triangle.launches)
+    before = profiling.launches()
     got = render_sample_batch(scene, camera, make_key(2), 64, 48, config)
-    assert (F.mega_segment.cull_launches, NS.nearest_shade_full.launches,
-            NS.nearest_triangle.launches) != counts
+    made = profiling.launches() - before
+    assert any(made[k] for k in ("B1c", "B4", "B4c", "B7"))
     want = render_sample_batch(scene.to("cpu"), camera.to("cpu"), make_key(2), 64, 48, config)
     rep = compare_images(got, want)
     assert rep["ok"], rep
@@ -1244,13 +1235,12 @@ def test_split_gradient_kernels_match_plain_path(card, intersector):
     loss_fn = G.make_loss_fn(scene, camera, torch.zeros(48, 64, 3, device="cuda"),
                              width=64, height=48, spp=1, config=config)
     params = G.split_params(scene, ("mat_kd", "mat_ka", "vertices"))
-    counts = (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
-              S.scatter_rows.launches)
+    before = profiling.launches()
     loss, got = G.value_and_grad(loss_fn, params, make_key(4))
+    made = profiling.launches() - before
     split = intersector == "megakernel"
-    assert (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
-            S.scatter_rows.launches) == (counts[0] + 4 * split, counts[1] + 4 * (not split),
-                                         counts[2] + 4 * split)
+    assert (made["B4"] + made["B4c"], made["B7"], made["B3"]) == \
+        (4 * split, 4 * (not split), 4 * split)
     with plain_kernels():
         loss_ref, want = G.value_and_grad(loss_fn, params, make_key(4))
     assert float(loss) == pytest.approx(float(loss_ref), rel=1e-5)
@@ -1261,8 +1251,7 @@ def test_split_gradient_kernels_match_plain_path(card, intersector):
 def test_split_wrappers_refuse_bad_inputs_on_card(glossy_card):
     _, camera, tables = glossy_card
     pos, dir_, _, _, live = _waves(camera, tables.rows)[0]
-    before = (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
-              F.mega_segment.launches)
+    before = profiling.launches()
     with pytest.raises(TypeError, match="live"):
         NS.nearest_shade_full(tables.rows, pos, dir_, live.float())
     with pytest.raises(ValueError, match="chunk boxes"):
@@ -1278,8 +1267,7 @@ def test_split_wrappers_refuse_bad_inputs_on_card(glossy_card):
         NS.nearest_triangle(tables.rows, pos, dir_)
     with pytest.raises(ValueError, match="contiguous"):
         NS.nearest_triangle(tables.rows[:, :12], pos, dir_)
-    assert (NS.nearest_shade_full.launches, NS.nearest_triangle.launches,
-            F.mega_segment.launches) == before
+    assert profiling.launches() - before == {}
 
 
 @pytest.mark.parametrize("which", ["cornell", "glossy"], ids=["652+116", "1332+76"])
@@ -1374,19 +1362,16 @@ def test_selection_entries_match_plain_on_card(glossy_card, name):
     launches and agree with their plain versions (``testing.compare_shade``)
     on the glossy camera wavefront and its first bounce with dead lanes."""
     scene, camera, tables = glossy_card
-    entry = {"B8": NV.nearest_shade, "B9": NV.nearest_shade2, "B10": NV.nearest_shade_streamed,
-             "B10c": NV.nearest_shade_streamed, "B11": NV.nearest_shade_culled,
-             "B11w": NV.nearest_shade_culled}[name]
+    entry = "B11" if name == "B11w" else name
     for pos, dir_, _, _, live in _waves(camera, tables.rows):
         call, rows = _variant_calls(scene, tables.perm, pos, dir_, live)[name]
-        before = (entry.launches, NS.nearest_shade_full.launches,
-                  NS.nearest_shade_full.cull_launches)
+        before = profiling.launches()
         got = call()
         torch.cuda.synchronize()
+        made = profiling.launches() - before
         cull = name in ("B10c", "B11", "B11w")
-        assert (entry.launches, NS.nearest_shade_full.launches,
-                NS.nearest_shade_full.cull_launches) == (before[0] + 1, before[1] + 1,
-                                                         before[2] + cull)
+        assert [k for k in ("B8", "B9", "B10", "B10c", "B11") if made[k]] == [entry]
+        assert (made[entry], made["B4"], made["B4c"]) == (1, 1 - cull, cull)
         with plain_kernels():
             want = call()
         every = name in ("B8", "B9")  # these entries have no live mask
@@ -1405,10 +1390,10 @@ def test_selection_micro_matches_plain_on_card(card, variant, R):
     g = torch.Generator(device="cuda").manual_seed(3)
     ws = torch.randn(SM.K, 6 * 768, device="cuda", generator=g).to(torch.bfloat16)
     rays = torch.randn(SM.K, R, device="cuda", generator=g).to(torch.bfloat16)
-    before = SM.selection_micro.launches[variant]
+    before = profiling.launches()
     got = SM.selection_micro(ws, rays, 256, variant)
     torch.cuda.synchronize()
-    assert SM.selection_micro.launches[variant] == before + 1
+    assert profiling.launches() - before == {f"B12 {variant}": 1}
     rep = compare_micro(ws, rays, 256, variant, got, SM.selection_micro_ref(ws, rays, 256,
                                                                             variant))
     assert rep["ok"], rep
@@ -1416,22 +1401,22 @@ def test_selection_micro_matches_plain_on_card(card, variant, R):
         SM.selection_micro(ws, rays[:, ::2], 256, variant)
     with pytest.raises(ValueError, match="multiple of 8"):
         SM.selection_micro(ws, rays, 12, variant)
-    assert SM.selection_micro.launches[variant] == before + 1
+    assert profiling.launches() - before == {f"B12 {variant}": 1}
 
 
 def test_selection_epilogues_match_plain_on_card(card):
     g = torch.Generator(device="cuda").manual_seed(4)
     p_all = torch.randn(6 * 768, 3000, device="cuda", generator=g)
-    before = SM.epilogue_only.launches
+    before = profiling.launches()
     got = SM.epilogue_only(p_all, 256)
     torch.cuda.synchronize()
-    assert SM.epilogue_only.launches == before + 1
+    assert profiling.launches() - before == {"B13": 1}
     assert torch.equal(got, SM.epilogue_only_ref(p_all, 256))
     p_blk = torch.randn(6 * 256, 512, device="cuda", generator=g)
-    before = SM.epilogue_shared.launches
+    before = profiling.launches()
     got = SM.epilogue_shared(p_blk, 768, 3000)
     torch.cuda.synchronize()
-    assert SM.epilogue_shared.launches == before + 1
+    assert profiling.launches() - before == {"B14": 1}
     assert torch.equal(got, SM.epilogue_shared_ref(p_blk, 768, 3000))
 
 
@@ -1452,14 +1437,14 @@ def test_epilogue_shared_kernel_is_bit_equal_to_plain(card, R, Rt, tc, T):
     odd = p_blk.clone()
     pick = torch.randint(0, special.numel(), (tc, -(-Rt // 3)), device="cuda", generator=g)
     odd[5 * tc:, ::3] = special[pick]
-    before = SM.epilogue_shared.launches
+    before = profiling.launches()
     for blk in (p_blk, odd):
         want = SM.epilogue_shared_ref(blk, T, R)
         assert (want >= 0).float().mean() > 0.3
         got = SM.epilogue_shared(blk, T, R)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-    assert SM.epilogue_shared.launches == before + 2
+    assert profiling.launches() - before == {"B14": 2}
     with pytest.raises(ValueError, match="multiple of 4"):
         SM.epilogue_shared(torch.randn(6 * tc, 130, device="cuda"), T, R)
     with pytest.raises(ValueError, match="do not make chunks"):
@@ -1495,10 +1480,10 @@ def test_sharded_paths_at_world_size_one_under_nccl_on_card(card, tmp_path):
     try:
         mesh = make_mesh(1, 1)
         assert (mesh.backend, mesh.device.type) == ("nccl", "cuda")
-        before = F.mega_segment.launches
+        before = profiling.launches()
         with torch.no_grad():
             got = SH.sharded_sample_pass(mesh, config=cfg, **kw)(scene, camera, make_key(4))
-            assert F.mega_segment.launches == before + 2 * cfg.num_segments
+            assert (profiling.launches() - before)["B1"] == 2 * cfg.num_segments
             want = T.emulate_sample_pass(scene, camera, make_key(4), (1, 1), config=cfg, **kw)
         assert torch.equal(got, want)
         got = SH.sharded_regen_pass(mesh, config=rcfg, **kw)(scene, camera, make_key(5))
@@ -1521,12 +1506,12 @@ def test_graft_entry_renders_on_card(card):
     from montecarlopathtracer_tpu_torch import graft_entry
 
     fn, args = graft_entry.entry()
-    before = F.mega_segment.launches
+    before = profiling.launches()
     with torch.no_grad():
         img = fn(*args)
     torch.cuda.synchronize()
     assert tuple(img.shape) == (128, 128, 3) and bool(torch.isfinite(img).all())
-    assert float(img.mean()) > 0 and F.mega_segment.launches == before + 8
+    assert float(img.mean()) > 0 and (profiling.launches() - before)["B1"] == 8
 
 
 def test_two_gloo_ranks_share_the_card(card):

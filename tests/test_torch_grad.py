@@ -40,6 +40,7 @@ from montecarlopathtracer_tpu_torch.testing import (
     compare_grads,
     compare_scatter,
 )
+from montecarlopathtracer_tpu_torch.utils import profiling
 from test_torch_segment import CASES, T_CHUNK, _inputs, _kw
 
 cap_torch_threads()
@@ -101,13 +102,13 @@ def test_segment_backward_matches_jax(tables, case):
         interpret=True, **kw,
     )
     t = _torch(x)
-    before = F.segment_backward.launches
+    before = profiling.launches()
     got = F.segment_backward(
         t["pos"], t["dir"], t["tput"], t["res"], t["live"], torch.from_numpy(hit),
         torch.from_numpy(full), t["u1"], t["u2"], t["urr"], torch.from_numpy(flags),
         *map(torch.from_numpy, cts), **kw,
     )
-    assert F.segment_backward.launches == before  # CPU tensors: plain version
+    assert profiling.launches() - before == {}  # CPU tensors: plain version
     lanes = x["live"] & hit
     rep = compare_grads([np.asarray(w) for w in want], got, lanes=lanes)
     assert rep["ok"], rep
@@ -132,10 +133,10 @@ def test_segment_backward_rows_plain_path_is_the_gathered_one(tables, case):
     t = _torch(x)
     state = (t["pos"], t["dir"], t["tput"], t["res"], t["live"])
     rest = (t["u1"], t["u2"], t["urr"], torch.from_numpy(flags), *map(torch.from_numpy, cts))
-    before = (F.segment_backward.launches, F.segment_backward.indexed_launches)
+    before = profiling.launches()
     got = F.segment_backward_rows(*state, torch.from_numpy(rows), torch.from_numpy(idx), *rest,
                                   **kw)
-    assert (F.segment_backward.launches, F.segment_backward.indexed_launches) == before
+    assert profiling.launches() - before == {}
     full = np.ascontiguousarray(rows[np.maximum(idx, 0)].T)
     want = F.segment_backward_ref(*state, torch.from_numpy(idx >= 0), torch.from_numpy(full),
                                   *rest, **kw)
@@ -177,9 +178,9 @@ def test_scatter_rows_matches_jax(T):
     idx[:700] = 5  # a hot row, as a wall triangle under many rays
     idx[700:900] = -1
     dvals = rs.normal(size=(48, R)).astype(np.float32)
-    before = S.scatter_rows.launches
+    before = profiling.launches()
     got = S.scatter_rows(torch.from_numpy(idx), torch.from_numpy(dvals), T).numpy()
-    assert S.scatter_rows.launches == before
+    assert profiling.launches() - before == {}
     assert got.shape == (T, 48)
     at_add = np.asarray(jnp.zeros((T, 48)).at[jnp.maximum(idx, 0)].add(
         jnp.where(jnp.asarray(idx >= 0)[:, None], dvals.T, 0.0)))

@@ -218,10 +218,8 @@ def test_the_graphed_loss_replays_the_eager_one_on_the_card(card):
     loss_fn, _, params, _ = _problem(ctx)
     key = fold_in(make_key(3_900_000_001), 17)
     graphed, launches = G.graphed_loss(loss_fn, params, key)
-    per_step = dict(zip([f"{o.__name__}.{a}" for o, a in profiling._counters()], launches))
-    assert per_step["mega_segment.launches"] == per_step["segment_backward.launches"] \
-        == per_step["segment_backward.indexed_launches"] == per_step["scatter_rows.launches"] \
-        == 8 * SPP
+    assert {k: launches.get(k) for k in ("B1", "B2", "B3")} == dict.fromkeys(
+        ("B1", "B2", "B3"), 8 * SPP)
     for g in range(3):
         k = fold_in(key, g)
         want_loss, want = G.value_and_grad(loss_fn, params, k)
@@ -246,7 +244,7 @@ def test_a_whole_step_on_the_card_waits_for_nothing(card):
             torch.cuda.set_sync_debug_mode(0)
     segments = 8 * int(ctx.traffic["spp_per_pass"])
     assert rec["steps"] == 1
-    assert {k: rec["launches"].get(k) for k in ("B1", "B2", "B2i", "B3")} == dict.fromkeys(
-        ("B1", "B2", "B2i", "B3"), segments)
+    assert {k: rec["launches"].get(k) for k in ("B1", "B2", "B3")} == dict.fromkeys(
+        ("B1", "B2", "B3"), segments)
     assert rec["launches"]["RNG"] == segments + int(ctx.traffic["spp_per_pass"])
     assert torch.isfinite(loss).item() and state.t == 2

@@ -33,6 +33,7 @@ import torch
 from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
 from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, compare_micro
 from montecarlopathtracer_tpu_torch.tools import kernel_micro
+from montecarlopathtracer_tpu_torch.utils import profiling
 
 cap_torch_threads()
 
@@ -108,11 +109,12 @@ def test_full_matches_transcription(data):
     ws, rays = data
     want = _select_np(lambda ci: _contract_np(ws[:, ci * 6 * TC:(ci + 1) * 6 * TC], rays),
                       T // TC, TC, R)
+    before = profiling.launches()
     got = SM.selection_micro(_as_bf16(ws), _as_bf16(rays), TC, "full")
     assert got.dtype == torch.int32 and got.shape == (R,)
     assert np.array_equal(got.numpy(), want)
     assert 0.05 < (want >= 0).mean() and not np.isin(want, (3, 130, 255)).any()
-    assert SM.selection_micro.launches["full"] == 0  # CPU tensors: the plain version
+    assert profiling.launches() - before == {}  # CPU tensors: the plain version
 
 
 @pytest.mark.parametrize("variant", ["matmul_only", "matmul_bf16"])

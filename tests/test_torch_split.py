@@ -57,6 +57,7 @@ from montecarlopathtracer_tpu_torch.testing import (
     compare_param_grads,
     compare_shade,
 )
+from montecarlopathtracer_tpu_torch.utils import profiling
 
 cap_torch_threads()
 
@@ -108,9 +109,9 @@ def test_nearest_shade_full_plain_matches_jax(jax_box, cull):
          dict(rows=rows, pos=pos, dirs=dirs, live=live).items()}
     boxes = dict(clo=torch.tensor(np.asarray(clo)),
                  chi=torch.tensor(np.asarray(chi))) if cull else {}
-    before = NS.nearest_shade_full.launches
+    before = profiling.launches()
     got = NS.nearest_shade_full(t["rows"], t["pos"], t["dirs"], t["live"], **boxes)
-    assert NS.nearest_shade_full.launches == before  # CPU tensors: the plain version
+    assert profiling.launches() - before == {}  # CPU tensors: the plain version
     assert got[0].dtype == torch.int32 and got[1].shape == (4, R) and got[2].shape == (32, R)
     rep = compare_shade(got, want, live=live, rows=rows, pos=pos, dir_=dirs, tol=(1e-5, 1e-3))
     assert rep["ok"], rep
@@ -163,9 +164,9 @@ def test_split_render_matches_jax(path, mode):
     kw = {**SPLIT[path], **mode}
     want = jax_render_sample_batch(js, jcam, jax.random.key(3), W, H,
                                    JTraceConfig(pallas_interpret=True, ray_chunk=0, **kw))
-    before = (NS.nearest_shade_full.launches, NS.nearest_triangle.launches)
+    before = profiling.launches()
     got = render_sample_batch(ts, tcam, make_key(3), W, H, TraceConfig(**kw))
-    assert (NS.nearest_shade_full.launches, NS.nearest_triangle.launches) == before
+    assert profiling.launches() - before == {}
     rep = compare_images(got.numpy(), np.asarray(want))
     assert rep["ok"], rep
     assert np.asarray(want).mean() > 0.0

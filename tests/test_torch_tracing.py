@@ -2,8 +2,9 @@
 is one shared null context while no profiler records, a Renderer pass
 emits its nested spans under ``torch.profiler``, a recording sums the
 pass kernel's counters and decodes their clocks, nothing is kept
-while nothing records, and a CUDA graph's replay counts B2 through the
-index as it counts B2."""
+while nothing records, a CUDA graph's replay adds the launches its
+capture counted, and the launch table works under
+``testing.plain_kernels`` and takes its own names only."""
 
 import contextlib
 
@@ -11,12 +12,18 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from montecarlopathtracer_tpu_torch.diff import grad as G
 from montecarlopathtracer_tpu_torch.models import cornell
 from montecarlopathtracer_tpu_torch.ops import regen_pass as RP
-from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+from montecarlopathtracer_tpu_torch.ops import selection_micro as SM
+from montecarlopathtracer_tpu_torch.ops.rng import make_key
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
-from montecarlopathtracer_tpu_torch.testing import cap_torch_threads, program_spans
+from montecarlopathtracer_tpu_torch.testing import (
+    cap_torch_threads,
+    plain_kernels,
+    program_spans,
+)
 from montecarlopathtracer_tpu_torch.utils import profiling
 
 cap_torch_threads()
@@ -110,27 +117,79 @@ def test_nothing_is_kept_while_nothing_records():
     assert rec["ordered"] == 0
 
 
-def test_a_replay_counts_b2_through_the_index_as_it_counts_b2():
-    """The launch table holds B2's launches through the winner index beside
-    B2's, so what a graphed step's capture launched (diff/grad.py's
-    ``graphed_loss``: 32 B2 launches, all through the index, at 4 spp and
-    depth 7 + the gather) is added to both at each replay. The CPU runs no
-    graph: the capture's counts are made here by hand."""
-    table = profiling._counters()
-    k = table.index((F.segment_backward, "launches"))
-    assert table[k + 1] == (F.segment_backward, "indexed_launches")
-    saved = F.segment_backward.launches, F.segment_backward.indexed_launches
+def test_a_replay_adds_exactly_what_its_capture_counted(monkeypatch):
+    """diff/grad.py's ``graphed_loss`` books what one replay holds as
+    ``{name: n}``: the launches counted over its eager runs and captures,
+    divided by their number (at 4 spp and depth 7 + the gather: 32 each
+    of B1, B2 and B3, 36 of RNG); ``count_replay`` adds exactly that at
+    each replay, by name and nothing else. The CPU has no CUDA graphs: the
+    capture here runs the loss as often as the real one runs it, and the
+    loss counts its launches by hand."""
+    per_run = {"B1": 32, "B2": 32, "B3": 32, "RNG": 36}
+
+    def loss_fn(params, key):
+        for name, n in per_run.items():
+            profiling.count_launch(name, n)
+        return params["mat_kd"].sum()
+
+    def capture(fn, sample, num_warmup_iters):
+        for _ in range(num_warmup_iters + 1):  # the eager runs, then the capture
+            fn(*sample)
+        return fn
+
+    monkeypatch.setattr(torch.cuda, "make_graphed_callables", capture)
+    saved = profiling.launches()
     try:
-        before = profiling.launch_counts()
-        F.segment_backward.launches += 32
-        F.segment_backward.indexed_launches += 32
-        captured = [n - b for n, b in zip(profiling.launch_counts(), before)]
-        held = profiling.replay_counts(captured)
-        assert held == [(F.segment_backward, "launches", 32),
-                        (F.segment_backward, "indexed_launches", 32)]
+        _, held = G.graphed_loss(loss_fn, {"mat_kd": torch.ones(3, 3)}, make_key(1))
+        assert held == per_run
         with profiling.recording() as rec:
             for _ in range(3):
                 profiling.count_replay(held)
-        assert rec["launches"] == {"B2": 96, "B2i": 96}
+        assert rec["launches"] == {name: 3 * n for name, n in per_run.items()}
     finally:
-        F.segment_backward.launches, F.segment_backward.indexed_launches = saved
+        profiling._launched.update(saved)
+
+
+def test_the_launch_table_works_under_plain_kernels():
+    """The counts live in utils/profiling.py, not on the kernel wrappers
+    that ``testing.plain_kernels`` swaps for their plain versions: a
+    recording, ``launches`` and ``reset_launches`` run inside it, and a
+    render there counts no launch."""
+    scene, camera = cornell.cornell_box(width=W, height=H, device="cpu")
+    config = TraceConfig(mode="fixed", max_depth=2, intersector="megakernel")
+    r = Renderer(scene, camera, config, RenderSettings(width=W, height=H, spp_per_pass=1),
+                 device="cpu")
+    saved = profiling.launches()
+    try:
+        with plain_kernels():
+            before = profiling.launches()
+            with profiling.recording() as rec:
+                r.render(1)
+            assert rec["passes"] == 1 and rec["launches"] == {}
+            assert profiling.launches() - before == {}
+            profiling.reset_launches()
+            assert profiling.launches() == dict.fromkeys(profiling.KERNELS, 0)
+    finally:
+        profiling._launched.update(saved)
+
+
+def test_the_launch_table_refuses_a_name_outside_it():
+    """``count_launch`` takes the kernel table's names only (B12's per
+    variant among them), and after ``reset_launches`` every name reads 0,
+    printed as nothing launched."""
+    saved = profiling.launches()
+    try:
+        with pytest.raises(ValueError, match="B2i"):
+            profiling.count_launch("B2i")
+        with pytest.raises(ValueError, match="launch table"):
+            profiling.count_replay({"B1": 1, "mega_segment": 1})
+        assert {f"B12 {v}" for v in SM.VARIANTS} <= set(profiling.KERNELS)
+        assert len(set(profiling.KERNELS)) == len(profiling.KERNELS)
+        profiling.count_launch("B4c", 2)
+        profiling.reset_launches()
+        counts = profiling.launches()
+        assert set(counts) == set(profiling.KERNELS)
+        assert all(counts[name] == 0 for name in profiling.KERNELS)
+        assert repr(counts) == "{}" and counts["not a kernel"] == 0
+    finally:
+        profiling._launched.update(saved)

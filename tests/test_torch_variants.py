@@ -42,6 +42,7 @@ from montecarlopathtracer_tpu_torch import convert
 from montecarlopathtracer_tpu_torch.ops import nearest_variants as NV
 from montecarlopathtracer_tpu_torch.tools import kernel_bench
 from montecarlopathtracer_tpu_torch.testing import _hit64, cap_torch_threads, compare_shade
+from montecarlopathtracer_tpu_torch.utils import profiling
 
 cap_torch_threads()
 
@@ -164,9 +165,9 @@ def test_nearest_shade_v1_matches_jax(case):
     want = JP.nearest_shade(JP.pack_transforms(j["m"], j["m_a"], j["valid"]), j["table"],
                             jnp.asarray(pos), jnp.asarray(dirs), interpret=True)
     p, d, _ = _port_rays(rays)
-    before = NV.nearest_shade.launches
+    before = profiling.launches()
     got = NV.nearest_shade(w, t["table"], p, d)
-    assert NV.nearest_shade.launches == before  # CPU tensors: the plain version
+    assert profiling.launches() - before == {}  # CPU tensors: the plain version
     assert got[0].dtype == torch.int32 and got[1].shape == (4, R) and got[2].shape == (32, R)
     _check(got, want, _rows_of(w, t["table"]), rays, live=np.ones(R, bool), t_rtol=RCP_APPROX)
 
@@ -249,9 +250,9 @@ def test_nearest_shade_culled_matches_jax_and_unculled(case):
     w = NV.pack_transforms(t["m"][perm_t], t["m_a"][perm_t], t["valid"][perm_t])
     p, d, lv = _port_rays(rays)
     clo, chi = (torch.tensor(np.asarray(x)) for x in (clo_j, chi_j))
-    before = NV.nearest_shade_culled.launches
+    before = profiling.launches()
     got = NV.nearest_shade_culled(w, tab_t, clo, chi, p, d, lv)
-    assert NV.nearest_shade_culled.launches == before
+    assert profiling.launches() - before == {}
     _check(got, want, _rows_of(w, tab_t), rays)
     flat = NV.nearest_shade(NV.pack_transforms(t["m"], t["m_a"], t["valid"]), t["table"],
                             p, d)
