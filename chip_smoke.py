@@ -53,7 +53,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    480,000 rays, on phase 8's row cotangents and on N(0,1) ones, each
    entry held to its own rounding bound, and two calls bit-equal;
 10. one 800x600 segment's B2 and B3 timed against their plain versions,
-    with their device times and index_add_'s (zero-fill included);
+    with their device times and index_add_'s (zero-fill included); then
+    B3 at the inverse cell's shape (the published box's T = 32 rows,
+    R = 480,000, the cotangents of one eager step of the cell, 4 spp,
+    caught at each of its 32 calls): its small-table path against its
+    sort path on the same inputs, each within its rounding bound of the
+    exact sums and bit-equal across two calls, the step's 32 calls timed
+    through both beside their 28-us byte floor a call, and both paths
+    timed on the same cotangents spread over T = 64 and 128 rows (the
+    times that set T_SMALL); the B3s launches counted;
 11. the gradient main path (bench.py's fwd+bwd): value and gradient of
     an L2 pixel loss at 800x600, 2 spp, fixed depth 7, params
     {mat_kd, mat_ka, vertices}; one warm-up and three timed iterations,
@@ -424,7 +432,7 @@ def ptxas_report(lib):
     log = lib.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print("  ptxas:", line.strip())
 
 
@@ -1012,7 +1020,104 @@ def time_backward(torch, rows, bounce):
           f"(median of 10, {int(bounce[4].sum())} live rays of {W * H}, {T} triangles)")
     device_line("B2", bwd[0], bwd[2])
     device_line("B3 T652", sc[0], sc[2], library="index_add_ T652")
-    return bwd, sc
+    return bwd, sc, time_small_scatter(torch)
+
+
+INVERSE_CELL = "cornell_box_inverse.adam_red_wall"
+
+
+def inverse_scatter_calls(torch):
+    """The (idx, d_full, T) of every B3 call of one eager gradient step of
+    the benchmark's inverse cell at its full size (800x600, 4 spp, depth
+    7 + the gather, the published box's 32 rows), and the launches the
+    step counted."""
+    from montecarlopathtracer_tpu_torch.diff import grad as G
+    from montecarlopathtracer_tpu_torch.ops import segment_fused as F
+    from montecarlopathtracer_tpu_torch.ops.rng import make_key
+    from perfbench import harness
+    from perfbench.drivers import progressive as P
+
+    ctx = harness.load_context(INVERSE_CELL, 2_300_000_111, 0.0, False, "cuda")
+    scene, camera = P.program_scene(ctx)
+    scene, camera = scene.to("cuda"), camera.to("cuda")
+    loss_fn = G.make_loss_fn(scene, camera, torch.zeros(ctx.height, ctx.width, 3, device="cuda"),
+                             width=ctx.width, height=ctx.height,
+                             spp=int(ctx.traffic["spp_per_pass"]), config=P.trace_config(ctx))
+    caught = []
+
+    def catch(idx, d_full, T):
+        caught.append((idx, d_full, T))
+        return scatter(idx, d_full, T)
+
+    scatter = F.scatter_rows
+    F.scatter_rows = catch
+    reset_counts()
+    try:
+        G.value_and_grad(loss_fn, {"mat_kd": scene.mat_kd.clone()}, make_key(3))
+        torch.cuda.synchronize()
+    finally:
+        F.scatter_rows = scatter
+    return caught, read_all_counts()
+
+
+def time_small_scatter(torch):
+    """Phase 10's B3 at the inverse cell's shape (see the module
+    docstring): returns the small path's timing tuple, its worst |err|,
+    its launches and the figures of the comparison."""
+    from montecarlopathtracer_tpu_torch.ops import scatter_rows as S
+    from montecarlopathtracer_tpu_torch.testing import SCATTER_ULPS, compare_scatter
+
+    calls, counts = inverse_scatter_calls(torch)
+    T = calls[0][2]
+    print(f"the inverse cell's eager step: {len(calls)} B3 calls at T = {T}, R = "
+          f"{calls[0][0].shape[0]}; launches B3 {counts['B3']}, B3s {counts['B3s']}")
+    check(T == 32 and len(calls) == 32 and counts["B3"] == counts["B3s"] == 32,
+          f"inverse step: T {T}, {len(calls)} calls, launches {counts}")
+    paths = {"small": lambda i, d, t: S._scatter_rows_cuda(i, d, t, True),
+             "sort": lambda i, d, t: S._scatter_rows_cuda(i, d, t, False)}
+    worst = 0.0
+    for n, (idx, d_full, _) in enumerate(calls):
+        exact = S.scatter_rows_ref(idx, d_full.double(), T)
+        bound = S.scatter_rows_ref(idx, d_full.double().abs(), T)
+        for name, fn in paths.items():
+            got, again = fn(idx, d_full, T), fn(idx, d_full, T)
+            rep = compare_scatter(exact, got, bound)
+            worst = max(worst, rep["max_abs_err"])
+            check(rep["ok"], f"B3 {name} path disagrees with the exact sums on call {n}: {rep}")
+            check(bool(torch.equal(got, again)), f"two B3 {name} calls differ on call {n}")
+    print(f"every call on both paths within {SCATTER_ULPS} x eps32 x sum |dvals| of the exact "
+          f"sums, two calls of each bit-equal; worst |err| {worst:.3e}")
+    hits = [int((c[0] >= 0).sum()) for c in calls]
+    idx, d_full, _ = calls[max(range(len(calls)), key=hits.__getitem__)]
+    R, most = idx.shape[0], max(hits)
+    ms = time_pair(torch, lambda: paths["small"](idx, d_full, T),
+                   lambda: S.scatter_rows_ref(idx, d_full, T), label="B3 T32")
+    record_device(torch, "B3 T32 sort", lambda: paths["sort"](idx, d_full, T))
+    timing = (*ms, bound_of(R * 196 + T * 192, most * 48))
+    device_line("B3 T32", ms[0], timing[2])
+    print(f"the same call on the sort path: device {DEVICE_MS['B3 T32 sort'][0]:.4f} ms "
+          f"(the segment with the most hits, {most} of {R})")
+    step = {name: record_device(torch, f"B3 step {name}",
+                                lambda fn=fn: [fn(i, d, t) for i, d, t in calls])[0]
+            for name, fn in paths.items()}
+    print(f"the step's {len(calls)} calls: small path {step['small']:.4f} ms, sort path "
+          f"{step['sort']:.4f} ms on the device; floor {len(calls) * timing[2][0]:.4f} ms "
+          f"({timing[2][0] * 1e3:.2f} us a call, every ray's 196 bytes)")
+    rows = torch.arange(R, device="cuda", dtype=torch.int32)
+    spread = {}
+    for t in (64, S.T_SMALL):
+        wide = torch.where(idx >= 0, idx + 32 * (rows % (t // 32)), -1).to(torch.int32)
+        spread[t] = [record_device(torch, f"B3 T{t} {name}",
+                                   lambda fn=fn: fn(wide, d_full, t))[0]
+                     for name, fn in paths.items()]
+        print(f"T = {t} (the rows spread {t // 32}-fold by ray): small path "
+              f"{spread[t][0]:.4f} ms, sort path {spread[t][1]:.4f} ms on the device")
+    check(all(a < b for a, b in spread.values()) and DEVICE_MS["B3 T32"][0]
+          < DEVICE_MS["B3 T32 sort"][0], f"the small path is not the faster below T_SMALL: "
+          f"{spread}")
+    return {"timing": timing, "err": worst, "launches": counts["B3s"],
+            "sort_device_ms": DEVICE_MS["B3 T32 sort"][0], "step_device_ms": step,
+            "t_small_device_ms_small_sort": spread}
 
 
 def grad_main_path(torch, scene, camera):
@@ -2189,6 +2294,7 @@ def bunny_grad(torch, scene, config):
           f"{1 + BUNNY_GRAD_ITERS} tables builds B5t, one per iteration)")
     for name in ("B5", "B6", "B2", "B3"):
         check(counts[name] == want, f"{name} launched {counts[name]} times, expected {want}")
+    check(counts["B3s"] == 0, f"the bunny's B3 took the small path {counts['B3s']} times")
     check(counts["B5t"] == 1 + BUNNY_GRAD_ITERS, f"B5t launched {counts['B5t']} times")
     for name, g in grads.items():
         check(bool(torch.isfinite(g).all()), f"gradient of {name} is not finite")
@@ -4130,7 +4236,7 @@ def main():
               f"T {rows.shape[0]}, R {idx.shape[0]}")
         sc_err = scatter_vs_plain(torch, idx, d_full, rows.shape[0],
                                   "800x600 segment vjp d_full")
-        bwd_ms, sc_ms = time_backward(torch, rows, bounce)
+        bwd_ms, sc_ms, small_sc = time_backward(torch, rows, bounce)
         counts, per_iter, grad_msps = grad_main_path(torch, scene, camera)
         sgd_steps(torch, scene, camera)
         adam = adam_graphed(torch, scene, camera)
@@ -4255,6 +4361,11 @@ def main():
               sc_ms, "B3 T652", "index_add_ T652", launches_sharded=shard["36c"]["B3"],
               launches_adam_graphed=adam["launches_adam_graphed"]["B3"],
               launches_suite=0),  # the suite's only gradient row is the bunny's
+        entry("scatter_rows (T = 32, small-table path: the inverse cell's calls)",
+              SCATTER_SOURCE, SCATTER_REPLACES, small_sc["launches"], small_sc["err"],
+              small_sc["timing"], "B3 T32", launches_bench=twin_counts.get("B3s", 0),
+              launches_suite=suite_counts.get("B3s", 0),
+              **{k: v for k, v in small_sc.items() if k not in ("timing", "err", "launches")}),
         entry("scatter_rows (T = 81,932)", SCATTER_SOURCE, SCATTER_REPLACES,
               bgrad_counts["B3"], bsc_err, bsc_ms, "B3 T81932", "index_add_ T81932",
               launches_bench=0),

@@ -50,9 +50,46 @@
 // Grid sizes follow from R and T alone: no device queries, three
 // launches.
 //
+// The small-table path (scatter_rows_small_launch; the wrapper takes it
+// for T <= T_SMALL, ops/scatter_rows.py). With a few dozen rows the sort
+// buys nothing: a tile of 4,096 rays holds at most T runs, and at T = 32
+// (the Cornell box) the three kernels above took ~116 us a call on an
+// H100 against a 28-us floor for the 92 MB of cotangents, the sum kernel
+// streaming at ~1.2 TB/s and the combine running 32 warps on 132 SMs.
+// Two kernels instead, no sort, no run lists, no search:
+// S1. One block per SM (`blocks` from the wrapper: 132, fewer for small
+//     R), 8 warps (fewer as T grows: small_warps). The block's rays are a contiguous
+//     range of 32-ray chunks; its warps take them in turn. A warp stages a
+//     chunk's 48 x 32 values with 16-byte loads that leave no line in L1
+//     (the next chunk's loads in flight while it adds this one) into its
+//     own shared-memory window, then walks the chunk ray by ray with lane
+//     l owning columns l and 32 + l: the row is the same for every lane,
+//     so the lanes add the ray's 48 values into 48 different f64 bins of
+//     the warp's own [T][48], and no two lanes or warps touch one bin.
+//     The walk has no branch on the row (a ray whose idx is outside
+//     [0, T) adds 0 into row 0), so the adds of consecutive rays overlap:
+//     on an H100 a walk that branched to add each run of equal rows in
+//     registers first was bound by its chain of dependent instructions,
+//     at ~60 us a call against this walk's ~42. The block then sums its
+//     warps' bins in warp order into its partial [T][48], kept in f64.
+// S2. Every (row, column) pair is summed over the blocks' partials by the
+//     lanes of one block's warps (each warp a stride of the blocks, then
+//     the warps in order), in f64, rounded once, every entry of `out`
+//     written once.
+// What bounds it: bytes, as above; and the bins, T x 48 x 8 bytes a warp
+// beside a 7-KB stage, in 227 KB of shared memory: 8 warps up to T = 46,
+// 4 at T = 128 (the path's limit), and fewer warps overlap less. Error:
+// f64 throughout, one rounding; the order is fixed, so two calls give
+// bit-equal tables. T_SMALL (ops/scatter_rows.py) is 128, the path's
+// limit, since it beat the sort path up to there on an H100 (700 W),
+// device ms a call at R = 480,000 on one segment's cotangents of the
+// published Cornell box: T = 32 0.041 against 0.110; the rows spread
+// over T = 64 0.047 against 0.117, over T = 128 0.061 against 0.122.
+//
 // Contract (that of scatter_rows): idx i32[R] (-1 = adds nothing),
 // dvals f32[48, R]; out f32[T, 48]; `work` holds
-// scatter_rows_workspace(R, T) bytes, 256-byte aligned.
+// scatter_rows_workspace(R, T) bytes, 256-byte aligned (the small path:
+// blocks x T x 48 doubles).
 
 #include <cuda_runtime.h>
 
@@ -398,6 +435,160 @@ scatter_rows_combine_kernel(const float* __restrict__ part, const int* __restric
   if (hi) out[(size_t)t * kCols + 32 + lane] = static_cast<float>(acc1);
 }
 
+// The small-table path (see the note at the head of this file).
+constexpr int kChunk = 32;                            // rays a warp stages at a time
+constexpr int kPitch = 36;                            // floats a staged column (see S1)
+constexpr int kStageFloats = kCols * kPitch + kChunk; // a chunk's values, then its rows
+constexpr int kStageBytes = kStageFloats * 4;         // 7,040
+constexpr int kSmallWarps = 8;                        // warps of a block, at most
+constexpr int kSmallMaxT = 128;                       // four warps' bins still fit
+constexpr int kSmemMax = 232448;                      // dynamic shared memory a block may take on sm_90
+constexpr int kSmemKeep = 199680;                     // ... leaving 60 KB of L1 (see small_warps)
+constexpr int kMergeWarps = 16;                       // warps of a block of the combine
+
+// Warps of a block for T rows: as many as fit in kSmemKeep bytes, at most
+// eight, or four where fewer would fit there. Measured on an H100 at
+// R = 480,000 (S1 alone, us): T = 32 with 4-12 warps 45.5, 42.1, 39.4,
+// 39.1, 37.9, 38.3, 38.3, 42.3, 43.1 (the last two above kSmemKeep);
+// T = 64 with 3-7 warps 58.2, 47.4, 44.4, 41.4, 46.2; T = 128 with 2-4
+// warps 88.6, 61.9, 51.5.
+int small_warps(int T) {
+  const int per = kStageBytes + T * kCols * 8;
+  const int w = kSmemKeep / per >= 4 ? kSmemKeep / per : kSmemMax / per;
+  return w < kSmallWarps ? w : kSmallWarps;
+}
+
+size_t small_smem(int T) { return (size_t)small_warps(T) * (kStageBytes + T * kCols * 8); }
+
+// Rays [r, r + 4) of one column, 0 past R: one 16-byte load that leaves
+// no line in L1 (the shared memory holds the bins) where the column is
+// 16-byte aligned (kVec), else four.
+template <bool kVec>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ col, long long r, int R) {
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (kVec) {
+    if (r < R)
+      asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+                   : "l"(col + r));
+  } else {
+    if (r < R) x.x = __ldg(col + r);
+    if (r + 1 < R) x.y = __ldg(col + r + 1);
+    if (r + 2 < R) x.z = __ldg(col + r + 2);
+    if (r + 3 < R) x.w = __ldg(col + r + 3);
+  }
+  return x;
+}
+
+// S1. Block b: the per-row sums of its rays, [T][48] in f64, into part[b]
+// (see the note at the head of this file). A chunk's 48 x 32 values
+// arrive as 12 16-byte loads a lane (lane l: rays 4 (l % 8) .. + 3 of
+// columns l / 8, l / 8 + 4, ...) and are staged column by column with a
+// pitch of 36 floats, so that both the quads' stores and a lane's reads
+// of four rays of its column touch every bank once. Then, ray by ray,
+// each lane adds its columns' values into the warp's bins of the ray's
+// row: the row is the same for every lane, so no two lanes add into one
+// bin, and there is no branch on the row, so the adds of consecutive
+// rays overlap. A ray with idx outside [0, T) adds 0 into row 0.
+template <bool kVec>
+__global__ void __launch_bounds__(kSmallWarps * 32)
+scatter_rows_bin_kernel(const int* __restrict__ idx, const float* __restrict__ dvals, int R,
+                        int T, double* __restrict__ part) {
+  extern __shared__ double smem[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int tk = T * kCols;
+  double* bins = smem + (size_t)w * tk;
+  float* stage = reinterpret_cast<float*>(smem + (size_t)nw * tk) + w * kStageFloats;
+  int* rows = reinterpret_cast<int*>(stage + kCols * kPitch);
+  for (int p = lane; p < tk; p += 32) bins[p] = 0.0;
+  const long long chunks = ((long long)R + kChunk - 1) / kChunk;
+  const int c0 = (int)(chunks * blockIdx.x / gridDim.x);
+  const int c1 = (int)(chunks * (blockIdx.x + 1) / gridDim.x);
+  const int quad = lane & 7, cg = lane >> 3;
+  // Chunk c: lane l's ray's row (0 when it adds nothing), whether it
+  // adds, and the lane's 12 quads.
+  float4 v[kCols / 4];
+  int row = 0;
+  bool adds = false;
+  auto load = [&](int c) {
+    const long long r0 = (long long)c * kChunk;
+    const int k = r0 + lane < R ? __ldg(idx + r0 + lane) : -1;
+    adds = k >= 0 && k < T;
+    row = adds ? k : 0;
+#pragma unroll
+    for (int s = 0; s < kCols / 4; ++s)
+      v[s] = load_quad<kVec>(dvals + (size_t)(4 * s + cg) * R, r0 + 4 * quad, R);
+  };
+  const bool two = lane < kCols - 32;  // the lane also owns column 32 + lane
+  int c = c0 + w;
+  if (c < c1) load(c);
+  for (; c < c1; c += nw) {
+    __syncwarp();  // the previous chunk's reads of the stage are done
+#pragma unroll
+    for (int s = 0; s < kCols / 4; ++s)
+      *reinterpret_cast<float4*>(stage + (4 * s + cg) * kPitch + 4 * quad) = v[s];
+    rows[lane] = row;
+    const unsigned added = __ballot_sync(kFull, adds);
+    __syncwarp();
+    if (c + nw < c1) load(c + nw);
+#pragma unroll
+    for (int g = 0; g < kChunk / 4; ++g) {
+      const int4 t = *reinterpret_cast<const int4*>(rows + 4 * g);
+      const float4 x = *reinterpret_cast<const float4*>(stage + lane * kPitch + 4 * g);
+      float4 y = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (two) y = *reinterpret_cast<const float4*>(stage + (32 + lane) * kPitch + 4 * g);
+      const int ts[4] = {t.x, t.y, t.z, t.w};
+      const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = (added >> (4 * g + e)) & 1u;
+        double* bin = bins + ts[e] * kCols;
+        bin[lane] += in ? static_cast<double>(xs[e]) : 0.0;
+        if (two) bin[32 + lane] += in ? static_cast<double>(ys[e]) : 0.0;
+      }
+    }
+  }
+  __syncthreads();
+  double* out = part + (size_t)blockIdx.x * tk;
+  for (int p = threadIdx.x; p < tk; p += blockDim.x) {
+    double s = 0.0;
+    for (int u = 0; u < nw; ++u) s += smem[(size_t)u * tk + p];
+    out[p] = s;
+  }
+}
+
+// S2. Block i: pairs p in [32 i, 32 i + 32) of the [T][48] table; warp w
+// adds part[b][p] for b = w, w + kMergeWarps, ... in order (four loads in
+// flight), then the warps' sums in warp order; rounded once into out[p].
+__global__ void __launch_bounds__(kMergeWarps * 32)
+scatter_rows_merge_kernel(const double* __restrict__ part, int nparts, int tk,
+                          float* __restrict__ out) {
+  __shared__ double sums[kMergeWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int p = blockIdx.x * 32 + lane;
+  double s = 0.0;
+  if (p < tk) {
+    const double* col = part + p;
+    int b = w;
+    for (; b + 3 * kMergeWarps < nparts; b += 4 * kMergeWarps) {
+      double x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = __ldg(col + (size_t)(b + q * kMergeWarps) * tk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s += x[q];
+    }
+    for (; b < nparts; b += kMergeWarps) s += __ldg(col + (size_t)b * tk);
+  }
+  sums[w][lane] = s;
+  __syncthreads();
+  if (w == 0 && p < tk) {
+    double t = 0.0;
+#pragma unroll
+    for (int u = 0; u < kMergeWarps; ++u) t += sums[u][lane];
+    out[p] = static_cast<float>(t);
+  }
+}
+
 struct Layout {
   int ntiles, cap, words;
   size_t keys[2], ids[2], tile_n, run_n, run_rows, bitmap, part, bytes;
@@ -457,5 +648,36 @@ extern "C" int scatter_rows_launch(const int* idx, const float* dvals, int R, in
   scatter_rows_combine_kernel<<<(T + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       reinterpret_cast<const float*>(w + L.part), at(L.run_rows), at(L.run_n), bitmap, L.words,
       L.ntiles, L.cap, T, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lets the small path's S1 take its dynamic shared memory (above 48 KB)
+// on the current device; called once a device, before any launch, never
+// inside a CUDA graph's capture.
+extern "C" int scatter_rows_small_init() {
+  cudaError_t err = cudaFuncSetAttribute(scatter_rows_bin_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(scatter_rows_bin_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  return static_cast<int>(err);
+}
+
+// Launches the small path's S1 over `blocks` blocks and S2 on `stream`
+// (T in [1, 128]; `work` holds blocks x T x 48 doubles); returns the
+// first CUDA error.
+extern "C" int scatter_rows_small_launch(const int* idx, const float* dvals, int R, int T,
+                                         float* out, void* work, int blocks, void* stream) {
+  if (T < 1 || T > kSmallMaxT || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* part = static_cast<double*>(work);
+  const int tk = T * kCols;
+  const bool vec = R % 4 == 0 && reinterpret_cast<size_t>(dvals) % 16 == 0;
+  const dim3 grid(blocks), block(small_warps(T) * 32);
+  if (vec)
+    scatter_rows_bin_kernel<true><<<grid, block, small_smem(T), s>>>(idx, dvals, R, T, part);
+  else
+    scatter_rows_bin_kernel<false><<<grid, block, small_smem(T), s>>>(idx, dvals, R, T, part);
+  scatter_rows_merge_kernel<<<(tk + 31) / 32, kMergeWarps * 32, 0, s>>>(part, blocks, tk, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -227,13 +227,14 @@ def trace(log_dir: Optional[str]):
 
 
 KERNELS = (
-    "B1", "B1l", "B1c", "B2", "B3", "B4", "B4c", "B4r", "B5", "B5t", "B6", "B6l", "B7",
+    "B1", "B1l", "B1c", "B2", "B3", "B3s", "B4", "B4c", "B4r", "B5", "B5t", "B6", "B6l", "B7",
     "B8", "B9", "B10", "B10c", "B11", "B12 full", "B12 matmul_only", "B12 matmul_bf16",
     "B13", "B14", "RNG", "B1r", "B1rc",
 )
 """The names that :func:`count_launch` takes, PERF.md's kernel table's:
 B1 apart from its per-lane-flag form B1l and its culling form B1c (a
-culled regen step counts under both), B4 apart from B4c, B5's tables
+culled regen step counts under both), B3 and, for a B3 call that
+its small-table path served, B3s too, B4 apart from B4c, B5's tables
 (B5t, one count per build) apart from B5, B6 apart from B6l; the entries
 B8-B11 (each also counted under B4 or B4c, which it launches), B10 apart
 from B10c; B12 per variant, B13, B14; the culled loop's records (B4r, one

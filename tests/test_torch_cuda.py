@@ -261,7 +261,7 @@ def test_scatter_rows_kernel_matches_plain(card, R, T, hot):
     before = profiling.launches()
     got = S.scatter_rows(idx, dvals, T)
     torch.cuda.synchronize()
-    assert profiling.launches() - before == {"B3": 1}
+    assert profiling.launches() - before == _b3_launches(T)
     # Against the exact sums: the plain f32 index_add_ adds with atomics
     # in no fixed order.
     want = S.scatter_rows_ref(idx, dvals.double(), T)
@@ -269,12 +269,14 @@ def test_scatter_rows_kernel_matches_plain(card, R, T, hot):
     assert rep["ok"], rep
 
 
-@pytest.mark.parametrize("T", [652, 5000, 81_932])
-def test_scatter_rows_kernel_is_deterministic(card, T):
+@pytest.mark.parametrize("T,R", [(652, 262_144), (5000, 262_144), (81_932, 262_144),
+                                 (32, 480_000)], ids=["652", "5000", "81932", "32"])
+def test_scatter_rows_kernel_is_deterministic(card, T, R):
     """Two calls give bit-equal tables, and every entry is written: the
     memory the table is allocated from is filled with NaN before each
-    call."""
-    idx, dvals = _scatter_inputs(262_144, T, 36_063, seed=T)
+    call. T = 32 at R = 480,000 is the inverse cell's call, on the small
+    path."""
+    idx, dvals = _scatter_inputs(R, T, 36_063, seed=T)
     tables = []
     for _ in range(2):
         poison = torch.full((T * 48 * 4,), float("nan"), device="cuda")
@@ -284,6 +286,70 @@ def test_scatter_rows_kernel_is_deterministic(card, T):
     assert bool(torch.isfinite(tables[0]).all())
     assert torch.equal(tables[0], tables[1])
     assert int((idx == 7).sum()) >= 30_000 and bool((idx < 0).any())
+
+
+def _b3_launches(T):
+    """The launches one B3 call at T rows counts: B3, and B3s too on the
+    small-table path."""
+    return {"B3": 1, "B3s": 1} if T <= S.T_SMALL else {"B3": 1}
+
+
+def _small_inputs(R, T, seed):
+    """Seeded rays for the small path: at least 3/4 in a hot row (the
+    first bounce's wall), an eighth with idx = -1 and a sixteenth out of
+    range either way (below -1, at or above T), the rest uniform over
+    the rows; N(0, 1) cotangents on every column."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, T, (R,), device="cuda", generator=g, dtype=torch.int32)
+    u = torch.rand(R, device="cuda", generator=g)
+    idx[u < 0.78] = T // 2
+    idx[(u >= 0.78) & (u < 0.78 + 1 / 8)] = -1
+    far = torch.tensor([T, T + 5, -2, -(1 << 30), (1 << 31) - 1], device="cuda",
+                       dtype=torch.int32)
+    odd = u >= 1 - 1 / 16
+    idx[odd] = far[torch.randint(0, len(far), (int(odd.sum()),), device="cuda", generator=g)]
+    return idx, torch.randn(48, R, device="cuda", generator=g)
+
+
+@pytest.mark.parametrize("R", [0, 1, 37, 8193, 480_000])
+@pytest.mark.parametrize("T", [1, 3, 32, S.T_SMALL, S.T_SMALL + 1])
+def test_scatter_rows_small_path_matches_exact(card, T, R):
+    """B3 at the small path's sizes and just past its bound, against the
+    exact (f64) sums by ``compare_scatter``: indices outside [0, T) add
+    nothing, a hot row holds most rays, and the launch table shows which
+    path served the call."""
+    idx, dvals = _small_inputs(R, T, seed=7 * T + R)
+    before = profiling.launches()
+    got = S.scatter_rows(idx, dvals, T)
+    torch.cuda.synchronize()
+    assert profiling.launches() - before == _b3_launches(T)
+    keep = (idx >= 0) & (idx < T)
+    kept = torch.where(keep, idx, -1)
+    want = S.scatter_rows_ref(kept, dvals.double(), T)
+    rep = compare_scatter(want, got, S.scatter_rows_ref(kept, dvals.double().abs(), T))
+    assert rep["ok"], rep
+    if R >= 8193:
+        assert int((idx == T // 2).sum()) >= 0.75 * R and not bool(keep.all())
+
+
+def test_scatter_rows_paths_agree_at_32_rows(card):
+    """The small path and the sort path on the same inputs of the inverse
+    cell's shape (T = 32, R = 480,000): each within ``compare_scatter`` of
+    the exact sums and of the other."""
+    idx, dvals = _small_inputs(480_000, 32, seed=32)
+    before = profiling.launches()
+    small = S._scatter_rows_cuda(idx, dvals, 32, small=True)
+    sort = S._scatter_rows_cuda(idx, dvals, 32, small=False)
+    torch.cuda.synchronize()
+    assert profiling.launches() - before == {"B3": 2, "B3s": 1}
+    kept = torch.where((idx >= 0) & (idx < 32), idx, -1)
+    want = S.scatter_rows_ref(kept, dvals.double(), 32)
+    bound = S.scatter_rows_ref(kept, dvals.double().abs(), 32)
+    for got in (small, sort):
+        rep = compare_scatter(want, got, bound)
+        assert rep["ok"], rep
+    rep = compare_scatter(sort.double(), small, bound)
+    assert rep["ok"], rep
 
 
 def test_gradient_render_kernels_match_plain_path(card):

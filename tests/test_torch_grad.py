@@ -192,6 +192,25 @@ def test_scatter_rows_matches_jax(T):
         np.testing.assert_allclose(got, pallas, rtol=1e-6, atol=1e-6 * scale)
 
 
+def test_scatter_rows_path_follows_from_the_shape_alone():
+    """Which of B3's paths a call takes follows from T alone, and the small
+    path's grid and workspace from (R, T) alone: pure functions of two
+    integers, so a CUDA graph's replay takes the path its capture took.
+    At least the published Cornell box's 32 rows take the small path; the
+    T = 652 scene and the bunny keep the sort."""
+    Ts = (1, 3, 32, S.T_SMALL, S.T_SMALL + 1, 652, 81_932)
+    assert [S.small_path(T) for T in Ts] == [True] * 4 + [False] * 3
+    assert 32 <= S.T_SMALL <= 128  # the kernel's bins fit up to 128 rows
+    grids = {0: 1, 1: 1, 32: 1, 33: 2, 37: 2, 4191: 131, 4192: 131, 4193: 132,
+             8193: 132, 480_000: 132, 2**31 - 1: 132}
+    assert {R: S.small_grid(R) for R in grids} == grids
+    for R in grids:
+        for T in (1, 3, 32, S.T_SMALL):
+            size = S.small_workspace(R, T)
+            assert size == S.small_workspace(R, T) == grids[R] * T * 48 * 8
+    assert S.small_workspace(480_000, 32) == 1_622_016
+
+
 def test_whole_segment_gradients_match_jax(tables):
     """One differentiable segment: ``torch.autograd`` through
     ``WholeSegment`` against ``jax.grad`` through JAX's

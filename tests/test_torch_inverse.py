@@ -218,8 +218,8 @@ def test_the_graphed_loss_replays_the_eager_one_on_the_card(card):
     loss_fn, _, params, _ = _problem(ctx)
     key = fold_in(make_key(3_900_000_001), 17)
     graphed, launches = G.graphed_loss(loss_fn, params, key)
-    assert {k: launches.get(k) for k in ("B1", "B2", "B3")} == dict.fromkeys(
-        ("B1", "B2", "B3"), 8 * SPP)
+    assert {k: launches.get(k) for k in ("B1", "B2", "B3", "B3s")} == dict.fromkeys(
+        ("B1", "B2", "B3", "B3s"), 8 * SPP)  # 32 rows: every B3 call takes the small path
     for g in range(3):
         k = fold_in(key, g)
         want_loss, want = G.value_and_grad(loss_fn, params, k)
@@ -244,7 +244,7 @@ def test_a_whole_step_on_the_card_waits_for_nothing(card):
             torch.cuda.set_sync_debug_mode(0)
     segments = 8 * int(ctx.traffic["spp_per_pass"])
     assert rec["steps"] == 1
-    assert {k: rec["launches"].get(k) for k in ("B1", "B2", "B3")} == dict.fromkeys(
-        ("B1", "B2", "B3"), segments)
+    assert {k: rec["launches"].get(k) for k in ("B1", "B2", "B3", "B3s")} == dict.fromkeys(
+        ("B1", "B2", "B3", "B3s"), segments)
     assert rec["launches"]["RNG"] == segments + int(ctx.traffic["spp_per_pass"])
     assert torch.isfinite(loss).item() and state.t == 2
