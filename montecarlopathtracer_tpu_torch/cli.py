@@ -17,6 +17,11 @@ Examples:
     python -m montecarlopathtracer_tpu_torch.cli --scene bunny \
         --intersector traverse --width 1024 --height 1024 --spp-per-pass 1
 
+    # smallpt's scene as smallpt renders it: 1024x768, Russian roulette
+    # (auto: the culled regen pass)
+    python -m montecarlopathtracer_tpu_torch.cli --scene smallpt --mode rr \
+        --illum 1 --width 1024 --height 768 --spp-per-pass 16
+
     # the open glossy stage with chunk culling and the wavefront sort
     python -m montecarlopathtracer_tpu_torch.cli --scene glossy --chunk-cull on \
         --ray-sort on
@@ -57,7 +62,7 @@ import sys
 
 import torch
 
-from .models import bunny, cornell, glossy
+from .models import bunny, cornell, glossy, smallpt
 from .render.integrator import TraceConfig, kd_tree
 from .render.renderer import Renderer, RenderSettings
 from .scene.camera import camera_for_scene
@@ -176,7 +181,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="'cornell' = procedural box, 'cornell-full' = procedural box "
         "with mirror + glass spheres, 'glossy' = procedural open stage of "
         "glossy cubes and sphere lamps (1,332 triangles), 'bunny' = "
-        "procedural displaced blob of 20*4^subdiv triangles in a room, 1/2/3 = "
+        "procedural displaced blob of 20*4^subdiv triangles in a room, 'smallpt' = "
+        "smallpt's box, mirror and glass spheres and light (2,696 triangles, its "
+        "camera; render it with --mode rr --illum 1, as smallpt), 1/2/3 = "
         "reference scene (read-only mount), 'mcrt' = the MCRT backend's scene01 "
         "variant (per-triangle materials, pi/4 camera; read-only mount), or a "
         "path to an .obj file",
@@ -264,6 +271,8 @@ def load_scene(name: str, width: int, height: int, subdiv: int = 6):
         return cornell.cornell_box(width=width, height=height)
     if name == "glossy":
         return glossy.glossy_steps(width=width, height=height)
+    if name == "smallpt":
+        return smallpt.smallpt_scene(width=width, height=height)
     if name == "cornell-full":
         return cornell.cornell_box(
             with_mirror_sphere=True, with_glass_sphere=True,

@@ -117,6 +117,40 @@ class _Assembler:
             )
             g.append(len(self.model.triangles) - 1)
 
+    def add_cap(self, group: str, material: int, center, radius: float, below: float,
+                segments: int, rings: int) -> None:
+        """The cap of a sphere below the plane y = ``below``: its lowest
+        point, then ``rings`` rings of ``segments`` vertices at polar
+        angles k / rings of the rim's, the last on the plane; every vertex
+        on the sphere with its radial normal, segments * (2 rings - 1)
+        triangles."""
+        rim = math.acos((center[1] - below) / radius)
+        unit = [np.array([0.0, -1.0, 0.0])]
+        for k in range(1, rings + 1):
+            theta = rim * k / rings
+            for j in range(segments):
+                phi = 2.0 * math.pi * j / segments
+                unit.append(np.array([math.sin(theta) * math.cos(phi), -math.cos(theta),
+                                      math.sin(theta) * math.sin(phi)]))
+
+        def at(k, j):  # vertex j of ring k (1-based)
+            return 1 + (k - 1) * segments + j % segments
+
+        faces = [(0, at(1, j), at(1, j + 1)) for j in range(segments)]
+        for k in range(1, rings):
+            for j in range(segments):
+                faces += [(at(k, j), at(k + 1, j), at(k + 1, j + 1)),
+                          (at(k, j), at(k + 1, j + 1), at(k, j + 1))]
+        center = np.asarray(center, np.float64)
+        vid = [self._vert(center + radius * u) for u in unit]
+        nid = [self._norm(u) for u in unit]
+        g = self.model.groups.setdefault(group, [])
+        for a, b, c in faces:
+            self.model.triangles.append(
+                ObjTriangle(v=(vid[a], vid[b], vid[c]), n=(nid[a], nid[b], nid[c]),
+                            material=material))
+            g.append(len(self.model.triangles) - 1)
+
 
 def cornell_box_model(
     *,

@@ -575,7 +575,8 @@ def _regen_pass_cuda(tables, config, camera, key, width, height, spp, y0, n_rows
     if err != 0:
         raise RuntimeError(f"regen_pass kernel launch failed: cudaError {err}")
     count_launch("B1rc" if cull else "B1r")
-    keep(work, grid, ordered=order is not None)
+    keep(work, grid, ordered=order is not None,
+         chunks=tables.clo.shape[0] if cull else 0)
     if stats is not None:
         stats["counters"] = work[:len(STATS)]
         stats["omax"] = omax

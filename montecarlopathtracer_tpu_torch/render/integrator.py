@@ -113,6 +113,7 @@ from ..ops.sampling import (
 from ..ops.traverse import KDArrays, intersect_kdtree
 from ..scene.camera import Camera
 from ..scene.scene import ScenePack
+from ..utils.profiling import span
 
 INTERSECTORS = ("megakernel", "traverse", "brute", "fused", "kdtree")
 WHOLE_SEGMENT = ("megakernel", "traverse")  # the intersectors with a whole-segment kernel
@@ -256,7 +257,17 @@ def scene_tables(scene: ScenePack, config: TraceConfig,
     permutation, the boxes, their slack and records, B7's table and the KD tree,
     which only choose which triangles win, do not. ``accel`` is a prebuilt KD tree for
     ``"kdtree"`` (JAX's ``accel`` argument); without it the tree is
-    built here (:func:`kd_tree`)."""
+    built here (:func:`kd_tree`). Under ``chunk_cull`` the build (Morton
+    order, chunk boxes, the rows in that order, slack, records) is the
+    span ``mcpt.cull.tables``."""
+    if config.chunk_cull:
+        with span("cull.tables"):
+            return _scene_tables(scene, config, accel)
+    return _scene_tables(scene, config, accel)
+
+
+def _scene_tables(scene: ScenePack, config: TraceConfig,
+                  accel: Optional[KDArrays]) -> SceneTables:
     extra = {}
     with torch.no_grad():
         if config.use_sort:

@@ -10,8 +10,9 @@
   spans by the name's first word.
 - :func:`recording` keeps the program's counters over the enclosed
   block: the Renderer's passes, the gradient steps (``diff/grad.py``),
-  each pass kernel's (B1r, B1rc) counters and grid, the launches whose
-  work list was ordered, the spans' host time, the launches.
+  each pass kernel's (B1r, B1rc) counters and grid, the culled table's
+  chunks, the launches whose work list was ordered, the spans' host
+  time, the launches.
   :func:`traced` gives the same over the newest stretch of passes or
   steps that a profiler recorded, for a tool that only starts
   ``torch.profiler``.
@@ -82,15 +83,16 @@ def span(name: str, args: Optional[dict] = None):
 class _Record:
     """What the program kept over a stretch: the Renderer's passes, the
     gradient steps, each pass kernel's work buffer (its counters first, on
-    its device until :meth:`close`), the blocks launched, the launches
-    whose work list was ordered, and each span's count and host
-    seconds."""
+    its device until :meth:`close`), the blocks launched, the chunks of
+    the culled launches' tables, the launches whose work list was
+    ordered, and each span's count and host seconds."""
 
     def __init__(self):
         self.passes = 0
         self.steps = 0
         self.work = []
         self.grid = 0
+        self.chunks = 0
         self.ordered = 0
         self.spans = {}
         self.before = launches()
@@ -114,6 +116,7 @@ class _Record:
                 "kernel_ms": int((end - start).sum()) / 1e6,
                 "tail_ms": int(torch.where(spent >= 0, end - spent, 0).sum()) / 1e6,
                 "grid": self.grid,
+                "chunks": self.chunks,
                 "ordered": self.ordered,
                 "launches": dict(launches() - self.before),
                 "spans": {k: list(v) for k, v in self.spans.items()},
@@ -154,14 +157,16 @@ def count_step() -> None:
         rec.steps += 1
 
 
-def keep(work: torch.Tensor, grid: int, ordered: bool = False) -> None:
+def keep(work: torch.Tensor, grid: int, ordered: bool = False, chunks: int = 0) -> None:
     """Keep a pass kernel's work buffer (its counters first,
-    ``ops/regen_pass.py`` STATS; a reference, no copy), its grid's blocks
-    and whether its work list ran in an order (``ordered``) in every open
-    record."""
+    ``ops/regen_pass.py`` STATS; a reference, no copy), its grid's blocks,
+    the chunks of its culled table (``chunks``; 0 for the whole-table
+    instance) and whether its work list ran in an order (``ordered``) in
+    every open record."""
     for rec in _records():
         rec.work.append(work)
         rec.grid += grid
+        rec.chunks += chunks
         rec.ordered += int(ordered)
 
 
@@ -174,7 +179,9 @@ def recording():
     ``kernel_ms`` (the kernels' time on the card's clock, first block
     start to last block end) and ``tail_ms`` (the part after the work
     list ran dry; 0 for a launch whose list was never found spent),
-    ``grid`` (blocks launched), ``ordered`` (the launches given a
+    ``grid`` (blocks launched), ``chunks`` (the chunks of the culled
+    launches' tables, summed over those launches: B1rc's chunk-passes,
+    beside ``vote_chunks``), ``ordered`` (the launches given a
     work-list order: a Renderer's, from its previous pass,
     :class:`..render.regen.LaneHistory`),
     ``launches`` (of the kernels that launched, counted on the host at

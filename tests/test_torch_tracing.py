@@ -84,7 +84,7 @@ def test_a_recording_sums_the_counters_and_decodes_the_clocks():
         with profiling.recording() as rec:
             for i, w in enumerate(works):
                 profiling.count_pass()
-                profiling.keep(w, 9 + i, ordered=i != 1)
+                profiling.keep(w, 9 + i, ordered=i != 1, chunks=22 if i == 2 else 0)
         profiling.count_pass()
     times = [RP.pass_times(w[:len(RP.STATS)]) for w in works]
     assert times[1][0] is None
@@ -92,6 +92,7 @@ def test_a_recording_sums_the_counters_and_decodes_the_clocks():
     for i, name in enumerate(RP.COUNTERS):
         assert rec[name] == outer[name] == sum(int(w[i]) for w in works), name
     assert rec["grid"] == 9 + 10 + 11 and rec["ordered"] == outer["ordered"] == 2
+    assert rec["chunks"] == outer["chunks"] == 22  # one culled launch of 22 chunks
     assert rec["kernel_ms"] == pytest.approx(sum(end for _, end in times), abs=1e-12)
     assert rec["kernel_ms"] == pytest.approx(4.5 + 1.25 + 0.100001, abs=1e-12)
     assert rec["tail_ms"] == pytest.approx(1.5 + 0.0 + 0.000001, abs=1e-12)
@@ -114,7 +115,7 @@ def test_nothing_is_kept_while_nothing_records():
     with profiling.recording() as rec:
         pass
     assert rec["passes"] == 0 and rec["grid"] == 0 and rec["kernel_ms"] == 0.0
-    assert rec["ordered"] == 0
+    assert rec["ordered"] == 0 and rec["chunks"] == 0
 
 
 def test_a_replay_adds_exactly_what_its_capture_counted(monkeypatch):
