@@ -96,8 +96,18 @@
 // one launch.
 // Counters in device memory (ops/regen_pass.py's STATS): block-steps,
 // slot-steps, live lane-steps, overflow lane-steps, the culled vote's
-// chunks x live lanes, the blocks that ran a step, and the card's clock
-// at the first block start, the first spent list and the last block end.
+// chunks x live lanes, the blocks that ran a step, the culled instance's
+// leaves tested by a warp and those of them that took the pair path, and
+// the card's clock at the first block start, the first spent list and the
+// last block end.
+//
+// The culled instance's leaves: a warp's rays reach few of the leaves
+// that its vote takes after the first bounce (in smallpt's closed box 5.0
+// of its 64 rays a voted leaf, one or two for 79 % of them), so a leaf
+// that fewer than kPairFrom of them reach is tested by `test_pairs`
+// (sphere_select.cuh): each reaching ray against the leaf's 16 records
+// across a half-warp, in place of every lane testing all 16 records for
+// both its rays; the winners stay B1l's.
 
 #include <cstdint>
 
@@ -121,9 +131,9 @@ using namespace seg;
 
 constexpr int kKeyWords = 10;  // a step's folded keys: u1, u2, urr, jitter x, jitter y
 constexpr int kWideMax = kSelThreads;  // lanes traced wide at most: a thread a lane or more
-constexpr int kStats = 9;      // counters (ops/regen_pass.py STATS)
-enum Stat { kBlockSteps, kSlotSteps, kLiveSteps, kOverflow, kVoteChunks, kBlocks, kStart, kSpent,
-            kEnd };
+constexpr int kStats = 11;     // counters (ops/regen_pass.py STATS)
+enum Stat { kBlockSteps, kSlotSteps, kLiveSteps, kOverflow, kVoteChunks, kBlocks, kLeafVisits,
+            kPairLeaves, kStart, kSpent, kEnd };
 
 // The card's clock (ns); the first start and first spent list are kept
 // as the largest ~t, the last end as the largest t.
@@ -301,6 +311,7 @@ regen_pass_kernel(const float* __restrict__ rows, const float* __restrict__ clo,
   sa.id = sb.id = -1;
   bool spent = false, seen_spent = false, staged = false;
   long long steps = 0, live_steps = 0, vote_chunks = 0;
+  LeafCounts leaves = {0, 0};  // the culled instance's, per warp
   // Every thread reaches every barrier: the loop's exit is block-uniform.
   for (int par = 0;; par ^= 1) {
     fetch(sa, sb, spent, cam, a, keys, sc);
@@ -327,7 +338,8 @@ regen_pass_kernel(const float* __restrict__ rows, const float* __restrict__ clo,
     Ray rb = make_ray(act_b ? sb.pos : zero, act_b ? sb.dir : d0);
     if constexpr (kCull) {
       int tested;
-      select_culled<false>(rec, a.T, ra, act_a, rb, act_b, clo, chi, cslack, tested);
+      select_culled<false, true>(rec, a.T, ra, act_a, rb, act_b, clo, chi, cslack, tested,
+                                 &leaves);
       vote_chunks += static_cast<long long>(tested) * live;
     } else if (whole && spent && live <= kWideMax) {
       // The tail: the live lanes packed, g = kSelThreads / live threads (a
@@ -378,6 +390,10 @@ regen_pass_kernel(const float* __restrict__ rows, const float* __restrict__ clo,
     atomicAdd(stats + kVoteChunks, static_cast<unsigned long long>(vote_chunks));
     atomicAdd(stats + kBlocks, 1ull);
   }
+  if (kCull && lane == 0 && leaves.visits > 0) {
+    atomicAdd(stats + kLeafVisits, static_cast<unsigned long long>(leaves.visits));
+    atomicAdd(stats + kPairLeaves, static_cast<unsigned long long>(leaves.pair));
+  }
 }
 
 }  // namespace
@@ -400,7 +416,7 @@ extern "C" long regen_pass_resident(int T, int cull) {
 
 // Runs one regen pass on `stream` in `grid` blocks (the culled instance
 // when `cull` is set, over the records `rec` of nearest_shade.cu's
-// `cull_records_launch`): zeroes the counters `work` (u64[9] stats, then
+// `cull_records_launch`): zeroes the counters `work` (u64[11] stats, then
 // the list's i32 counter), then launches the kernel once. `omax` f32[1]
 // is the bound on |o| the staged spheres cover; `order` i32[R], a
 // permutation of the lanes, the order the work list hands them out in

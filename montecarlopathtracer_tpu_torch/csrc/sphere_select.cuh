@@ -69,7 +69,10 @@
 //   1,332 rows as staging them whole in shared memory);
 // - `tested` counts, per group of 128 rays, the chunks that either of its
 //   warps tested: each warp ORs its votes of a window into the group's
-//   bits in shared memory, counted after the loop.
+//   bits in shared memory, counted after the loop;
+// - in the regen pass B1rc alone (`select_culled<kDzTest, true>`), a leaf
+//   that few of the warp's rays reach is tested ray by ray across a
+//   half-warp (`test_pairs`) instead of by every lane for both its rays.
 
 #pragma once
 
@@ -609,6 +612,109 @@ __device__ __forceinline__ void test_records(const float4* __restrict__ rec, int
   }
 }
 
+// The pair path's threshold: a leaf that fewer than kPairFrom of the
+// warp's 64 rays reach takes `test_pairs`, one that more reach
+// `test_records`. Per leaf, test_records costs each lane 32 sphere tests
+// (~19 operations each, ~610 issue slots) whatever the reach, plus its
+// serial exact tests; test_pairs costs per two reaching rays ~21 shuffles
+// (each at a quarter of the f32 rate: ~84 slots), one sphere test, an
+// exact test where a record passes and the (t, index) reduction where
+// one accepts (~100 slots more), so ~185 a step of two rays: the two meet
+// near 2 x 610 / 185 ~ 7 rays, higher where test_records' serial exact
+// tests add up. On an H100, on smallpt's pass (1024x768, 16 spp, RR),
+// the voted leaves' reach is bimodal: 79 % reached by one or two rays, 5 %
+// by all 64, 0.3 % by 10 to 21; a sweep of kPairFrom over 6, 10, 14 and
+// 21 put the pass at 106.4, 105.0-105.1, 105.0-105.5 and 105.1-105.3 ms
+// (64 always per-lane: 161.4), so any value from 10 to 21 does, and 21
+// leaves the per-lane path every leaf that a third of the warp reaches.
+constexpr int kPairFrom = 21;
+
+// The leaves the culled loop's pair instance tested, summed by each lane
+// over its warp's selections: those its vote took (`visits`) and those of
+// them that `test_pairs` took.
+struct LeafCounts {
+  long long visits, pair;
+};
+
+// h becomes c where c is the lesser (t, index) pair.
+__device__ __forceinline__ void keep_least(Hit& h, Hit c) {
+  if (c.t < h.t || (c.t == h.t && c.i < h.i)) h = c;
+}
+
+// One leaf's n <= kLeaf records (triangles base .. base + n - 1) against
+// the warp's rays that reach it (bit l of ma: lane l's ray a, of mb: its
+// ray b), two (ray, leaf) pairs at a time, one per half-warp: the pair's
+// owner lane hands its ray over by shuffle, lane j of the half tests
+// record j (the sphere of `record_pass`, then `pair_test` where that
+// passes, with the ray's own |o|), the half's least (t, index) goes back
+// to the owner, which keeps it by test_records' rule (nothing goes back
+// where no lane accepted a hit, as for most pairs). So a ray's winner
+// is the least (t, index) pair over the same accepted pairs as in
+// test_records, bit for bit, at the cost of the pairs that reach the leaf
+// and not of the 32 of every lane. Pair 1 is never pair 0's lane's other
+// ray, so no lane hands over both of its rays at once. Every lane of the
+// warp calls it (ma, mb warp-uniform).
+template <bool kDzTest>
+__device__ __forceinline__ void test_pairs(const float4* __restrict__ rec, int n, int base,
+                                           float grow, Ray& ra, float on_a, unsigned ma,
+                                           Ray& rb, float on_b, unsigned mb) {
+  static_assert(2 * kLeaf == 32, "a leaf's records fill a half-warp");
+  const int lane = threadIdx.x % 32, half = lane / kLeaf, j = lane % kLeaf;
+  const bool mine = j < n;
+  const float4 s = mine ? __ldg(rec + 4 * j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* g = rec + 4 * j + 1;
+  const float inf = __int_as_float(0x7f800000);
+  unsigned long long m = ma | (static_cast<unsigned long long>(mb) << 32);
+  while (m != 0ull) {
+    const int p0 = __ffsll(static_cast<long long>(m)) - 1;
+    m &= m - 1ull;
+    const unsigned long long rest = m & ~(1ull << (p0 ^ 32));
+    const int p1 = __ffsll(static_cast<long long>(rest)) - 1;  // -1: half 1 idles
+    m &= ~(rest & (0ull - rest));
+    const int p = half ? p1 : p0, src = p & 31;
+    const bool give_b = p0 == lane + 32 || p1 == lane + 32;
+    Ray r;
+    r.o = {__shfl_sync(kAll, give_b ? rb.o.x : ra.o.x, src),
+           __shfl_sync(kAll, give_b ? rb.o.y : ra.o.y, src),
+           __shfl_sync(kAll, give_b ? rb.o.z : ra.o.z, src)};
+    r.d = {__shfl_sync(kAll, give_b ? rb.d.x : ra.d.x, src),
+           __shfl_sync(kAll, give_b ? rb.d.y : ra.d.y, src),
+           __shfl_sync(kAll, give_b ? rb.d.z : ra.d.z, src)};
+    const float on = __shfl_sync(kAll, give_b ? on_b : on_a, src);
+    r.dd = dot(r.d, r.d);
+    r.ddp = r.dd * kShrink;
+    Hit c = {inf, 0.0f, 0.0f, 0x7fffffff};
+    if (mine && p >= 0 && record_pass(s, grow, on, r)) {
+      const Pair q = pair_test(__ldg(g), __ldg(g + 1), __ldg(g + 2), r.o, r.d);
+      if (q.inside && (!kDzTest || fabsf(q.w) > 1e-12f)) c = {q.t, q.beta, q.gamma, base + j};
+    }
+    // Most pairs accept no hit: then neither owner has anything to keep.
+    if (!__any_sync(kAll, c.t < inf)) continue;
+    // The half's least (t, index), then the other half's.
+    float t = c.t;
+    int i = c.i;
+#pragma unroll
+    for (int x = 1; x < kLeaf; x <<= 1) {
+      const float to = __shfl_xor_sync(kAll, t, x);
+      const int io = __shfl_xor_sync(kAll, i, x);
+      if (to < t || (to == t && io < i)) t = to, i = io;
+    }
+    const float tx = __shfl_xor_sync(kAll, t, kLeaf);
+    const int ix = __shfl_xor_sync(kAll, i, kLeaf);
+    const float t0 = half ? tx : t, t1 = half ? t : tx;
+    const int i0 = half ? ix : i, i1 = half ? i : ix;
+    // Each winner's beta and gamma from its lane (lane 0 or 16 where none won).
+    const int w0 = t0 < inf ? i0 - base : 0, w1 = t1 < inf ? kLeaf + i1 - base : kLeaf;
+    const float b0 = __shfl_sync(kAll, c.beta, w0), c0 = __shfl_sync(kAll, c.gamma, w0);
+    const float b1 = __shfl_sync(kAll, c.beta, w1), c1 = __shfl_sync(kAll, c.gamma, w1);
+    // The owners keep the result by test_records' rule (no winner: t = inf never passes it).
+    if (p0 == lane) keep_least(ra.h, {t0, b0, c0, i0});
+    if (p0 == lane + 32) keep_least(rb.h, {t0, b0, c0, i0});
+    if (p1 == lane) keep_least(ra.h, {t1, b1, c1, i1});
+    if (p1 == lane + 32) keep_least(rb.h, {t1, b1, c1, i1});
+  }
+}
+
 // Whether the segment [0, tmax] of a ray (slab s, sphere radii grown
 // by ext = grow |o|) reaches leaf box l: lo = leaves[4 l], hi = leaves[4 l
 // + 1] (a 64-byte row of `cull_records_launch`: the box of the leaf's
@@ -626,18 +732,33 @@ __device__ __forceinline__ bool leaf_reach(const float4* __restrict__ leaves, in
 // of kLeaf) for both rays (where ta, tb), a leaf of kLeaf triangles at a
 // time: a leaf whose box no ray of the warp reaches with its best t by
 // then is skipped, and a lane tests a leaf only if its own ray reaches it.
-template <bool kDzTest>
+// kPair: a leaf that fewer than kPairFrom of the warp's rays reach takes
+// `test_pairs` instead of `test_records` (the same winners), and `lc`
+// adds the leaves tested and those test_pairs took.
+template <bool kDzTest, bool kPair>
 __device__ __forceinline__ void test_chunk(const float4* __restrict__ rec,
                                            const float4* __restrict__ leaves, int n, int base,
                                            float grow, Ray& ra, const Slab& sa, float on_a,
                                            bool ta, Ray& rb, const Slab& sb, float on_b,
-                                           bool tb) {
+                                           bool tb, LeafCounts* lc) {
   const float ext_a = grow * on_a, ext_b = grow * on_b;
   for (int k = 0; k < n; k += kLeaf) {
     const int l = (base + k) / kLeaf;
     const bool la = ta && leaf_reach(leaves, l, sa, ext_a, ra.h.t);
     const bool lb = tb && leaf_reach(leaves, l, sb, ext_b, rb.h.t);
-    if (!__any_sync(kAll, la || lb)) continue;
+    if constexpr (kPair) {
+      const unsigned ma = __ballot_sync(kAll, la), mb = __ballot_sync(kAll, lb);
+      if ((ma | mb) == 0u) continue;
+      lc->visits += 1;
+      if (__popc(ma) + __popc(mb) < kPairFrom) {
+        lc->pair += 1;
+        test_pairs<kDzTest>(rec + 4 * k, min(kLeaf, n - k), base + k, grow, ra, on_a, ma, rb,
+                            on_b, mb);
+        continue;
+      }
+    } else {
+      if (!__any_sync(kAll, la || lb)) continue;
+    }
     test_records<kDzTest>(rec + 4 * k, min(kLeaf, n - k), base + k, grow, ra, on_a, la, rb,
                           on_b, lb);
   }
@@ -662,14 +783,17 @@ __host__ __device__ constexpr int cull_smem_bytes(int T) {
 // `cull_records_launch`), culled by the chunks' boxes clo/chi f32[nc, 3]
 // and slack cslack f32[nc, 2] (see the notes at the top), read through
 // the read-only path. tested: the chunks that either warp of the block
-// tested. Every thread of the block must call this: it holds the block's
+// tested. kPair (the regen pass B1rc alone): the leaves of few reaching
+// rays take `test_pairs`, and `leaves` adds the warp's LeafCounts.
+// Every thread of the block must call this: it holds the block's
 // barriers (before and after the chunk loop, none inside it).
-template <bool kDzTest>
+template <bool kDzTest, bool kPair = false>
 __device__ __forceinline__ void select_culled(const float4* __restrict__ rec, int T, Ray& ra,
                                               bool act_a, Ray& rb, bool act_b,
                                               const float* __restrict__ clo,
                                               const float* __restrict__ chi,
-                                              const float* __restrict__ cslack, int& tested) {
+                                              const float* __restrict__ cslack, int& tested,
+                                              LeafCounts* leaves = nullptr) {
   extern __shared__ float4 smem[];
   const int nc = (T + kChunk - 1) / kChunk, nwords = (nc + kWindow - 1) / kWindow;
   unsigned* votes = reinterpret_cast<unsigned*>(smem);  // [nwords]
@@ -709,8 +833,9 @@ __device__ __forceinline__ void select_culled(const float4* __restrict__ rec, in
       if (!__any_sync(kAll, ta || tb)) continue;
       voted |= 1u << q;
       const int base = j * kChunk;
-      test_chunk<kDzTest>(rec + 4 * base, rec + 4 * T, min(kChunk, T - base), base,
-                          __ldg(cslack + 2 * j + 1), ra, sa, son_a, ta, rb, sb, son_b, tb);
+      test_chunk<kDzTest, kPair>(rec + 4 * base, rec + 4 * T, min(kChunk, T - base), base,
+                                 __ldg(cslack + 2 * j + 1), ra, sa, son_a, ta, rb, sb, son_b,
+                                 tb, leaves);
     }
     if (lane == 0 && voted != 0u) atomicOr(votes + w0 / kWindow, voted);
   }

@@ -66,12 +66,15 @@ LIVE_CHECK_EVERY = 8  # host-loop steps between two reads of the live mask
 # lane-steps whose origin exceeded the staged bound (the plain instance's
 # whole table; those lanes test every triangle exactly), the culled
 # loop's chunks tested x the live lanes of the block-step, the blocks that
-# ran a step; then the card's clock (ns) at the first block start, when a
-# block first found the list spent, and at the last block end, kept as
-# -1 - t, -1 - t and t (:func:`pass_clocks` decodes them).
+# ran a step, the culled loop's leaves tested by a warp (each warp's
+# voted leaves, summed) and those of them that took the pair path
+# (csrc/sphere_select.cuh ``test_pairs``); then the card's clock (ns) at
+# the first block start, when a block first found the list spent, and at
+# the last block end, kept as -1 - t, -1 - t and t (:func:`pass_clocks`
+# decodes them).
 STATS = ("block_steps", "slot_steps", "live_steps", "overflow", "vote_chunks", "blocks",
-         "t_start", "t_spent", "t_end")
-COUNTERS = STATS[:6]  # the fields that add up over passes
+         "leaf_visits", "pair_leaves", "t_start", "t_spent", "t_end")
+COUNTERS = STATS[:STATS.index("t_start")]  # the fields that add up over passes
 _KEY_SLOTS = 5  # a step's streams: u1, u2, urr, jitter x, jitter y
 _M32 = 0xFFFFFFFF
 _JITTER = 1 << 30  # first jitter stream
@@ -327,7 +330,10 @@ def regen_pass_scheduled(tables, config, camera, key: Key, width: int, height: i
                          slots: int = 64, order: Optional[torch.Tensor] = None):
     """The pass as the kernel schedules it, in plain torch: (accum f32[3,
     R], lane_steps i32[R], stats i64[len(STATS)]), the first two bit-equal
-    to :func:`regen_pass_ref`'s (the stats' clock fields stay 0).
+    to :func:`regen_pass_ref`'s. The stats count the schedule's steps,
+    slots and blocks; the selection's own counters (``vote_chunks``,
+    ``leaf_visits``, ``pair_leaves``: the kernel's warps, whose rays
+    depend on when each warp fetched) and the clock fields stay 0.
 
     ``blocks`` blocks of ``slots`` slots run in lockstep ticks, block
     after block within a tick. A tick of a running block: its empty slots

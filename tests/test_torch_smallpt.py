@@ -4,7 +4,11 @@ against smallpt's, the CLI's automatic choices for its cell, the port's
 culled RR regen film against the plain reference
 (``perfbench/reference/tracer.py``) at 32x24, and ``--scene smallpt``
 through the CLI. On the card: a culled pass's record holds the table's
-chunks and the culled tables' span.
+chunks and the culled tables' span; the culled pass kernel B1rc's
+film and lane steps are bit-equal to the host loop's on a pass that its
+pair path takes most leaves of (smallpt, RR) and on one that its
+per-lane path does (the glossy stage's primary rays), with its leaf
+counters. The reader of ``b1rc_pair_share`` on synthetic records.
 
 Tolerances:
 
@@ -35,12 +39,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from montecarlopathtracer_tpu_torch import cli
-from montecarlopathtracer_tpu_torch.models import smallpt
+from montecarlopathtracer_tpu_torch.models import glossy, smallpt
+from montecarlopathtracer_tpu_torch.ops import regen_pass as RP
+from montecarlopathtracer_tpu_torch.ops.rng import make_key
 from montecarlopathtracer_tpu_torch.render.integrator import TraceConfig, scene_tables
 from montecarlopathtracer_tpu_torch.render.renderer import Renderer, RenderSettings
 from montecarlopathtracer_tpu_torch.testing import cap_torch_threads
 from montecarlopathtracer_tpu_torch.utils import profiling
-from perfbench import harness
+from perfbench import harness, tracing
 from perfbench.drivers import progressive as P
 from perfbench.reference import tracer as R
 from perfbench.scenes import spheres
@@ -297,3 +303,84 @@ def test_a_culled_pass_records_its_chunks_and_tables_span_on_card():
     assert rec["spans"]["cull.tables"][0] == 1
     assert 0 < rec["vote_chunks"] <= rec["live_steps"] * math.ceil(2696 / 128)
     assert torch.isfinite(r.film.color).all() and float(r.film.color.sum()) > 0.0
+
+
+def _pair_record(**kw):
+    rec = {"passes": 4, "block_steps": 100, "slot_steps": 12_800, "live_steps": 9_600,
+           "overflow": 0, "vote_chunks": 105_600, "blocks": 264, "leaf_visits": 480_000,
+           "pair_leaves": 450_000, "kernel_ms": 200.0, "tail_ms": 30.0, "grid": 264,
+           "chunks": 88, "launches": {"B1rc": 4}, "spans": {}}
+    rec.update(kw)
+    return rec
+
+
+def _pair_run(trace=True):
+    win = harness.Window(t0=0.0, t1=0.2, events=[(0.05 * i, 0.05 * i + 0.002, 0.05 * (i + 1))
+                                                 for i in range(4)], samples_per_event=100)
+    summary = tracing.Summary(window_s=0.2, busy_s=0.19, kernels={}, device_ops=[],
+                              idle_gaps=[])
+    return harness.Run(setup_s=1.0, window=win, kind="progressive",
+                       trace=summary if trace else None, work=None, peak={})
+
+
+def test_the_pair_share_reader_divides_pair_leaves_by_leaf_visits(monkeypatch):
+    monkeypatch.setattr(profiling, "traced", lambda: _pair_record())
+    share, note = harness.reader("b1rc_pair_share").read(_pair_run())
+    assert share == pytest.approx(100.0 * 450_000 / 480_000)
+    assert note == "50.0 leaves tested a live lane-step; 450000 of 480000 by the pair path"
+
+
+@pytest.mark.parametrize("case", ["parent", "no_visits", "unculled", "mixed", "untraced",
+                                  "other_passes"])
+def test_the_pair_share_reader_reads_nothing_without_its_counters(monkeypatch, case):
+    """None for a program that keeps no leaf counters (the parent's record
+    lacks them), a window without leaf visits, B1r's launches or a mix,
+    an untraced run, and a record that is not the window's."""
+    rec = {"parent": {k: v for k, v in _pair_record().items()
+                      if k not in ("leaf_visits", "pair_leaves")},
+           "no_visits": _pair_record(leaf_visits=0, pair_leaves=0),
+           "unculled": _pair_record(launches={"B1r": 4}, leaf_visits=0, pair_leaves=0),
+           "mixed": _pair_record(launches={"B1r": 2, "B1rc": 2}),
+           "other_passes": _pair_record(passes=5)}.get(case, _pair_record())
+    monkeypatch.setattr(profiling, "traced", lambda: rec)
+    assert harness.reader("b1rc_pair_share").read(_pair_run(trace=case != "untraced")) is None
+
+
+PAIR_CASES = {
+    # smallpt's closed box, RR: after the first bounce few of a warp's rays
+    # reach a voted leaf, so the pair path takes most of them.
+    "smallpt_rr": (lambda w, h: smallpt.smallpt_scene(width=w, height=h, device="cuda"),
+                   dict(mode="rr", illum=1.0, chunk_cull=True), 96, 72, 4),
+    # The glossy stage's camera rays alone (fixed, depth 0), 1 spp: a warp's
+    # 64 rays lie side by side in a row, so most voted leaves are reached by
+    # many of them and take the per-lane path.
+    "glossy_primary": (lambda w, h: glossy.glossy_steps(width=w, height=h, device="cuda"),
+                       dict(mode="fixed", max_depth=0, chunk_cull=True), 512, 384, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", PAIR_CASES)
+def test_the_culled_pass_kernel_equals_the_host_loop_on_either_leaf_path_on_card(which):
+    """B1rc's accum and lane steps bit-equal to ``regen_pass_ref`` (the
+    host loop over B1l) on the card; its leaf counters: leaves tested and,
+    fewer, leaves the pair path took, which are most of them in smallpt
+    and fewer than half on the glossy stage's primary rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    make, kw, w, h, spp = PAIR_CASES[which]
+    scene, camera = make(w, h)
+    config = TraceConfig(**kw)
+    tables, key = scene_tables(scene, config), make_key(26)
+    stats = {}
+    got, steps = RP.regen_pass(tables, config, camera, key, w, h, spp, stats=stats)
+    torch.cuda.synchronize()
+    want, want_steps = RP.regen_pass_ref(tables, config, camera, key, w, h, spp)
+    assert torch.equal(got, want) and torch.equal(steps, want_steps)
+    col = {name: int(v) for name, v in zip(RP.STATS, stats["counters"].cpu())}
+    assert col["live_steps"] == int(steps.long().sum())
+    visits, pair = col["leaf_visits"], col["pair_leaves"]
+    print(which, {"leaf_visits": visits, "pair_leaves": pair, "share": 100.0 * pair / visits,
+                  "leaves_a_live_lane_step": visits / col["live_steps"]})
+    assert 0 < pair < visits
+    assert (pair > visits / 2) == (which == "smallpt_rr")

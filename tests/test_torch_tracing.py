@@ -77,9 +77,11 @@ def _work(counts, t_start, t_spent, t_end):
 
 def test_a_recording_sums_the_counters_and_decodes_the_clocks():
     t = 1_700_000_000_000_000_000  # the card's clock, ns
-    works = [_work((10, 2560, 2000, 0, 0, 9), t, t + 3_000_000, t + 4_500_000),
-             _work((4, 1024, 900, 1, 5, 3), t + 9_000_000, None, t + 10_250_000),
-             _work((7, 1792, 1500, 0, 2, 9), t + 20_000_000, t + 20_100_000, t + 20_100_001)]
+    works = [_work((10, 2560, 2000, 0, 0, 9, 0, 0), t, t + 3_000_000, t + 4_500_000),
+             _work((4, 1024, 900, 1, 5, 3, 40, 31), t + 9_000_000, None, t + 10_250_000),
+             _work((7, 1792, 1500, 0, 2, 9, 12, 0), t + 20_000_000, t + 20_100_000,
+                   t + 20_100_001)]
+    assert RP.COUNTERS[-2:] == ("leaf_visits", "pair_leaves")  # before the three clocks
     with profiling.recording() as outer:
         with profiling.recording() as rec:
             for i, w in enumerate(works):
@@ -91,6 +93,7 @@ def test_a_recording_sums_the_counters_and_decodes_the_clocks():
     assert rec["passes"] == 3 and outer["passes"] == 4
     for i, name in enumerate(RP.COUNTERS):
         assert rec[name] == outer[name] == sum(int(w[i]) for w in works), name
+    assert (rec["leaf_visits"], rec["pair_leaves"]) == (52, 31)
     assert rec["grid"] == 9 + 10 + 11 and rec["ordered"] == outer["ordered"] == 2
     assert rec["chunks"] == outer["chunks"] == 22  # one culled launch of 22 chunks
     assert rec["kernel_ms"] == pytest.approx(sum(end for _, end in times), abs=1e-12)
@@ -109,7 +112,7 @@ def test_nothing_is_kept_while_nothing_records():
     traced = profiling._traced
     state = None if traced is None else (traced.passes, len(traced.work), traced.grid)
     profiling.count_pass()
-    profiling.keep(_work((1,) * 6, 5, 6, 7), 4)
+    profiling.keep(_work((1,) * len(RP.COUNTERS), 5, 6, 7), 4)
     assert profiling._traced is traced
     assert state == (None if traced is None else (traced.passes, len(traced.work), traced.grid))
     with profiling.recording() as rec:
