@@ -39,6 +39,27 @@ Random streams: ``key`` is a :mod:`..ops.rng` key, and sample batch
 gradient here equals the JAX package's CPU gradient up to float
 rounding.
 
+Where the gradient's samples come from (:func:`make_loss_fn`'s
+``seed_grad``, after Mitsuba's ``mi.render(..., seed_grad=...)``):
+
+- ``"shared"`` (the default, the JAX package's): one taped render I
+  gives the loss mean((I − T)²) and, through autograd, its gradient.
+  Both come from the same samples, so the gradient's mean is that of
+  the loss's mean, E[I²] included: it carries the gradient of the
+  estimate's variance.
+- ``"own"``: Mitsuba's decorrelated step. The primal I_a renders batch
+  ``i`` under ``fold_in(key, i)`` (the samples of ``"shared"``) with no
+  tape (``torch.no_grad()``, so the segment loop runs B1 without
+  saving anything), under the span ``mcpt.grad.primal`` and
+  :func:`..utils.profiling.primal` (its launches counted as B1p and
+  RNGp too); the adjoint I_b renders batch ``i`` under
+  ``fold_in(fold_in(key, GRAD_KEY), i)`` with a tape, at the same
+  sample count (Mitsuba's default ``spp_grad = spp``). The loss is the
+  surrogate ``mean((I_a − T)²) + (s − s.detach())`` with ``s =
+  mean(2 (I_a − T) I_b)``, ``I_a`` held constant: its value is the
+  primal's mean squared error, its gradient (2/N) Σ (I_a − T) ∂I_b/∂θ,
+  whose mean is the gradient of (E[I] − T)², unbiased.
+
 Steps: :func:`make_sgd_step` (projected SGD, as in the JAX package) and
 :func:`make_adam_step` (projected Adam over chosen rows of each field,
 with its moments on the parameters' device, as an inverse-rendering
@@ -69,6 +90,8 @@ from ..utils import profiling
 from ..utils.profiling import count_step, span
 
 GRAPH_WARMUP = 3  # eager runs of a loss before its CUDA graphs are captured
+GRAD_KEY = 0x80000000  # the adjoint's word, beyond any batch index: fold_in(key, GRAD_KEY)
+SEED_GRAD = ("shared", "own")  # make_loss_fn's choices of the gradient's samples
 
 PARAM_FIELDS = (
     "vertices",
@@ -127,15 +150,29 @@ def make_loss_fn(
     height: int,
     spp: int,
     config: TraceConfig,
+    seed_grad: str = "shared",
 ):
-    """L2 pixel loss against ``target`` as a function of (params, key)."""
+    """L2 pixel loss against ``target`` as a function of (params, key),
+    its gradient's samples chosen by ``seed_grad`` (one of
+    :data:`SEED_GRAD`; the module docstring)."""
+    if seed_grad not in SEED_GRAD:
+        raise ValueError(f"seed_grad must be one of {SEED_GRAD}, got {seed_grad!r}")
+
+    def render(params, key):
+        return render_image(params, scene, camera, key, width=width, height=height, spp=spp,
+                            config=config)
 
     def loss_fn(params, key):
-        img = render_image(params, scene, camera, key, width=width,
-                           height=height, spp=spp, config=config)
-        return torch.mean((img - target) ** 2)
+        return torch.mean((render(params, key) - target) ** 2)
 
-    return loss_fn
+    def decorrelated(params, key):
+        with span("grad.primal"), profiling.primal(), torch.no_grad():
+            err = render(params, key) - target
+        adjoint = render(params, fold_in(key, GRAD_KEY))
+        s = torch.mean(2.0 * err * adjoint)
+        return torch.mean(err ** 2) + (s - s.detach())
+
+    return loss_fn if seed_grad == "shared" else decorrelated
 
 
 def value_and_grad(loss_fn, params: Dict[str, torch.Tensor], key: Key):

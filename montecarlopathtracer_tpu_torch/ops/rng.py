@@ -37,7 +37,7 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-from ..utils.profiling import count_launch
+from ..utils.profiling import count_launch, in_primal
 from . import cuda_build
 
 _M32 = 0xFFFFFFFF
@@ -200,6 +200,8 @@ def _uniforms_cuda(key: Key, stream_ids, n: int, dev: torch.device) -> torch.Ten
     if err != 0:
         raise RuntimeError(f"uniform kernel launch failed: cudaError {err}")
     count_launch("RNG")
+    if in_primal():
+        count_launch("RNGp")
     return out
 
 
@@ -207,7 +209,8 @@ def stream_uniforms(key: Key, stream_ids: Sequence[int], n: int, device) -> torc
     """Uniform [0, 1) draws f32[k, n] of the k = len(stream_ids) <=
     :data:`MAX_STREAMS` given streams of ``key``, a contiguous row per
     stream (so each row is a contiguous f32[n]). For a CUDA ``device``
-    one launch of ``csrc/rng.cu`` (counted as RNG; the base of a
+    one launch of ``csrc/rng.cu`` (counted as RNG, and as RNGp too inside
+    :func:`..utils.profiling.primal`; the base of a
     :class:`DeviceKey` must be on ``device``);
     :func:`stream_uniforms_ref` for the CPU. Raises on k outside 1..4
     and on n >= 2**32 (the lane counter is 32 bits)."""

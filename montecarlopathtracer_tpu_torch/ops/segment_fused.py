@@ -81,7 +81,7 @@ import functools
 
 import torch
 
-from ..utils.profiling import count_launch
+from ..utils.profiling import count_launch, in_primal
 from . import cuda_build
 from .intersect import triangle_transforms
 from .sampling import (
@@ -569,6 +569,8 @@ def _mega_segment_cuda(
         count_launch("B1c")
     if not (lane or cull):
         count_launch("B1")
+        if in_primal():
+            count_launch("B1p")
     return idx, npos, ndir, ntput, nres, still
 
 
@@ -579,7 +581,8 @@ def mega_segment(
     cslack=None, crec=None, tested=None,
 ):
     """Whole-segment forward (see the module docstring). CUDA tensors
-    launch the kernel and count it as B1, or as B1l with per-lane flags
+    launch the kernel and count it as B1 (and as B1p too inside
+    :func:`..utils.profiling.primal`), or as B1l with per-lane flags
     and as B1c with chunk boxes (both with both); CPU tensors run
     :func:`mega_segment_ref`.
 

@@ -23,9 +23,10 @@
   into a directory. The CLI enables it with ``--profile-dir``.
 - :func:`count_launch` adds a launch to the kernel table's count by name
   (:data:`KERNELS`): each kernel wrapper calls it where it launches its
-  CUDA kernel, never for its plain version. :func:`reset_launches` and
-  :func:`launches` zero and read the counts; :func:`count_replay` adds a
-  CUDA graph's launches at each replay.
+  CUDA kernel, never for its plain version; inside :func:`primal` the
+  wrappers of B1 and the draws count a launch under a second name too.
+  :func:`reset_launches` and :func:`launches` zero and read the counts;
+  :func:`count_replay` adds a CUDA graph's launches at each replay.
 - :func:`card` names the card and its power limit, as ``nvidia-smi``
   reports them, for the lines that carry a measurement.
 """
@@ -236,18 +237,20 @@ def trace(log_dir: Optional[str]):
 KERNELS = (
     "B1", "B1l", "B1c", "B2", "B3", "B3s", "B4", "B4c", "B4r", "B5", "B5t", "B6", "B6l", "B7",
     "B8", "B9", "B10", "B10c", "B11", "B12 full", "B12 matmul_only", "B12 matmul_bf16",
-    "B13", "B14", "RNG", "B1r", "B1rc",
+    "B13", "B14", "RNG", "B1r", "B1rc", "B1p", "RNGp",
 )
 """The names that :func:`count_launch` takes, PERF.md's kernel table's:
 B1 apart from its per-lane-flag form B1l and its culling form B1c (a
-culled regen step counts under both), B3 and, for a B3 call that
+culled regen step counts under both), and, for a B1 launch of a
+decorrelated gradient step's primal render (inside :func:`primal`),
+B1p too; B3 and, for a B3 call that
 its small-table path served, B3s too, B4 apart from B4c, B5's tables
 (B5t, one count per build) apart from B5, B6 apart from B6l; the entries
 B8-B11 (each also counted under B4 or B4c, which it launches), B10 apart
 from B10c; B12 per variant, B13, B14; the culled loop's records (B4r, one
 count per build); the uniform draws (RNG, rng.cu, one count per draw of
-1-4 streams); the regen pass B1r apart from its culled instance B1rc (one
-count per pass)."""
+1-4 streams; inside :func:`primal`, RNGp too); the regen pass B1r apart
+from its culled instance B1rc (one count per pass)."""
 
 
 class Counts(dict):
@@ -266,6 +269,7 @@ class Counts(dict):
 
 
 _launched = Counts.fromkeys(KERNELS, 0)  # launches since reset_launches()
+_primal = 0  # the open primal() blocks
 
 
 def count_launch(name: str, n: int = 1) -> None:
@@ -275,6 +279,25 @@ def count_launch(name: str, n: int = 1) -> None:
     if name not in _launched:
         raise ValueError(f"no kernel {name!r} in the launch table")
     _launched[name] += n
+
+
+@contextlib.contextmanager
+def primal():
+    """Mark the enclosed launches as a primal render's: the render of a
+    decorrelated gradient step (``diff/grad.py``) that gives the loss and
+    keeps no tape. The wrappers of B1 and of the draws count each launch
+    in it under B1p or RNGp beside B1 or RNG."""
+    global _primal
+    _primal += 1
+    try:
+        yield
+    finally:
+        _primal -= 1
+
+
+def in_primal() -> bool:
+    """Whether a :func:`primal` block is open."""
+    return _primal > 0
 
 
 def count_replay(held: dict) -> None:
